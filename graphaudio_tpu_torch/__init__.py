@@ -40,7 +40,9 @@ from graphaudio_tpu_torch.core.context import (  # noqa: E402
 from graphaudio_tpu_torch.nodes import (  # noqa: E402
     AudioBufferSourceNode,
     AudioDestinationNode,
+    BiQuadFilterNode,
     ConvolverNode,
+    FilterType,
     GainNode,
 )
 
@@ -64,4 +66,6 @@ __all__ = [
     "GainNode",
     "AudioBufferSourceNode",
     "ConvolverNode",
+    "BiQuadFilterNode",
+    "FilterType",
 ]

@@ -339,6 +339,13 @@ class AudioContextBase:
                 ):
                     new_states[key] = old
         self._states = new_states
+        # Config-derived leaves (the biquad's type selector) must reflect the
+        # node's CURRENT config, not the one a kept state was built with.
+        for nid in self._compiled.state_ref:
+            node = self._nodes.get(nid)
+            cfg = getattr(node, "config_state", None)
+            if cfg is not None:
+                self.update_node_state(node, **cfg())
         self._encs = None  # re-encode against (possibly) new capacities
         self._param_versions = {}
 
@@ -372,10 +379,11 @@ class AudioContextBase:
             if k not in st:
                 continue
             arr = st[k].clone()
+            val = torch.as_tensor(np.asarray(v), dtype=arr.dtype)
             if lane is None:
-                arr.fill_(v)
+                arr.copy_(val.expand_as(arr))
             else:
-                arr[lane] = v
+                arr[lane] = val
             st[k] = arr
         self._states[key] = st
 

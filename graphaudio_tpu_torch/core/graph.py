@@ -12,10 +12,9 @@ that evaluates every stage for one superblock of S render quanta
 over superblocks (the JAX package's ``lax.scan``). PyTorch runs eagerly, so
 there is no compiled program: the step issues the stage kernels directly.
 
-Left out of this slice (see ROADMAP.md): chain fusion into pipelined stages
+Left out so far (see ROADMAP.md): chain fusion into pipelined stages
 (``_fuse_chains``), mesh sharding (``_compute_sharding`` / ``shard_map``),
-modulated params, and the buffer-source variants other than the static
-polyphase one.
+modulated params, and the time-varying-rate buffer-source variant.
 """
 
 from __future__ import annotations
@@ -74,7 +73,9 @@ class RenderContext:
 
 class ParamSignal:
     """Computed values of one AudioParam for a superblock, f32[..., T]
-    (a-rate) or f32[..., S] (k-rate); ``per_sample`` yields f32[..., T]."""
+    (a-rate) or f32[..., S] (k-rate). ``per_sample()`` yields f32[..., T];
+    ``per_block()`` yields f32[..., S], the value a k-rate consumer sees for
+    each 128-frame quantum (reference ``GetValues()[0]``)."""
 
     def __init__(self, values, is_a_rate: bool):
         self._values = values
@@ -84,6 +85,11 @@ class ParamSignal:
         if self._a_rate:
             return self._values
         return torch.repeat_interleave(self._values, FRAMES_PER_BLOCK, dim=-1)
+
+    def per_block(self):
+        if self._a_rate:
+            return self._values[..., ::FRAMES_PER_BLOCK]
+        return self._values
 
 
 def _next_pow2(n: int) -> int:
@@ -259,7 +265,7 @@ class CompiledGraph:
 
         # ---- buffer-source arenas ------------------------------------------
         # One packed arena per buffer-source stage, width padded to a pow2
-        # bucket, plus stacked per-voice geometry and the polyphase taps.
+        # bucket, plus stacked per-voice geometry (and the polyphase taps).
         self.consts: Dict[str, object] = {}
         self._bufsrc_cfg: Dict[int, Tuple[int, tuple, int]] = {}
         for si, (kind, nodes, _) in enumerate(self.stages):
@@ -268,11 +274,20 @@ class CompiledGraph:
             rep = nodes[0]
             variant = rep.kernel_variant()  # shared: it's in the group key
             rep.require_ported(variant)
-            _tag, p, q = variant
-            w, front = type(rep).poly_window(self.info.superblock, p, q)
+            if variant[0] == "poly":
+                w, front = type(rep).poly_window(self.info.superblock, *variant[1:])
+            else:  # unity
+                w, front = type(rep).unity_window(self.info.superblock), 0
             built = [n.build_region(w, front) for n in nodes]
             regions = [b[0] for b in built]
             geoms = [b[1] for b in built]
+            if variant[0] == "unity":
+                # 128-align each voice's arena offset so the aligned
+                # variant's row fetch holds; harmless padding otherwise.
+                regions = [
+                    np.pad(r, ((0, 0), (0, (-r.shape[1]) % FRAMES_PER_BLOCK)))
+                    for r in regions
+                ]
             widths = [r.shape[1] for r in regions]
             offs = list(np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(np.int32))
             arena = np.concatenate(regions, axis=1)
@@ -289,11 +304,12 @@ class CompiledGraph:
             offs = offs + [offs[0]] * (padded - real)
             stacked = {k: np.stack([g[k] for g in geoms]) for k in geoms[0]}
             stacked["off"] = np.asarray(offs, np.int32)
-            wtab, btab = poly_taps(p, q)
             self.consts[f"st{si}/arena"] = arena
             self.consts[f"st{si}/geom"] = stacked
-            self.consts[f"st{si}/poly_w"] = wtab
-            self.consts[f"st{si}/poly_b"] = btab
+            if variant[0] == "poly":
+                wtab, btab = poly_taps(*variant[1:])
+                self.consts[f"st{si}/poly_w"] = wtab
+                self.consts[f"st{si}/poly_b"] = btab
             self._bufsrc_cfg[si] = (w, variant, arena_w)
 
         # ---- single-stage consts (convolver IR spectra) ----------------------
@@ -620,13 +636,18 @@ class CompiledGraph:
             def run_group(sp):
                 si, key, rep = sp["si"], sp["key"], sp["rep"]
                 if sp["bufsrc"] is not None:
-                    # The polyphase source group consumes no params.
+                    # The unity and polyphase source groups consume no
+                    # params (playbackRate is baked into the variant).
                     w, variant, _ = sp["bufsrc"]
-                    sts, out = type(rep).process_poly_group(
-                        states[key], consts[f"{key}/arena"], consts[f"{key}/geom"],
-                        rc, w, variant[1], variant[2],
-                        (consts[f"{key}/poly_w"], consts[f"{key}/poly_b"]),
-                    )
+                    arena, geom = consts[f"{key}/arena"], consts[f"{key}/geom"]
+                    if variant[0] == "poly":
+                        sts, out = type(rep).process_poly_group(
+                            states[key], arena, geom, rc, w, variant[1], variant[2],
+                            (consts[f"{key}/poly_w"], consts[f"{key}/poly_b"]),
+                        )
+                    else:
+                        sts, out = type(rep).process_unity_group(
+                            states[key], arena, geom, rc, w, aligned=variant[1])
                     outs = [out]
                 else:
                     params = eval_params(sp, key)

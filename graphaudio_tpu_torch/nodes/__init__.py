@@ -1,14 +1,15 @@
-"""Node library of the port (this slice: the config-4 render path).
+"""Node library of the port (so far: the config-4 and config-1/2/3 paths).
 
-AudioDestinationNode, GainNode, AudioBufferSourceNode (static polyphase
-variant) and ConvolverNode. The other nodes of graphaudio_tpu.nodes are
-listed in ROADMAP.md.
+AudioDestinationNode, GainNode, AudioBufferSourceNode (unity-rate and static
+polyphase variants), ConvolverNode and BiQuadFilterNode. The other nodes of
+graphaudio_tpu.nodes are listed in ROADMAP.md.
 """
 
 from graphaudio_tpu_torch.nodes.destination import AudioDestinationNode
 from graphaudio_tpu_torch.nodes.gain import GainNode
 from graphaudio_tpu_torch.nodes.sources import AudioBufferSourceNode, ScheduledSourceNode
 from graphaudio_tpu_torch.nodes.convolver import ConvolverNode
+from graphaudio_tpu_torch.nodes.biquad import BiQuadFilterNode, FilterType
 
 __all__ = [
     "AudioDestinationNode",
@@ -16,4 +17,6 @@ __all__ = [
     "ScheduledSourceNode",
     "AudioBufferSourceNode",
     "ConvolverNode",
+    "BiQuadFilterNode",
+    "FilterType",
 ]

@@ -12,11 +12,14 @@ start/stop is a state update, not a rebuild. Playback positions are
 float64, matching the reference's double accumulators
 (AudioBufferSourceNode.cs:23); f64 is native on the GPU.
 
-This slice ports the static polyphase variant of AudioBufferSourceNode
-(``kernel_variant() == ("poly", p, q)``: a constant rational rate such as
-44.1 kHz assets in a 48 kHz context), which the voice group renders with
-``process_poly_group`` around the K1 kernel. The unity-rate and
-time-varying variants raise NotImplementedError naming their ROADMAP item.
+The port renders two kernel variants of AudioBufferSourceNode, each over a
+whole voice group: the unity-rate copy (``kernel_variant() ==
+("unity", aligned)``: an asset at the context rate, playbackRate untouched)
+with ``process_unity_group`` around K5 (ops/unity.py), and the static
+polyphase resampler (``("poly", p, q)``: a constant rational rate such as
+44.1 kHz assets in a 48 kHz context) with ``process_poly_group`` around K1.
+The time-varying resampler raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -32,12 +35,11 @@ from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.core.node import AudioNode
 from graphaudio_tpu_torch.core.params import AutomationRate
 from graphaudio_tpu_torch.ops.resample import poly_resample
+from graphaudio_tpu_torch.ops.unity import unity_gather
 
 _INF = float("inf")
 
 _UNPORTED_VARIANTS = {
-    "unity": "unity-rate buffer playback is not ported yet "
-             "(ROADMAP.md module item 7, kernel K5)",
     "resample": "time-varying-rate resampling is not ported yet "
                 "(ROADMAP.md module item 7, kernel K7)",
 }
@@ -314,6 +316,12 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         _, _, _, _, w, front = cls._poly_geometry(superblock, p, q)
         return w, front
 
+    @staticmethod
+    def unity_window(superblock: int) -> int:
+        """Window of the unity-rate copy: one superblock plus a margin
+        (the JAX package's ``_window_w(S, 1, True)``)."""
+        return superblock * FRAMES_PER_BLOCK + 16
+
     def build_region(self, w_max: int, front: int = 0):
         """Sample region for window-sliced playback: ``front`` zeros, then the
         buffer, followed by either a zero pad (non-loop) or the loop content
@@ -403,6 +411,103 @@ class AudioBufferSourceNode(ScheduledSourceNode):
             length,
         )
         return torch.minimum(de, length)
+
+    @classmethod
+    def process_unity_group(cls, states, arena, geom, rc, w: int, aligned: bool):
+        """Unity-rate playback of a whole voice group (exact copy).
+
+        states: dict of stacked [V] tensors; arena f32[C, W] (W a multiple
+        of 128, every voice region 128-aligned); geom: stacked [V] geometry
+        incl. the arena offset ``off``. Returns (new_states, out f32[V, C,
+        T]); the audio comes from K5 (ops.unity.unity_gather).
+        """
+        new_states, args = cls.unity_group_plan(states, geom, rc, w, aligned)
+        return new_states, unity_gather(arena, **args)
+
+    @classmethod
+    def unity_group_plan(cls, states, geom, rc, w: int, aligned: bool):
+        """The f64 per-voice bookkeeping of one unity step: returns
+        (new_states, K5's per-voice arguments row0, delta, bidx, g0,
+        end_bound, looping, blk_ok).
+
+        The sequence is the JAX package's process_unity_group
+        (graphaudio_tpu/nodes/sources.py:1104-1209), op for op, so the new
+        ``pos`` and ``stop_time`` match it exactly. Active blocks of a
+        superblock form one contiguous run, so block s reads the voice's
+        bidx[v, s]-th 128-frame chunk after its window start; ``aligned``
+        voices (positions and loop lengths multiples of 128) start on a row.
+        """
+        S = rc.superblock
+        i32 = torch.int32
+        f64 = torch.float64
+        active = cls._active_mask(states, rc)  # [V, S]
+        de = cls._duration_end(states, geom["rate"], geom["length"])  # [V]
+        lef, lsf, llen = geom["lef"], geom["lsf"], geom["llen"]
+        looping = geom["looping"]
+        region_len = geom["region_len"].to(i32)
+        base = geom["off"].to(i32) + geom["front"].to(i32)
+
+        adv = torch.where(active, torch.full((), float(FRAMES_PER_BLOCK), dtype=f64,
+                                             device=active.device),
+                          torch.zeros((), dtype=f64, device=active.device))
+        p0 = states["pos"]
+        pos_b = p0[:, None] + (torch.cumsum(adv, dim=1) - adv)  # [V, S] f64
+        delta_b = (pos_b - p0[:, None]).to(i32)  # 128 * (active blocks before s)
+        bidx = torch.clamp(torch.div(delta_b, FRAMES_PER_BLOCK, rounding_mode="floor"),
+                           0, S - 1)
+
+        qmod = torch.remainder(p0 - lsf, torch.clamp(llen, min=1.0))
+        e0 = torch.where(looping & (p0 >= lsf), lsf + llen + qmod, p0).to(i32)
+        if aligned:
+            # Positions and arena offsets are multiples of 128; floor the
+            # end-clip so the start stays aligned (only past-the-end voices
+            # clip, and their samples are masked).
+            hi = torch.div(region_len - w, FRAMES_PER_BLOCK, rounding_mode="floor") \
+                * FRAMES_PER_BLOCK
+            start = torch.minimum(torch.clamp(e0, min=0), hi)
+            row0 = torch.div(base + start, FRAMES_PER_BLOCK, rounding_mode="floor")
+            delta = torch.zeros_like(row0)
+        else:
+            abs_start = base + torch.minimum(torch.clamp(e0, min=0), region_len - w)
+            row0 = torch.div(abs_start, FRAMES_PER_BLOCK, rounding_mode="floor")
+            delta = abs_start - row0 * FRAMES_PER_BLOCK
+
+        # Validity in ORIGINAL coordinates (duration / degenerate loops):
+        # sample i of block s is g0[v, s] + i.
+        g0 = p0.to(i32)[:, None] + delta_b
+        de_i = de.to(i32)
+        end_bound = torch.where(geom["loop_flag"], torch.minimum(lef.to(i32), de_i), de_i)
+        # A block has a valid sample iff its first one is (g0 + i increases).
+        any_valid = looping[:, None] | (g0 < end_bound[:, None])
+        # Final-block clear + auto-stop (AudioBufferSourceNode.cs:360-368).
+        pos_after = pos_b + FRAMES_PER_BLOCK
+        cleared = active & torch.where(
+            looping[:, None], ~any_valid, (pos_after >= de[:, None]) | ~any_valid
+        )
+        inf = torch.full_like(rc.block_end_times[None, :], _INF)
+        first_stop = torch.amin(
+            torch.where(cleared, rc.block_end_times[None, :], inf), dim=1)
+        new_stop = torch.minimum(states["stop_time"], first_stop)
+
+        new_pos = p0 + adv.sum(dim=1)
+        new_pos = torch.where(
+            looping & (new_pos >= lef),
+            lsf + torch.remainder(new_pos - lef, torch.clamp(llen, min=1.0)),
+            new_pos,
+        )
+        new_states = dict(states)
+        new_states["pos"] = new_pos
+        new_states["stop_time"] = new_stop
+        args = {
+            "row0": row0.to(torch.int64).contiguous(),
+            "delta": delta.to(i32).contiguous(),
+            "bidx": bidx.to(i32).contiguous(),
+            "g0": g0.to(i32).contiguous(),
+            "end_bound": end_bound.to(i32).contiguous(),
+            "looping": looping.contiguous(),
+            "blk_ok": (active & ~cleared).contiguous(),
+        }
+        return new_states, args
 
     @classmethod
     def process_poly_group(cls, states, arena, geom, rc, w: int, p: int, q: int,

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``graphaudio_tpu_torch/csrc/*.cu``. They are compiled with
-``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C
-interface and loaded with ``ctypes``; the build needs no PyTorch headers,
-so it takes seconds, not minutes. It runs at first use, into
+The sources are ``graphaudio_tpu_torch/csrc/*.cu``. Each is compiled with
+``nvcc`` for Hopper (``sm_90a``) into an object file, all at once in
+parallel, and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes``; the build needs no PyTorch headers, so
+it takes seconds, not minutes. It runs at first use, into
 ``graphaudio_tpu_torch/_build/`` (git-ignored), and is keyed by a hash of
 the sources and flags, so a fresh checkout builds everything on its first
 CUDA render and later processes reuse the library.
@@ -26,7 +27,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,14 @@ _SIGNATURES = {
     "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _P],
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],
+    "ga_unity_gather": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ga_param_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      ctypes.c_double, _P, _P],
+    "ga_biquad_coeffs": [_P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float,
+                         _P, _P, _P],
+    "ga_biquad_cascade": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P],
+    "ga_first_order_tb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -80,21 +89,37 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this source hash is built; returns the
-    library path. The compiler's output (``-Xptxas=-v`` register and
-    shared-memory report) is kept beside the library as ``.log``."""
+    library path. One ``nvcc -c`` per source runs in parallel, then one
+    link. The compilers' output (``-Xptxas=-v`` register and shared-memory
+    report) is kept beside the library as ``.log``."""
     target = library_path()
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{target.stem}.{os.getpid()}"
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)] for cu, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    target.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    if not failed:
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = ["link"]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    target.with_suffix(".log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, target)  # atomic: concurrent builders never see half a file
     return target
 

@@ -11,11 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+import graphaudio_tpu_torch as gat
 from graphaudio_tpu_torch.core.context import pack_int16, pack_int16_plain
+from graphaudio_tpu_torch.core.graph import RenderContext
 from graphaudio_tpu_torch.core.mixing import fan_in_lanes, fan_in_lanes_plain
+from graphaudio_tpu_torch.ops import biquad as tbq
 from graphaudio_tpu_torch.ops import convolve as tconv
+from graphaudio_tpu_torch.ops import param_eval as tpe
 from graphaudio_tpu_torch.ops import resample as tres
-from graphaudio_tpu_torch.testing.configs import config4_conv_reverb
+from graphaudio_tpu_torch.ops import unity as tun
+from graphaudio_tpu_torch.testing.configs import (
+    config2_mix_bus,
+    config3_eq_chain,
+    config4_conv_reverb,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,4 +107,132 @@ def test_k4_pack_int16(dev):
 def test_config4_golden_on_card(dev):
     out = config4_conv_reverb(superblock=4, device=dev).render(8192)
     golden = np.load("tests/goldens/config4_conv_reverb_64.npz")["out"]
+    assert np.abs(out.astype(np.float64) - golden).max() < 1e-5
+
+
+def _k5_args(ctx, steps, dev):
+    """K5's arguments for config 2's first ``steps`` superblocks, planned
+    on the CPU."""
+    ctx._ensure_compiled()
+    S = ctx.superblock
+    consts, st = ctx._consts, ctx._states["st0"]
+    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
+    clock = ctx._block_clock(steps * S)
+    out = []
+    for k in range(steps):
+        rc = RenderContext(ctx._compiled.info, k * S * 128,
+                           torch.from_numpy(clock[k * S:(k + 1) * S]))
+        st, args = gat.AudioBufferSourceNode.unity_group_plan(
+            st, consts["st0/geom"], rc, w, variant[1])
+        out.append({k: v.to(dev) for k, v in args.items()})
+    return consts["st0/arena"].to(dev), out
+
+
+def test_k5_unity_gather(dev):
+    ctx = config2_mix_bus(superblock=8, device="cpu")
+    arena, steps = _k5_args(ctx, 30, dev)
+    for args in steps:
+        got = tun.unity_gather(arena, **args)
+        ref = tun.unity_gather_plain(arena, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)  # a copy: bit-exact
+    g = torch.Generator().manual_seed(5)
+    args = dict(steps[3])
+    args["delta"] = torch.randint(0, 128, args["delta"].shape, generator=g,
+                                  dtype=torch.int32).to(dev)  # unaligned voices
+    assert torch.equal(tun.unity_gather(arena, **args), tun.unity_gather_plain(arena, **args))
+
+
+def _param_encoding(dev, lanes=3, cap=16, seed=6):
+    """Random automation of every curve type, some events exactly on
+    block and sample instants, padded to ``cap``."""
+    rng = np.random.default_rng(seed)
+    encs = []
+    for lane in range(lanes):
+        t, events = 0.0, []
+        for k in range(cap - 2 * lane):
+            t += float(rng.choice([128 / 48000, 1 / 48000, rng.uniform(0.0005, 0.02)]))
+            kind = int(rng.integers(0, 4))
+            events.append((kind, t, float(rng.uniform(0.05, 2.0)), float(rng.uniform(0.001, 0.01))))
+        encs.append(tpe.encode_events(0.5, events, cap))
+    return {k: torch.from_numpy(np.stack([e[k] for e in encs])).to(dev) for k in encs[0]}
+
+
+@pytest.mark.parametrize("npb", [128, 1])
+def test_k6_param_eval(dev, npb):
+    enc = _param_encoding(dev)
+    for b0 in range(0, 60, 4):
+        bt = torch.from_numpy(np.arange(b0, b0 + 32) * (128 / 48000)).to(dev)
+        got = tpe.eval_intrinsic_blocked(enc, bt, npb, 1 / 48000)
+        ref = tpe.eval_intrinsic_blocked_plain(enc, bt, npb, 1 / 48000)
+        torch.cuda.synchronize()
+        # Same operations and roundings; exp/pow are f64 on both sides.
+        assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("ftype", tbq.FILTER_TYPES)
+def test_k8_biquad_coefficients(dev, ftype):
+    g = torch.Generator().manual_seed(7)
+    V, T = 2, 4096
+    freq = (torch.rand(V, T, generator=g) * 30000.0 - 100.0).to(dev)  # clamps too
+    q = (torch.rand(V, T, generator=g) * 8.0).to(dev)
+    gain = (torch.rand(V, T // 128, generator=g) * 24.0 - 12.0).to(dev)
+    got = tbq.biquad_coefficients(ftype, freq, q, gain, 48000)
+    ref = tbq.biquad_coefficients_plain(ftype, freq, q, gain, 48000)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        # f64 sin/cos/pow rounded once on both sides: equal up to an ulp
+        assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item())
+    assert (got[3].imag >= 0).all()  # Im(p1) >= 0
+
+
+def _biquad_inputs(dev, V, C, T, seed):
+    g = torch.Generator().manual_seed(seed)
+    n = torch.arange(T, dtype=torch.float32)
+    freq = (300.0 + 2000.0 * torch.rand(V, 1, generator=g)) * (1.0 + n / T)
+    q = 0.5 + 4.0 * torch.rand(V, 1, generator=g) + n / T
+    gain = torch.full((V, T // 128), 3.0)
+    coeffs = tbq.biquad_coefficients_plain("peaking", freq, q, gain, 48000)
+    x = torch.randn(V, C, T, generator=g) * 0.3
+    w1 = torch.randn(V, C, generator=g) * 0.1
+    w2 = torch.randn(V, C, generator=g) * 0.1
+    return [t.to(dev) for t in (x, *coeffs, w1, w2)]
+
+
+@pytest.mark.parametrize("tv", [False, True])
+@pytest.mark.parametrize("T", [512, 4096])
+def test_p2_biquad_cascade(dev, tv, T):
+    args = _biquad_inputs(dev, 3, 2, T, seed=8)
+    if not tv:  # constant poles and coefficients
+        args = [args[0]] + [a[:, :1].expand_as(a).contiguous() for a in args[1:6]] + args[6:]
+    got = tbq.biquad_apply(*args, time_varying=tv)
+    ref = tbq.biquad_apply_plain(*args, time_varying=tv)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        # f64 recurrences on both sides (sequential vs prefix), rounded to f32
+        assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item())
+
+
+def test_p2_probe_form(dev):
+    g = torch.Generator().manual_seed(9)
+    xr, xi = (torch.randn(128, 128, generator=g).to(dev) for _ in range(2))
+    mag = 0.5 + 0.49 * torch.rand(1, 128, generator=g)
+    ph = torch.rand(1, 128, generator=g) * 6.0
+    ar, ai = (mag * torch.cos(ph)).to(dev), (mag * torch.sin(ph)).to(dev)
+    got = tbq.first_order_tb(xr, xi, ar, ai)
+    ref = tbq.first_order_tb_plain(xr, xi, ar, ai)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+def test_config3_golden_on_card(dev):
+    out = config3_eq_chain(superblock=4, device=dev).render(8192)
+    golden = np.load("tests/goldens/config3_biquad_eq_chain.npz")["out"]
+    assert np.abs(out.astype(np.float64) - golden).max() < 1e-5
+
+
+def test_config2_golden_on_card(dev):
+    out = config2_mix_bus(superblock=4, device=dev).render(8192)
+    golden = np.load("tests/goldens/config2_mix_bus_ramps.npz")["out"]
     assert np.abs(out.astype(np.float64) - golden).max() < 1e-5
