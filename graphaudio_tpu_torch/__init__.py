@@ -42,9 +42,12 @@ from graphaudio_tpu_torch.nodes import (  # noqa: E402
     AudioDestinationNode,
     BiQuadFilterNode,
     ConvolverNode,
+    DistanceModelType,
     FilterType,
     GainNode,
+    SpatialPannerNode,
 )
+from graphaudio_tpu_torch import kit  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -68,4 +71,7 @@ __all__ = [
     "ConvolverNode",
     "BiQuadFilterNode",
     "FilterType",
+    "SpatialPannerNode",
+    "DistanceModelType",
+    "kit",
 ]

@@ -30,6 +30,7 @@ from graphaudio_tpu_torch.core.constants import (
     FRAMES_PER_BLOCK,
 )
 from graphaudio_tpu_torch.core.graph import CompiledGraph, StaticRenderInfo, to_device
+from graphaudio_tpu_torch.ops.hrtf import N_AZIMUTH, N_ELEVATION, load_hrir_grid
 from graphaudio_tpu_torch.utils import cudabuild
 from graphaudio_tpu_torch.utils.profiling import RenderStats
 
@@ -57,11 +58,8 @@ def pack_int16(outs):
     status = lib.ga_pack_int16(outs.data_ptr(), out.data_ptr(), C, T,
                                cudabuild.stream_of(outs))
     cudabuild.check(status, "ga_pack_int16")
-    pack_int16.launches += 1
+    cudabuild.launches["pack_int16"] += 1
     return out
-
-
-pack_int16.launches = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -171,9 +169,87 @@ class AudioContextBase:
         self._disposed = False
         self._disposing_callbacks: List[Callable] = []
 
+        # Listener transform for spatialization. Right-handed basis with
+        # ahead = -forward (parity: SteamAudioContext.SetListener, :136-164).
+        self._listener = {
+            "listener_pos": np.zeros(3, np.float32),
+            "listener_right": np.array([1, 0, 0], np.float32),
+            "listener_up": np.array([0, 1, 0], np.float32),
+            "listener_ahead": np.array([0, 0, 1], np.float32),
+        }
+        # Context-level default HRIR set (parity: SteamAudioContext.cs:82-106);
+        # None = the analytic spherical-head model.
+        self._default_hrir = None
+        self._default_hrir_uid = 0
+
         from graphaudio_tpu_torch.nodes.destination import AudioDestinationNode
 
         self.destination = AudioDestinationNode(self)
+
+    # -- spatialization globals -------------------------------------------------
+
+    def set_default_hrir(self, source, n_azimuth=None, n_elevation=None,
+                         length=None) -> None:
+        """Install a measured HRIR set as the DEFAULT of every
+        SpatialPannerNode without a per-node override (parity: the
+        reference's per-context HRTF, SteamAudioContext.cs:82-106).
+
+        ``source``: SOFA path, .npz path, or dict with ``hrir`` /
+        ``azimuth_deg`` / ``elevation_deg`` / ``sample_rate`` (see
+        ops/hrtf.load_hrir_grid). None reverts to the analytic model.
+        """
+        if source is None:
+            grid = None
+        else:
+            grid = load_hrir_grid(
+                source, self.sample_rate,
+                n_azimuth=n_azimuth or N_AZIMUTH,
+                n_elevation=n_elevation or N_ELEVATION,
+                length=length,
+            )
+
+        def do(ctx):
+            ctx._default_hrir = grid
+            ctx._default_hrir_uid += 1
+            # The grid is a stage constant of every panner group keyed on
+            # the context default: rebuild.
+            ctx._invalidate_topology()
+
+        self.execute_or_post(do)
+
+    def set_listener(self, position, forward, up) -> None:
+        """Set the listener transform (parity: SteamAudioContext.SetListener).
+
+        ``ahead = -forward`` mirrors the reference's phonon-convention basis.
+        The listener is device data in the render state
+        (``states["__globals__"]``): moving it rebuilds nothing.
+        """
+        position = np.asarray(position, np.float32)
+        forward = np.asarray(forward, np.float64)
+        up = np.asarray(up, np.float64)
+        f = forward / max(np.linalg.norm(forward), 1e-9)
+        u = up / max(np.linalg.norm(up), 1e-9)
+        right = np.cross(f, u)
+        right /= max(np.linalg.norm(right), 1e-9)
+        true_up = np.cross(right, f)
+        listener = {
+            "listener_pos": position,
+            "listener_right": right.astype(np.float32),
+            "listener_up": true_up.astype(np.float32),
+            "listener_ahead": (-f).astype(np.float32),
+        }
+
+        def do(ctx):
+            # Through the command queue, as in the JAX package: a realtime
+            # render rebinds ctx._states between steps.
+            ctx._listener = listener
+            if ctx._states is not None and "__globals__" in ctx._states:
+                ctx._states["__globals__"] = to_device(listener, ctx.device)
+
+        self.execute_or_post(do)
+
+    def global_state(self) -> dict:
+        return dict(self._listener)
 
     # -- clock (parity: AudioContextBase.cs:28,64-79,220-223) -----------------
 
@@ -319,6 +395,7 @@ class AudioContextBase:
             return
         old_states = self._states
         old_comp = self._compiled.state_composition if self._compiled else {}
+        old_ref = self._compiled.state_ref if self._compiled else {}
         self._compiled = CompiledGraph(self)
         self._compiled_version = self._topology_version
         self._render_fn, self._dest_channels = self._compiled.make_render_fn()
@@ -326,11 +403,16 @@ class AudioContextBase:
         self._consts = to_device(self._compiled.consts, self.device)
         new_states = to_device(self._compiled.init_states(), self.device)
         # Keep a stage's running state when its member composition and
-        # layout are unchanged. (Lane-wise migration of surviving voices
-        # across a changed composition is not ported yet.)
+        # layout are unchanged; otherwise each surviving member's state
+        # migrates on its own (lane by lane for groups), so running voices
+        # keep their playback and filter state across a regroup (parity:
+        # graphaudio_tpu/core/context.py _ensure_compiled). The globals
+        # always come fresh from the context.
         if old_states:
             new_comp = self._compiled.state_composition
             for key, st in new_states.items():
+                if key == "__globals__":
+                    continue
                 old = old_states.get(key)
                 if (
                     old is not None
@@ -338,6 +420,8 @@ class AudioContextBase:
                     and _same_structure(old, st)
                 ):
                     new_states[key] = old
+                else:
+                    self._migrate_members(key, st, old_states, old_ref)
         self._states = new_states
         # Config-derived leaves (the biquad's type selector) must reflect the
         # node's CURRENT config, not the one a kept state was built with.
@@ -348,6 +432,26 @@ class AudioContextBase:
                 self.update_node_state(node, **cfg())
         self._encs = None  # re-encode against (possibly) new capacities
         self._param_versions = {}
+
+    def _migrate_members(self, key, st, old_states, old_ref) -> None:
+        """Copy into the fresh stage state ``st`` (in place) the previous
+        state of each member that ran before in a layout of the same keys,
+        shapes and dtypes."""
+        for nid, (k, lane) in self._compiled.state_ref.items():
+            src = old_ref.get(nid)
+            if k != key or src is None or src[0] not in old_states:
+                continue
+            old = old_states[src[0]]
+            if src[1] is not None:
+                old = {n: v[src[1]] for n, v in old.items()}
+            dst = st if lane is None else {n: v[lane] for n, v in st.items()}
+            if not _same_structure(old, dst):
+                continue
+            for n, v in old.items():
+                if lane is None:
+                    st[n] = v
+                else:
+                    st[n][lane] = v
 
     def _ensure_params_encoded(self) -> None:
         dirty = self._encs is None or any(

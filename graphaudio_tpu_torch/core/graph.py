@@ -69,6 +69,8 @@ class RenderContext:
         self.block_end_times = block_times + float(FRAMES_PER_BLOCK) / float(info.sample_rate)
         # Per-stage constants (e.g. convolver IR spectra), set by the step.
         self.stage_consts = {}
+        # Context-level globals (the listener transform), f32[3] tensors.
+        self.globals = None
 
 
 class ParamSignal:
@@ -312,9 +314,9 @@ class CompiledGraph:
                 self.consts[f"st{si}/poly_b"] = btab
             self._bufsrc_cfg[si] = (w, variant, arena_w)
 
-        # ---- single-stage consts (convolver IR spectra) ----------------------
+        # ---- stage consts (convolver IR spectra, a panner group's HRIR grid) --
         for si, (kind, nodes, _) in enumerate(self.stages):
-            if kind != "single":
+            if kind == "dest":
                 continue
             sc = getattr(nodes[0], "stage_consts", None)
             if sc is None:
@@ -498,6 +500,9 @@ class CompiledGraph:
                 }
             else:
                 states[f"st{si}"] = self._init_node_state(nodes[0])
+        # Context-level globals (listener transform) travel in the state, so
+        # they are data, not rebuild triggers.
+        states["__globals__"] = self.context.global_state()
         return states
 
     def _share_group_capacity(self, nodes) -> None:
@@ -564,8 +569,9 @@ class CompiledGraph:
 
         def step(states, encs, consts, block_times, frame0):
             rc = RenderContext(info, frame0, block_times)
+            rc.globals = states["__globals__"]
             out_table: Dict[Tuple[int, int], object] = {}
-            new_states = {}
+            new_states = {"__globals__": rc.globals}
             dest_out = None
 
             def mixed_signal(prods, dst_c):
@@ -608,28 +614,35 @@ class CompiledGraph:
                     params[name] = ParamSignal(vals, a_rate)
                 return params
 
-            def run_single(sp):
-                si, key = sp["si"], sp["key"]
-                params = eval_params(sp, key)
-                inputs = [mixed_signal(prods, c) for c, prods in sp["inputs"]]
+            def run_process(sp, key, inputs, params):
                 prefix = key + "/"
                 rc.stage_consts = {
                     n[len(prefix):]: v for n, v in consts.items() if n.startswith(prefix)
                 }
-                st, outs = sp["rep"].process(states[key], inputs, params, rc)
+                result = sp["rep"].process(states[key], inputs, params, rc)
                 rc.stage_consts = {}
+                return result
+
+            def run_single(sp):
+                si, key = sp["si"], sp["key"]
+                params = eval_params(sp, key)
+                inputs = [mixed_signal(prods, c) for c, prods in sp["inputs"]]
+                st, outs = run_process(sp, key, inputs, params)
                 new_states[key] = st
                 for i, o in enumerate(outs):
                     out_table[(si, i)] = o
 
             def stacked_inputs(sp, inp_idx):
-                """[V, C, T] inputs for a group: CHAIN is the identity fast
-                path; otherwise per-lane mixing, phantom pad lanes silent."""
+                """Contiguous [V, C, T] inputs for a group (the kernels take
+                no strides): CHAIN is the identity fast path; otherwise
+                per-lane mixing, phantom pad lanes silent."""
                 dst_c, routing = sp["inputs"][inp_idx]
                 if routing and routing[0] == "CHAIN":
                     t = out_table[(routing[1], routing[2])]
                     if routing[3] != dst_c:
-                        t = torch.stack([adapt_channels(x, dst_c) for x in t])
+                        # all lanes at once: channels lead in adapt_channels,
+                        # whose mono up-mix is a stride-0 view
+                        t = adapt_channels(t.transpose(0, 1), dst_c).transpose(0, 1).contiguous()
                     return t
                 return torch.stack([mixed_signal(pl, dst_c) for pl in routing])
 
@@ -652,7 +665,7 @@ class CompiledGraph:
                 else:
                     params = eval_params(sp, key)
                     inputs = [stacked_inputs(sp, i) for i in range(len(sp["inputs"]))]
-                    sts, outs = rep.process(states[key], inputs, params, rc)
+                    sts, outs = run_process(sp, key, inputs, params)
                 new_states[key] = sts
                 for i, o in enumerate(outs):  # o: [V, C, T]
                     out_table[(si, i)] = o

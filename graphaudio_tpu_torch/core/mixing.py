@@ -103,8 +103,5 @@ def fan_in_lanes(x, dst_channels: int):
     status = lib.ga_fan_in(x.data_ptr(), out.data_ptr(), V, C, dst_channels, T,
                            mode, scale, cudabuild.stream_of(x))
     cudabuild.check(status, "ga_fan_in")
-    fan_in_lanes.launches += 1
+    cudabuild.launches["fan_in_lanes"] += 1
     return out
-
-
-fan_in_lanes.launches = 0

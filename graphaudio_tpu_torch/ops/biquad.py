@@ -211,11 +211,8 @@ def biquad_coefficients(filter_type: str, freq, q, gain_blocks, sample_rate):
         cudabuild.stream_of(freq),
     )
     cudabuild.check(status, "ga_biquad_coeffs")
-    biquad_coefficients.launches += 1
+    cudabuild.launches["biquad_coefficients"] += 1
     return b[0], b[1], b[2], p[0], p[1]
-
-
-biquad_coefficients.launches = 0
 
 
 # ---- P2: first-order recurrences --------------------------------------------
@@ -395,11 +392,8 @@ def biquad_apply(x, b0, b1, b2, p1, p2, w1, w2, time_varying: bool):
         state[1].data_ptr(), cudabuild.stream_of(x),
     )
     cudabuild.check(status, "ga_biquad_cascade")
-    biquad_apply.launches += 1
+    cudabuild.launches["biquad_apply"] += 1
     return y, state[0], state[1]
-
-
-biquad_apply.launches = 0
 
 
 def first_order_tb_plain(xr, xi, ar, ai):
@@ -433,8 +427,5 @@ def first_order_tb(xr, xi, ar, ai):
         yr.data_ptr(), yi.data_ptr(), cudabuild.stream_of(xr),
     )
     cudabuild.check(status, "ga_first_order_tb")
-    first_order_tb.launches += 1
+    cudabuild.launches["first_order_tb"] += 1
     return yr, yi
-
-
-first_order_tb.launches = 0

@@ -156,11 +156,8 @@ def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
         int(bool(rev)), cudabuild.stream_of(X),
     )
     cudabuild.check(status, "ga_conv_mac")
-    spectral_mac.launches += 1
+    cudabuild.launches["spectral_mac"] += 1
     return acc
-
-
-spectral_mac.launches = 0
 
 
 # ---- K2b: overlap-add ------------------------------------------------------
@@ -194,11 +191,8 @@ def overlap_add(y_full, overlap):
     status = lib.ga_conv_ola(y_full.data_ptr(), overlap.data_ptr(), y.data_ptr(),
                              K, L, B, cudabuild.stream_of(y_full))
     cudabuild.check(status, "ga_conv_ola")
-    overlap_add.launches += 1
+    cudabuild.launches["overlap_add"] += 1
     return y
-
-
-overlap_add.launches = 0
 
 
 def conv_step(x, hr, hi, ring_r, ring_i, head: int, overlap, rev: bool):

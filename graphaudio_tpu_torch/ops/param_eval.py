@@ -204,8 +204,5 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
         out.data_ptr(), cudabuild.stream_of(block_times),
     )
     cudabuild.check(status, "ga_param_eval")
-    eval_intrinsic_blocked.launches += 1
+    cudabuild.launches["eval_intrinsic_blocked"] += 1
     return out.reshape(*base.shape, S * n_per_block)
-
-
-eval_intrinsic_blocked.launches = 0

@@ -131,8 +131,5 @@ def poly_resample(arena, win_start, j0, bidx, blk_ok, jlim, looping,
         cudabuild.stream_of(arena),
     )
     cudabuild.check(status, "ga_poly_resample")
-    poly_resample.launches += 1
+    cudabuild.launches["poly_resample"] += 1
     return out
-
-
-poly_resample.launches = 0

@@ -77,8 +77,5 @@ def unity_gather(arena, row0, delta, bidx, g0, end_bound, looping, blk_ok):
         blk_ok.data_ptr(), out.data_ptr(), cudabuild.stream_of(arena),
     )
     cudabuild.check(status, "ga_unity_gather")
-    unity_gather.launches += 1
+    cudabuild.launches["unity_gather"] += 1
     return out
-
-
-unity_gather.launches = 0

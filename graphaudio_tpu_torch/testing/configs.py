@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 import graphaudio_tpu_torch as ga
+from graphaudio_tpu_torch.kit import AudioEngine, ReverbEffect, SoundMixState
 
 SR = 48000
 
@@ -109,4 +110,38 @@ def config4_conv_reverb(superblock=32, voices=64, device="cuda"):
         src.playback_rate.value = 1.0  # resampler path
         src.connect(conv)
         src.start(0)
+    return ctx
+
+
+def config5_spatial_scene(superblock=32, voices=128, device="cuda"):
+    """128 moving spatialized sources with a shared reverb send
+    (Kit AudioBus / EffectChain topology)."""
+    rng = np.random.default_rng(5)
+    ctx = ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
+    engine = AudioEngine(ctx)
+    engine.set_listener([0, 0, 0], [0, 0, -1], [0, 1, 0])
+
+    sfx = engine.get_bus("sfx")
+    rev = ReverbEffect(engine)
+    ir = (
+        rng.standard_normal(SR) * np.exp(-np.arange(SR) / (0.25 * SR))
+    ).astype(np.float32)
+    rev.set_impulse_response(ga.PlayableAudioBuffer.from_mono_array(ir, SR))
+    rev.wet.value = 0.3
+    sfx.effects.add(rev)
+
+    sounds = []
+    for v in range(voices):
+        sig = (rng.standard_normal(SR) * 0.03).astype(np.float32)
+        buf = ga.PlayableAudioBuffer.from_mono_array(sig, SR)
+        s = engine.create_sound_from_buffer(
+            buf, mix_state=SoundMixState.BINAURAL_SPATIALIZED, bus=sfx
+        )
+        s.is_looping = True
+        angle = 2 * np.pi * v / voices
+        s.position = (5 * np.cos(angle), 0.0, 5 * np.sin(angle))
+        s.play()
+        sounds.append(s)
+    ctx._engine = engine  # keep alive; callers may move sounds via engine
+    ctx._sounds = sounds
     return ctx

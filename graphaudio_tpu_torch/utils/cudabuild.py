@@ -14,6 +14,7 @@ There is no fallback: a missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -50,10 +51,19 @@ _SIGNATURES = {
     "ga_biquad_cascade": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P],
     "ga_first_order_tb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "ga_hrtf_fir": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    ctypes.c_float, ctypes.c_float, _P, _P, _P],
+    "ga_hrtf_fir_rows": [_P, _P, _I, _I, _I, _P, _P],
+    "ga_spatial_gains": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "ga_onepole": [_P, _P, ctypes.c_double, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+
+#: Kernel launches by wrapper name. Each wrapper adds one where it launches
+#: its kernel and nowhere else; ``launches.clear()`` sets every count to 0.
+launches = collections.Counter()
 
 
 def sources():

@@ -7,13 +7,12 @@ turn them into the port's layout, so both packages compute the same thing
 from the same point of a render.
 
 Both packages schedule stages the same way, so stage keys ("st<i>") and
-group lane order agree. What differs:
-
-* the convolver's delay line: the JAX package keeps the P-1 past spectra
-  oldest first (``hist_r`` / ``hist_i`` [K, P-1, bins]); the port keeps a
-  ring of P-1+L slots with a head (``conv_state_from_jax``);
-* the JAX state's ``__globals__`` entry (listener transform) has no
-  counterpart in this slice and is dropped.
+group lane order agree, and most states have the same layout in both: the
+sources, biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), and
+the ``__globals__`` entry (the listener transform, f32[3] each). What
+differs is the convolver's delay line: the JAX package keeps the P-1 past
+spectra oldest first (``hist_r`` / ``hist_i`` [K, P-1, bins]); the port
+keeps a ring of P-1+L slots with a head (``conv_state_from_jax``).
 """
 
 from __future__ import annotations
@@ -50,7 +49,8 @@ def states_from_jax(ctx, jax_states: dict) -> dict:
     """The port's state dict for ``ctx``'s graph from the JAX package's
     host-fetched states of the same graph."""
     ctx._ensure_compiled()
-    out = {}
+    out = {"__globals__": to_device(
+        {k: np.asarray(v, np.float32) for k, v in jax_states["__globals__"].items()}, ctx.device)}
     for sp in ctx._compiled.plan:
         key = sp["key"]
         st = jax_states[key]
@@ -80,10 +80,13 @@ def consts_from_jax(ctx, jax_consts: dict) -> dict:
 def load_render_state(ctx, jax_states: dict, jax_consts: dict,
                       current_frame: int, current_time: float) -> None:
     """Continue a JAX render in the port: install the converted states and
-    constants and the JAX context's clock (frame counter and accumulated
-    f64 time) into ``ctx``, whose graph must be built the same way."""
+    constants, the JAX context's clock (frame counter and accumulated f64
+    time) and its listener into ``ctx``, whose graph must be built the same
+    way."""
     states = states_from_jax(ctx, jax_states)
     consts = consts_from_jax(ctx, jax_consts)
+    ctx._listener = {k: np.asarray(v, np.float32).copy()
+                     for k, v in jax_states["__globals__"].items()}
     ctx._states = states
     ctx._consts = consts
     ctx._current_frame = int(current_frame)

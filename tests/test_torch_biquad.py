@@ -196,6 +196,44 @@ def _source_into_filter(mod, ftype, superblock, seconds=0.2, **ctx_kw):
     return ctx, flt
 
 
+def _mono_voices_into_filters(mod, voices, **ctx_kw):
+    """``voices`` looped mono buffers, each into its own lowpass (one group
+    stage) -> out. The filters' inputs resolve to stereo, so each mono
+    voice is up-mixed."""
+    rng = np.random.default_rng(13)
+    ctx = mod.OfflineAudioContext(sample_rate=SR, superblock=4, **ctx_kw)
+    for v in range(voices):
+        src = mod.AudioBufferSourceNode(ctx)
+        sig = (rng.standard_normal(SR // 10) * 0.3).astype(np.float32)
+        src.buffer = mod.PlayableAudioBuffer.from_mono_array(sig, SR)
+        src.loop = True
+        flt = mod.BiQuadFilterNode(ctx, type=mod.FilterType.LOWPASS)
+        flt.frequency.value = 400.0 + 700.0 * v
+        src.connect(flt).connect(ctx.destination)
+        src.start(0)
+    return ctx
+
+
+@pytest.mark.parametrize("voices", [1, 4])
+def test_mono_voices_into_filters_get_contiguous_input(monkeypatch, voices):
+    """The biquad kernel takes no strides: the mono-to-stereo up-mix a
+    filter stage receives is a contiguous [V, 2, T] tensor, and the render
+    matches the JAX package."""
+    seen = []
+    process = gat.BiQuadFilterNode.process
+
+    def spy(self, state, inputs, params, rc):
+        seen.append((tuple(inputs[0].shape), inputs[0].is_contiguous()))
+        return process(self, state, inputs, params, rc)
+
+    monkeypatch.setattr(gat.BiQuadFilterNode, "process", spy)
+    got = _mono_voices_into_filters(gat, voices, device="cpu").render(2048)
+    want = _mono_voices_into_filters(ga, voices).render(2048)
+    assert seen and all(s == ((voices, 2, 512), True) for s in seen)
+    assert np.abs(want).max() > 1e-2
+    assert np.abs(got - want).max() < TOL * max(1.0, np.abs(want).max())
+
+
 def test_lowpass_sweep_node_matches_jax():
     out = []
     for mod, kw in ((ga, {}), (gat, {"device": "cpu"})):

@@ -15,8 +15,11 @@ import graphaudio_tpu_torch as gat
 from graphaudio_tpu_torch.core.context import pack_int16, pack_int16_plain
 from graphaudio_tpu_torch.core.graph import RenderContext
 from graphaudio_tpu_torch.core.mixing import fan_in_lanes, fan_in_lanes_plain
+from graphaudio_tpu_torch.nodes import spatial as tsp
 from graphaudio_tpu_torch.ops import biquad as tbq
 from graphaudio_tpu_torch.ops import convolve as tconv
+from graphaudio_tpu_torch.ops import hrtf as th
+from graphaudio_tpu_torch.ops import onepole as top
 from graphaudio_tpu_torch.ops import param_eval as tpe
 from graphaudio_tpu_torch.ops import resample as tres
 from graphaudio_tpu_torch.ops import unity as tun
@@ -24,7 +27,9 @@ from graphaudio_tpu_torch.testing.configs import (
     config2_mix_bus,
     config3_eq_chain,
     config4_conv_reverb,
+    config5_spatial_scene,
 )
+from graphaudio_tpu_torch.utils import cudabuild
 
 pytestmark = pytest.mark.cuda
 
@@ -226,6 +231,35 @@ def test_p2_probe_form(dev):
         assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
 
 
+def _mono_voices_into_filters(device, voices=4):
+    """Looped mono buffers, each into its own lowpass: the filter group's
+    inputs resolve to stereo, so every voice is up-mixed."""
+    rng = np.random.default_rng(13)
+    ctx = gat.OfflineAudioContext(sample_rate=48000, superblock=8, device=device)
+    for v in range(voices):
+        src = gat.AudioBufferSourceNode(ctx)
+        sig = (rng.standard_normal(4800) * 0.3).astype(np.float32)
+        src.buffer = gat.PlayableAudioBuffer.from_mono_array(sig, 48000)
+        src.loop = True
+        flt = gat.BiQuadFilterNode(ctx, type=gat.FilterType.LOWPASS)
+        flt.frequency.value = 400.0 + 700.0 * v
+        src.connect(flt).connect(ctx.destination)
+        src.start(0)
+    return ctx
+
+
+def test_mono_voices_into_filters_on_card(dev):
+    """The up-mixed [V, 2, T] input reaches the cascade kernel, which takes
+    no strides, as one contiguous tensor; the render matches the CPU's."""
+    ctx = _mono_voices_into_filters(dev)
+    cudabuild.launches.clear()
+    got = ctx.render(4096)
+    assert cudabuild.launches["biquad_apply"] > 0
+    want = _mono_voices_into_filters("cpu").render(4096)
+    assert np.abs(want).max() > 1e-2
+    assert np.abs(got - want).max() < 1e-5 * max(1.0, np.abs(want).max())
+
+
 def test_config3_golden_on_card(dev):
     out = config3_eq_chain(superblock=4, device=dev).render(8192)
     golden = np.load("tests/goldens/config3_biquad_eq_chain.npz")["out"]
@@ -235,4 +269,90 @@ def test_config3_golden_on_card(dev):
 def test_config2_golden_on_card(dev):
     out = config2_mix_bus(superblock=4, device=dev).render(8192)
     golden = np.load("tests/goldens/config2_mix_bus_ramps.npz")["out"]
+    assert np.abs(out.astype(np.float64) - golden).max() < 1e-5
+
+
+@pytest.mark.parametrize("L, C, with_gain", [(64, 1, True), (64, 2, False), (128, 1, True)])
+def test_p1_hrtf_fir(dev, L, C, with_gain):
+    g = torch.Generator().manual_seed(10)
+    V, S = 8, 32
+    W = th.hrtf_fft_size(L) - 128
+    grid = th.build_hrir_grid(48000) if L == 64 else (
+        np.random.default_rng(10).standard_normal((7, 12, 2, L)).astype(np.float32) * 0.2)
+    t = torch.linspace(0.0, 1.0, S)
+    az = (0.3 + 5.0 * t)[None] * torch.linspace(-1.5, 1.5, V)[:, None]
+    el = (-1.4 + 2.8 * t)[None] * torch.linspace(0.2, 1.0, V)[:, None]
+    args = [torch.randn(V, C, S * 128, generator=g) * 0.1,
+            torch.rand(V, S, generator=g) if with_gain else None, az, el,
+            torch.rand(V, S, generator=g), torch.from_numpy(grid),
+            torch.randn(V, 2, W, generator=g) * 0.01]
+    args = [a.to(dev) if a is not None else None for a in args]
+    got = th.hrtf_fir(*args)
+    ref = th.hrtf_fir_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        # the same f32 operations in the same order (__f*_rn in the kernel)
+        assert (a - b).abs().max().item() <= 1e-6
+
+
+def test_p1_probe_rows(dev):
+    g = torch.Generator().manual_seed(11)
+    R, F, L = 512, 128, 64
+    x = torch.randn(R, F + L - 1, generator=g).to(dev)
+    h = (torch.randn(R, 2 * L, generator=g) * 0.2).to(dev)
+    got = th.hrtf_fir_rows(x, h)
+    ref = th.hrtf_fir_rows_plain(x, h)
+    lib = torch.nn.functional.conv1d(x[None], h.reshape(R, 2, L).flip(-1).reshape(2 * R, 1, L),
+                                     groups=R).reshape(R, 2 * F)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-6
+    assert (got - lib).abs().max().item() <= 1e-5 * lib.abs().max().item()
+
+
+@pytest.mark.parametrize("model", list(tsp.DistanceModelType))
+def test_k10b_spatial_gains(dev, model):
+    g = torch.Generator().manual_seed(12)
+    V, S = 16, 32
+    p = torch.empty(17, V, S)
+    p[:3] = torch.randn(3, V, S, generator=g) * 4.0
+    p[0, 3, ::2], p[1, 3, ::2], p[2, 3, ::2] = 0.5, 0.1, -0.3  # at the listener: near
+    p[3:6] = torch.randn(3, V, S, generator=g)
+    p[6], p[7], p[8] = 1.0, 10000.0, 1.0
+    p[6, :4], p[7, :4], p[8, :4] = 2.0, 5.0, 1.5
+    p[9], p[10], p[11] = 360.0, 360.0, 0.0
+    p[9, 4:8], p[10, 4:8], p[11, 4:8] = 60.0, 120.0, 0.3
+    p[12] = torch.rand(V, S, generator=g)
+    p[13] = 0.0
+    p[13, 8:12] = torch.rand(4, S, generator=g)
+    p[14:17] = 0.0
+    p[14:17, 10:12] = torch.rand(3, 2, S, generator=g)
+    listener = {"listener_pos": torch.tensor([0.5, 0.1, -0.3]),
+                "listener_right": torch.tensor([0.8, 0.0, 0.6]),
+                "listener_up": torch.tensor([0.0, 1.0, 0.0]),
+                "listener_ahead": torch.tensor([-0.6, 0.0, 0.8])}
+    p = p.to(dev)
+    listener = {k: v.to(dev) for k, v in listener.items()}
+    got = tsp.spatial_gains(p, listener, model)
+    ref = tsp.spatial_gains_plain(p, listener, model)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("hz", [800.0, 8000.0])
+def test_k9_onepole(dev, hz):
+    g = torch.Generator().manual_seed(13)
+    a = float(np.exp(-2.0 * np.pi * hz / 48000))
+    x = (torch.randn(8, 2, 32 * 128, generator=g) * 0.3).to(dev)
+    y0 = (torch.randn(8, 2, generator=g) * 0.1).to(dev)
+    got = top.onepole_lowpass(x, a, y0)
+    ref = top.onepole_lowpass_plain(x, a, y0)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, ref):
+        # f64 recurrence vs f32 decay matmuls
+        assert (a_ - b_).abs().max().item() <= 1e-6 * max(1.0, b_.abs().max().item())
+
+
+def test_config5_golden_on_card(dev):
+    out = config5_spatial_scene(superblock=4, device=dev).render(8192)
+    golden = np.load("tests/goldens/config5_spatial_scene_128.npz")["out"]
     assert np.abs(out.astype(np.float64) - golden).max() < 1e-5

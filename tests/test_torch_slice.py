@@ -117,7 +117,9 @@ def test_mid_render_handoff_from_jax():
 def test_import_without_jax():
     code = (
         "import sys, graphaudio_tpu_torch, graphaudio_tpu_torch.utils.from_jax, "
-        "graphaudio_tpu_torch.testing.configs; "
+        "graphaudio_tpu_torch.testing.configs, graphaudio_tpu_torch.kit, "
+        "graphaudio_tpu_torch.nodes.spatial, graphaudio_tpu_torch.ops.hrtf, "
+        "graphaudio_tpu_torch.ops.onepole; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'graphaudio_tpu' or m.startswith('graphaudio_tpu.')]; "
         "assert not bad, bad"
