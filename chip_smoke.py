@@ -16,37 +16,40 @@ failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from graphaudio_tpu_torch/csrc (one nvcc per
-     source, in parallel);
+     source, in parallel); the device time of a one-element fill, the
+     floor under every kernel's;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, with the tolerance stated, and the
      median of 50 CUDA-event-timed calls of each (with the wrapper's
      Python) and its kernels' device time under torch.profiler (mean of 20
-     calls): K1-K4 at config-4 shapes; K5, K6, K8 and P2 at config-3
-     shapes, K5 and K6 also on config 2's 8-voice loop arena and
-     exponential ramps, P2 also in the Pallas probe's own 128x128
-     constant-pole form; P1 and K10b at config-5
-     shapes taken mid-render with moving sources, P1 also in the probe's
-     row form beside torch's grouped conv1d; K9 at the occluded scene's
-     shapes. Each entry carries the bound (the larger of bytes over HBM
-     rate and operations over peak rate) and, where one PyTorch call
-     computes the same function, that call's time;
+     calls, over the windows that lost no kernel events): K1-K4 at
+     config-4 shapes, K3 also at the largest shape a config-5 step gives
+     it; K5, K6, K8 and P2 at config-3 shapes, K5 and K6 also on config
+     2's 8-voice loop arena and exponential ramps, P2
+     also with constant poles, on eight lanes, and in the Pallas probe's
+     own 128x128 constant-pole form; P1 and K10b at config-5 shapes taken
+     mid-render with moving sources, P1 also in the probe's row form beside
+     torch's grouped conv1d; K9 at the occluded scene's shapes. Each entry
+     carries the bound (the larger of bytes over HBM rate and operations
+     over peak rate) and, where one PyTorch call computes the same
+     function, that call's time; K3's host time a call beside torch.sum's;
   4. configs 4, 3, 2 and 5 at superblock 4 over 8192 frames against
      tests/goldens/*.npz within 1e-5 max abs;
   5. config 4 at full size (64 voices, 2 s IR, superblock 64, 30 s rounded
      down to whole superblocks) through ``render`` and again through
      ``render_pcm16``: finite, non-silent, pcm16 bit-exact against the
-     plain pack of the f32 render, every config-4 kernel launched by that
-     run;
+     plain pack of the f32 render, every config-4 kernel launched by those
+     two runs; four more f32 runs for the spread;
   6. config 3 at full size (superblock 32, 30 s rounded down to whole
-     superblocks, 351 steps) through ``render``: finite, non-silent, its
-     first 8192 frames within 1e-5 of the golden, every config-3 kernel
-     launched by that run;
+     superblocks, 351 steps) through ``render``, five fresh runs: finite,
+     non-silent, the first 8192 frames within 1e-5 of the golden, every
+     config-3 kernel launched by the first run; a torch.profiler window of
+     20 steps for the device time per step and per kernel, over the
+     unprofiled host time per step for the device busy share;
   7. config 5 at full size (128 voices, superblock 32, 351 superblocks)
-     through ``render``, five fresh runs (median and spread): finite,
-     non-silent, the first 8192 frames within 1e-5 of the golden, P1, K10b
-     and the K2/K3/K5 calls launched by the first run; a torch.profiler
-     window of 20 steps for the device time per step and per kernel, over
-     the unprofiled host time per step for the device busy share;
+     through ``render``, five fresh runs: finite, non-silent, the first
+     8192 frames within 1e-5 of the golden, P1, K10b and the K2/K3/K5
+     calls launched by the first run; a profiler window as for config 3;
   8. the occluded scene (config 5's Kit graph, 16 voices with occlusion
      and transmission, superblock 32, 8 steps): K9, P1 and K10b launched,
      within 1e-5 of the same render on the CPU (plain versions).
@@ -108,26 +111,100 @@ def median_ms(fn, repeats=REPEATS):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20):
-    """Mean device time of one call of ``fn``: the CUDA kernels'
-    self time under torch.profiler over ``calls`` calls."""
+def device_ms(fn, calls=20, windows=5):
+    """Device time of one call of ``fn``: the CUDA kernels' self time
+    under torch.profiler over ``calls`` calls. Now and then a window loses
+    some of its kernels' events (seen on the chip machine, for kernels
+    launched through the ctypes library): of ``windows`` windows, the
+    median of those that recorded the most kernel events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    reads = []  # (kernel events, ms a call) per window
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us, events = 0.0, 0
+        for e in prof.key_averages():
+            t_us = getattr(e, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(e, "self_cuda_time_total", 0.0)
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                total_us += t_us
+                events += e.count
+        reads.append((events, total_us / calls / 1e3))
+    most = max(n for n, _ in reads)
+    return statistics.median([t for n, t in reads if n == most])
+
+
+def profile_steps(ctx, step_frames, host_us, steps=20):
+    """Device time a step and per kernel over ``steps`` steps of ``ctx``
+    under torch.profiler (after two warm-up steps); the busy share divides
+    it by ``host_us``, the unprofiled host time a step, since the profiler
+    slows the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx.render(2 * step_frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.render(steps * step_frames)
         torch.cuda.synchronize()
-    total_us = 0.0
+        window_s = time.perf_counter() - t0
+    per_kernel = {}
     for e in prof.key_averages():
         t_us = getattr(e, "self_device_time_total", None)
         if t_us is None:
             t_us = getattr(e, "self_cuda_time_total", 0.0)
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            total_us += t_us
-    return total_us / calls / 1e3
+        if t_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.key] = (t_us / steps, e.count / steps)
+    device_us = sum(t for t, _ in per_kernel.values())
+    top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"profiled_host_us_per_step": window_s / steps * 1e6,
+            "device_us_per_step": device_us, "device_busy": device_us / host_us,
+            "launches_per_step": sum(c for _, c in per_kernel.values()),
+            "top_kernels_us_per_step": {k: round(t, 3) for k, (t, _) in top_kernels}}
+
+
+def timed_render(build, frames, method="render"):
+    """One render of ``frames`` frames from a fresh context, built and
+    compiled before the clock starts: (output, wall seconds, the context's
+    stats breakdown)."""
+    import torch
+
+    ctx = build()
+    ctx._ensure_compiled()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = getattr(ctx, method)(frames)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ctx.stats.last_breakdown
+
+
+def spread(frames, walls):
+    """xRT of the median run and of the slowest and fastest."""
+    return {"wall_s": walls, "xrt_median": frames / SR / statistics.median(walls),
+            "xrt_range": [frames / SR / max(walls), frames / SR / min(walls)]}
+
+
+def host_us(fn, calls=10000):
+    """Mean host time of one call of ``fn`` in microseconds, over ``calls``
+    calls in a loop (the device drains at the end)."""
+    import torch
+
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def nbytes(*tensors):
@@ -268,17 +345,37 @@ def config3_kernel_checks(dev):
     x = tun.unity_gather(arena3, **args3)  # [1, 2, 4096]
     w1 = torch.tensor([[0.01, -0.02]], device=dev)
     w2 = torch.tensor([[0.005, 0.01]], device=dev)
-    p2 = compare("P2 biquad cascade, time-varying (config 3: V=1 C=2 T=4096)", "cuda",
-                 "graphaudio_tpu_torch/csrc/first_order.cu",
-                 "benchmarks/probes/hrtf_fir_pallas.py:290",
-                 lambda: flat(tbq.biquad_apply(x, *coeffs, w1, w2, time_varying=True)),
-                 lambda: flat(tbq.biquad_apply_plain(x, *coeffs, w1, w2, time_varying=True)),
-                 1e-6, rel=True,
-                 # two passes of two complex f64 multiply-adds a sample, plus
-                 # the output taps: ~40 f64 flops per sample and channel
-                 bnd=bound(nbytes(x, *coeffs, w1, w2)
-                           + nbytes(*tbq.biquad_apply(x, *coeffs, w1, w2, time_varying=True)),
-                           40 * x.numel(), F64_FLOPS))
+
+    def p2_check(label, x, coeffs, w1, w2, tv):
+        return compare(f"P2 biquad cascade, {label}", "cuda",
+                       "graphaudio_tpu_torch/csrc/first_order.cu",
+                       "benchmarks/probes/hrtf_fir_pallas.py:290",
+                       lambda: flat(tbq.biquad_apply(x, *coeffs, w1, w2, time_varying=tv)),
+                       lambda: flat(tbq.biquad_apply_plain(x, *coeffs, w1, w2, time_varying=tv)),
+                       1e-6, rel=True,
+                       # two passes of two complex f64 multiply-adds a sample,
+                       # plus the output taps: ~40 f64 flops per sample and channel
+                       bnd=bound(nbytes(x, *coeffs, w1, w2)
+                                 + nbytes(*tbq.biquad_apply(x, *coeffs, w1, w2, time_varying=tv)),
+                                 40 * x.numel(), F64_FLOPS))
+
+    p2 = p2_check("time-varying (config 3: V=1 C=2 T=4096)", x, coeffs, w1, w2, True)
+    # Constant poles (the node's kernel until a pole param gets an event),
+    # and eight lanes of peaking filters on the same ramps, their centre
+    # frequencies spread over three octaves.
+    const = [c[:, :1].expand_as(c).contiguous() for c in coeffs]
+    scale = torch.tensor([2.0 ** (k * 3.0 / 7.0) for k in range(8)], device=dev)[:, None]
+    coeffs8 = tbq.biquad_coefficients("peaking", (f * scale).contiguous(), q.expand(8, -1).contiguous(),
+                                      g.expand(8, -1).contiguous(), SR)
+    x8 = (x * torch.linspace(0.5, 1.5, 8, device=dev)[:, None, None]).contiguous()
+    w8 = [w.expand(8, -1).contiguous() for w in (w1, w2)]
+    const8 = [c[:, :1].expand_as(c).contiguous() for c in coeffs8]
+    p2["shapes"] = [
+        {k: e[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "device_ms")}
+        for e in (p2_check("constant poles (V=1 C=2 T=4096)", x, const, w1, w2, False),
+                  p2_check("time-varying (V=8 C=2 T=4096)", x8, coeffs8, *w8, True),
+                  p2_check("constant poles (V=8 C=2 T=4096)", x8, const8, *w8, False))]
     rng = np.random.default_rng(9)
     xr, xi = (torch.from_numpy(rng.standard_normal((128, 128)).astype(np.float32)).to(dev)
               for _ in range(2))
@@ -327,26 +424,46 @@ def occluded_scene(dev, voices=16):
     return ctx
 
 
+def k3_check(label, x, dst):
+    """K3 against its plain version on ``x`` f32[V, C, T] into ``dst``
+    channels, beside ``torch.sum`` over the lanes (and ``expand`` for the
+    mono up-mix), the one PyTorch call that computes the same function."""
+    import torch
+
+    from graphaudio_tpu_torch.core import mixing as tmixing
+
+    T = x.shape[2]
+    return compare(f"K3 lane fan-in ({label})", "cuda", "graphaudio_tpu_torch/csrc/fan_in.cu",
+                   "graphaudio_tpu/core/graph.py:1119",
+                   lambda: tmixing.fan_in_lanes(x, dst), lambda: tmixing.fan_in_lanes_plain(x, dst),
+                   # lane sums in another order: a few ulps of the largest sum
+                   4e-6, rel=True, bnd=bound(nbytes(x) + dst * T * 4, x.numel()),
+                   library=lambda: torch.sum(x, dim=0).expand(dst, -1))
+
+
 def config5_kernel_checks(dev):
     """P1 and K10b against their plain versions at config-5 shapes (128
     voices, superblock 32), on the arguments of the fourth step of a render
     whose sources move every quantum; P1 also in the Pallas probe's row form
     (x [4096, 191], h [4096, 128]) beside torch's grouped conv1d, the one
     PyTorch call that computes the probe's function; K9 on the arguments of
-    the occluded scene's second step. Returns the three JSON entries."""
+    the occluded scene's second step; K3 on the largest of that step's
+    fan-ins. Returns the three JSON entries and K3's."""
     from unittest import mock
 
     import torch
 
+    from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.nodes import spatial as tsp
     from graphaudio_tpu_torch.ops import hrtf as th
     from graphaudio_tpu_torch.ops import onepole as top
 
-    # The panner looks its kernels up in its own module: spies there see
-    # the arguments of each call.
+    # The panner and the step function look their kernels up in their own
+    # modules: spies there see the arguments of each call.
     ctx = moving_config5(dev)
     with mock.patch.object(tsp, "hrtf_fir", wraps=tsp.hrtf_fir) as fir, \
-            mock.patch.object(tsp, "spatial_gains", wraps=tsp.spatial_gains) as sg:
+            mock.patch.object(tsp, "spatial_gains", wraps=tsp.spatial_gains) as sg, \
+            mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
         ctx.render(4 * 32 * 128)
     fir_args = fir.call_args.args
     x, gain, az, el, blend, grid, ola = fir_args
@@ -402,8 +519,11 @@ def config5_kernel_checks(dev):
                  # x read once, y written once; two f64 sweeps of a multiply
                  # and an fma (3 flops) per sample
                  bnd=bound(2 * nbytes(xo) + 2 * nbytes(y0), 6 * xo.numel(), F64_FLOPS))
+    xf, dst = max((c.args for c in fan.call_args_list), key=lambda a: a[0].numel())
+    k3 = k3_check(f"config 5 step 4, its largest: {list(xf.shape)} -> [{dst}, {xf.shape[2]}]",
+                  xf, dst)
     p1["name"], k10b["name"], k9["name"] = "P1 HRTF FIR", "K10b spatial gains", "K9 one-pole lowpass"
-    return [p1, k10b, k9]
+    return [p1, k10b, k9], k3
 
 
 def main(device="cuda"):
@@ -444,6 +564,11 @@ def main(device="cuda"):
         if log.is_file() else []
     phase("build", f"{lib_path.name} in {build_s!r} s from {len(cudabuild.sources())} "
           f"sources; ptxas: {' | '.join(regs) or 'cached library, no compiler output'}")
+    # The floor under any kernel's device time as torch.profiler reads it:
+    # the smallest kernel the card runs, a one-element fill.
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(one.zero_)
+    phase("device", f"a one-element fill takes {floor_ms!r} ms on the device")
 
     # -- 3. kernels against their plain versions, main-path shapes ------------
     entries = []
@@ -509,13 +634,22 @@ def main(device="cuda"):
             e["name"], f["name"] = "K2a spectral MAC", "K2b overlap-add"
             entries += [e, f]
 
-    entries.append(compare(
-        "K3 lane fan-in ([64, 1, 8192] -> [2, 8192])", "cuda",
-        "graphaudio_tpu_torch/csrc/fan_in.cu", "graphaudio_tpu/core/graph.py:1119",
-        lambda: tmixing.fan_in_lanes(voices, 2), lambda: tmixing.fan_in_lanes_plain(voices, 2),
-        1e-5, bnd=bound(nbytes(voices) + 2 * T * 4, voices.numel()),
-        library=lambda: torch.sum(voices, dim=0)))
-    entries[-1]["name"] = "K3 lane fan-in"
+    k3 = k3_check("config 4: [64, 1, 8192] -> [2, 8192]", voices, 2)
+    k3["name"] = "K3 lane fan-in"
+    entries.append(k3)
+    # Where K3's call goes on the host, beside torch.sum's.
+    launch = cudabuild.launcher("ga_fan_in")
+    k3_out = torch.empty(2, T, device=dev)  # kept alive while the loop launches into it
+    k3_args = (voices.data_ptr(), k3_out.data_ptr(), 64, 1, 2, T, 1, 1.0,
+               cudabuild.stream_of(voices))
+    cudabuild.check(launch(*k3_args), "ga_fan_in")
+    k3["host_us"] = {
+        "fan_in_lanes": host_us(lambda: tmixing.fan_in_lanes(voices, 2)),
+        "torch.sum + expand": host_us(lambda: torch.sum(voices, dim=0).expand(2, -1)),
+        "ctypes launch alone": host_us(lambda: launch(*k3_args)),
+        "output allocation": host_us(lambda: voices.new_empty((2, T))),
+    }
+    phase("kernels", f"K3 host time a call (mean of 10000, us): {json.dumps(k3['host_us'])}")
     n_pack = 175 * T
     audio = torch.from_numpy((rng.standard_normal((2, n_pack)) * 0.5).astype(np.float32)).to(dev)
     entries.append(compare(
@@ -527,7 +661,11 @@ def main(device="cuda"):
 
     # -- 3b. the config-3 and config-5 paths' kernels ----------------------------
     entries += config3_kernel_checks(dev)
-    entries += config5_kernel_checks(dev)
+    c5, k3_c5 = config5_kernel_checks(dev)
+    entries += c5
+    k3["config5_shape"] = {k: k3_c5[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms",
+                                                 "device_ms")}
 
     # -- 4. goldens ----------------------------------------------------------
     from graphaudio_tpu_torch.testing.configs import (
@@ -550,41 +688,28 @@ def main(device="cuda"):
 
     # -- 5. the config-4 path at full size -------------------------------------
     frames = 175 * T  # 30 s rounded down to whole superblocks (as bench.py does)
+    b4 = lambda: config4_conv_reverb(superblock=64, voices=64, device=dev)  # noqa: E731
     t0 = time.perf_counter()
-    warm = config4_conv_reverb(superblock=64, voices=64, device=dev)
-    warm.render(T)
+    b4().render(T)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     phase("first", f"build graph + first superblock render: {first_s!r} s")
-    del warm
 
     # Each entry's wrapper, by the name it counts its launches on.
     wrappers = {"K1 poly resample": "poly_resample", "K2a spectral MAC": "spectral_mac",
                 "K2b overlap-add": "overlap_add", "K3 lane fan-in": "fan_in_lanes",
                 "K4 int16 pack": "pack_int16"}
     cudabuild.launches.clear()
-    ctx_f = config4_conv_reverb(superblock=64, voices=64, device=dev)
-    ctx_f._ensure_compiled()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    f32 = ctx_f.render(frames)
-    torch.cuda.synchronize()
-    wall_f = time.perf_counter() - t0
-    ctx_p = config4_conv_reverb(superblock=64, voices=64, device=dev)
-    ctx_p._ensure_compiled()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pcm = ctx_p.render_pcm16(frames)
-    torch.cuda.synchronize()
-    wall_p = time.perf_counter() - t0
+    f32, wall_f, bd_f = timed_render(b4, frames)
+    pcm, wall_p, bd_p = timed_render(b4, frames, "render_pcm16")
     launches = {name: cudabuild.launches[w] for name, w in wrappers.items()}
-    render4 = {"frames": frames, "f32_wall_s": wall_f, "f32_xrt": frames / SR / wall_f}
+    walls4 = [wall_f] + [timed_render(b4, frames)[1] for _ in range(4)]
+    render4 = {"frames": frames, "f32": spread(frames, walls4)}
 
     rms = float(np.sqrt(np.mean(f32.astype(np.float64) ** 2)))
     seconds = frames / SR
-    bd_f, bd_p = ctx_f.stats.last_breakdown, ctx_p.stats.last_breakdown
-    phase("render", f"f32: {f32.shape} in {wall_f!r} s = {seconds / wall_f!r} xRT; "
-          f"rms {rms!r}; breakdown {json.dumps(bd_f)}")
+    phase("render", f"f32: {f32.shape}; five runs {walls4!r} s, median "
+          f"{render4['f32']['xrt_median']!r} xRT; rms {rms!r}; first run breakdown {json.dumps(bd_f)}")
     phase("render", f"pcm16: {pcm.shape} in {wall_p!r} s = {seconds / wall_p!r} xRT; "
           f"breakdown {json.dumps(bd_p)}")
     if not (f32.shape == (2, frames) and np.isfinite(f32).all() and rms > 0):
@@ -602,27 +727,22 @@ def main(device="cuda"):
     # -- 6. the config-3 path at full size -----------------------------------
     T3 = 32 * 128
     frames3 = (30 * SR // T3) * T3  # 351 superblocks
+    b3 = lambda: config3_eq_chain(superblock=32, device=dev)  # noqa: E731
     wrappers3 = {"K5 unity copy": "unity_gather", "K6 param curve": "eval_intrinsic_blocked",
                  "K8 RBJ coefficients": "biquad_coefficients", "P2 biquad cascade": "biquad_apply"}
-    warm = config3_eq_chain(superblock=32, device=dev)
-    warm.render(T3)
+    b3().render(T3)
     torch.cuda.synchronize()
-    del warm
     cudabuild.launches.clear()
-    ctx3 = config3_eq_chain(superblock=32, device=dev)
-    ctx3._ensure_compiled()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out3 = ctx3.render(frames3)
-    torch.cuda.synchronize()
-    wall3 = time.perf_counter() - t0
+    out3, wall3, bd3 = timed_render(b3, frames3)
     launches3 = {name: cudabuild.launches[w] for name, w in wrappers3.items()}
+    walls3 = [wall3] + [timed_render(b3, frames3)[1] for _ in range(4)]
     rms3 = float(np.sqrt(np.mean(out3.astype(np.float64) ** 2)))
     head_err = float(np.abs(out3[:, :8192].astype(np.float64)
                             - np.load(GOLDENS[3])["out"]).max())
-    phase("render", f"config 3 f32: {out3.shape} in {wall3!r} s = {frames3 / SR / wall3!r} xRT; "
-          f"rms {rms3!r}; first 8192 frames vs golden max_abs_err={head_err!r}; "
-          f"breakdown {json.dumps(ctx3.stats.last_breakdown)}; launches {launches3}")
+    render3 = spread(frames3, walls3)
+    phase("render", f"config 3 f32: {out3.shape}; five runs {walls3!r} s, median "
+          f"{render3['xrt_median']!r} xRT; rms {rms3!r}; first 8192 frames vs golden "
+          f"max_abs_err={head_err!r}; first run breakdown {json.dumps(bd3)}; launches {launches3}")
     if not (out3.shape == (2, frames3) and np.isfinite(out3).all() and rms3 > 0
             and head_err < 1e-5):
         raise AssertionError("config-3 render is not finite, non-silent, [2, frames] "
@@ -632,39 +752,30 @@ def main(device="cuda"):
             e["launches"] = launches3[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-3 path")
+    host_us3 = statistics.median(walls3) / (frames3 // T3) * 1e6
+    profile3 = profile_steps(b3(), T3, host_us3)
+    phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(profile3)}")
 
     # -- 7. the config-5 path at full size -----------------------------------
     T5 = 32 * 128
     frames5 = (30 * SR // T5) * T5  # 351 superblocks
+    b5 = lambda: config5_spatial_scene(superblock=32, device=dev)  # noqa: E731
     wrappers5 = {"P1 HRTF FIR": "hrtf_fir", "K10b spatial gains": "spatial_gains",
                  "K2a spectral MAC": "spectral_mac", "K2b overlap-add": "overlap_add",
                  "K3 lane fan-in": "fan_in_lanes", "K5 unity copy": "unity_gather",
                  "K6 param curve": "eval_intrinsic_blocked"}
-    warm = config5_spatial_scene(superblock=32, device=dev)
-    warm.render(T5)
+    b5().render(T5)
     torch.cuda.synchronize()
-    del warm
-    walls5 = []
-    for run in range(5):
-        ctx5 = config5_spatial_scene(superblock=32, device=dev)
-        ctx5._ensure_compiled()
-        if run == 0:
-            cudabuild.launches.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out5 = ctx5.render(frames5)
-        torch.cuda.synchronize()
-        walls5.append(time.perf_counter() - t0)
-        if run == 0:
-            launches5 = {name: cudabuild.launches[w] for name, w in wrappers5.items()}
-            first5, bd5 = out5, ctx5.stats.last_breakdown
-        del ctx5
+    cudabuild.launches.clear()
+    first5, wall5, bd5 = timed_render(b5, frames5)
+    launches5 = {name: cudabuild.launches[w] for name, w in wrappers5.items()}
+    walls5 = [wall5] + [timed_render(b5, frames5)[1] for _ in range(4)]
     rms5 = float(np.sqrt(np.mean(first5.astype(np.float64) ** 2)))
     head_err5 = float(np.abs(first5[:, :8192].astype(np.float64)
                              - np.load(GOLDENS[5])["out"]).max())
-    wall5 = statistics.median(walls5)
-    phase("render", f"config 5 f32: {first5.shape}; five runs {walls5!r} s, median {wall5!r} s = "
-          f"{frames5 / SR / wall5!r} xRT; rms {rms5!r}; first 8192 frames vs golden "
+    render5 = spread(frames5, walls5)
+    phase("render", f"config 5 f32: {first5.shape}; five runs {walls5!r} s, median "
+          f"{render5['xrt_median']!r} xRT; rms {rms5!r}; first 8192 frames vs golden "
           f"max_abs_err={head_err5!r}; first run breakdown {json.dumps(bd5)}; launches {launches5}")
     if not (first5.shape == (2, frames5) and np.isfinite(first5).all() and rms5 > 0
             and head_err5 < 1e-5):
@@ -674,36 +785,9 @@ def main(device="cuda"):
                  "K5 unity copy"):
         if launches5[name] <= 0:
             raise AssertionError(f"{name} was not launched by the config-5 path")
-
-    # Device time per step and per kernel over a window of 20 steps under
-    # torch.profiler; the busy share divides it by the unprofiled host time
-    # per step (the median run above), since the profiler slows the host.
-    from torch.profiler import ProfilerActivity, profile
-
-    ctxp = config5_spatial_scene(superblock=32, device=dev)
-    ctxp.render(2 * T5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ctxp.render(20 * T5)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    per_kernel = {}
-    for e in prof.key_averages():
-        t_us = getattr(e, "self_device_time_total", None)
-        if t_us is None:
-            t_us = getattr(e, "self_cuda_time_total", 0.0)
-        if t_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            per_kernel[e.key] = (t_us / 20.0, e.count / 20.0)
-    device_us = sum(t for t, _ in per_kernel.values())
-    top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    host_us5 = wall5 / (frames5 // T5) * 1e6
-    profile5 = {"profiled_host_us_per_step": window_s / 20.0 * 1e6,
-                "device_us_per_step": device_us, "device_busy": device_us / host_us5,
-                "launches_per_step": sum(c for _, c in per_kernel.values()),
-                "top_kernels_us_per_step": {k: round(t, 3) for k, (t, _) in top_kernels}}
+    host_us5 = statistics.median(walls5) / (frames5 // T5) * 1e6
+    profile5 = profile_steps(b5(), T5, host_us5)
     phase("profile", f"config 5, 20 steps under torch.profiler: {json.dumps(profile5)}")
-    del ctxp, prof
 
     # -- 8. the occluded scene -------------------------------------------------
     wrappers_occ = {"K9 one-pole lowpass": "onepole_lowpass", "P1 HRTF FIR": "hrtf_fir",
@@ -733,17 +817,15 @@ def main(device="cuda"):
     print(json.dumps({"kernels": entries, "render": {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
-        "config3": {"frames": frames3, "f32_wall_s": wall3, "f32_xrt": frames3 / SR / wall3,
-                    "golden_max_abs_err": golden_err[3], "head_vs_golden": head_err},
-        "config5": {"frames": frames5, "f32_wall_s": walls5, "f32_wall_median_s": wall5,
-                    "f32_xrt_median": frames5 / SR / wall5,
-                    "f32_xrt_range": [frames5 / SR / max(walls5), frames5 / SR / min(walls5)],
-                    "host_us_per_step_median": host_us5,
+        "config3": {"frames": frames3, "f32": render3, "host_us_per_step_median": host_us3,
+                    "golden_max_abs_err": golden_err[3], "head_vs_golden": head_err,
+                    "launches": launches3, "profile": profile3},
+        "config5": {"frames": frames5, "f32": render5, "host_us_per_step_median": host_us5,
                     "golden_max_abs_err": golden_err[5], "head_vs_golden": head_err5,
                     "launches": launches5, "profile": profile5},
         "occluded": {"max_abs_err_vs_cpu": err_occ, "launches": launches_occ},
         "config2_golden_max_abs_err": golden_err[2],
-        "build_s": build_s, "card": smi}}), flush=True)
+        "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -54,9 +54,8 @@ def pack_int16(outs):
     cudabuild.require(outs, "outs", torch.float32, ndim=2)
     C, T = outs.shape
     out = torch.empty((T * C,), dtype=torch.int16, device=outs.device)
-    lib = cudabuild.load()
-    status = lib.ga_pack_int16(outs.data_ptr(), out.data_ptr(), C, T,
-                               cudabuild.stream_of(outs))
+    status = cudabuild.launcher("ga_pack_int16")(outs.data_ptr(), out.data_ptr(), C, T,
+                                                 cudabuild.stream_of(outs))
     cudabuild.check(status, "ga_pack_int16")
     cudabuild.launches["pack_int16"] += 1
     return out

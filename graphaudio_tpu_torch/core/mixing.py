@@ -15,6 +15,7 @@ CPU tensor.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -77,31 +78,40 @@ def fan_in_lanes_plain(x, dst_channels: int):
     return adapt_channels(x.sum(dim=0), dst_channels)
 
 
-def _fan_in_mode(src_channels: int, dst_channels: int) -> int:
+@functools.cache
+def _fan_in_mode(src_channels: int, dst_channels: int):
+    """(mode, scale) of csrc/fan_in.cu for a channel pair."""
     if src_channels == dst_channels:
-        return 0
+        return 0, 1.0
     if src_channels == 1:
-        return 1
+        return 1, 1.0
     if dst_channels == 1:
-        return 2
-    return 3
+        return 2, _downmix_scale(src_channels)
+    return 3, 1.0
 
 
 def fan_in_lanes(x, dst_channels: int):
     """Sum a group tensor f32[V, C, T] over lanes into f32[dst_channels, T].
 
-    CPU tensors take the plain version; CUDA tensors launch the K3 kernel.
+    CPU tensors take the plain version; CUDA tensors launch the K3 kernel,
+    which needs T a multiple of 16 and a 16-byte-aligned tensor. The launch
+    path is lean (one combined check, a cached mode and launcher): K3 runs
+    several times a step.
     """
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fan_in_lanes_plain(x, dst_channels)
-    cudabuild.require(x, "x", torch.float32, ndim=3)
+    if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 3 and x.is_contiguous()):
+        cudabuild.require(x, "x", torch.float32, ndim=3)  # raises, naming what is wrong
     V, C, T = x.shape
-    out = torch.empty((dst_channels, T), dtype=torch.float32, device=x.device)
-    lib = cudabuild.load()
-    mode = _fan_in_mode(C, dst_channels)
-    scale = _downmix_scale(C) if mode == 2 else 1.0
-    status = lib.ga_fan_in(x.data_ptr(), out.data_ptr(), V, C, dst_channels, T,
-                           mode, scale, cudabuild.stream_of(x))
-    cudabuild.check(status, "ga_fan_in")
+    ptr = x.data_ptr()
+    if T % 16 or ptr % 16:
+        raise ValueError(f"x needs T % 16 == 0 and 16-byte alignment, got T={T}, "
+                         f"address {ptr:#x}")
+    out = x.new_empty((dst_channels, T))
+    mode, scale = _fan_in_mode(C, dst_channels)
+    status = cudabuild.launcher("ga_fan_in")(ptr, out.data_ptr(), V, C, dst_channels, T,
+                                             mode, scale, cudabuild.stream_of(x))
+    if status:
+        cudabuild.check(status, "ga_fan_in")
     cudabuild.launches["fan_in_lanes"] += 1
     return out

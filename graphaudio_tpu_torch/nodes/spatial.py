@@ -159,7 +159,7 @@ def spatial_gains(p, listener, model: DistanceModelType):
         cudabuild.require(t, k, torch.float32, shape=(3,))
     _, V, S = p.shape
     out = torch.empty((6, V, S), dtype=torch.float32, device=p.device)
-    status = cudabuild.load().ga_spatial_gains(
+    status = cudabuild.launcher("ga_spatial_gains")(
         p.data_ptr(), *(t.data_ptr() for t in ls), V * S, _MODEL_CODE[model],
         out.data_ptr(), cudabuild.stream_of(p))
     cudabuild.check(status, "ga_spatial_gains")

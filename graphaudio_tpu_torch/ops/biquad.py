@@ -23,9 +23,11 @@ The port keeps that algorithm and its pole order:
   version is ``biquad_coefficients_plain`` around ``rbj_coefficients``.
 * ``biquad_apply`` is P2 (csrc/first_order.cu), the port of the Pallas
   first-order recurrence ``fo_kernel`` (benchmarks/probes/hrtf_fir_pallas.py
-  :276, :290): one thread per (lane, channel) walks time sequentially
-  through both cascaded recurrences, with the correction pass run in the
-  same sweep two samples behind the first. Its plain version,
+  :276, :290): a chunked two-level scan, one block per (lane, channel),
+  16 samples per thread, both cascaded recurrences of a pass composed into
+  one affine map of the state (v, w), the correction pass a second scan.
+  It reassociates the f64 products, so it may differ from the plain
+  version in the last f32 bit. Its plain version,
   ``biquad_apply_plain``, mirrors the JAX functions' association order:
   the two-level Hillis-Steele prefix ``_first_order_scan`` for
   time-varying poles and the blocked closed form ``_first_order_const``
@@ -204,7 +206,7 @@ def biquad_coefficients(filter_type: str, freq, q, gain_blocks, sample_rate):
     dev = freq.device
     b = torch.empty((3, V, T), dtype=torch.float32, device=dev)
     p = torch.empty((2, V, T), dtype=torch.complex64, device=dev)
-    status = cudabuild.load().ga_biquad_coeffs(
+    status = cudabuild.launcher("ga_biquad_coeffs")(
         freq.data_ptr(), q.data_ptr(), gain_blocks.data_ptr(), V, T,
         FILTER_TYPES.index(filter_type), float(sample_rate) / 2.0,
         float(_w0_scale(sample_rate)), b.data_ptr(), p.data_ptr(),
@@ -352,22 +354,15 @@ def biquad_apply_plain(x, b0, b1, b2, p1, p2, w1, w2, time_varying: bool):
     return y.float(), w_t[..., -1].float(), w_tm1[..., -1].float()
 
 
-def _cascade_chunk(C: int) -> int:
-    """Samples per shared-memory chunk of csrc/first_order.cu: a power of
-    two that keeps the chunk (two poles and three coefficients widened to
-    f64, C f32 input channels per sample) within 48 KB."""
-    per = 2 * 16 + 3 * 8 + 4 * C
-    ch = 512
-    while ch > 32 and ch * per > 48 * 1024:
-        ch //= 2
-    return ch
+#: Samples per thread of csrc/first_order.cu's scan (kChunk there).
+CASCADE_CHUNK = 16
 
 
 def biquad_apply(x, b0, b1, b2, p1, p2, w1, w2, time_varying: bool):
     """P2: filter a group's [V, C, T] samples through its biquads, see
     ``biquad_apply_plain``. CPU tensors take the plain version; CUDA
-    tensors launch csrc/first_order.cu (sequential in time, one thread per
-    (lane, channel), correction pass in the same sweep)."""
+    tensors launch csrc/first_order.cu (a chunked two-level scan), which
+    needs T a multiple of ``CASCADE_CHUNK`` and 16-byte-aligned inputs."""
     if x.device.type == "cpu":
         return biquad_apply_plain(x, b0, b1, b2, p1, p2, w1, w2, time_varying)
     V, C, T = x.shape
@@ -380,16 +375,15 @@ def biquad_apply(x, b0, b1, b2, p1, p2, w1, w2, time_varying: bool):
     w1, w2 = w1.contiguous(), w2.contiguous()
     req(w1, "w1", torch.float32, shape=(V, C))
     req(w2, "w2", torch.float32, shape=(V, C))
-    if C > 128:
-        raise ValueError(f"at most 128 channels per lane, got {C}")
+    ptrs = [t.data_ptr() for t in (x, b0, b1, b2, p1, p2)]
+    if T % CASCADE_CHUNK or any(p % 16 for p in ptrs):
+        raise ValueError(f"the cascade needs T % {CASCADE_CHUNK} == 0 and 16-byte-aligned "
+                         f"x, b0, b1, b2, p1, p2; got T={T}, addresses {ptrs}")
     y = torch.empty_like(x)
     state = torch.empty((2, V, C), dtype=torch.float32, device=x.device)
-    ch = _cascade_chunk(C)
-    status = cudabuild.load().ga_biquad_cascade(
-        x.data_ptr(), b0.data_ptr(), b1.data_ptr(), b2.data_ptr(), p1.data_ptr(),
-        p2.data_ptr(), w1.data_ptr(), w2.data_ptr(), V, C, T, ch,
-        int(bool(time_varying)), y.data_ptr(), state[0].data_ptr(),
-        state[1].data_ptr(), cudabuild.stream_of(x),
+    status = cudabuild.launcher("ga_biquad_cascade")(
+        *ptrs, w1.data_ptr(), w2.data_ptr(), V, C, T, int(bool(time_varying)),
+        y.data_ptr(), state[0].data_ptr(), state[1].data_ptr(), cudabuild.stream_of(x),
     )
     cudabuild.check(status, "ga_biquad_cascade")
     cudabuild.launches["biquad_apply"] += 1
@@ -422,7 +416,7 @@ def first_order_tb(xr, xi, ar, ai):
     req(ar, "ar", torch.float32, shape=(1, B))
     req(ai, "ai", torch.float32, shape=(1, B))
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    status = cudabuild.load().ga_first_order_tb(
+    status = cudabuild.launcher("ga_first_order_tb")(
         xr.data_ptr(), xi.data_ptr(), ar.data_ptr(), ai.data_ptr(), T, B,
         yr.data_ptr(), yi.data_ptr(), cudabuild.stream_of(xr),
     )

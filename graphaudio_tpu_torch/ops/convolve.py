@@ -149,8 +149,7 @@ def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
     req(ring_r, "ring_r", torch.float32, shape=(K, R, NB))
     req(ring_i, "ring_i", torch.float32, shape=(K, R, NB))
     acc = torch.empty((K, L, NB), dtype=torch.complex64, device=X.device)
-    lib = cudabuild.load()
-    status = lib.ga_conv_mac(
+    status = cudabuild.launcher("ga_conv_mac")(
         X.data_ptr(), hr.data_ptr(), hi.data_ptr(), ring_r.data_ptr(),
         ring_i.data_ptr(), acc.data_ptr(), K, L, P, NB, R, int(head) % R,
         int(bool(rev)), cudabuild.stream_of(X),
@@ -187,9 +186,8 @@ def overlap_add(y_full, overlap):
     cudabuild.require(y_full, "y_full", torch.float32, shape=(K, L, 2 * B))
     cudabuild.require(overlap, "overlap", torch.float32, shape=(K, B))
     y = torch.empty((K, L * B), dtype=torch.float32, device=y_full.device)
-    lib = cudabuild.load()
-    status = lib.ga_conv_ola(y_full.data_ptr(), overlap.data_ptr(), y.data_ptr(),
-                             K, L, B, cudabuild.stream_of(y_full))
+    status = cudabuild.launcher("ga_conv_ola")(
+        y_full.data_ptr(), overlap.data_ptr(), y.data_ptr(), K, L, B, cudabuild.stream_of(y_full))
     cudabuild.check(status, "ga_conv_ola")
     cudabuild.launches["overlap_add"] += 1
     return y

@@ -402,7 +402,7 @@ def hrtf_fir(x, gain, az, el, blend, grid, ola):
             req(t, name, torch.float32)
     out = torch.empty((V, 2, T), dtype=torch.float32, device=x.device)
     ola_out = torch.empty((V, 2, W), dtype=torch.float32, device=x.device)
-    status = cudabuild.load().ga_hrtf_fir(
+    status = cudabuild.launcher("ga_hrtf_fir")(
         x.data_ptr(), None if gain is None else gain.data_ptr(), az.data_ptr(),
         el.data_ptr(), blend.data_ptr(), grid.data_ptr(), ola.data_ptr(), V, C, S,
         E, A, L, W, _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1),
@@ -441,7 +441,7 @@ def hrtf_fir_rows(x, h):
     if not (1 <= F <= 512 and 1 <= L <= 512):
         raise ValueError(f"the row form takes 1 <= F, L <= 512, got F={F} L={L}")
     out = torch.empty((R, 2 * F), dtype=torch.float32, device=x.device)
-    status = cudabuild.load().ga_hrtf_fir_rows(
+    status = cudabuild.launcher("ga_hrtf_fir_rows")(
         x.data_ptr(), h.data_ptr(), R, F, L, out.data_ptr(), cudabuild.stream_of(x))
     cudabuild.check(status, "ga_hrtf_fir_rows")
     cudabuild.launches["hrtf_fir_rows"] += 1

@@ -84,7 +84,7 @@ def onepole_lowpass(x, a: float, y0):
     cudabuild.require(y0, "y0", torch.float32, shape=x.shape[:-1])
     y = torch.empty_like(x)
     carry = torch.empty_like(y0)
-    status = cudabuild.load().ga_onepole(
+    status = cudabuild.launcher("ga_onepole")(
         x.data_ptr(), y0.data_ptr(), float(a), rows, S, y.data_ptr(), carry.data_ptr(),
         cudabuild.stream_of(x))
     cudabuild.check(status, "ga_onepole")

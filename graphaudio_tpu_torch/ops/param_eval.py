@@ -197,7 +197,7 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
     req(base_l, "base", torch.float32, shape=(L,))
     out = torch.empty((L, S * n_per_block), dtype=torch.float32,
                       device=block_times.device)
-    status = cudabuild.load().ga_param_eval(
+    status = cudabuild.launcher("ga_param_eval")(
         times.data_ptr(), values.data_ptr(), tcs.data_ptr(), types.data_ptr(),
         boundary.data_ptr(), n.data_ptr(), base_l.data_ptr(),
         block_times.data_ptr(), L, cap, S, n_per_block, float(sample_dt),

@@ -122,9 +122,8 @@ def poly_resample(arena, win_start, j0, bidx, blk_ok, jlim, looping,
     req(btab, "btab", torch.int32, shape=(q,))
     out = torch.empty((V, C, S * FRAMES_PER_BLOCK), dtype=torch.float32,
                       device=arena.device)
-    lib = cudabuild.load()
     # bool tensors are one byte per element: passed as uint8 pointers.
-    status = lib.ga_poly_resample(
+    status = cudabuild.launcher("ga_poly_resample")(
         arena.data_ptr(), W, C, V, S, win_start.data_ptr(), j0.data_ptr(),
         bidx.data_ptr(), blk_ok.data_ptr(), jlim.data_ptr(), looping.data_ptr(),
         wtab.data_ptr(), btab.data_ptr(), p, q, out.data_ptr(),

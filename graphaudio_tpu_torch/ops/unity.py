@@ -71,7 +71,7 @@ def unity_gather(arena, row0, delta, bidx, g0, end_bound, looping, blk_ok):
     out = torch.empty((V, C, S * FRAMES_PER_BLOCK), dtype=torch.float32,
                       device=arena.device)
     # bool tensors are one byte per element: passed as uint8 pointers.
-    status = cudabuild.load().ga_unity_gather(
+    status = cudabuild.launcher("ga_unity_gather")(
         arena.data_ptr(), W, C, V, S, row0.data_ptr(), delta.data_ptr(),
         bidx.data_ptr(), g0.data_ptr(), end_bound.data_ptr(), looping.data_ptr(),
         blk_ok.data_ptr(), out.data_ptr(), cudabuild.stream_of(arena),

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,7 +49,7 @@ _SIGNATURES = {
                       ctypes.c_double, _P, _P],
     "ga_biquad_coeffs": [_P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float,
                          _P, _P, _P],
-    "ga_biquad_cascade": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "ga_biquad_cascade": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P, _P],
     "ga_first_order_tb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     "ga_hrtf_fir": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -135,8 +136,12 @@ def build() -> Path:
 
 
 def load():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Once it is loaded,
+    no lock is taken."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -150,6 +155,13 @@ def load():
         return _lib
 
 
+@functools.cache
+def launcher(name: str):
+    """The exported C launcher ``name`` of the loaded library, looked up
+    once."""
+    return getattr(load(), name)
+
+
 def check(status: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error."""
     if status != 0:
@@ -157,11 +169,12 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
 
-def stream_of(t):
-    """PyTorch's current CUDA stream on ``t``'s device, as a ctypes pointer."""
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``t``'s device, as
+    an int (ctypes passes it as a ``c_void_p``). Builds no stream object."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t, name: str, dtype, ndim: int = None, shape=None) -> None:

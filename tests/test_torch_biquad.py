@@ -20,8 +20,13 @@ state (ops/biquad.py says why). Tolerances, each with its reason:
   is itself that far from the f64 mirror (asserted there), and for the
   +18 dB gain step, the bound the JAX package's own test of that step
   holds it to (tests/test_biquad.py, peaking gain automation);
-* state carried across render calls in the port: bit-exact.
+* state carried across render calls in the port: bit-exact;
+* the numpy emulation of the card kernel's chunked scan
+  (``_chunked_scan64``) against the sequential f64 mirror: 1e-9 of the
+  peak level (f64 products reassociated; the f32 inputs are exact in f64).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -111,9 +116,11 @@ def test_first_order_const_matches_jax(T):
     assert np.abs(got - want).max() < 2e-6 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("time_varying", [False, True], ids=["constant", "time-varying"])
-@pytest.mark.parametrize("T", [512, 4096])
-def test_biquad_apply_matches_jax(T, time_varying):
+@functools.lru_cache(maxsize=None)
+def _apply_case(T, time_varying):
+    """Two lanes of stereo noise through peaking filters (ramped frequency
+    and Q when ``time_varying``): the port's inputs (x, b0, b1, b2, p1, p2,
+    w1, w2 as numpy) and the JAX package's (y, w1, w2)."""
     rng = np.random.default_rng(T + time_varying)
     V, C = 2, 2
     n = np.arange(T, dtype=np.float32)
@@ -139,11 +146,16 @@ def test_biquad_apply_matches_jax(T, time_varying):
         w2s.append(np.asarray(b))
     b0, b1, b2, a1, a2 = (torch.from_numpy(np.stack([c[k] for c in lane_coeffs])) for k in range(5))
     p1, p2 = tbq.split_poles(a1, a2)
-    got = tbq.biquad_apply(torch.from_numpy(x), b0, b1, b2, p1, p2, torch.from_numpy(w1),
-                           torch.from_numpy(w2), time_varying=time_varying)
-    mirror = _biquad_mirror64(x, b0.numpy(), b1.numpy(), b2.numpy(), p1.numpy(),
-                              p2.numpy(), w1, w2, time_varying)
-    want = (np.stack(ys), np.stack(w1s), np.stack(w2s))
+    inputs = (x, b0.numpy(), b1.numpy(), b2.numpy(), p1.numpy(), p2.numpy(), w1, w2)
+    return inputs, (np.stack(ys), np.stack(w1s), np.stack(w2s))
+
+
+@pytest.mark.parametrize("time_varying", [False, True], ids=["constant", "time-varying"])
+@pytest.mark.parametrize("T", [512, 4096])
+def test_biquad_apply_matches_jax(T, time_varying):
+    inputs, want = _apply_case(T, time_varying)
+    got = tbq.biquad_apply(*(torch.from_numpy(a) for a in inputs), time_varying=time_varying)
+    mirror = _biquad_mirror64(*inputs, time_varying)
     for g, w, m in zip(got, want, mirror):
         assert g.dtype == torch.float32 and g.shape == w.shape
         peak = max(1.0, np.abs(m).max())
@@ -180,6 +192,131 @@ def _biquad_mirror64(x, b0, b1, b2, p1, p2, w1, w2, time_varying):
         tm2 = np.concatenate([w2[..., None], tm1[..., :-1]], axis=-1)
     y = b0[:, None] * wt + b1[:, None] * tm1 + b2[:, None] * tm2
     return y, wt[..., -1], tm1[..., -1]
+
+
+def _chunked_scan64(x, b0, b1, b2, p1, p2, w1, w2, time_varying, chunk, threads=256, warp=32):
+    """numpy f64 emulation of csrc/first_order.cu's chunked two-level scan.
+
+    Time is cut into tiles of ``threads`` chunks of ``chunk`` samples (the
+    last chunk may be short). A pass composes each chunk's affine map of the
+    cascade state (v, w) from the zero state, scans the maps inclusively
+    within each warp of chunks by doubling, walks the warp totals in order
+    from the tile's carried state, gives each chunk its carry-in (the
+    previous chunk's end, or its warp's start) and replays the chunk from
+    it. Each chunk publishes its last two real w (a chunk of one sample
+    passes its predecessor's last on); pass 2's w1_{t-2} and the output
+    taps at a chunk's first samples come from there. Returns (y, w1, w2) in
+    f64."""
+    V, C, T = x.shape
+    P1 = p1.astype(np.complex128)[:, None, :]
+    P2 = p2.astype(np.complex128)[:, None, :]
+    X = x.astype(np.float64)
+    B0, B1, B2 = (b.astype(np.float64)[:, None, :] for b in (b0, b1, b2))
+    W1, W2 = w1.astype(np.float64), w2.astype(np.float64)
+    s0 = (W1 - P2[..., 0] * W2, W1.astype(np.complex128))
+    seeds = [s0, s0]
+    hcar = ocar = (W1, W2)  # (w_{t0-1}, w_{t0-2}) of pass 1 / the output
+
+    def compose(l, e):  # l after e; a map is (m11, m21, m22, d1, d2)
+        return (l[0] * e[0], l[1] * e[0] + l[2] * e[1], l[2] * e[2],
+                l[0] * e[3] + l[3], l[1] * e[3] + l[2] * e[4] + l[4])
+
+    def apply(m, s):
+        return (m[0] * s[0] + m[3], m[1] * s[0] + m[2] * s[1] + m[4])
+
+    def run(a1, a2, u, valid, seed):
+        """One pass over a tile: u, a1, a2 [V, C|1, N, K]; returns each
+        sample's real w [V, C, N, K] and the state at the tile's end."""
+        shape = u.shape[:3]
+        one, zero = np.ones(shape, complex), np.zeros(shape, complex)
+        m = (one, zero, one, zero, zero)
+        for k in range(u.shape[-1]):
+            p, q, ok = a1[..., k], a2[..., k], valid[:, k]
+            d1 = p * m[3] + u[..., k]
+            m11 = p * m[0]
+            new = (m11, q * m[1] + m11, q * m[2], d1, q * m[4] + d1)
+            m = tuple(np.where(ok, n, o) for n, o in zip(new, m))
+        lane = np.arange(shape[-1]) % warp
+        off = 1
+        while off < warp:  # inclusive scan within each warp, by doubling
+            ident = (one, zero, one, zero, zero)
+            e = tuple(np.concatenate([i[..., :off], f[..., :-off]], axis=-1)
+                      for i, f in zip(ident, m))
+            m = tuple(np.where(lane >= off, c, o) for c, o in zip(compose(m, e), m))
+            off *= 2
+        s, starts = seed, []
+        for w in range(shape[-1] // warp):  # the warp totals, in order
+            starts.append(s)
+            s = apply(tuple(f[..., w * warp + warp - 1] for f in m), s)
+        start = tuple(np.repeat(np.stack(z, axis=-1), warp, axis=-1) for z in zip(*starts))
+        end = apply(m, start)
+        carry = tuple(np.where(lane == 0, st, np.concatenate([st[..., :1], e[..., :-1]], axis=-1))
+                      for st, e in zip(start, end))
+        v, w = carry
+        rw = np.zeros(u.shape)
+        for k in range(u.shape[-1]):
+            nv = a1[..., k] * v + u[..., k]
+            nw = a2[..., k] * w + nv
+            ok = valid[:, k]
+            v, w = np.where(ok, nv, v), np.where(ok, nw, w)
+            rw[..., k] = w.real
+        return rw, s
+
+    def edges(rw, valid, car):
+        """(w_{t-1}, w_{t-2}) of every sample through the chunks' published
+        last two values; and the last two of the tile's last chunk."""
+        tm1, tm2 = np.zeros(rw.shape), np.zeros(rw.shape)
+        pub = car
+        for j in range(rw.shape[2]):
+            n = int(valid[j].sum())
+            if n == 0:
+                break
+            for k in range(n):
+                tm1[..., j, k] = rw[..., j, k - 1] if k >= 1 else pub[0]
+                tm2[..., j, k] = rw[..., j, k - 2] if k >= 2 else (pub[0] if k == 1 else pub[1])
+            pub = (rw[..., j, n - 1], rw[..., j, n - 2] if n >= 2 else pub[0])
+        return tm1, tm2, pub
+
+    y = np.empty((V, C, T))
+    for t0 in range(0, T, threads * chunk):
+        idx = t0 + np.arange(threads * chunk).reshape(threads, chunk)
+        valid = idx < T
+        idx = np.minimum(idx, T - 1)
+        a1, a2 = P1[..., idx], P2[..., idx]
+        xs = X[..., idx].astype(np.complex128)
+        rw, seeds[0] = run(a1, a2, xs, valid, seeds[0])
+        htm1, htm2, hcar_new = edges(rw, valid, hcar)
+        if time_varying:
+            prev = P2[..., np.maximum(idx - 1, 0)]  # p2_{-1} := p2_0
+            u = xs - a1 * (a2 - prev) * htm2
+            rw, seeds[1] = run(a1, a2, u, valid, seeds[1])
+            tm1, tm2, ocar = edges(rw, valid, ocar)
+        else:
+            tm1, tm2, ocar = htm1, htm2, hcar_new
+        hcar = hcar_new
+        out = B0[..., idx] * rw + B1[..., idx] * tm1 + B2[..., idx] * tm2
+        y[..., idx[valid]] = out[..., valid]
+    return y, ocar[0], ocar[1]
+
+
+@pytest.mark.parametrize("time_varying", [False, True], ids=["constant", "time-varying"])
+@pytest.mark.parametrize("T", [512, 4096])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 16])
+def test_chunked_scan_emulation(chunk, T, time_varying):
+    """The card kernel's algorithm (csrc/first_order.cu runs chunk 16), in
+    f64: against the sequential f64 mirror, the JAX package, and, rounded
+    to f32, the port's plain version."""
+    inputs, want = _apply_case(T, time_varying)
+    got = _chunked_scan64(*inputs, time_varying, chunk)
+    mirror = _biquad_mirror64(*inputs, time_varying)
+    plain = tbq.biquad_apply_plain(*(torch.from_numpy(a) for a in inputs),
+                                   time_varying=time_varying)
+    for g, w, m, p in zip(got, want, mirror, plain):
+        peak = max(1.0, np.abs(m).max())
+        assert g.shape == w.shape
+        assert np.abs(g - m).max() < 1e-9 * peak
+        assert np.abs(g - w).max() < 5e-5 * peak
+        assert np.abs(g.astype(np.float32) - p.numpy()).max() < 1e-6 * peak
 
 
 def _source_into_filter(mod, ftype, superblock, seconds=0.2, **ctx_kw):

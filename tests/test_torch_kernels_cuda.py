@@ -90,10 +90,13 @@ def test_k2_mac_and_overlap_add(dev, L, P, B, rev):
     assert torch.equal(y, y_ref) and torch.equal(ov, ov2)
 
 
-def test_k3_fan_in(dev):
+@pytest.mark.parametrize("T", [128, 4096, 8192])
+@pytest.mark.parametrize("V", [1, 3, 64, 128, 130])
+def test_k3_fan_in(dev, V, T):
     g = torch.Generator().manual_seed(2)
+    # modes 1 (mono up-mix), 0, 2 (down-mix), 3 (discrete, both ways)
     for src_c, dst_c in [(1, 2), (2, 2), (2, 1), (4, 2), (2, 4)]:
-        lanes = torch.randn(64, src_c, 8192, generator=g).to(dev)
+        lanes = torch.randn(V, src_c, T, generator=g).to(dev)
         got = fan_in_lanes(lanes, dst_c)
         ref = fan_in_lanes_plain(lanes, dst_c)
         torch.cuda.synchronize()
@@ -205,16 +208,18 @@ def _biquad_inputs(dev, V, C, T, seed):
 
 
 @pytest.mark.parametrize("tv", [False, True])
-@pytest.mark.parametrize("T", [512, 4096])
-def test_p2_biquad_cascade(dev, tv, T):
-    args = _biquad_inputs(dev, 3, 2, T, seed=8)
+@pytest.mark.parametrize("T", [128, 512, 4096, 8192])
+@pytest.mark.parametrize("V, C", [(1, 1), (1, 2), (3, 2), (8, 2)])
+def test_p2_biquad_cascade(dev, tv, T, V, C):
+    """Sizes inside one 4096-sample tile of the scan, and two tiles."""
+    args = _biquad_inputs(dev, V, C, T, seed=8)
     if not tv:  # constant poles and coefficients
         args = [args[0]] + [a[:, :1].expand_as(a).contiguous() for a in args[1:6]] + args[6:]
     got = tbq.biquad_apply(*args, time_varying=tv)
     ref = tbq.biquad_apply_plain(*args, time_varying=tv)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
-        # f64 recurrences on both sides (sequential vs prefix), rounded to f32
+        # f64 recurrences on both sides (chunked scan vs prefix), rounded to f32
         assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item())
 
 
