@@ -23,9 +23,11 @@ failure raises and the script exits non-zero:
      median of 50 CUDA-event-timed calls of each (with the wrapper's
      Python) and its kernels' device time under torch.profiler (mean of 20
      calls, over the windows that lost no kernel events): K1-K4 at
-     config-4 shapes, K3 also at the largest shape a config-5 step gives
-     it; K5, K6, K8 and P2 at config-3 shapes, K5 and K6 also on config
-     2's 8-voice loop arena and exponential ramps, P2
+     config-4 shapes, K2 also at config 5's reverb send and the 128 grain
+     (K2a beside one einsum over the unfolded delay line), K3 also at the
+     largest shape a config-5 step gives it; K5, K6, K8 and P2 at config-3
+     shapes, K5 and K6 also on config 2's 8-voice loop arena and
+     exponential ramps, P2
      also with constant poles, on eight lanes, and in the Pallas probe's
      own 128x128 constant-pole form; P1 and K10b at config-5 shapes taken
      mid-render with moving sources, P1 also in the probe's row form beside
@@ -39,7 +41,8 @@ failure raises and the script exits non-zero:
      down to whole superblocks) through ``render`` and again through
      ``render_pcm16``: finite, non-silent, pcm16 bit-exact against the
      plain pack of the f32 render, every config-4 kernel launched by those
-     two runs; four more f32 runs for the spread;
+     two runs; four more f32 runs for the spread; a profiler window as for
+     config 3;
   6. config 3 at full size (superblock 32, 30 s rounded down to whole
      superblocks, 351 steps) through ``render``, five fresh runs: finite,
      non-silent, the first 8192 frames within 1e-5 of the golden, every
@@ -53,6 +56,10 @@ failure raises and the script exits non-zero:
   8. the occluded scene (config 5's Kit graph, 16 voices with occlusion
      and transmission, superblock 32, 8 steps): K9, P1 and K10b launched,
      within 1e-5 of the same render on the CPU (plain versions).
+
+``python3 chip_smoke.py --k2a`` runs phases 1 and 2, the K2 checks and
+config 4's profile window only: copied into another tree's checkout, it
+times that tree's K2 kernels the same way.
 
 Each wrapper counts its launches in ``cudabuild.launches`` under its own
 name; the counts are set to 0 just before each path's run and read just
@@ -221,11 +228,13 @@ def bound(moved_bytes, ops, peak=F32_FLOPS):
 
 
 def compare(name, route, source, replaces, kernel, plain, tol, bnd, rel=False,
-            library=None):
+            library=None, device_times=False):
     """Run kernel and plain version on the same inputs, check the error,
     time both (and ``library``, one PyTorch call computing the same
     function, where there is one). ``bnd`` is ``bound(...)`` of the
-    kernel's work. Returns the kernel's JSON entry (launches filled later)."""
+    kernel's work. With ``device_times`` the plain version's and the
+    library call's device times are read too. Returns the kernel's JSON
+    entry (launches filled later)."""
     import torch
 
     got = kernel()
@@ -241,6 +250,12 @@ def compare(name, route, source, replaces, kernel, plain, tol, bnd, rel=False,
     library_ms = median_ms(library) if library is not None else None
     dev_ms = device_ms(kernel)
     bound_ms, bound_by = bnd
+    extra = {}
+    if device_times:
+        extra["plain_device_ms"] = device_ms(plain)
+        extra["library_device_ms"] = device_ms(library) if library is not None else None
+        phase("kernels", f"{name}: device ms, plain {extra['plain_device_ms']!r}, "
+              f"library {extra['library_device_ms']!r}")
     ok = err <= tol_abs
     phase("kernels", f"{name}: max_abs_err={err!r} (tolerance {tol_abs!r}{' = %g x max|ref|' % tol if rel else ''}) "
           f"kernel {ms!r} ms a call, {dev_ms!r} ms on the device; plain {plain_ms!r} ms, "
@@ -250,7 +265,7 @@ def compare(name, route, source, replaces, kernel, plain, tol, bnd, rel=False,
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "device_ms": dev_ms}
+            "device_ms": dev_ms, **extra}
 
 
 def config3_kernel_checks(dev):
@@ -526,7 +541,79 @@ def config5_kernel_checks(dev):
     return [p1, k10b, k9], k3
 
 
-def main(device="cuda"):
+def k2_checks(dev):
+    """K2a and K2b against their plain versions at the shapes the main paths
+    give them: config 4's (grain 1024), config 5's reverb send (K, L and P
+    read from its compiled plan) and the 128 grain (superblock 4, the
+    goldens' grain). K2a also beside the library call: one einsum over the
+    unfolded delay line, the JAX reference's form (without the ring write),
+    on a contiguous complex delay line and correlation-order spectra built
+    before the clock starts. Returns the K2a and K2b entries at config 4's
+    shape, each with the other two shapes under "shapes"."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import convolve as tconv
+    from graphaudio_tpu_torch.testing.configs import config4_conv_reverb, config5_spatial_scene
+
+    rng = np.random.default_rng(0)
+    macs, olas = [], []
+    for label, cctx in (("config 4, grain 1024", config4_conv_reverb(superblock=64, voices=64, device=dev)),
+                        ("config 5 reverb send, grain 1024", config5_spatial_scene(superblock=32, device=dev)),
+                        ("128 grain", config4_conv_reverb(superblock=4, voices=1, device=dev))):
+        cctx._ensure_compiled()
+        si = next(sp["si"] for sp in cctx._compiled.plan
+                  if sp["kind"] == "single" and f"st{sp['si']}/conv_hr" in cctx._consts)
+        hr, hi = cctx._consts[f"st{si}/conv_hr"], cctx._consts[f"st{si}/conv_hi"]
+        K, P, NB = hr.shape
+        B = NB - 1
+        L = cctx.superblock * 128 // B
+        R, head = P - 1 + L, 5
+        rev = B != 128
+        x = torch.from_numpy(rng.standard_normal((K, L, B)).astype(np.float32) * 0.4).to(dev)
+        X = torch.fft.rfft(x, n=2 * B, dim=-1)
+        ring0 = torch.from_numpy(rng.standard_normal((2, K, R, NB)).astype(np.float32) * 20).to(dev)
+        # The MAC writes this step's spectra into slots it never reads, so
+        # repeated calls on one ring give the same sum: no copy is timed.
+        rk, rp = ring0.clone(), ring0.clone()
+        mac_k = lambda: tconv.spectral_mac(X, hr, hi, rk[0], rk[1], head, rev)  # noqa: E731
+        mac_p = lambda: tconv.spectral_mac_plain(X, hr, hi, rp[0], rp[1], head, rev)  # noqa: E731
+        past = tconv.ring_slots(head, -(P - 1), P - 1, R, dev)
+        seq = torch.complex(torch.cat([ring0[0][:, past], X.real], 1),
+                            torch.cat([ring0[1][:, past], X.imag], 1)).contiguous()  # [K, R, NB]
+        hc = torch.complex(hr, hi)
+        hc = (hc if rev else hc.flip(1)).contiguous()  # correlation order
+        mac_lib = lambda: torch.einsum("klpb,kpb->klb", seq.unfold(1, P, 1).transpose(-1, -2), hc)  # noqa: E731
+        e = compare(f"K2a spectral MAC ({label}: K={K} L={L} P={P} bins={NB})", "cuda",
+                    "graphaudio_tpu_torch/csrc/conv.cu",
+                    "graphaudio_tpu/ops/convolve.py:191" if rev else "graphaudio_tpu/ops/convolve.py:72",
+                    mac_k, mac_p, 1e-5, rel=True,
+                    # spectra, IR partitions and the ring once, the sum out;
+                    # a complex multiply-add (8 flops) per (sub-block, lag, bin)
+                    bnd=bound(nbytes(X, hr, hi, ring0, X), 8 * K * L * P * NB), library=mac_lib,
+                    device_times=True)
+        e["library_max_abs_err"] = float((mac_lib() - mac_p()).abs().max())
+        if not torch.equal(rk, rp):
+            raise AssertionError(f"K2a's ring writes differ from the plain version's ({label})")
+        phase("kernels", f"K2a library einsum vs plain: max_abs_err={e['library_max_abs_err']!r}")
+        yfull = torch.fft.irfft(mac_k(), n=2 * B, dim=-1).contiguous()
+        ov0 = torch.from_numpy(rng.standard_normal((K, B)).astype(np.float32)).to(dev)
+        f = compare(f"K2b overlap-add ({label}: K={K} L={L} B={B})", "cuda",
+                    "graphaudio_tpu_torch/csrc/conv.cu",
+                    "graphaudio_tpu/ops/convolve.py:229" if rev else "graphaudio_tpu/ops/convolve.py:120",
+                    lambda: tconv.overlap_add(yfull, ov0.clone()),
+                    lambda: tconv.overlap_add_plain(yfull, ov0.clone()), 0.0,
+                    bnd=bound(nbytes(yfull) + 2 * nbytes(ov0) + K * L * B * 4, K * L * B))
+        macs.append(e)
+        olas.append(f)
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "plain_device_ms", "library_device_ms", "library_max_abs_err")
+    for group, name in ((macs, "K2a spectral MAC"), (olas, "K2b overlap-add")):
+        group[0]["shapes"] = [{k: e[k] for k in keys if k in e} for e in group[1:]]
+        group[0]["name"] = name
+    return [macs[0], olas[0]]
+
+
+def main(device="cuda", k2a_only=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -547,7 +634,6 @@ def main(device="cuda"):
     from graphaudio_tpu_torch.core import context as tcontext
     from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.core import mixing as tmixing
-    from graphaudio_tpu_torch.ops import convolve as tconv
     from graphaudio_tpu_torch.ops import resample as tres
     from graphaudio_tpu_torch.testing.configs import config4_conv_reverb
     from graphaudio_tpu_torch.utils import cudabuild
@@ -569,12 +655,31 @@ def main(device="cuda"):
     one = torch.zeros(1, device=dev)
     floor_ms = device_ms(one.zero_)
     phase("device", f"a one-element fill takes {floor_ms!r} ms on the device")
+    S, T = 64, 64 * 128
+    frames = 175 * T  # 30 s rounded down to whole superblocks (as bench.py does)
+    b4 = lambda: config4_conv_reverb(superblock=S, voices=64, device=dev)  # noqa: E731
+
+    def profile4(walls):
+        """Config 4's device time a step (torch.profiler, 20 steps) over the
+        host time a step of the unprofiled runs ``walls``."""
+        host = statistics.median(walls) / (frames // T) * 1e6
+        prof = profile_steps(b4(), T, host)
+        phase("profile", f"config 4, 20 steps under torch.profiler: {json.dumps(prof)}")
+        return {"host_us_per_step_median": host, "profile": prof}
+
+    if k2a_only:
+        entries = k2_checks(dev)
+        walls = [timed_render(b4, frames)[1] for _ in range(3)]
+        print(json.dumps({"kernels": entries, "config4": dict(profile4(walls), f32=spread(frames, walls)),
+                          "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 3. kernels against their plain versions, main-path shapes ------------
     entries = []
-    ctx = config4_conv_reverb(superblock=64, voices=64, device=dev)
+    ctx = config4_conv_reverb(superblock=S, voices=64, device=dev)
     ctx._ensure_compiled()
-    S, T = 64, 64 * 128
     st0, consts = ctx._states["st0"], ctx._consts
     w, variant, _ = ctx._compiled._bufsrc_cfg[0]
     _, p, q = variant
@@ -599,40 +704,7 @@ def main(device="cuda"):
         bnd=bound(nbytes(voices) * (1 + p / q) + nbytes(k1_in["wtab"], k1_in["btab"]),
                   7 * voices.numel())))
 
-    rng = np.random.default_rng(0)
-    for label, cctx in (("bench shape, grain 1024", ctx),
-                        ("128 grain", config4_conv_reverb(superblock=4, voices=1, device=dev))):
-        cctx._ensure_compiled()
-        si = next(sp["si"] for sp in cctx._compiled.plan if sp["kind"] == "single")
-        hr, hi = cctx._consts[f"st{si}/conv_hr"], cctx._consts[f"st{si}/conv_hi"]
-        K, P, NB = hr.shape
-        B = NB - 1
-        L = cctx.superblock * 128 // B
-        rev = B != 128
-        x = torch.from_numpy(rng.standard_normal((K, L, B)).astype(np.float32) * 0.4).to(dev)
-        X = torch.fft.rfft(x, n=2 * B, dim=-1)
-        ring0 = torch.from_numpy(rng.standard_normal((2, K, P - 1 + L, NB)).astype(np.float32) * 20).to(dev)
-        # The MAC writes the ring; each call gets a fresh copy of the same ring.
-        mac_k = lambda: tconv.spectral_mac(X, hr, hi, ring0[0].clone(), ring0[1].clone(), 5, rev)  # noqa: E731
-        mac_p = lambda: tconv.spectral_mac_plain(X, hr, hi, ring0[0].clone(), ring0[1].clone(), 5, rev)  # noqa: E731
-        e = compare(f"K2a spectral MAC ({label}: K={K} L={L} P={P} bins={NB})", "cuda",
-                    "graphaudio_tpu_torch/csrc/conv.cu",
-                    "graphaudio_tpu/ops/convolve.py:191" if rev else "graphaudio_tpu/ops/convolve.py:72",
-                    mac_k, mac_p, 1e-5, rel=True,
-                    # spectra, IR partitions and the ring once, the sum out;
-                    # a complex multiply-add (8 flops) per (sub-block, lag, bin)
-                    bnd=bound(nbytes(X, hr, hi, ring0, X), 8 * K * L * P * NB))
-        yfull = torch.fft.irfft(mac_k(), n=2 * B, dim=-1).contiguous()
-        ov0 = torch.from_numpy(rng.standard_normal((K, B)).astype(np.float32)).to(dev)
-        f = compare(f"K2b overlap-add ({label}: K={K} L={L} B={B})", "cuda",
-                    "graphaudio_tpu_torch/csrc/conv.cu",
-                    "graphaudio_tpu/ops/convolve.py:229" if rev else "graphaudio_tpu/ops/convolve.py:120",
-                    lambda: tconv.overlap_add(yfull, ov0.clone()),
-                    lambda: tconv.overlap_add_plain(yfull, ov0.clone()), 0.0,
-                    bnd=bound(nbytes(yfull) + 2 * nbytes(ov0) + K * L * B * 4, K * L * B))
-        if rev:
-            e["name"], f["name"] = "K2a spectral MAC", "K2b overlap-add"
-            entries += [e, f]
+    entries += k2_checks(dev)
 
     k3 = k3_check("config 4: [64, 1, 8192] -> [2, 8192]", voices, 2)
     k3["name"] = "K3 lane fan-in"
@@ -651,6 +723,7 @@ def main(device="cuda"):
     }
     phase("kernels", f"K3 host time a call (mean of 10000, us): {json.dumps(k3['host_us'])}")
     n_pack = 175 * T
+    rng = np.random.default_rng(0)
     audio = torch.from_numpy((rng.standard_normal((2, n_pack)) * 0.5).astype(np.float32)).to(dev)
     entries.append(compare(
         "K4 int16 pack", "cuda", "graphaudio_tpu_torch/csrc/pack.cu",
@@ -687,8 +760,6 @@ def main(device="cuda"):
             raise AssertionError(f"config-{n} golden mismatch: {err}")
 
     # -- 5. the config-4 path at full size -------------------------------------
-    frames = 175 * T  # 30 s rounded down to whole superblocks (as bench.py does)
-    b4 = lambda: config4_conv_reverb(superblock=64, voices=64, device=dev)  # noqa: E731
     t0 = time.perf_counter()
     b4().render(T)
     torch.cuda.synchronize()
@@ -723,6 +794,7 @@ def main(device="cuda"):
             e["launches"] = launches[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-4 path")
+    render4.update(profile4(walls4))
 
     # -- 6. the config-3 path at full size -----------------------------------
     T3 = 32 * 128
@@ -832,4 +904,10 @@ def main(device="cuda"):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k2a", action="store_true",
+                    help="only the build, the K2 checks at their three shapes and config 4's "
+                         "render profile (to alternate two trees' kernels in one call)")
+    sys.exit(main(k2a_only=ap.parse_args().k2a))

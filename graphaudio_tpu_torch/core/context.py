@@ -133,8 +133,14 @@ class AudioContextBase:
         self,
         sample_rate: int = DEFAULT_SAMPLE_RATE,
         superblock: int = DEFAULT_SUPERBLOCK,
+        pipeline_chains: bool = False,
         device="cuda",
     ):
+        """``pipeline_chains`` is the reference's flag to fuse head-to-tail
+        chains of same-type nodes into one pipelined stage. The port has no
+        chain fusion yet, so it keeps the flag and renders unfused whatever
+        it says; the reference's audio is bit-identical per render call
+        either way, and so is the port's."""
         if sample_rate <= 0:
             raise ValueError("sample_rate must be positive")
         if superblock <= 0:
@@ -142,6 +148,7 @@ class AudioContextBase:
         self.device = resolve_device(device)
         self.sample_rate = int(sample_rate)
         self.superblock = int(superblock)
+        self.pipeline_chains = bool(pipeline_chains)
         self._nodes: Dict[int, object] = {}
         self._pending: deque = deque()
         self._timed: List = []  # (time, seq, command) — see post_at
@@ -640,6 +647,25 @@ class AudioContextBase:
 
     # -- block-level APIs (parity: AudioContextBase.cs:52-186) -----------------
 
+    def process_block(self) -> np.ndarray:
+        """Render exactly one 128-frame quantum -> f32[channels, 128]
+        (parity: ProcessBlock, AudioContextBase.cs:52-81)."""
+        return self.render(FRAMES_PER_BLOCK)
+
+    def process_block_interleaved(self) -> np.ndarray:
+        """One quantum, interleaved f32[128*channels]
+        (parity: ProcessBlockInterleaved, AudioContextBase.cs:88-161)."""
+        return self.render_interleaved(FRAMES_PER_BLOCK)
+
+    def process_blocks(self, block_count: int) -> np.ndarray:
+        """Render ``block_count`` quanta -> f32[channels, block_count*128]
+        (parity: ProcessBlocks, AudioContextBase.cs:166-186)."""
+        return self.render(block_count * FRAMES_PER_BLOCK)
+
+    def render_interleaved(self, frame_count: int) -> np.ndarray:
+        """Render and interleave -> f32[frame_count*channels]."""
+        return np.ascontiguousarray(self.render(frame_count).T).reshape(-1)
+
     def render(self, frame_count: int) -> np.ndarray:
         """Render ``frame_count`` frames; returns f32[channels, frame_count].
         Frames rendered past ``frame_count`` (superblock granularity) are
@@ -750,15 +776,19 @@ class OfflineAudioContext(AudioContextBase):
     """Non-realtime renderer (parity: GraphAudio.Core/OfflineAudioContext.cs:8).
 
     ``render(frame_count)`` pulls exactly ``frame_count`` frames through the
-    graph. ``device`` defaults to "cuda" and raises where CUDA is absent."""
+    graph. ``device`` defaults to "cuda" and raises where CUDA is absent.
+    ``pipeline_chains`` defaults on, as in the reference, and changes nothing
+    in the port yet (see ``AudioContextBase``)."""
 
     def __init__(
         self,
         sample_rate: int = DEFAULT_SAMPLE_RATE,
         superblock: int = DEFAULT_SUPERBLOCK,
+        pipeline_chains: bool = True,
         device="cuda",
     ):
-        super().__init__(sample_rate=sample_rate, superblock=superblock, device=device)
+        super().__init__(sample_rate=sample_rate, superblock=superblock,
+                         pipeline_chains=pipeline_chains, device=device)
 
     def render_seconds(self, seconds: float) -> np.ndarray:
         return self.render(int(round(seconds * self.sample_rate)))

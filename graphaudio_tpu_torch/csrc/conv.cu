@@ -11,62 +11,202 @@
 // where D(m) is the spectrum of sub-block m of this step (m >= 0, read from
 // X) or of a past step (m < 0, read from the ring). The delay line is a ring
 // of R = P - 1 + L slots with a head: sub-block m lives in slot
-// (head + m) mod R. Past sub-blocks -(P-1)..-1 and this step's L new ones
-// occupy disjoint slots, so each thread writes X[k, l, b] into slot
-// head + l while others read the past, with no race and no shift of the
-// delay line. H rows are in lag order (rev = 0, prepare_ir) or reversed
-// (rev = 1, prepare_ir_big, whose newest-input row is last).
+// (head + m) mod R. H rows are in lag order (rev = 0, prepare_ir) or
+// reversed (rev = 1, prepare_ir_big, whose newest-input row is last).
+// Written as a correlation over the sequence seq[s] = D(s - (P - 1)),
+// s = 0 .. R-1 (oldest first):
+//     acc[l] = sum_{j < P} Hc[j] * seq[l + j],  Hc[j] = H[rev ? j : P-1-j].
+//
+// Bound on the H100: bytes, and before that latency. Per (k, bin) the MAC
+// is an [L x P] by [P] complex matrix-vector product, a few flops a byte,
+// far below the ridge; so no tensor cores (and TF32 is off in the port).
+// At config 4's shape (K=2, L=8, P=94, 1025 bins) the unique bytes are
+// ~3.5 MB (1.03 us at 3.35 TB/s). A thread per (k, l, bin) walking all P
+// lags would load each H value L times and wait on one chain of P
+// dependent loads; with 144 blocks most SMs would idle. So:
+//  - a thread owns one column (k, bin) and a tile of LT sub-blocks
+//    (LT = L rounded up to a power of two, at most 8) for one group of
+//    lags: it loads each H value once and slides a window of LT delay-line
+//    values through registers, so a group of n lags costs n H loads and
+//    n + LT - 1 delay-line loads instead of LT x n of each;
+//  - the lags are cut into groups: S groups (warps) in a block, and the
+//    blocks of one thread-block cluster of C <= 8 share a column tile, so
+//    the grid has about two blocks on every SM (the wrapper's mac_plan picks
+//    LT, C, S and the lags a group from K, L, P and the bin count);
+//  - the partial sums are reduced in a fixed order, with no atomics: the S
+//    groups of a block in shared memory, then the C blocks of the cluster
+//    through distributed shared memory, so every run gives the same bits;
+//  - a group's delay-line range touches at most two runs of ring slots and
+//    then X: the wrap point is computed once, not a modulo per lag;
+//  - a warp is 32 consecutive columns of one group, so every load is
+//    coalesced and the warp's lanes follow the same path; a thread issues
+//    the loads of four lags together, ahead of their multiply-adds.
+// The ring write stays in this launch: the cluster's rank-0 block, group 0,
+// writes X[k, l, b] into slot head + l. Those slots hold seq[P-1 .. R-1],
+// which the MAC reads from X, never from the ring; the past slots it reads
+// are disjoint from them, so there is no race and no barrier between them.
 //
 // OLA: y[k, l*B + t] = yfull[k, l, t] + (l ? yfull[k, l-1, B+t] : overlap[k, t]),
 // then overlap[k, t] = yfull[k, L-1, B+t]; one thread per (k, t) walks l, so
 // the carried overlap is read before it is replaced.
-//
-// Bound on the H100: memory and launch. At the bench shape (K=2, B=1024,
-// L=8, P=94, 1025 bins) one step reads ~1.5 MB of IR spectra and ~1.5 MB of
-// delay line; each (k, l, b) thread re-reads its column, so the L-fold
-// reuse is served by L2 (50 MB), not HBM. The simple design gives one thread
-// to each (k, l, b) with coalesced loads along b, and keeps the delay line in
-// place instead of the JAX concat-and-shift copy of the whole line per step.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void conv_mac_kernel(const float2* __restrict__ X, const float* __restrict__ hr,
-                                const float* __restrict__ hi, float* __restrict__ ring_r,
-                                float* __restrict__ ring_i, float2* __restrict__ acc, int L,
-                                int P, int NB, int R, int head, int rev) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y, k = blockIdx.z;
-  if (b >= NB) return;
-  const float2* Xk = X + static_cast<int64_t>(k) * L * NB;
-  const float* hrk = hr + static_cast<int64_t>(k) * P * NB;
-  const float* hik = hi + static_cast<int64_t>(k) * P * NB;
-  float* rrk = ring_r + static_cast<int64_t>(k) * R * NB;
-  float* rik = ring_i + static_cast<int64_t>(k) * R * NB;
-  float ar = 0.0f, ai = 0.0f;
-  for (int lag = 0; lag < P; ++lag) {
-    const int m = l - lag;
-    float dr, di;
-    if (m >= 0) {
-      const float2 d = Xk[static_cast<int64_t>(m) * NB + b];
-      dr = d.x;
-      di = d.y;
-    } else {
-      int slot = (head + m) % R;
-      if (slot < 0) slot += R;
-      dr = rrk[static_cast<int64_t>(slot) * NB + b];
-      di = rik[static_cast<int64_t>(slot) * NB + b];
-    }
-    const int64_t row = static_cast<int64_t>(rev ? P - 1 - lag : lag) * NB + b;
-    const float h_r = hrk[row], h_i = hik[row];
-    ar += dr * h_r - di * h_i;
-    ai += dr * h_i + di * h_r;
+constexpr int kCols = 32;        // columns (k, bin) a block: one warp wide
+constexpr int kMaxGroups = 16;   // lag groups (warps) a block
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
+template <int LT>
+__global__ void __launch_bounds__(kCols * kMaxGroups)
+    conv_mac_kernel(const float* __restrict__ X, const float* __restrict__ hr,
+                    const float* __restrict__ hi, float* __restrict__ ring_r,
+                    float* __restrict__ ring_i, float2* __restrict__ acc, int K, int L, int P,
+                    int NB, int R, int head, int rev, int lags) {
+  extern __shared__ float2 part[];  // [S][LT][kCols]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x;  // the grid is one cluster wide
+  const int S = blockDim.y, x = threadIdx.x, gy = threadIdx.y;
+  const int col = blockIdx.y * kCols + x;
+  const bool live = col < K * NB;
+  const int k = live ? col / NB : 0, b = live ? col - k * NB : 0;
+  const int l0 = blockIdx.z * LT;
+  const int j0 = min(P, (rank * S + gy) * lags), j1 = min(P, j0 + lags);
+
+  float ar[LT], ai[LT];
+#pragma unroll
+  for (int i = 0; i < LT; ++i) ar[i] = ai[i] = 0.0f;
+  const float* Xr = X + 2 * (static_cast<int64_t>(k) * L * NB + b);  // interleaved complex
+  const float* rr = ring_r + static_cast<int64_t>(k) * R * NB + b;
+  const float* ri = ring_i + static_cast<int64_t>(k) * R * NB + b;
+  if (live && j0 < j1) {
+    const float* hrc = hr + static_cast<int64_t>(k) * P * NB + b;
+    const float* hic = hi + static_cast<int64_t>(k) * P * NB + b;
+    const int past = P - 1;                    // seq[s] for s < past is in the ring
+    const int first = head + L < R ? head + L : head + L - R;  // slot of seq[0]
+    const int wrap = R - first;                // seq[wrap] is in slot 0
+    float wr[LT], wi[LT];                      // the window seq[l0 + j .. l0 + j + LT - 1]
+    auto seq_at = [&](int s, float& vr, float& vi) {
+      if (s >= R) {
+        vr = vi = 0.0f;  // past the last sub-block: rows of a ragged tile only
+      } else if (s >= past) {
+        vr = Xr[2 * static_cast<int64_t>(s - past) * NB];
+        vi = Xr[2 * static_cast<int64_t>(s - past) * NB + 1];
+      } else {
+        const int64_t slot = s < wrap ? first + s : first + s - R;
+        vr = rr[slot * NB];
+        vi = ri[slot * NB];
+      }
+    };
+#pragma unroll
+    for (int i = 0; i + 1 < LT; ++i) seq_at(l0 + j0 + i, wr[i], wi[i]);
+    int64_t hrow = static_cast<int64_t>(rev ? j0 : P - 1 - j0) * NB;
+    const int64_t hstep = rev ? NB : -NB;
+    // One lag: the newest window value in, Hc[j] times the window, slide.
+    auto step = [&](float vr, float vi, float h_r, float h_i) {
+      wr[LT - 1] = vr;
+      wi[LT - 1] = vi;
+#pragma unroll
+      for (int i = 0; i < LT; ++i) {
+        ar[i] = fmaf(wr[i], h_r, fmaf(-wi[i], h_i, ar[i]));
+        ai[i] = fmaf(wr[i], h_i, fmaf(wi[i], h_r, ai[i]));
+      }
+#pragma unroll
+      for (int i = 0; i + 1 < LT; ++i) {
+        wr[i] = wr[i + 1];
+        wi[i] = wi[i + 1];
+      }
+    };
+    // n lags taking seq from pr/pi + t * stride, four at a time: a batch's
+    // loads are issued together, ahead of its multiply-adds.
+    auto run = [&](const float* pr, const float* pi, int64_t stride, int n) {
+#pragma unroll 1
+      for (int t = 0; t < n; t += 4) {
+        const int m = min(4, n - t);
+        float vr[4], vi[4], h_r[4], h_i[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u < m) {
+            vr[u] = pr[(t + u) * stride];
+            vi[u] = pi[(t + u) * stride];
+            h_r[u] = hrc[hrow + u * hstep];
+            h_i[u] = hic[hrow + u * hstep];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < m) step(vr[u], vi[u], h_r[u], h_i[u]);
+        hrow += m * hstep;
+      }
+    };
+    // Lag j takes seq[l0 + j + LT - 1] in; s runs over [s1, s2) in order:
+    // ring slots up to the wrap, ring slots from slot 0, X, then zeros.
+    const int s1 = l0 + j0 + LT - 1, s2 = l0 + j1 + LT - 1;
+    int a = s1, e = min(s2, min(past, wrap));
+    int64_t o = static_cast<int64_t>(first + a) * NB;
+    if (e > a) run(rr + o, ri + o, NB, e - a);
+    a = max(s1, wrap);
+    e = min(s2, past);
+    o = static_cast<int64_t>(first + a - R) * NB;
+    if (e > a) run(rr + o, ri + o, NB, e - a);
+    a = max(s1, past);
+    e = min(s2, R);
+    o = 2 * static_cast<int64_t>(a - past) * NB;
+    if (e > a) run(Xr + o, Xr + o + 1, 2 * NB, e - a);
+#pragma unroll 1
+    for (a = max(s1, R); a < s2; ++a, hrow += hstep) step(0.0f, 0.0f, hrc[hrow], hic[hrow]);
   }
-  acc[(static_cast<int64_t>(k) * L + l) * NB + b] = make_float2(ar, ai);
-  const float2 x = Xk[static_cast<int64_t>(l) * NB + b];
-  const int64_t slot = (head + l) % R;
-  rrk[slot * NB + b] = x.x;
-  rik[slot * NB + b] = x.y;
+
+  // This step's spectra into the ring, once per (k, l, bin).
+  if (live && rank == 0 && gy == 0) {
+#pragma unroll
+    for (int i = 0; i < LT; ++i) {
+      const int l = l0 + i;
+      if (l < L) {
+        const int64_t slot = (head + l < R ? head + l : head + l - R) * static_cast<int64_t>(NB);
+        const int64_t o = 2 * static_cast<int64_t>(l) * NB;
+        ring_r[static_cast<int64_t>(k) * R * NB + slot + b] = Xr[o];
+        ring_i[static_cast<int64_t>(k) * R * NB + slot + b] = Xr[o + 1];
+      }
+    }
+  }
+
+  // The block's S groups, in order, into part[0] ...
+  const int n_out = LT * kCols, tid = gy * kCols + x, n_thr = S * kCols;
+#pragma unroll
+  for (int i = 0; i < LT; ++i) part[(gy * LT + i) * kCols + x] = make_float2(ar[i], ai[i]);
+  __syncthreads();
+  for (int f = tid; f < n_out; f += n_thr) {
+    float2 v = part[f];
+    for (int g = 1; g < S; ++g) {
+      const float2 u = part[g * n_out + f];
+      v.x += u.x;
+      v.y += u.y;
+    }
+    part[f] = v;
+  }
+  cluster.sync();
+  // ... then the cluster's C blocks, in rank order: block `rank` finishes
+  // its C-th of the tile's outputs.
+  const int chunk = n_out / C;
+  for (int f = rank * chunk + tid; f < (rank + 1) * chunk; f += n_thr) {
+    float2 v = *cluster.map_shared_rank(part + f, 0);
+    for (int q = 1; q < C; ++q) {
+      const float2 u = *cluster.map_shared_rank(part + f, q);
+      v.x += u.x;
+      v.y += u.y;
+    }
+    const int c = blockIdx.y * kCols + f % kCols, l = l0 + f / kCols;
+    if (c < K * NB && l < L) {
+      const int kk = c / NB;
+      acc[(static_cast<int64_t>(kk) * L + l) * NB + (c - kk * NB)] = v;
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its part
 }
 
 __global__ void conv_ola_kernel(const float* __restrict__ yfull, float* __restrict__ overlap,
@@ -85,17 +225,60 @@ __global__ void conv_ola_kernel(const float* __restrict__ yfull, float* __restri
   overlap[static_cast<int64_t>(k) * B + t] = prev;
 }
 
+template <int LT>
+cudaError_t launch_mac(dim3 grid, dim3 block, size_t smem, cudaStream_t stream, const float* X,
+                       const float* hr, const float* hi, float* ring_r, float* ring_i, float2* acc,
+                       int K, int L, int P, int NB, int R, int head, int rev, int lags) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, conv_mac_kernel<LT>, X, hr, hi, ring_r, ring_i, acc, K, L, P,
+                            NB, R, head, rev, lags);
+}
+
 }  // namespace
 
+// lt: sub-blocks a thread owns (1, 2, 4 or 8); clusters: blocks a cluster
+// (1, 2, 4 or 8); groups: lag groups a block (1..16); lags: lags a group,
+// with clusters * groups * lags >= P. X and acc are interleaved complex.
 GA_EXPORT int ga_conv_mac(const float* X, const float* hr, const float* hi, float* ring_r,
                           float* ring_i, float* acc, int K, int L, int P, int NB, int R,
-                          int head, int rev, void* stream) {
-  const int threads = 128;
-  dim3 grid((NB + threads - 1) / threads, L, K);
-  conv_mac_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(X), hr, hi, ring_r, ring_i,
-      reinterpret_cast<float2*>(acc), L, P, NB, R, head, rev);
-  return ga_launch_status();
+                          int head, int rev, int lt, int clusters, int groups, int lags,
+                          void* stream) {
+  if (groups < 1 || groups > kMaxGroups || clusters < 1 || clusters > kMaxCluster ||
+      (clusters & (clusters - 1)) || static_cast<int64_t>(clusters) * groups * lags < P ||
+      R != P - 1 + L || head < 0 || head >= R)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(clusters, (K * NB + kCols - 1) / kCols, (L + lt - 1) / lt);
+  const dim3 block(kCols, groups);
+  const size_t smem = sizeof(float2) * groups * lt * kCols;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto a = reinterpret_cast<float2*>(acc);
+  cudaError_t err;
+  switch (lt) {
+#define GA_MAC_CASE(T)                                                                   \
+  case T:                                                                                \
+    err = launch_mac<T>(grid, block, smem, s, X, hr, hi, ring_r, ring_i, a, K, L, P, NB, R, \
+                        head, rev, lags);                                                \
+    break;
+    GA_MAC_CASE(1)
+    GA_MAC_CASE(2)
+    GA_MAC_CASE(4)
+    GA_MAC_CASE(8)
+#undef GA_MAC_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return err != cudaSuccess ? static_cast<int>(err) : ga_launch_status();
 }
 
 GA_EXPORT int ga_conv_ola(const float* yfull, float* overlap, float* y, int K, int L, int B,

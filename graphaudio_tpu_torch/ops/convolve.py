@@ -28,6 +28,8 @@ copied from the JAX package.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -132,10 +134,40 @@ def spectral_mac_plain(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
     return torch.complex(acc_r, acc_i)
 
 
+# K2a's launch plan (csrc/conv.cu): a warp is 32 columns (k, bin) of one
+# lag group; a group aims at MAC_LAGS lags, so its window preload and its
+# share of the reduction stay small beside its loads.
+MAC_LAGS = 6
+MAC_MIN_BLOCKS = 256  # about two blocks on each of the H100's 132 SMs
+MAC_MAX_CLUSTER = 8  # the portable thread-block cluster size
+MAC_MAX_GROUPS = 16  # lag groups (warps) in a block
+
+
+@functools.cache
+def mac_plan(K: int, L: int, P: int, NB: int):
+    """K2a's launch plan for K channels, L sub-blocks, P lags and NB bins:
+    (lt, clusters, groups, lags). A thread owns a tile of ``lt`` sub-blocks
+    (L rounded up to a power of two, at most 8) for one group of ``lags``
+    lags; a block holds ``groups`` lag groups of 32 columns, and
+    ``clusters`` blocks of one cluster split the lags of the same columns,
+    doubling until the grid has MAC_MIN_BLOCKS blocks or the groups would
+    fall below MAC_LAGS lags."""
+    lt = min(8, 1 << (L - 1).bit_length())
+    base = -(-K * NB // 32) * -(-L // lt)
+    wanted = -(-P // MAC_LAGS)
+    clusters = 1
+    while (clusters < MAC_MAX_CLUSTER and base * clusters < MAC_MIN_BLOCKS
+           and 2 * clusters <= wanted):
+        clusters *= 2
+    groups = min(MAC_MAX_GROUPS, -(-wanted // clusters))
+    return lt, clusters, groups, -(-P // (clusters * groups))
+
+
 def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
     """K2a: the partitioned complex MAC (see spectral_mac_plain for shapes).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel with
+    the plan of ``mac_plan``.
     """
     if X.device.type == "cpu":
         return spectral_mac_plain(X, hr, hi, ring_r, ring_i, head, rev)
@@ -152,7 +184,7 @@ def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
     status = cudabuild.launcher("ga_conv_mac")(
         X.data_ptr(), hr.data_ptr(), hi.data_ptr(), ring_r.data_ptr(),
         ring_i.data_ptr(), acc.data_ptr(), K, L, P, NB, R, int(head) % R,
-        int(bool(rev)), cudabuild.stream_of(X),
+        int(bool(rev)), *mac_plan(K, L, P, NB), cudabuild.stream_of(X),
     )
     cudabuild.check(status, "ga_conv_mac")
     cudabuild.launches["spectral_mac"] += 1

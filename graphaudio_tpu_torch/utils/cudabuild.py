@@ -40,7 +40,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "ga_poly_resample": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _P, _P],
-    "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _P],
     "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _P],
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],

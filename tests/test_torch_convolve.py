@@ -98,3 +98,129 @@ def test_spectral_mac_matches_jax_correlation():
                              st["ring_r"], st["ring_i"], st["head"], rev=False)
     assert np.abs(acc.real[0].numpy() - np.asarray(ar)).max() < 1e-4
     assert np.abs(acc.imag[0].numpy() - np.asarray(ai)).max() < 1e-4
+
+
+def _emulate_mac_kernel(X, hr, hi, ring_r, ring_i, head, rev):
+    """numpy emulation of csrc/conv.cu conv_mac_kernel's loop structure, in
+    f32: the plan of tconv.mac_plan, each thread's column vector (all bins at
+    once here), its lag group, its LT-wide sliding window, the walk over the
+    ring before and after the wrap point, then X, then zeros, and the
+    fixed-order reduction (a block's groups, then the cluster's blocks).
+    Updates the rings in place like the kernel; returns acc complex64."""
+    K, L, NB = X.shape
+    P, R = hr.shape[1], ring_r.shape[1]
+    lt, clusters, groups, lags = tconv.mac_plan(K, L, P, NB)
+    past = P - 1
+    first = head + L if head + L < R else head + L - R
+    wrap = R - first
+    f32 = np.float32
+    Xr, Xi = X.real.astype(f32), X.imag.astype(f32)
+    acc = np.zeros((K, L, NB), np.complex64)
+    for k in range(K):
+        def seq_at(s):
+            if s >= R:
+                return np.zeros(NB, f32), np.zeros(NB, f32)
+            if s >= past:
+                return Xr[k, s - past], Xi[k, s - past]
+            slot = first + s if s < wrap else first + s - R
+            return ring_r[k, slot], ring_i[k, slot]
+
+        for l0 in range(0, L, lt):
+            blocks = []
+            for rank in range(clusters):
+                parts = []
+                for gy in range(groups):
+                    j0 = min(P, (rank * groups + gy) * lags)
+                    j1 = min(P, j0 + lags)
+                    ar = [np.zeros(NB, f32) for _ in range(lt)]
+                    ai = [np.zeros(NB, f32) for _ in range(lt)]
+                    if j0 < j1:
+                        w = [seq_at(l0 + j0 + i) for i in range(lt - 1)] + [None]
+                        hrow = [j0 if rev else P - 1 - j0]
+
+                        def step(vr, vi):
+                            w[lt - 1] = (vr, vi)
+                            h_r, h_i = hr[k, hrow[0]], hi[k, hrow[0]]
+                            hrow[0] += 1 if rev else -1
+                            for i in range(lt):
+                                ar[i] = ar[i] + (w[i][0] * h_r - w[i][1] * h_i)
+                                ai[i] = ai[i] + (w[i][0] * h_i + w[i][1] * h_r)
+                            w[:-1] = w[1:]
+
+                        s1, s2 = l0 + j0 + lt - 1, l0 + j1 + lt - 1
+                        a, e = s1, min(s2, past, wrap)
+                        for t in range(max(0, e - a)):
+                            step(ring_r[k, first + a + t], ring_i[k, first + a + t])
+                        a, e = max(s1, wrap), min(s2, past)
+                        for t in range(max(0, e - a)):
+                            step(ring_r[k, first + a - R + t], ring_i[k, first + a - R + t])
+                        a, e = max(s1, past), min(s2, R)
+                        for t in range(max(0, e - a)):
+                            step(Xr[k, a - past + t], Xi[k, a - past + t])
+                        for _ in range(max(s1, R), s2):
+                            step(np.zeros(NB, f32), np.zeros(NB, f32))
+                    parts.append((ar, ai))
+                # the block's groups in order
+                br, bi = parts[0]
+                for pr, pi in parts[1:]:
+                    br = [u + v for u, v in zip(br, pr)]
+                    bi = [u + v for u, v in zip(bi, pi)]
+                blocks.append((br, bi))
+            # the cluster's blocks in rank order
+            tr, ti = blocks[0]
+            for pr, pi in blocks[1:]:
+                tr = [u + v for u, v in zip(tr, pr)]
+                ti = [u + v for u, v in zip(ti, pi)]
+            for i in range(lt):
+                if l0 + i < L:
+                    acc[k, l0 + i] = tr[i] + 1j * ti[i]
+    for l in range(L):
+        slot = head + l if head + l < R else head + l - R
+        ring_r[:, slot], ring_i[:, slot] = Xr[:, l], Xi[:, l]
+    return acc
+
+
+# (K, L, P, bins, head, rev): heads 0 and R-1; past slots straddling the
+# ring's end; L = 1; ragged sub-block tiles (L = 3, L = 10); P not divisible
+# by the lags a group; empty trailing groups; both H orders.
+MAC_CASES = {
+    "head0": (2, 4, 23, 5, 0, False),
+    "head_R-1": (2, 4, 23, 5, 25, True),
+    "straddle_L3": (2, 3, 23, 5, 10, False),
+    "L1": (2, 1, 23, 5, 7, True),
+    "two_tiles_P97": (2, 10, 97, 7, 50, True),
+    "config4_like": (1, 8, 94, 3, 60, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MAC_CASES))
+def test_mac_kernel_plan_emulation(case):
+    """The kernel's index plan, emulated in numpy, against the plain version
+    and the JAX correlation (graphaudio_tpu.ops.convolve.spectral_mac)."""
+    K, L, P, NB, head, rev = MAC_CASES[case]
+    R = P - 1 + L
+    rng = np.random.default_rng(11)
+    X = (rng.standard_normal((K, L, NB)) + 1j * rng.standard_normal((K, L, NB))).astype(np.complex64)
+    hr, hi, ring_r, ring_i = (rng.standard_normal(s).astype(np.float32)
+                              for s in ((K, P, NB), (K, P, NB), (K, R, NB), (K, R, NB)))
+    lt, clusters, groups, lags = tconv.mac_plan(K, L, P, NB)
+    assert clusters * groups * lags >= P and lt >= min(L, 8)
+    # the delay line oldest first, for JAX: past sub-blocks, then this step's
+    past = [(head - (P - 1) + s) % R for s in range(P - 1)]
+    seq_r = np.concatenate([ring_r[:, past], X.real], axis=1)
+    seq_i = np.concatenate([ring_i[:, past], X.imag], axis=1)
+
+    em_r, em_i = ring_r.copy(), ring_i.copy()
+    got = _emulate_mac_kernel(X, hr, hi, em_r, em_i, head, rev)
+    t_r, t_i = torch.from_numpy(ring_r.copy()), torch.from_numpy(ring_i.copy())
+    want = tconv.spectral_mac_plain(torch.from_numpy(X), torch.from_numpy(hr), torch.from_numpy(hi),
+                                    t_r, t_i, head, rev).numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    assert np.abs(got - want).max() < 1e-5 * scale
+    assert np.array_equal(em_r, t_r.numpy()) and np.array_equal(em_i, t_i.numpy())
+    for k in range(K):
+        lag_r, lag_i = (h[k, ::-1] if rev else h[k] for h in (hr, hi))  # lag order
+        jr, ji = jconv.spectral_mac(jnp.asarray(seq_r[k]), jnp.asarray(seq_i[k]),
+                                    np.ascontiguousarray(lag_r), np.ascontiguousarray(lag_i))
+        assert np.abs(got[k].real - np.asarray(jr)).max() < 1e-5 * scale
+        assert np.abs(got[k].imag - np.asarray(ji)).max() < 1e-5 * scale

@@ -64,23 +64,36 @@ def test_k1_poly_resample(dev):
     assert (got - ref).abs().max().item() < 1e-6
 
 
-@pytest.mark.parametrize("L, P, B, rev", [(4, 750, 128, False), (8, 94, 1024, True)])
-def test_k2_mac_and_overlap_add(dev, L, P, B, rev):
+# (K, L, P, B, rev): the 128 grain, config 4's shape, config 5's reverb
+# send, L = 1 at both grains, a ragged sub-block tile, two tiles; P = 97
+# is not a multiple of the lags a group (tconv.mac_plan).
+K2_SHAPES = [(2, 4, 750, 128, False), (2, 8, 94, 1024, True), (1, 4, 47, 1024, True),
+             (2, 1, 750, 128, False), (2, 1, 94, 1024, True), (2, 3, 97, 128, False),
+             (2, 10, 97, 512, True)]
+
+
+@pytest.mark.parametrize("head", ["0", "7", "R-1"])
+@pytest.mark.parametrize("K, L, P, B, rev", K2_SHAPES)
+def test_k2_mac_and_overlap_add(dev, K, L, P, B, rev, head):
     g = torch.Generator().manual_seed(0)
-    K, NB = 2, B + 1
+    NB, R = B + 1, P - 1 + L
+    head = R - 1 if head == "R-1" else int(head)
     X = torch.complex(torch.randn(K, L, NB, generator=g), torch.randn(K, L, NB, generator=g))
     hr = torch.randn(K, P, NB, generator=g)
     hi = torch.randn(K, P, NB, generator=g)
-    ring_r = torch.randn(K, P - 1 + L, NB, generator=g)
-    ring_i = torch.randn(K, P - 1 + L, NB, generator=g)
+    ring_r = torch.randn(K, R, NB, generator=g)
+    ring_i = torch.randn(K, R, NB, generator=g)
     X, hr, hi = X.to(dev), hr.to(dev), hi.to(dev)
     rr_ref, ri_ref = ring_r.to(dev), ring_i.to(dev)
     rr, ri = rr_ref.clone(), ri_ref.clone()
-    ref = tconv.spectral_mac_plain(X, hr, hi, rr_ref, ri_ref, 7, rev)
-    got = tconv.spectral_mac(X, hr, hi, rr, ri, 7, rev)
+    rr2, ri2 = rr_ref.clone(), ri_ref.clone()
+    ref = tconv.spectral_mac_plain(X, hr, hi, rr_ref, ri_ref, head, rev)
+    got = tconv.spectral_mac(X, hr, hi, rr, ri, head, rev)
+    again = tconv.spectral_mac(X, hr, hi, rr2, ri2, head, rev)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() < 1e-5 * max(1.0, ref.abs().max().item())
     assert torch.equal(rr, rr_ref) and torch.equal(ri, ri_ref)  # same ring writes
+    assert torch.equal(got, again)  # fixed-order reduction: the same bits every run
     yf = torch.randn(K, L, 2 * B, generator=g).to(dev)
     ov = torch.randn(K, B, generator=g).to(dev)
     ov2 = ov.clone()
