@@ -58,8 +58,11 @@ failure raises and the script exits non-zero:
      within 1e-5 of the same render on the CPU (plain versions).
 
 ``python3 chip_smoke.py --k2a`` runs phases 1 and 2, the K2 checks and
-config 4's profile window only: copied into another tree's checkout, it
-times that tree's K2 kernels the same way.
+config 4's profile window only; ``python3 chip_smoke.py --p1`` runs phases
+1 and 2, the P1 checks (config 5's mid-render shapes and the probe's row
+form) and three
+30 s config-5 renders with their profile window only. Copied into another
+tree's checkout, either times that tree's kernels the same way.
 
 Each wrapper counts its launches in ``cudabuild.launches`` under its own
 name; the counts are set to 0 just before each path's run and read just
@@ -456,44 +459,43 @@ def k3_check(label, x, dst):
                    library=lambda: torch.sum(x, dim=0).expand(dst, -1))
 
 
-def config5_kernel_checks(dev):
-    """P1 and K10b against their plain versions at config-5 shapes (128
-    voices, superblock 32), on the arguments of the fourth step of a render
-    whose sources move every quantum; P1 also in the Pallas probe's row form
-    (x [4096, 191], h [4096, 128]) beside torch's grouped conv1d, the one
-    PyTorch call that computes the probe's function; K9 on the arguments of
-    the occluded scene's second step; K3 on the largest of that step's
-    fan-ins. Returns the three JSON entries and K3's."""
+def p1_checks(dev):
+    """P1 against its plain version, bit for bit (tolerance 0), at config-5
+    shapes (128 voices, superblock 32) on the arguments of the fourth step
+    of a render whose sources move every quantum, and in the Pallas
+    probe's row form (x [4096, 191], h [4096, 128]) beside torch's grouped
+    conv1d, the one PyTorch call that computes the probe's function.
+    Returns the JSON entry."""
     from unittest import mock
 
     import torch
 
-    from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.nodes import spatial as tsp
     from graphaudio_tpu_torch.ops import hrtf as th
-    from graphaudio_tpu_torch.ops import onepole as top
 
-    # The panner and the step function look their kernels up in their own
-    # modules: spies there see the arguments of each call.
+    # The panner looks its kernel up in its own module: a spy there sees
+    # the arguments of each call.
     ctx = moving_config5(dev)
-    with mock.patch.object(tsp, "hrtf_fir", wraps=tsp.hrtf_fir) as fir, \
-            mock.patch.object(tsp, "spatial_gains", wraps=tsp.spatial_gains) as sg, \
-            mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
+    with mock.patch.object(tsp, "hrtf_fir", wraps=tsp.hrtf_fir) as fir:
         ctx.render(4 * 32 * 128)
     fir_args = fir.call_args.args
     x, gain, az, el, blend, grid, ola = fir_args
     V, C, T = x.shape
     E, A, _, L = grid.shape
     moved = float(torch.remainder(az[:, -1] - az[:, 0] + np.pi, 2 * np.pi).sub(np.pi).abs().max())
+    flat = lambda outs: torch.cat([o.flatten() for o in outs])  # noqa: E731
     p1 = compare(f"P1 HRTF FIR (config 5 step 4: V={V} C={C} S={T // 128} L={L}; "
                  f"azimuth moves up to {moved:.3f} rad in the step)", "cuda",
                  "graphaudio_tpu_torch/csrc/hrtf_fir.cu", "benchmarks/probes/hrtf_fir_pallas.py:127",
-                 lambda: torch.cat([o.flatten() for o in th.hrtf_fir(*fir_args)]),
-                 lambda: torch.cat([o.flatten() for o in th.hrtf_fir_plain(*fir_args)]), 1e-6,
+                 lambda: flat(th.hrtf_fir(*fir_args)), lambda: flat(th.hrtf_fir_plain(*fir_args)),
+                 0.0,
                  # every input read once (the grid too), output and tail
                  # written once; 2 ears x L multiply-adds per output sample
                  bnd=bound(nbytes(*fir_args) + nbytes(x) * 2 // C + nbytes(ola),
                            V * T * 2 * L * 2))
+    want = flat(th.hrtf_fir_plain(*fir_args)).view(torch.int32)
+    if not torch.equal(flat(th.hrtf_fir(*fir_args)).view(torch.int32), want):
+        raise AssertionError("P1 differs from its plain version in some bit")
     rng = np.random.default_rng(15)
     R, F = V * T // 128, 128
     xr = torch.from_numpy(rng.standard_normal((R, F + L - 1)).astype(np.float32)).to(dev)
@@ -511,7 +513,31 @@ def config5_kernel_checks(dev):
     p1["probe_form"] = {k: probe[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "device_ms")}
     p1["probe_form"]["library_max_abs_err"] = lib_err
+    p1["name"] = "P1 HRTF FIR"
+    return p1
 
+
+def config5_kernel_checks(dev):
+    """P1 (``p1_checks``) and K10b against their plain versions at config-5
+    shapes (128 voices, superblock 32), K10b on the arguments of the fourth
+    step of a render whose sources move every quantum; K9 on the arguments
+    of the occluded scene's second step; K3 on the largest of that fourth
+    step's fan-ins. Returns the three JSON entries and K3's."""
+    from unittest import mock
+
+    import torch
+
+    from graphaudio_tpu_torch.core import graph as tgraph
+    from graphaudio_tpu_torch.nodes import spatial as tsp
+    from graphaudio_tpu_torch.ops import onepole as top
+
+    p1 = p1_checks(dev)
+    # The panner and the step function look their kernels up in their own
+    # modules: spies there see the arguments of each call.
+    ctx = moving_config5(dev)
+    with mock.patch.object(tsp, "spatial_gains", wraps=tsp.spatial_gains) as sg, \
+            mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
+        ctx.render(4 * 32 * 128)
     pp, listener, model = sg.call_args.args
     k10b = compare(f"K10b spatial gains (config 5 step 4: V={pp.shape[1]} S={pp.shape[2]})", "cuda",
                    "graphaudio_tpu_torch/csrc/spatial_gains.cu",
@@ -537,7 +563,7 @@ def config5_kernel_checks(dev):
     xf, dst = max((c.args for c in fan.call_args_list), key=lambda a: a[0].numel())
     k3 = k3_check(f"config 5 step 4, its largest: {list(xf.shape)} -> [{dst}, {xf.shape[2]}]",
                   xf, dst)
-    p1["name"], k10b["name"], k9["name"] = "P1 HRTF FIR", "K10b spatial gains", "K9 one-pole lowpass"
+    k10b["name"], k9["name"] = "K10b spatial gains", "K9 one-pole lowpass"
     return [p1, k10b, k9], k3
 
 
@@ -613,7 +639,7 @@ def k2_checks(dev):
     return [macs[0], olas[0]]
 
 
-def main(device="cuda", k2a_only=False):
+def main(device="cuda", k2a_only=False, p1_only=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -635,7 +661,7 @@ def main(device="cuda", k2a_only=False):
     from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.core import mixing as tmixing
     from graphaudio_tpu_torch.ops import resample as tres
-    from graphaudio_tpu_torch.testing.configs import config4_conv_reverb
+    from graphaudio_tpu_torch.testing.configs import config4_conv_reverb, config5_spatial_scene
     from graphaudio_tpu_torch.utils import cudabuild
 
     dev = torch.device(device)
@@ -658,6 +684,9 @@ def main(device="cuda", k2a_only=False):
     S, T = 64, 64 * 128
     frames = 175 * T  # 30 s rounded down to whole superblocks (as bench.py does)
     b4 = lambda: config4_conv_reverb(superblock=S, voices=64, device=dev)  # noqa: E731
+    T5 = 32 * 128
+    frames5 = (30 * SR // T5) * T5  # 351 superblocks
+    b5 = lambda: config5_spatial_scene(superblock=32, device=dev)  # noqa: E731
 
     def profile4(walls):
         """Config 4's device time a step (torch.profiler, 20 steps) over the
@@ -672,6 +701,24 @@ def main(device="cuda", k2a_only=False):
         walls = [timed_render(b4, frames)[1] for _ in range(3)]
         print(json.dumps({"kernels": entries, "config4": dict(profile4(walls), f32=spread(frames, walls)),
                           "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if p1_only:
+        entries = [p1_checks(dev)]
+        b5().render(T5)
+        torch.cuda.synchronize()
+        cudabuild.launches.clear()
+        walls = [timed_render(b5, frames5)[1]]
+        entries[0]["launches"] = cudabuild.launches["hrtf_fir"]
+        walls += [timed_render(b5, frames5)[1] for _ in range(2)]
+        host = statistics.median(walls) / (frames5 // T5) * 1e6
+        prof = profile_steps(b5(), T5, host)
+        phase("profile", f"config 5, 20 steps under torch.profiler: {json.dumps(prof)}")
+        print(json.dumps({"kernels": entries, "config5": {
+            "host_us_per_step_median": host, "profile": prof, "f32": spread(frames5, walls)},
+            "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
@@ -741,11 +788,7 @@ def main(device="cuda", k2a_only=False):
                                                  "device_ms")}
 
     # -- 4. goldens ----------------------------------------------------------
-    from graphaudio_tpu_torch.testing.configs import (
-        config2_mix_bus,
-        config3_eq_chain,
-        config5_spatial_scene,
-    )
+    from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
 
     golden_err = {}
     for n, builder in ((4, config4_conv_reverb), (3, config3_eq_chain), (2, config2_mix_bus),
@@ -829,9 +872,6 @@ def main(device="cuda", k2a_only=False):
     phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(profile3)}")
 
     # -- 7. the config-5 path at full size -----------------------------------
-    T5 = 32 * 128
-    frames5 = (30 * SR // T5) * T5  # 351 superblocks
-    b5 = lambda: config5_spatial_scene(superblock=32, device=dev)  # noqa: E731
     wrappers5 = {"P1 HRTF FIR": "hrtf_fir", "K10b spatial gains": "spatial_gains",
                  "K2a spectral MAC": "spectral_mac", "K2b overlap-add": "overlap_add",
                  "K3 lane fan-in": "fan_in_lanes", "K5 unity copy": "unity_gather",
@@ -910,4 +950,8 @@ if __name__ == "__main__":
     ap.add_argument("--k2a", action="store_true",
                     help="only the build, the K2 checks at their three shapes and config 4's "
                          "render profile (to alternate two trees' kernels in one call)")
-    sys.exit(main(k2a_only=ap.parse_args().k2a))
+    ap.add_argument("--p1", action="store_true",
+                    help="only the build, the P1 checks and config 5's render profile (to "
+                         "alternate two trees' kernels in one call)")
+    args = ap.parse_args()
+    sys.exit(main(k2a_only=args.k2a, p1_only=args.p1))

@@ -16,12 +16,13 @@ the same maths as a time-domain Pallas kernel (P1, ``fir_pallas_call``
 domain, which is exact by linearity (the interpolated spectrum is the
 spectrum of the interpolated HRIR):
 
-* ``hrtf_fir``: csrc/hrtf_fir.cu on a CUDA tensor, ``hrtf_fir_plain`` on a
-  CPU tensor. INPUT-side semantics, as the package and its oracle: input
-  quantum s is convolved with the kernel interpolated at s, and its tail
-  overlap-adds into quantum s+1 (the carried ``ola`` tail crosses
-  superblocks). The probe's kernel is OUTPUT-side (quantum s applies h[s]
-  to the last 191 input samples), which differs for a moving source.
+* ``hrtf_fir``: csrc/hrtf_fir.cu on a CUDA tensor (with the lane table
+  of ``fir_tile_plan``), ``hrtf_fir_plain`` on a CPU tensor. INPUT-side
+  semantics, as the package and its oracle: input quantum s is convolved
+  with the kernel interpolated at s, and its tail overlap-adds into
+  quantum s+1 (the carried ``ola`` tail crosses superblocks). The probe's
+  kernel is OUTPUT-side (quantum s applies h[s] to the last 191 input
+  samples), which differs for a moving source.
 * ``hrtf_fir_rows``: the probe's own row form, for holding the kernel
   against the probe's function (``hrtf_fir_rows_plain``).
 
@@ -31,7 +32,9 @@ Kernels longer than 128 taps take the JAX package's partitioned path
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -388,13 +391,63 @@ def hrtf_fir_plain(x, gain, az, el, blend, grid, ola):
     return out, second[:, -1].contiguous()
 
 
+#: Consecutive outputs of one ear that a lane of csrc/hrtf_fir.cu owns.
+FIR_TILE_OUTPUTS = 8
+
+
+class FirTilePlan(NamedTuple):
+    """P1's tile plan (``fir_tile_plan``)."""
+    outputs: int  # R
+    taps: int  # L rounded up to a multiple of R: chunks cover [0, taps)
+    # Lane i's word, 2 x 128 / R of them: ear in bit 0, first output t0 in
+    # bits 1-8, chunks of the quantum's own chain in bits 9-16, chunks of
+    # the previous quantum's tail in bits 17-24 (csrc/hrtf_fir.cu FirLanes).
+    words: np.ndarray
+
+
+@functools.cache
+def fir_tile_plan(L: int, W: int, R: int = FIR_TILE_OUTPUTS) -> FirTilePlan:
+    """The lane table csrc/hrtf_fir.cu runs for an L-tap HRIR and a W-sample
+    carried tail; the kernel takes R = 8, the CPU tests walk R = 4 too. A
+    block is one (quantum, voice); lane i owns ear i % 2 and the R outputs
+    from t0 = (i // 2) * R, so tiles run in ascending t0 and the ramp tiles,
+    whose outputs t < L - 1 need the previous quantum's tail, take the first
+    lanes: at most one warp mixes the two kinds. Both ears of a tile sit in
+    neighbouring lanes and read the same mono window.
+
+    Each lane sums each of its outputs in its own accumulator, in ascending
+    tap order, so the sums round as ``hrtf_fir_plain``'s. The chains run in
+    chunks of R taps over zero-padded mono buffers, so no lane branches on
+    a tap: the quantum's own chain takes the chunks k0 = 0, R, .. below
+    min(taps, t0 + R) (the taps past t0 + R - 1 only meet the zeros before
+    the quantum), the previous chain the chunks k0 = t0, t0 + R, .. below
+    ``taps`` (the taps up to t0 meet the zeros after it). A product with a
+    padded zero is +-0, which leaves the bits of a sum that started at +0
+    unchanged. A ramp lane runs taps / R + 1 chunks, any other taps / R."""
+    F = FRAMES_PER_BLOCK
+    if R not in (4, 8):
+        raise ValueError(f"P1 tiles take R = 4 or 8 outputs, got {R}")
+    if not (1 <= L <= W <= F and W % R == 0):
+        raise ValueError(f"P1 takes 1 <= L <= W <= {F} with R | W, got L={L} W={W} R={R}")
+    taps = -(-L // R) * R
+    words = []
+    for i in range(2 * F // R):
+        t0 = (i // 2) * R
+        first = min(taps, t0 + R) // R
+        prev = (taps - t0) // R if t0 < L - 1 else 0
+        words.append(i % 2 | t0 << 1 | first << 9 | prev << 17)
+    return FirTilePlan(R, taps, np.array(words, dtype=np.int32))
+
+
 def hrtf_fir(x, gain, az, el, blend, grid, ola):
     """P1 for a group of spatial panners (see ``hrtf_fir_plain`` for the
     arguments). CPU tensors take the plain version; CUDA tensors launch
-    csrc/hrtf_fir.cu. Returns (out f32[V, 2, T], ola f32[V, 2, W])."""
+    csrc/hrtf_fir.cu with the lane table of ``fir_tile_plan``. Returns
+    (out f32[V, 2, T], ola f32[V, 2, W])."""
     if x.device.type == "cpu":
         return hrtf_fir_plain(x, gain, az, el, blend, grid, ola)
     V, C, T, S, E, A, L, W = _check_fir_shapes(x, gain, az, el, blend, grid, ola)
+    plan = fir_tile_plan(L, W)
     req = cudabuild.require
     for name, t in (("x", x), ("gain", gain), ("az", az), ("el", el), ("blend", blend),
                     ("grid", grid), ("ola", ola)):
@@ -405,8 +458,8 @@ def hrtf_fir(x, gain, az, el, blend, grid, ola):
     status = cudabuild.launcher("ga_hrtf_fir")(
         x.data_ptr(), None if gain is None else gain.data_ptr(), az.data_ptr(),
         el.data_ptr(), blend.data_ptr(), grid.data_ptr(), ola.data_ptr(), V, C, S,
-        E, A, L, W, _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1),
-        out.data_ptr(), ola_out.data_ptr(), cudabuild.stream_of(x),
+        E, A, L, W, _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1), plan.taps,
+        plan.words.ctypes.data, out.data_ptr(), ola_out.data_ptr(), cudabuild.stream_of(x),
     )
     cudabuild.check(status, "ga_hrtf_fir")
     cudabuild.launches["hrtf_fir"] += 1

@@ -54,7 +54,7 @@ _SIGNATURES = {
                           _P, _P, _P, _P],
     "ga_first_order_tb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     "ga_hrtf_fir": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    ctypes.c_float, ctypes.c_float, _P, _P, _P],
+                    ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P],
     "ga_hrtf_fir_rows": [_P, _P, _I, _I, _I, _P, _P],
     "ga_spatial_gains": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     "ga_onepole": [_P, _P, ctypes.c_double, _I, _I, _P, _P, _P],
