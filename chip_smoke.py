@@ -26,8 +26,12 @@ failure raises and the script exits non-zero:
      config-4 shapes, K2 also at config 5's reverb send and the 128 grain
      (K2a beside one einsum over the unfolded delay line), K3 also at the
      largest shape a config-5 step gives it; K5, K6, K8 and P2 at config-3
-     shapes, K5 and K6 also on config 2's 8-voice loop arena and
-     exponential ramps, P2
+     shapes, K5 also on config 2's 8-voice loop arena; K6 and K8 batched
+     as the step launches them, bit for bit: K6 on config 3's step table
+     (8 rows, capacity 32) and config 2's (8 lanes of linear and
+     exponential gain ramps), K8 on config 3's four stages and on eight
+     stages of all eight filter types as data, and both through their
+     one-entry names (one param, one stage); P2
      also with constant poles, on eight lanes, and in the Pallas probe's
      own 128x128 constant-pole form; P1 and K10b at config-5 shapes taken
      mid-render with moving sources, P1 also in the probe's row form beside
@@ -46,9 +50,10 @@ failure raises and the script exits non-zero:
   6. config 3 at full size (superblock 32, 30 s rounded down to whole
      superblocks, 351 steps) through ``render``, five fresh runs: finite,
      non-silent, the first 8192 frames within 1e-5 of the golden, every
-     config-3 kernel launched by the first run; a torch.profiler window of
-     20 steps for the device time per step and per kernel, over the
-     unprofiled host time per step for the device busy share;
+     config-3 kernel launched by the first run, K6 and K8 once a step; a
+     torch.profiler window of 20 steps for the device time per step, per
+     kernel and per group (K6, K8), over the unprofiled host time per step
+     for the device busy share;
   7. config 5 at full size (128 voices, superblock 32, 351 superblocks)
      through ``render``, five fresh runs: finite, non-silent, the first
      8192 frames within 1e-5 of the golden, P1, K10b and the K2/K3/K5
@@ -61,8 +66,13 @@ failure raises and the script exits non-zero:
 config 4's profile window only; ``python3 chip_smoke.py --p1`` runs phases
 1 and 2, the P1 checks (config 5's mid-render shapes and the probe's row
 form) and three
-30 s config-5 renders with their profile window only. Copied into another
-tree's checkout, either times that tree's kernels the same way.
+30 s config-5 renders with their profile window only; ``python3
+chip_smoke.py --k6k8`` runs phases 1 and 2, the K6 and K8 checks through
+their one-entry names and three 30 s config-3 renders with their profile
+window, and prints K6's and K8's device time a step by group (their kernel
+names changed when they were batched), the launches and host time a step
+and the sha256 of the first render's f32 output. Copied into another
+tree's checkout, each times that tree's kernels the same way.
 
 Each wrapper counts its launches in ``cudabuild.launches`` under its own
 name; the counts are set to 0 just before each path's run and read just
@@ -75,6 +85,7 @@ error and times; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -151,11 +162,18 @@ def device_ms(fn, calls=20, windows=5):
     return statistics.median([t for n, t in reads if n == most])
 
 
-def profile_steps(ctx, step_frames, host_us, steps=20):
+#: Kernel groups of config 3's profile, by a substring of the kernel's
+#: name that this tree's and the parent trees' kernels share (K6's and K8's
+#: kernels were renamed when they were batched).
+K6K8_GROUPS = {"K6": "param_eval", "K8": "biquad_coeffs"}
+
+
+def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
     """Device time a step and per kernel over ``steps`` steps of ``ctx``
     under torch.profiler (after two warm-up steps); the busy share divides
     it by ``host_us``, the unprofiled host time a step, since the profiler
-    slows the host."""
+    slows the host. ``groups`` ({label: substring of kernel names}) adds
+    each group's device time and launches a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -175,10 +193,17 @@ def profile_steps(ctx, step_frames, host_us, steps=20):
             per_kernel[e.key] = (t_us / steps, e.count / steps)
     device_us = sum(t for t, _ in per_kernel.values())
     top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"profiled_host_us_per_step": window_s / steps * 1e6,
-            "device_us_per_step": device_us, "device_busy": device_us / host_us,
-            "launches_per_step": sum(c for _, c in per_kernel.values()),
-            "top_kernels_us_per_step": {k: round(t, 3) for k, (t, _) in top_kernels}}
+    out = {"profiled_host_us_per_step": window_s / steps * 1e6,
+           "device_us_per_step": device_us, "device_busy": device_us / host_us,
+           "launches_per_step": sum(c for _, c in per_kernel.values()),
+           "top_kernels_us_per_step": {k: round(t, 3) for k, (t, _) in top_kernels}}
+    if groups:
+        out["groups_per_step"] = {
+            label: {"device_us": sum(t for k, (t, _) in per_kernel.items() if sub in k),
+                    "launches": sum(c for k, (_, c) in per_kernel.items() if sub in k),
+                    "kernels": sorted(k for k in per_kernel if sub in k)}
+            for label, sub in groups.items()}
+    return out
 
 
 def timed_render(build, frames, method="render"):
@@ -271,41 +296,186 @@ def compare(name, route, source, replaces, kernel, plain, tol, bnd, rel=False,
             "device_ms": dev_ms, **extra}
 
 
-def config3_kernel_checks(dev):
-    """K5, K6, K8 and P2 against their plain versions on the card, at the
-    shapes config 3 gives them mid-render (superblock 32, step 9: the
-    frequency and Q ramps are moving), K5 and K6 also on config 2's 8-voice
-    loop arena and exponential ramps, P2 also in the Pallas probe's form.
-    Returns the four JSON entries."""
+def flat(outs):
+    """One f32 vector of a kernel's outputs (complex ones as (re, im))."""
+    import torch
+
+    return torch.cat([torch.view_as_real(o).flatten() if o.is_complex() else o.flatten()
+                      for o in outs])
+
+
+def mid_render(ctx, dev, S=32, step=9):
+    """K5's arguments and the block clock of step ``step`` of ``ctx``
+    (superblock ``S``, one unity source group at stage 0), the voice
+    states advanced through the steps before it; the params encoded."""
     import torch
 
     import graphaudio_tpu_torch as gat
     from graphaudio_tpu_torch.core import graph as tgraph
+
+    T = S * 128
+    ctx._ensure_compiled()
+    ctx._ensure_params_encoded()
+    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
+    clock = ctx._block_clock((step + 1) * S)
+    st = ctx._states["st0"]
+    for k in range(step + 1):
+        bt = torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev)
+        rc = tgraph.RenderContext(ctx._compiled.info, k * T, bt)
+        st, args = gat.AudioBufferSourceNode.unity_group_plan(
+            st, ctx._consts["st0/geom"], rc, w, variant[1])
+    return args, bt
+
+
+def k6k8_checks(dev):
+    """K6 and K8 through their one-param and one-stage names
+    (``eval_intrinsic_blocked``, ``biquad_coefficients``), which the parent
+    trees have too, so ``--k6k8`` times both trees the same way: K6 at
+    config 3's frequency and config 2's 8-lane gain ramps, K8 at config 3's
+    first peaking stage, all mid-render (superblock 32, step 9). Returns
+    the K6 and K8 entries, config 2's K6 under "shapes"."""
+    from graphaudio_tpu_torch.ops import biquad as tbq
+    from graphaudio_tpu_torch.ops import param_eval as tpe
+    from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
+
+    dt = 1.0 / SR
+    ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
+    (_, bt3), (_, bt2) = mid_render(ctx3, dev), mid_render(ctx2, dev)
+    enc3, enc2 = ctx3._encs["st2/frequency"], ctx2._encs["st1/gain"]
+
+    def k6_bound(enc, bt):
+        # the event table and clock read once, the curve written once; about
+        # ten flops a sample to locate its segment and interpolate
+        out = tpe.eval_intrinsic_blocked(enc, bt, 128, dt)
+        return bound(nbytes(*enc.values(), bt, out), 10 * out.numel())
+
+    k6 = compare("K6 param curve, one param (config 3 frequency: 1 lane, cap 32, a-rate S=32)",
+                 "cuda", "graphaudio_tpu_torch/csrc/param_eval.cu",
+                 "graphaudio_tpu/ops/param_eval.py:175",
+                 lambda: tpe.eval_intrinsic_blocked(enc3, bt3, 128, dt),
+                 lambda: tpe.eval_intrinsic_blocked_plain(enc3, bt3, 128, dt), 1e-6, rel=True,
+                 bnd=k6_bound(enc3, bt3))
+    k6_2 = compare("K6 param curve, one param (config 2 gains: 8 lanes, linear + exponential "
+                   "ramps)", "cuda", "graphaudio_tpu_torch/csrc/param_eval.cu",
+                   "graphaudio_tpu/ops/param_eval.py:175",
+                   lambda: tpe.eval_intrinsic_blocked(enc2, bt2, 128, dt),
+                   lambda: tpe.eval_intrinsic_blocked_plain(enc2, bt2, 128, dt), 1e-6, rel=True,
+                   bnd=k6_bound(enc2, bt2))
+    k6["shapes"] = [{k: k6_2[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "device_ms")}]
+    f = tpe.eval_intrinsic_blocked(enc3, bt3, 128, dt)
+    q = tpe.eval_intrinsic_blocked(ctx3._encs["st2/Q"], bt3, 128, dt)
+    g = tpe.eval_intrinsic_blocked(ctx3._encs["st2/gain"], bt3, 1, dt).contiguous()
+    k8 = compare("K8 RBJ coefficients + pole split, one stage (config 3 peaking: V=1 T=4096)",
+                 "cuda", "graphaudio_tpu_torch/csrc/biquad.cu", "graphaudio_tpu/ops/biquad.py:43",
+                 lambda: flat(tbq.biquad_coefficients("peaking", f, q, g, SR)),
+                 lambda: flat(tbq.biquad_coefficients_plain("peaking", f, q, g, SR)),
+                 1e-6, rel=True,
+                 # f, q, gain in, five coefficient rows out; ~40 flops a sample
+                 bnd=bound(nbytes(f, q, g, *tbq.biquad_coefficients("peaking", f, q, g, SR)),
+                           40 * f.numel()))
+    return k6, k8
+
+
+def k6k8_batch_checks(dev):
+    """The batched K6 and K8 as the step's prologue launches them, bit for
+    bit (tolerance 0): K6 on config 3's step table (8 rows, capacity 32,
+    a-rate, S=32) and config 2's (8 lanes of linear and exponential gain
+    ramps), mid-render at step 9; K8 on config 3's four stages over that
+    step's K6 arena and on eight stages of all eight types as data
+    (graphaudio_tpu_torch/testing/tables.py). Returns the K6 and K8
+    entries, the other shapes under "shapes"."""
+    from graphaudio_tpu_torch.core import graph as tgraph
+    from graphaudio_tpu_torch.core.graph import to_device
+    from graphaudio_tpu_torch.ops import biquad as tbq
+    from graphaudio_tpu_torch.ops import param_eval as tpe
+    from graphaudio_tpu_torch.testing import tables as ttab
+    from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
+
+    dt = 1.0 / SR
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+
+    def k6_check(label, table, bt):
+        out = tpe.eval_intrinsic_batch(table, bt, dt)
+        fields = [table[k] for k in ("times", "tcs", "values", "types", "boundary", "n",
+                                     "base", "rows")]
+        return compare(f"K6 param curves, one launch ({label})", "cuda",
+                       "graphaudio_tpu_torch/csrc/param_eval.cu",
+                       "graphaudio_tpu/ops/param_eval.py:175",
+                       lambda: tpe.eval_intrinsic_batch(table, bt, dt),
+                       lambda: tpe.eval_intrinsic_batch_plain(table, bt, dt), 0.0,
+                       # the table and clock read once, the arena written
+                       # once; about ten flops a sample
+                       bnd=bound(nbytes(*fields, bt, out), 10 * out.numel()))
+
+    def k8_check(label, table, arena):
+        outs = tbq.biquad_coefficients_batch(table, arena, SR)
+        rows = table["rows"].cpu().long()
+        T = table["frames"]
+        # each row's sources read once (a-rate T floats, k-rate S, a
+        # constant 1), five coefficient rows written; ~40 flops a sample
+        per = {tbq.SRC_ARATE: T, tbq.SRC_KRATE: T // 128, tbq.SRC_CONST: 1}
+        src_bytes = 4 * sum(per[int(w) & 3] for w in rows[:, 1:4].flatten())
+        moved = src_bytes + nbytes(table["rows"], *(o for st in outs for o in st))
+        return compare(f"K8 RBJ coefficients + pole split, one launch ({label})", "cuda",
+                       "graphaudio_tpu_torch/csrc/biquad.cu", "graphaudio_tpu/ops/biquad.py:43",
+                       lambda: flat([o for st in tbq.biquad_coefficients_batch(table, arena, SR)
+                                     for o in st]),
+                       lambda: flat([o for st in tbq.biquad_coefficients_batch_plain(table, arena, SR)
+                                     for o in st]), 0.0,
+                       bnd=bound(moved, 40 * rows.shape[0] * T))
+
+    ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
+    (_, bt3), (_, bt2) = mid_render(ctx3, dev), mid_render(ctx2, dev)
+    t3, t2 = ctx3._encs[tgraph.PARAM_TABLE], ctx2._encs[tgraph.PARAM_TABLE]
+    R3, cap3 = t3["times"].shape
+    k6 = k6_check(f"config 3 step table: {R3} rows, cap {cap3}, a-rate S=32", t3, bt3)
+    R2, cap2 = t2["times"].shape
+    k6_2 = k6_check(f"config 2 step table: {R2} lanes of gain ramps, cap {cap2}", t2, bt2)
+    k6["shapes"] = [{k: k6_2[k] for k in keys}]
+
+    arena3 = tpe.eval_intrinsic_batch(t3, bt3, dt)
+    kt3 = ctx3._encs[tgraph.PROLOGUE]["0"]["table"]
+    types3 = "/".join(tbq.FILTER_TYPES[int(c)] for c in kt3["rows"][:, 0].cpu())
+    k8 = k8_check(f"config 3's {len(kt3['stages'])} stages, {types3}, T=4096", kt3, arena3)
+    t8, stages = ttab.eight_type_stages(3, 32, 8 * 32 * ttab.BLOCK)
+    t8 = to_device(t8, dev)
+    bt8 = torch_clock(dev, 8 * 32, 5, 32)
+    arena8 = tpe.eval_intrinsic_batch(t8, bt8, dt)
+    kt8 = to_device(tbq.pack_coefficient_table(stages, 32), dev)
+    k8_8 = k8_check(f"all eight types as data: {kt8['rows'].shape[0]} rows, a-rate, k-rate and "
+                    "constant sources, T=4096", kt8, arena8)
+    k8["shapes"] = [{k: k8_8[k] for k in keys}]
+    return k6, k8
+
+
+def torch_clock(dev, n_blocks, step, S):
+    """The block clock of step ``step`` (superblock ``S``) on ``dev``."""
+    import torch
+
+    from graphaudio_tpu_torch.testing import tables as ttab
+
+    return torch.from_numpy(ttab.block_clock(n_blocks)[step * S:(step + 1) * S]).to(dev)
+
+
+def config3_kernel_checks(dev):
+    """K5, K6, K8 and P2 against their plain versions on the card, at the
+    shapes config 3 gives them mid-render (superblock 32, step 9: the
+    frequency and Q ramps are moving): K6 and K8 batched as the step
+    launches them (``k6k8_batch_checks``) and through their one-entry names
+    (``k6k8_checks``), K5 also on config 2's 8-voice loop arena, P2 also
+    with constant poles, on eight lanes and in the Pallas probe's form.
+    Returns the four JSON entries."""
+    import torch
+
     from graphaudio_tpu_torch.ops import biquad as tbq
     from graphaudio_tpu_torch.ops import param_eval as tpe
     from graphaudio_tpu_torch.ops import unity as tun
     from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
 
-    S, step = 32, 9
-    T, dt = S * 128, 1.0 / SR
-
-    def mid_render(ctx):
-        """K5's arguments and the block clock of step ``step``, the voice
-        states advanced through the steps before it."""
-        ctx._ensure_compiled()
-        ctx._ensure_params_encoded()
-        w, variant, _ = ctx._compiled._bufsrc_cfg[0]
-        clock = ctx._block_clock((step + 1) * S)
-        st = ctx._states["st0"]
-        for k in range(step + 1):
-            bt = torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev)
-            rc = tgraph.RenderContext(ctx._compiled.info, k * T, bt)
-            st, args = gat.AudioBufferSourceNode.unity_group_plan(
-                st, ctx._consts["st0/geom"], rc, w, variant[1])
-        return args, bt
-
-    ctx3, ctx2 = (b(superblock=S, device=dev) for b in (config3_eq_chain, config2_mix_bus))
-    (args3, bt3), (args2, bt2) = mid_render(ctx3), mid_render(ctx2)
+    dt = 1.0 / SR
+    ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
+    (args3, bt3), (args2, bt2) = mid_render(ctx3, dev), mid_render(ctx2, dev)
     arena3, arena2 = ctx3._consts["st0/arena"], ctx2._consts["st0/arena"]
 
     def k5_bound(arena, args):
@@ -323,42 +493,12 @@ def config3_kernel_checks(dev):
             lambda: tun.unity_gather(arena2, **args2),
             lambda: tun.unity_gather_plain(arena2, **args2), 0.0, bnd=k5_bound(arena2, args2))
 
-    enc3, enc2 = ctx3._encs["st2/frequency"], ctx2._encs["st1/gain"]
+    k6, k8 = k6k8_batch_checks(dev)
+    k6["one_entry"], k8["one_entry"] = k6k8_checks(dev)
 
-    def k6_bound(enc, bt):
-        # the event table and clock read once, the curve written once; about
-        # ten flops a sample to locate its segment and interpolate
-        out = tpe.eval_intrinsic_blocked(enc, bt, 128, dt)
-        return bound(nbytes(*enc.values(), bt, out), 10 * out.numel())
-
-    k6 = compare("K6 param curve (config 3 frequency: 1 lane, cap 32, a-rate S=32)", "cuda",
-                 "graphaudio_tpu_torch/csrc/param_eval.cu", "graphaudio_tpu/ops/param_eval.py:175",
-                 lambda: tpe.eval_intrinsic_blocked(enc3, bt3, 128, dt),
-                 lambda: tpe.eval_intrinsic_blocked_plain(enc3, bt3, 128, dt), 1e-6, rel=True,
-                 bnd=k6_bound(enc3, bt3))
-    compare("K6 param curve (config 2 gains: 8 lanes, linear + exponential ramps)", "cuda",
-            "graphaudio_tpu_torch/csrc/param_eval.cu", "graphaudio_tpu/ops/param_eval.py:175",
-            lambda: tpe.eval_intrinsic_blocked(enc2, bt2, 128, dt),
-            lambda: tpe.eval_intrinsic_blocked_plain(enc2, bt2, 128, dt), 1e-6, rel=True,
-            bnd=k6_bound(enc2, bt2))
-
-    f = tpe.eval_intrinsic_blocked(enc3, bt3, 128, dt)
+    f = tpe.eval_intrinsic_blocked(ctx3._encs["st2/frequency"], bt3, 128, dt)
     q = tpe.eval_intrinsic_blocked(ctx3._encs["st2/Q"], bt3, 128, dt)
     g = tpe.eval_intrinsic_blocked(ctx3._encs["st2/gain"], bt3, 1, dt).contiguous()
-
-    def flat(outs):
-        return torch.cat([torch.view_as_real(o).flatten() if o.is_complex() else o.flatten()
-                          for o in outs])
-
-    k8 = compare("K8 RBJ coefficients + pole split (config 3 peaking: V=1 T=4096)", "cuda",
-                 "graphaudio_tpu_torch/csrc/biquad.cu", "graphaudio_tpu/ops/biquad.py:43",
-                 lambda: flat(tbq.biquad_coefficients("peaking", f, q, g, SR)),
-                 lambda: flat(tbq.biquad_coefficients_plain("peaking", f, q, g, SR)),
-                 1e-6, rel=True,
-                 # f, q, gain in, five coefficient rows out; ~40 flops a sample
-                 bnd=bound(nbytes(f, q, g, *tbq.biquad_coefficients("peaking", f, q, g, SR)),
-                           40 * f.numel()))
-
     coeffs = tbq.biquad_coefficients("peaking", f, q, g, SR)
     x = tun.unity_gather(arena3, **args3)  # [1, 2, 4096]
     w1 = torch.tensor([[0.01, -0.02]], device=dev)
@@ -639,7 +779,7 @@ def k2_checks(dev):
     return [macs[0], olas[0]]
 
 
-def main(device="cuda", k2a_only=False, p1_only=False):
+def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -718,6 +858,46 @@ def main(device="cuda", k2a_only=False, p1_only=False):
         phase("profile", f"config 5, 20 steps under torch.profiler: {json.dumps(prof)}")
         print(json.dumps({"kernels": entries, "config5": {
             "host_us_per_step_median": host, "profile": prof, "f32": spread(frames5, walls)},
+            "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if k6k8_only:
+        from graphaudio_tpu_torch.testing.configs import config3_eq_chain
+
+        entries = list(k6k8_checks(dev))
+        T3 = 32 * 128
+        frames3 = (30 * SR // T3) * T3  # 351 superblocks
+        steps3 = frames3 // T3
+        b3 = lambda: config3_eq_chain(superblock=32, device=dev)  # noqa: E731
+        b3().render(T3)
+        torch.cuda.synchronize()
+        cudabuild.launches.clear()
+        out3, wall3, bd3 = timed_render(b3, frames3)
+        # launches under this tree's names and the parent trees'
+        k6_n = cudabuild.launches["eval_intrinsic_batch"] + cudabuild.launches["eval_intrinsic_blocked"]
+        k8_n = (cudabuild.launches["biquad_coefficients_batch"]
+                + cudabuild.launches["biquad_coefficients"])
+        entries[0]["launches"], entries[1]["launches"] = k6_n, k8_n
+        walls = [wall3] + [timed_render(b3, frames3)[1] for _ in range(2)]
+        sha = hashlib.sha256(np.ascontiguousarray(out3, dtype=np.float32).tobytes()).hexdigest()
+        head_err = float(np.abs(out3[:, :8192].astype(np.float64)
+                                - np.load(GOLDENS[3])["out"]).max())
+        host = statistics.median(walls) / steps3 * 1e6
+        prof = profile_steps(b3(), T3, host, groups=K6K8_GROUPS)
+        phase("render", f"config 3 f32: {out3.shape}; three runs {walls!r} s; host us a step "
+              f"{[w / steps3 * 1e6 for w in walls]!r}; K6 {k6_n / steps3!r} and K8 "
+              f"{k8_n / steps3!r} launches a step; sha256 of the first run {sha}; first 8192 "
+              f"frames vs golden max_abs_err={head_err!r}; first run breakdown {json.dumps(bd3)}")
+        phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(prof)}")
+        if not (np.isfinite(out3).all() and head_err < 1e-5):
+            raise AssertionError("config-3 render is not finite or not within 1e-5 of the golden")
+        print(json.dumps({"kernels": entries, "config3": {
+            "host_us_per_step_median": host,
+            "host_us_per_step": [w / steps3 * 1e6 for w in walls], "profile": prof,
+            "f32": spread(frames3, walls), "sha256": sha, "head_vs_golden": head_err,
+            "launches_per_step": {"K6": k6_n / steps3, "K8": k8_n / steps3}},
             "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -843,8 +1023,9 @@ def main(device="cuda", k2a_only=False, p1_only=False):
     T3 = 32 * 128
     frames3 = (30 * SR // T3) * T3  # 351 superblocks
     b3 = lambda: config3_eq_chain(superblock=32, device=dev)  # noqa: E731
-    wrappers3 = {"K5 unity copy": "unity_gather", "K6 param curve": "eval_intrinsic_blocked",
-                 "K8 RBJ coefficients": "biquad_coefficients", "P2 biquad cascade": "biquad_apply"}
+    wrappers3 = {"K5 unity copy": "unity_gather", "K6 param curve": "eval_intrinsic_batch",
+                 "K8 RBJ coefficients": "biquad_coefficients_batch",
+                 "P2 biquad cascade": "biquad_apply"}
     b3().render(T3)
     torch.cuda.synchronize()
     cudabuild.launches.clear()
@@ -867,15 +1048,19 @@ def main(device="cuda", k2a_only=False, p1_only=False):
             e["launches"] = launches3[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-3 path")
+    for name in ("K6 param curve", "K8 RBJ coefficients"):
+        if launches3[name] != frames3 // T3:
+            raise AssertionError(f"{name}: {launches3[name]} launches in {frames3 // T3} steps, "
+                                 "not one a step")
     host_us3 = statistics.median(walls3) / (frames3 // T3) * 1e6
-    profile3 = profile_steps(b3(), T3, host_us3)
+    profile3 = profile_steps(b3(), T3, host_us3, groups=K6K8_GROUPS)
     phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(profile3)}")
 
     # -- 7. the config-5 path at full size -----------------------------------
     wrappers5 = {"P1 HRTF FIR": "hrtf_fir", "K10b spatial gains": "spatial_gains",
                  "K2a spectral MAC": "spectral_mac", "K2b overlap-add": "overlap_add",
                  "K3 lane fan-in": "fan_in_lanes", "K5 unity copy": "unity_gather",
-                 "K6 param curve": "eval_intrinsic_blocked"}
+                 "K6 param curve": "eval_intrinsic_batch"}
     b5().render(T5)
     torch.cuda.synchronize()
     cudabuild.launches.clear()
@@ -953,5 +1138,9 @@ if __name__ == "__main__":
     ap.add_argument("--p1", action="store_true",
                     help="only the build, the P1 checks and config 5's render profile (to "
                          "alternate two trees' kernels in one call)")
+    ap.add_argument("--k6k8", action="store_true",
+                    help="only the build, the K6 and K8 checks through their one-entry names "
+                         "and three 30 s config-3 renders with their profile (to alternate two "
+                         "trees' kernels in one call)")
     args = ap.parse_args()
-    sys.exit(main(k2a_only=args.k2a, p1_only=args.p1))
+    sys.exit(main(k2a_only=args.k2a, p1_only=args.p1, k6k8_only=args.k6k8))

@@ -11,6 +11,11 @@ that evaluates every stage for one superblock of S render quanta
 (T = S*128 frames), and ``make_render_fn`` runs it as a plain Python loop
 over superblocks (the JAX package's ``lax.scan``). PyTorch runs eagerly, so
 there is no compiled program: the step issues the stage kernels directly.
+Work that depends on params alone is batched at the top of the step, where
+XLA would fuse it: one K6 launch evaluates every automated param into one
+arena (``encode_params`` packs its table once per encoding), and each batch
+function of the stages' ``prologue_request``s (K8 for the biquads) runs
+once for all of its stages.
 
 Left out so far (see ROADMAP.md): chain fusion into pipelined stages
 (``_fuse_chains``), mesh sharding (``_compute_sharding`` / ``shard_map``),
@@ -32,7 +37,12 @@ from graphaudio_tpu_torch.core.mixing import (
     resolve_channel_count,
 )
 from graphaudio_tpu_torch.core.params import AutomationRate
-from graphaudio_tpu_torch.ops.param_eval import eval_intrinsic_blocked
+from graphaudio_tpu_torch.ops.param_eval import (
+    constant_slot,
+    eval_intrinsic_batch,
+    eval_intrinsic_blocked,
+    pack_param_table,
+)
 from graphaudio_tpu_torch.ops.resample import poly_taps
 
 
@@ -71,6 +81,8 @@ class RenderContext:
         self.stage_consts = {}
         # Context-level globals (the listener transform), f32[3] tensors.
         self.globals = None
+        # The running stage's result from the step's prologue, if it asked.
+        self.prologue_result = None
 
 
 class ParamSignal:
@@ -96,6 +108,17 @@ class ParamSignal:
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
+
+
+#: keys of the step's batched tables in an encoding (``encode_params``)
+PARAM_TABLE = "__param_table__"
+PROLOGUE = "__prologue__"
+
+
+def _evaluates_params(sp) -> bool:
+    """Stages whose params the step evaluates (buffer-source groups bake
+    theirs into the kernel variant; the destination has none)."""
+    return sp["kind"] != "dest" and sp["bufsrc"] is None
 
 
 def _is_buffer_source(node) -> bool:
@@ -555,7 +578,45 @@ class CompiledGraph:
                     encs[f"st{si}/{name}"] = p.encode(
                         self.param_capacity[(n.node_id, name)]
                     )
+        self._pack_prologue(encs)
         return encs
+
+    def _pack_prologue(self, encs) -> None:
+        """Add the step's batched tables to ``encs``: the K6 table of every
+        evaluated param with events (``PARAM_TABLE``), and per batch
+        function of the stages' prologue requests its table, the stage keys
+        it serves and the function (``PROLOGUE``)."""
+        S = self.info.superblock
+        entries = []
+        for sp in self.plan:
+            if not _evaluates_params(sp):
+                continue
+            for name, a_rate, exact in sp["params"]:
+                key = f"{sp['key']}/{name}"
+                if encs[key]["times"].shape[-1] and not exact:
+                    entries.append((key, encs[key], FRAMES_PER_BLOCK if a_rate else 1))
+        table = pack_param_table(entries, S)
+        batches = {}
+        for sp in self.plan:
+            if not _evaluates_params(sp):
+                continue
+            slots = {}
+            for name, a_rate, exact in sp["params"]:
+                key = f"{sp['key']}/{name}"
+                slot = table["slots"].get(key)
+                if slot is None and not encs[key]["times"].shape[-1]:
+                    slot = constant_slot(encs[key], FRAMES_PER_BLOCK if a_rate else 1, S)
+                slots[name] = slot
+            req = sp["rep"].prologue_request(slots)
+            if req is not None:
+                batch = batches.setdefault(req.run, (req.pack, [], []))
+                batch[1].append(sp["key"])
+                batch[2].append(req.item)
+        encs[PARAM_TABLE] = table
+        encs[PROLOGUE] = {
+            str(i): {"run": run, "keys": tuple(keys), "table": pack(items, S)}
+            for i, (run, (pack, keys, items)) in enumerate(batches.items())
+        }
 
     # -- the step function ---------------------------------------------------
 
@@ -567,12 +628,29 @@ class CompiledGraph:
         plan = self.plan
         dest_channels = self.input_channels[(self.destination.node_id, 0)]
 
+        # (name, a-rate, exact, encoding key) of each stage's params
+        stage_params = {
+            sp["key"]: [(name, a_rate, exact, f"{sp['key']}/{name}")
+                        for name, a_rate, exact in sp["params"]]
+            for sp in plan
+        }
+
         def step(states, encs, consts, block_times, frame0):
             rc = RenderContext(info, frame0, block_times)
             rc.globals = states["__globals__"]
             out_table: Dict[Tuple[int, int], object] = {}
             new_states = {"__globals__": rc.globals}
             dest_out = None
+
+            # Prologue: one K6 launch evaluates every automated param of the
+            # step into one arena, then each batch function of the stages'
+            # requests (K8 for the biquads) runs once.
+            table = encs[PARAM_TABLE]
+            slots = table["slots"]
+            arena = eval_intrinsic_batch(table, block_times, rc.dt) if table["size"] else None
+            prologue = {}
+            for batch in encs[PROLOGUE].values():
+                prologue.update(zip(batch["keys"], batch["run"](batch["table"], arena, rc)))
 
             def mixed_signal(prods, dst_c):
                 """Sum producer outputs into one [dst_c, T] block — the
@@ -605,12 +683,19 @@ class CompiledGraph:
                 return acc
 
             def eval_params(sp, key):
+                """Each param's values: its rows of the arena, or (no
+                events) its base value as a broadcast view."""
                 params = {}
-                for name, a_rate, exact in sp["params"]:
-                    vals = eval_intrinsic_blocked(
-                        encs[f"{key}/{name}"], block_times,
-                        FRAMES_PER_BLOCK if a_rate else 1, rc.dt, exact=exact,
-                    )
+                for name, a_rate, exact, pkey in stage_params[key]:
+                    slot = slots.get(pkey)
+                    if slot is None:
+                        vals = eval_intrinsic_blocked(
+                            encs[pkey], block_times, FRAMES_PER_BLOCK if a_rate else 1,
+                            rc.dt, exact=exact,
+                        )
+                    else:
+                        vals = arena.narrow(0, slot.off, slot.lanes * slot.per_lane).view(
+                            *slot.shape, slot.per_lane)
                     params[name] = ParamSignal(vals, a_rate)
                 return params
 
@@ -619,8 +704,10 @@ class CompiledGraph:
                 rc.stage_consts = {
                     n[len(prefix):]: v for n, v in consts.items() if n.startswith(prefix)
                 }
+                rc.prologue_result = prologue.get(key)
                 result = sp["rep"].process(states[key], inputs, params, rc)
                 rc.stage_consts = {}
+                rc.prologue_result = None
                 return result
 
             def run_single(sp):

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import enum
 import itertools
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 from graphaudio_tpu_torch.core.constants import MAX_CHANNELS
 from graphaudio_tpu_torch.core.params import AudioParam, AutomationRate
@@ -141,6 +141,22 @@ class AudioNodeOutput:
             self.disconnect_from_param(p)
 
 
+class PrologueRequest(NamedTuple):
+    """Work a stage hands the step's prologue (``AudioNode.prologue_request``).
+
+    The requests of one ``run`` are served together: ``pack(items,
+    superblock)`` makes their table once per param encoding (numpy arrays
+    and host fields), and each step ``run(table, arena, rc)`` returns one
+    result per item, in order, before any stage runs; ``arena`` is the
+    step's K6 arena (None when no param has events). The stage's
+    ``process`` finds its result in ``rc.prologue_result``.
+    """
+
+    run: Callable
+    pack: Callable
+    item: object
+
+
 class AudioNode:
     """Base class for all graph nodes (parity: AudioNode.cs:10).
 
@@ -256,6 +272,14 @@ class AudioNode:
         Returns (new_state, [f32[channels, T] per output port]).
         """
         raise NotImplementedError
+
+    def prologue_request(self, slots) -> Optional[PrologueRequest]:
+        """Work of this node's stage that depends on its params alone and can
+        join the other stages' in one batched call at the top of the step,
+        or None (the default). ``slots`` maps each param name to its
+        ``ops.param_eval.ParamSlot`` (None for an exact param with events).
+        Called with the stage's representative, once per param encoding."""
+        return None
 
     def output_channel_counts(self, input_channels: Sequence[int]) -> List[int]:
         """Static output channel counts given resolved input channel counts."""

@@ -1,10 +1,21 @@
-// K8: per-sample RBJ biquad coefficients and pole split of one filter group.
+// K8: per-sample RBJ biquad coefficients and pole split of every biquad
+// stage of a render step, in one launch.
 //
-// Replaces graphaudio_tpu/ops/biquad.py rbj_coefficients (:43-121) and the
-// pole split at the head of biquad_apply (:488-495), with the clamps and the
-// k-rate gain expansion of nodes/biquad.py BiQuadFilterNode.process
-// (:146-157). One thread per (lane, sample), all elementwise: bound by the
-// launch and the f64 sin/cos/pow at a few thousand samples per lane.
+// Replaces graphaudio_tpu/ops/biquad.py rbj_coefficients (:43-121), with the
+// type as data as in rbj_coefficients_dyn (:131-150), and the pole split at
+// the head of biquad_apply (:488-495), with the clamps and the k-rate gain
+// expansion of nodes/biquad.py BiQuadFilterNode.process (:146-157). XLA fuses
+// these into the step's program; the port packs the step's stages into one
+// table (ops/biquad.py pack_coefficient_table: a row of eight words per
+// (stage, lane)) and launches once. A block of 128 threads owns one row and
+// one quantum: each thread reads its sample's frequency and Q from the row's
+// sources (a K6 arena row, a-rate or k-rate, or a constant), and for the
+// types that read the gain one thread computes A = 10^(g/40) once for the
+// quantum (g is constant over it, so this is the value every thread computed
+// before) and shares it through shared memory. Bound on the H100: the launch
+// and each thread's chain of f64 sin and cos (and, for the gain types, the
+// one f64 pow before the barrier), not its ~40 flops a sample; config 3's
+// four stages are 128 blocks, one wave.
 //
 // Rounding follows the plain version (ops/biquad.py) and, through it, the
 // XLA CPU build of the reference, because config 3's low-frequency resonant
@@ -22,26 +33,46 @@
 
 namespace {
 
+constexpr int kQuantum = 128;
+// Source word modes (ops/biquad.py SRC_*): word = off << 2 | mode.
+constexpr int kSrcARate = 0, kSrcKRate = 1, kSrcConst = 2;
+
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
-__global__ void biquad_coeffs_kernel(
-    const float* __restrict__ freq, const float* __restrict__ qp,
-    const float* __restrict__ gain, int V, int T, int type, float half_sr,
-    float w0_scale, float* __restrict__ b, float2* __restrict__ p) {
-  const int64_t n = static_cast<int64_t>(V) * T;
-  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= n) return;
-  const int v = static_cast<int>(gid / T);
-  const int t = static_cast<int>(gid - static_cast<int64_t>(v) * T);
-  const int S = T / 128;
+// The value of source `word` at sample i of quantum s.
+__device__ __forceinline__ float source(const float* __restrict__ src,
+                                        const float* __restrict__ consts, int word, int s,
+                                        int i) {
+  const int mode = word & 3;
+  const int64_t off = static_cast<int64_t>(static_cast<uint32_t>(word) >> 2);
+  if (mode == kSrcConst) return consts[off];
+  if (mode == kSrcKRate) return src[off + s];
+  return src[off + static_cast<int64_t>(s) * kQuantum + i];  // kSrcARate
+}
 
-  // Per-sample clamps (BiQuadFilterNode.cs:123-124), k-rate gain per quantum.
-  const float f = fminf(fmaxf(freq[gid], 1.0f), half_sr);
-  const float q = fmaxf(qp[gid], 0.001f);
-  const float g = gain[static_cast<int64_t>(v) * S + t / 128];
+__global__ void __launch_bounds__(kQuantum) biquad_coeffs_batch_kernel(
+    const float* __restrict__ f_src, const float* __restrict__ q_src,
+    const float* __restrict__ g_src, const float* __restrict__ consts,
+    const int32_t* __restrict__ rows, int S, float half_sr, float w0_scale,
+    float* __restrict__ b, float2* __restrict__ p) {
+  __shared__ float gain_a;
+  const int r = blockIdx.x, s = blockIdx.y, i = threadIdx.x;
+  const int32_t* w = rows + 8 * r;
+  const int type = w[0];
+  const int64_t T = static_cast<int64_t>(S) * kQuantum;
+  const int64_t t = static_cast<int64_t>(s) * kQuantum + i;
+
+  if (type >= 5 && i == 0) {  // the types with gain: A once for the quantum
+    const float g = source(g_src, consts, w[3], s, 0);
+    gain_a = static_cast<float>(pow(10.0, static_cast<double>(mul(g, 0.025f))));
+  }
+
+  // Per-sample clamps (BiQuadFilterNode.cs:123-124).
+  const float f = fminf(fmaxf(source(f_src, consts, w[1], s, i), 1.0f), half_sr);
+  const float q = fmaxf(source(q_src, consts, w[2], s, i), 0.001f);
 
   const float w0 = mul(f, w0_scale);
   const float cosw = static_cast<float>(cos(static_cast<double>(w0)));
@@ -81,7 +112,8 @@ __global__ void biquad_coeffs_kernel(
         break;
     }
   } else {
-    const float A = static_cast<float>(pow(10.0, static_cast<double>(mul(g, 0.025f))));
+    __syncthreads();  // uniform: the row's type is the block's
+    const float A = gain_a;
     if (type == 5) {  // peaking
       const float aA = mul(alpha, A), adA = dvd(alpha, A);
       b0 = add(1.0f, aA);
@@ -111,33 +143,35 @@ __global__ void biquad_coeffs_kernel(
       }
     }
   }
+  const int64_t V = w[6];
+  const int64_t bo = w[4] * T + t, po = w[5] * T + t;
   const float inv_a0 = dvd(1.0f, a0);
-  b[gid] = mul(b0, inv_a0);
-  b[n + gid] = mul(b1, inv_a0);
-  b[2 * n + gid] = mul(b2, inv_a0);
+  b[bo] = mul(b0, inv_a0);
+  b[bo + V * T] = mul(b1, inv_a0);
+  b[bo + 2 * V * T] = mul(b2, inv_a0);
   const float na1 = mul(a1, inv_a0), na2 = mul(a2, inv_a0);
 
   // Pole split: d = a1*a1 - 4*a2 fused as XLA fuses it.
   const float d = fmaf(na1, na1, -mul(4.0f, na2));
-  const float s = __fsqrt_rn(fabsf(d));
+  const float sq = __fsqrt_rn(fabsf(d));
   if (d >= 0.0f) {
-    p[gid] = make_float2(mul(0.5f, add(-na1, s)), 0.0f);
-    p[n + gid] = make_float2(mul(0.5f, sub(-na1, s)), 0.0f);
+    p[po] = make_float2(mul(0.5f, add(-na1, sq)), 0.0f);
+    p[po + V * T] = make_float2(mul(0.5f, sub(-na1, sq)), 0.0f);
   } else {
-    p[gid] = make_float2(mul(0.5f, -na1), mul(0.5f, s));
-    p[n + gid] = make_float2(mul(0.5f, -na1), -mul(0.5f, s));
+    p[po] = make_float2(mul(0.5f, -na1), mul(0.5f, sq));
+    p[po + V * T] = make_float2(mul(0.5f, -na1), -mul(0.5f, sq));
   }
 }
 
 }  // namespace
 
-GA_EXPORT int ga_biquad_coeffs(const float* freq, const float* q, const float* gain, int V,
-                               int T, int type, float half_sr, float w0_scale, float* b,
-                               float2* p, void* stream) {
-  const int64_t n = static_cast<int64_t>(V) * T;
-  const int threads = 256;
-  const int blocks = static_cast<int>((n + threads - 1) / threads);
-  biquad_coeffs_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      freq, q, gain, V, T, type, half_sr, w0_scale, b, p);
+// NR table rows over S quanta: one block per (row, quantum).
+GA_EXPORT int ga_biquad_coeffs_batch(const float* f_src, const float* q_src, const float* g_src,
+                                     const float* consts, const int32_t* rows, int NR, int S,
+                                     float half_sr, float w0_scale, float* b, float2* p,
+                                     void* stream) {
+  const dim3 grid(NR, S);
+  biquad_coeffs_batch_kernel<<<grid, kQuantum, 0, static_cast<cudaStream_t>(stream)>>>(
+      f_src, q_src, g_src, consts, rows, S, half_sr, w0_scale, b, p);
   return ga_launch_status();
 }

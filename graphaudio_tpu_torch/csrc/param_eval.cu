@@ -1,43 +1,90 @@
-// K6: AudioParam automation-curve evaluation for one superblock.
+// K6: AudioParam automation curves of one superblock, every automated param
+// of a render step in one launch.
 //
 // Replaces graphaudio_tpu/ops/param_eval.py eval_intrinsic_blocked
 // (:175-336, the non-exact branch). The TPU version locates each sample's
-// surrounding events with [S, n, cap] one-hot reductions (per-element
-// gathers serialize there); here one thread per (lane, sample) counts the
-// events at or before its f64 absolute time with a loop over the small
-// padded capacity, then reads the prev/next fields directly.
+// surrounding events with [S, n, cap] one-hot reductions and XLA fuses the
+// step's params into one program; here the step's table (ops/param_eval.py
+// pack_param_table: one row per (param, lane), its events padded to the
+// batch's capacity) is evaluated by one launch. A block owns one row and a
+// tile of 256 consecutive samples: it stages the row's event fields in
+// shared memory with one coalesced load (when the capacity is at most
+// kStageCap; larger tables are read from global memory), and each thread
+// counts the events at or before its f64 absolute time with broadcast reads,
+// then reads the prev/next fields.
 //
 // Arithmetic follows the plain version (ops/param_eval.py) operation for
 // operation: f64 absolute times for the event index, f32 relative times for
 // the curve, fma/fmaf where XLA contracts a multiply-add (ops/xla_rounding.py),
 // __f*_rn elsewhere so nvcc does not contract on its own, and exp/pow in
-// f64 rounded once to f32.
+// f64 rounded once to f32. Padding a row to a larger capacity changes no
+// output: +inf times are never counted, the index never passes the row's n,
+// and the next event is read only while idx < n.
 //
-// Bound on the H100: the per-sample compare loop over cap events (cap = 16
-// or 32 for the configs) and the launch; a superblock is at most a few
-// thousand samples per lane.
+// Bound on the H100: not the work (about ten flops a sample, a few
+// kilobytes) but the launch and a chain of dependent reads, the row's words
+// and staged events, then its block clock, then the store; config 3's step
+// (8 rows x 4096 samples) is 128 blocks, one wave on the 132 SMs.
 #include "common.cuh"
 
 namespace {
 
-__global__ void param_eval_kernel(
+constexpr int kThreads = 256;
+constexpr int kStageCap = 1024;  // 28.7 KB of staged fields at most
+
+__host__ __device__ inline size_t stage_bytes(int cap) {
+  return cap <= kStageCap
+             ? static_cast<size_t>(cap) * (2 * sizeof(double) + 2 * sizeof(float)) +
+                   static_cast<size_t>(cap + 1) * sizeof(float)
+             : 0;
+}
+
+__global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
     const double* __restrict__ times, const float* __restrict__ values,
     const double* __restrict__ tcs, const int32_t* __restrict__ types,
     const float* __restrict__ boundary, const int32_t* __restrict__ nev,
-    const float* __restrict__ base, const double* __restrict__ block_times,
-    int L, int cap, int S, int npb, double dt, float* __restrict__ out) {
-  const int64_t per_lane = static_cast<int64_t>(S) * npb;
-  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= per_lane * L) return;
-  const int l = static_cast<int>(gid / per_lane);
-  const int j = static_cast<int>(gid - static_cast<int64_t>(l) * per_lane);
+    const float* __restrict__ base, const int32_t* __restrict__ rows,
+    const double* __restrict__ block_times, int cap, int S, double dt,
+    float* __restrict__ out) {
+  // The row's words, count and base load while its events are staged:
+  // nothing below waits on them until the barrier.
+  const int r = blockIdx.x;
+  const int npb = rows[2 * r], off = rows[2 * r + 1];
+  const int n = nev[r];
+  const float base_r = base[r];
+  const int64_t row = static_cast<int64_t>(r) * cap;
+  const double* tl = times + row;
+  const double* cl = tcs + row;
+  const float* vl = values + row;
+  const int32_t* yl = types + row;
+  const float* bl = boundary + static_cast<int64_t>(r) * (cap + 1);
+  extern __shared__ double stage[];
+  if (cap <= kStageCap) {
+    double* st = stage;
+    double* sc = st + cap;
+    float* sv = reinterpret_cast<float*>(sc + cap);
+    int32_t* sy = reinterpret_cast<int32_t*>(sv + cap);
+    float* sb = reinterpret_cast<float*>(sy + cap);
+    for (int k = threadIdx.x; k < cap; k += kThreads) {
+      st[k] = tl[k];
+      sc[k] = cl[k];
+      sv[k] = vl[k];
+      sy[k] = yl[k];
+    }
+    for (int k = threadIdx.x; k <= cap; k += kThreads) sb[k] = bl[k];
+    __syncthreads();
+    tl = st;
+    cl = sc;
+    vl = sv;
+    yl = sy;
+    bl = sb;
+  }
+  // Tiles past a short (k-rate) row have nothing to write.
+  const int j = static_cast<int>(blockIdx.y) * kThreads + static_cast<int>(threadIdx.x);
+  if (j >= S * npb) return;
   const int s = j / npb, i = j - s * npb;
-  const double* tl = times + static_cast<int64_t>(l) * cap;
-  const float* vl = values + static_cast<int64_t>(l) * cap;
-  const int32_t* yl = types + static_cast<int64_t>(l) * cap;
-  const int n = nev[l];
   const double bt = block_times[s];
-  const double off = __dmul_rn(static_cast<double>(i), dt);
+  const double off_t = __dmul_rn(static_cast<double>(i), dt);
   const double t = fma(static_cast<double>(i), dt, bt);  // as XLA fuses it
 
   int idx = 0;
@@ -52,7 +99,7 @@ __global__ void param_eval_kernel(
     d = fmin(fmax(d, -3.0e38), 3.0e38);
     return static_cast<float>(d);
   };
-  const float io = static_cast<float>(off);
+  const float io = static_cast<float>(off_t);
   const float t0r = rel(prev), t1r = rel(nxt);
   const float v0 = vl[prev], v1 = vl[nxt];
 
@@ -66,40 +113,41 @@ __global__ void param_eval_kernel(
     val = lin;
   } else if (has_next && yl[nxt] == 2) {  // EVT_EXPONENTIAL_RAMP
     if (v0 > 0.0f && v1 > 0.0f) {
-      const float r = __fdiv_rn(v1, v0);
-      val = __fmul_rn(v0, static_cast<float>(pow(static_cast<double>(r),
+      const float ratio = __fdiv_rn(v1, v0);
+      val = __fmul_rn(v0, static_cast<float>(pow(static_cast<double>(ratio),
                                                  static_cast<double>(u))));
     } else {
       val = lin;
     }
   } else if (yl[prev] == 3) {  // EVT_SET_TARGET
-    const float bl = boundary[static_cast<int64_t>(l) * (cap + 1) + min(idx, cap)];
+    const float b = bl[min(idx, cap)];
     const float elapsed = __fsub_rn(io, t0r);
     if (elapsed <= 0.0f) {
-      val = bl;
+      val = b;
     } else {
-      const float tc = fmaxf(static_cast<float>(tcs[static_cast<int64_t>(l) * cap + prev]),
-                             0.001f);
+      const float tc = fmaxf(static_cast<float>(cl[prev]), 0.001f);
       const float e = static_cast<float>(exp(static_cast<double>(__fdiv_rn(-elapsed, tc))));
-      val = fmaf(__fsub_rn(bl, v0), e, v0);
+      val = fmaf(__fsub_rn(b, v0), e, v0);
     }
   } else {
     val = v0;
   }
-  if (!(has_prev && n > 0)) val = base[l];
-  out[gid] = val;
+  if (!(has_prev && n > 0)) val = base_r;
+  out[off + j] = val;
 }
 
 }  // namespace
 
-GA_EXPORT int ga_param_eval(const double* times, const float* values, const double* tcs,
-                            const int32_t* types, const float* boundary, const int32_t* nev,
-                            const float* base, const double* block_times, int L, int cap,
-                            int S, int npb, double dt, float* out, void* stream) {
-  const int64_t total = static_cast<int64_t>(L) * S * npb;
-  const int threads = 256;
-  const int blocks = static_cast<int>((total + threads - 1) / threads);
-  param_eval_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      times, values, tcs, types, boundary, nev, base, block_times, L, cap, S, npb, dt, out);
+// R rows of `cap` events; `max_len` is the longest row's S * npb. Grid: one
+// block column per row, one block row per tile of kThreads samples.
+GA_EXPORT int ga_param_eval_batch(const double* times, const float* values, const double* tcs,
+                                  const int32_t* types, const float* boundary,
+                                  const int32_t* nev, const float* base, const int32_t* rows,
+                                  const double* block_times, int R, int cap, int S, int max_len,
+                                  double dt, float* out, void* stream) {
+  const dim3 grid(R, (max_len + kThreads - 1) / kThreads);
+  param_eval_batch_kernel<<<grid, kThreads, stage_bytes(cap),
+                            static_cast<cudaStream_t>(stream)>>>(
+      times, values, tcs, types, boundary, nev, base, rows, block_times, cap, S, dt, out);
   return ga_launch_status();
 }

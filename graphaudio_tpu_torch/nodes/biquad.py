@@ -2,9 +2,10 @@
 
 The port of graphaudio_tpu/nodes/biquad.py. Eight RBJ-cookbook filter
 types; a-rate ``frequency``/``Q`` params, k-rate ``gain`` (dB,
-shelving/peaking). ``process`` runs a whole group (stacked lanes) through
-K8 (coefficients and poles) and P2 (the pole-split cascade), see
-ops/biquad.py.
+shelving/peaking). A group's coefficients and poles come from the step's
+prologue, one K8 launch over every biquad stage of the step
+(``prologue_request``); ``process`` runs the group's stacked lanes through
+P2 (the pole-split cascade), see ops/biquad.py.
 
 Documented deviation (as in the JAX package): the reference recomputes
 coefficients lazily when the frequency moved by >0.001 Hz / Q by >0.0001
@@ -18,13 +19,19 @@ import enum
 
 import numpy as np
 
-from graphaudio_tpu_torch.core.node import AudioNode
+from graphaudio_tpu_torch.core.node import AudioNode, PrologueRequest
 from graphaudio_tpu_torch.core.params import AutomationRate
 from graphaudio_tpu_torch.ops.biquad import (
     FILTER_TYPES,
     biquad_apply,
-    biquad_coefficients,
+    biquad_coefficients_batch,
+    pack_coefficient_table,
 )
+
+
+def _step_coefficients(table, arena, rc):
+    """The prologue's K8 call: every biquad stage of the step at once."""
+    return biquad_coefficients_batch(table, arena, rc.sample_rate)
 
 
 class FilterType(enum.Enum):
@@ -131,13 +138,16 @@ class BiQuadFilterNode(AudioNode):
         keeps running filter state, but never a stale type selector."""
         return {"__type_sel__": self._type_onehot()}
 
+    def prologue_request(self, slots):
+        """K8's item: the type and where frequency, Q and gain lie."""
+        return PrologueRequest(_step_coefficients, pack_coefficient_table,
+                               (self._type.value, {n: slots[n] for n in ("frequency", "Q", "gain")}))
+
     def process(self, state, inputs, params, rc):
-        """A group of V lanes: x f32[V, C, T], state w1/w2 f32[V, C]."""
+        """A group of V lanes: x f32[V, C, T], state w1/w2 f32[V, C]; the
+        coefficients (b0, b1, b2, p1, p2) from the prologue."""
         x = inputs[0]
-        coeffs = biquad_coefficients(
-            self._type.value, params["frequency"].per_sample(),
-            params["Q"].per_sample(), params["gain"].per_block(), rc.sample_rate,
-        )
+        coeffs = rc.prologue_result
         # The correction pass only runs when the poles can actually vary
         # (first event/modulation on frequency/Q — or on gain for
         # peaking/shelving types — rebuilds the graph).

@@ -17,10 +17,13 @@ y_t = b0 w_t + b1 w_{t-1} + b2 w_{t-2}.
 
 The port keeps that algorithm and its pole order:
 
-* ``biquad_coefficients`` is K8 (csrc/biquad.cu): param clamps, the k-rate
-  gain expansion, the RBJ formulas of the static type, the 1/a0
-  normalisation and the pole split, elementwise per sample. Its plain
-  version is ``biquad_coefficients_plain`` around ``rbj_coefficients``.
+* ``biquad_coefficients_batch`` is K8 (csrc/biquad.cu): param clamps, the
+  k-rate gain expansion, the RBJ formulas of each stage's type (as data),
+  the 1/a0 normalisation and the pole split, elementwise per sample, for
+  every biquad stage of a render step in one launch. Its plain version is
+  ``biquad_coefficients_batch_plain`` around ``rbj_coefficients_typed``.
+  ``biquad_coefficients`` (plain: ``biquad_coefficients_plain``) is the
+  same kernel on one stage's frequency, Q and gain tensors.
 * ``biquad_apply`` is P2 (csrc/first_order.cu), the port of the Pallas
   first-order recurrence ``fo_kernel`` (benchmarks/probes/hrtf_fir_pallas.py
   :276, :290): a chunked two-level scan, one block per (lane, channel),
@@ -47,6 +50,7 @@ the mirror). The coefficients follow XLA's rounding (ops/xla_rounding.py).
 
 from __future__ import annotations
 
+import functools
 
 import numpy as np
 import torch
@@ -69,12 +73,12 @@ def _w0_scale(sample_rate: float) -> np.float32:
     return np.float32(np.float32(2.0 * np.pi) / np.float32(sample_rate))
 
 
-def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
-    """Normalized biquad coefficients (b0, b1, b2, a1, a2), each f32 shaped
-    like ``freq``. Parity: BiQuadFilterNode.UpdateCoefficients (:149-258),
-    the JAX ``rbj_coefficients`` (ops/biquad.py:43-121) with XLA's rounding
-    (constant divisions as reciprocal multiplies, correctly rounded
-    sin/cos/pow)."""
+#: the types whose formulas read the gain (A = 10^(g/40)); their a1/a2 too
+GAIN_TYPES = ("peaking", "lowshelf", "highshelf")
+
+
+def _rbj_prelude(freq, q, gain_db, sample_rate):
+    """The terms every type shares: (q, g, cos w0, sin w0, alpha), f32."""
     f = freq.float()
     q = q.float()
     g = torch.as_tensor(gain_db, dtype=torch.float32, device=f.device)
@@ -82,10 +86,17 @@ def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
     cosw = xla_rounding.cos(w0)
     sinw = xla_rounding.sin(w0)
     alpha = sinw / (2.0 * q)
+    return q, g, cosw, sinw, alpha
 
-    def gain_a():
-        return xla_rounding.pow(torch.full_like(g, 10.0), g * np.float32(1.0 / 40.0))
 
+def _gain_a(g):
+    """A = 10^(g/40), the constant division as XLA rewrites it."""
+    return xla_rounding.pow(torch.full_like(g, 10.0), g * np.float32(1.0 / 40.0))
+
+
+def _rbj_terms(filter_type, q, cosw, sinw, alpha, A):
+    """Unnormalized (b0, b1, b2, a0, a1, a2) of one type; ``A`` is read by
+    the types of ``GAIN_TYPES`` only."""
     if filter_type == "lowpass":
         b0 = (1.0 - cosw) * 0.5
         b1 = 1.0 - cosw
@@ -122,7 +133,6 @@ def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
         a1 = -2.0 * cosw
         a2 = 1.0 - alpha
     elif filter_type == "peaking":
-        A = gain_a()
         b0 = 1.0 + alpha * A
         b1 = -2.0 * cosw
         b2 = 1.0 - alpha * A
@@ -130,8 +140,7 @@ def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
         a1 = -2.0 * cosw
         a2 = 1.0 - alpha / A
     elif filter_type == "lowshelf":
-        A = gain_a()
-        beta = torch.sqrt(A) / q
+        beta = xla_rounding.sqrt(A) / q
         b0 = A * ((A + 1.0) - (A - 1.0) * cosw + beta * sinw)
         b1 = 2.0 * A * ((A - 1.0) - (A + 1.0) * cosw)
         b2 = A * ((A + 1.0) - (A - 1.0) * cosw - beta * sinw)
@@ -139,8 +148,7 @@ def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
         a1 = -2.0 * ((A - 1.0) + (A + 1.0) * cosw)
         a2 = (A + 1.0) + (A - 1.0) * cosw - beta * sinw
     elif filter_type == "highshelf":
-        A = gain_a()
-        beta = torch.sqrt(A) / q
+        beta = xla_rounding.sqrt(A) / q
         b0 = A * ((A + 1.0) + (A - 1.0) * cosw + beta * sinw)
         b1 = -2.0 * A * ((A - 1.0) + (A + 1.0) * cosw)
         b2 = A * ((A + 1.0) + (A - 1.0) * cosw - beta * sinw)
@@ -149,9 +157,43 @@ def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
         a2 = (A + 1.0) - (A - 1.0) * cosw - beta * sinw
     else:
         raise ValueError(f"unknown filter type {filter_type!r}")
+    return b0, b1, b2, a0, a1, a2
 
+
+def _normalize(b0, b1, b2, a0, a1, a2):
     inv_a0 = 1.0 / a0
     return (b0 * inv_a0, b1 * inv_a0, b2 * inv_a0, a1 * inv_a0, a2 * inv_a0)
+
+
+def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
+    """Normalized biquad coefficients (b0, b1, b2, a1, a2), each f32 shaped
+    like ``freq``. Parity: BiQuadFilterNode.UpdateCoefficients (:149-258),
+    the JAX ``rbj_coefficients`` (ops/biquad.py:43-121) with XLA's rounding
+    (constant divisions as reciprocal multiplies, correctly rounded
+    sin/cos/pow)."""
+    q, g, cosw, sinw, alpha = _rbj_prelude(freq, q, gain_db, sample_rate)
+    A = _gain_a(g) if filter_type in GAIN_TYPES else None
+    return _normalize(*_rbj_terms(filter_type, q, cosw, sinw, alpha, A))
+
+
+def rbj_coefficients_typed(type_codes, freq, q, gain_db, sample_rate: float):
+    """``rbj_coefficients`` with the type as data, one code per row of
+    ``freq`` (index into ``FILTER_TYPES``): each present type's formulas
+    and a selection, no other arithmetic, so each row equals the static
+    type's result bit for bit (the JAX ``rbj_coefficients_dyn``,
+    ops/biquad.py:131-150, over the eight types)."""
+    q, g, cosw, sinw, alpha = _rbj_prelude(freq, q, gain_db, sample_rate)
+    present = sorted(set(type_codes.tolist()))
+    A = _gain_a(g) if any(FILTER_TYPES[c] in GAIN_TYPES for c in present) else None
+    out = None
+    for code in present:
+        cand = _normalize(*_rbj_terms(FILTER_TYPES[code], q, cosw, sinw, alpha, A))
+        if out is None:
+            out = cand
+        else:
+            sel = (type_codes == code).to(cand[0].device)[:, None]
+            out = tuple(torch.where(sel, c, o) for c, o in zip(cand, out))
+    return out
 
 
 def split_poles(a1, a2):
@@ -165,7 +207,7 @@ def split_poles(a1, a2):
     and swap the poles; the correction pass is not symmetric in them.
     """
     d = xla_rounding.fma(a1, a1, -(4.0 * a2))
-    s = torch.sqrt(torch.abs(d))
+    s = xla_rounding.sqrt(torch.abs(d))
     real = d >= 0.0
     zero = torch.zeros_like(a1)
     p1 = torch.complex(torch.where(real, 0.5 * (-a1 + s), 0.5 * -a1),
@@ -176,12 +218,147 @@ def split_poles(a1, a2):
 
 
 # ---- K8: per-sample coefficients and poles ----------------------------------
+#
+# A step's biquad stages share one coefficient table, packed once per
+# encoding by ``pack_coefficient_table``: a row of eight int32 words per
+# (stage, lane), (type code, frequency source, Q source, gain source, b0 row,
+# p1 row, V, 0). A source word is ``off << 2 | mode``: SRC_ARATE reads
+# src[off + t], SRC_KRATE src[off + t // 128] (a k-rate param's K6 row),
+# SRC_CONST consts[off] (the base value of a param without events). The
+# output is two arenas, b f32[n_b, T] and p c64[n_p, T]: a stage's b0, b1,
+# b2 are V consecutive rows each from its b0 row, its p1, p2 from its p1
+# row, so each is a contiguous [V, T] view as P2 takes it.
+
+SRC_ARATE, SRC_KRATE, SRC_CONST = 0, 1, 2
+_SRC_NAMES = ("frequency", "Q", "gain")
+
+
+def _src_words(slot, consts):
+    """One source word per lane of a ``ParamSlot``; a constant slot's base
+    values are appended to ``consts``."""
+    if slot.off < 0:
+        first = len(consts)
+        consts.extend(slot.base.tolist())
+        return [((first + v) << 2) | SRC_CONST for v in range(slot.lanes)]
+    mode = SRC_ARATE if slot.npb == FRAMES_PER_BLOCK else SRC_KRATE
+    return [((slot.off + v * slot.per_lane) << 2) | mode for v in range(slot.lanes)]
+
+
+def pack_coefficient_table(stages, superblock: int):
+    """The K8 table of one encoding. ``stages``: (filter type, {"frequency",
+    "Q", "gain": ParamSlot}) per biquad stage, in step order. Returns numpy
+    ``rows`` i32[NR, 8] and ``consts`` f32, and the host fields ``stages``
+    ((b0 row, p1 row, V) each), ``n_b``, ``n_p`` and ``frames`` (T)."""
+    rows, consts, layout = [], [], []
+    n_b = n_p = 0
+    for ftype, slots in stages:
+        V = slots["frequency"].lanes
+        words = [_src_words(slots[name], consts) for name in _SRC_NAMES]
+        code = FILTER_TYPES.index(ftype)
+        rows += [[code, *(w[v] for w in words), n_b + v, n_p + v, V, 0] for v in range(V)]
+        layout.append((n_b, n_p, V))
+        n_b, n_p = n_b + 3 * V, n_p + 2 * V
+    if rows and max(max(r[1:4]) for r in rows) >= 2 ** 31:
+        raise ValueError("the K8 table's source offsets need more than 29 bits")
+    return {"rows": np.asarray(rows, np.int32).reshape(-1, 8),
+            "consts": np.asarray(consts or [0.0], np.float32),
+            "stages": tuple(layout), "n_b": n_b, "n_p": n_p,
+            "frames": superblock * FRAMES_PER_BLOCK}
+
+
+def _decode_source(words, src, consts, positions):
+    """Values f32[NR, len(positions)] of one source word per row: the K8
+    kernel's read at each sample (or quantum start) of ``positions``."""
+    mode, off = words & 3, words >> 2
+    const = (mode == SRC_CONST)[:, None]
+    from_const = consts[torch.where(mode == SRC_CONST, off, 0)][:, None]
+    if src is None or src.numel() == 0:
+        return from_const.expand(-1, positions.shape[0])
+    at = off[:, None] + torch.where((mode == SRC_ARATE)[:, None], positions,
+                                    positions // FRAMES_PER_BLOCK)
+    return torch.where(const, from_const, src[torch.where(const, 0, at)])
+
+
+def _launch_k8(f_src, q_src, g_src, consts, rows, T, sample_rate, b, p):
+    """csrc/biquad.cu over the rows of a table (no checks)."""
+    status = cudabuild.launcher("ga_biquad_coeffs_batch")(
+        f_src.data_ptr(), q_src.data_ptr(), g_src.data_ptr(), consts.data_ptr(),
+        rows.data_ptr(), rows.shape[0], T // FRAMES_PER_BLOCK, float(sample_rate) / 2.0,
+        float(_w0_scale(sample_rate)), b.data_ptr(), p.data_ptr(), cudabuild.stream_of(rows),
+    )
+    cudabuild.check(status, "ga_biquad_coeffs_batch")
+    cudabuild.launches["biquad_coefficients_batch"] += 1
+
+
+def _split_stages(table, b, p):
+    out = []
+    for brow, prow, V in table["stages"]:
+        b0, b1, b2 = b.narrow(0, brow, 3 * V).view(3, V, -1).unbind(0)
+        p1, p2 = p.narrow(0, prow, 2 * V).view(2, V, -1).unbind(0)
+        out.append((b0, b1, b2, p1, p2))
+    return out
+
+
+def biquad_coefficients_batch_plain(table, arena, sample_rate):
+    """Plain torch K8 over a ``pack_coefficient_table`` table (tensors),
+    the sources read from ``arena`` (the step's K6 arena, None when no
+    param has events): the kernel's reads, the clamps,
+    ``rbj_coefficients_typed`` and the pole split. Returns one (b0, b1, b2,
+    p1, p2) per stage."""
+    rows, consts, T = table["rows"], table["consts"], table["frames"]
+    dev = rows.device
+    w = rows.long()
+    t = torch.arange(T, device=dev)
+    freq = _decode_source(w[:, 1], arena, consts, t)
+    q = _decode_source(w[:, 2], arena, consts, t)
+    gain_blocks = _decode_source(w[:, 3], arena, consts, t[::FRAMES_PER_BLOCK])
+    f = torch.clamp(freq, 1.0, sample_rate / 2.0)
+    qq = torch.clamp(q, min=0.001)
+    g = torch.repeat_interleave(gain_blocks, FRAMES_PER_BLOCK, dim=-1)
+    b0, b1, b2, a1, a2 = rbj_coefficients_typed(w[:, 0], f, qq, g, sample_rate)
+    p1, p2 = split_poles(a1, a2)
+    b = torch.empty((table["n_b"], T), dtype=torch.float32, device=dev)
+    p = torch.empty((table["n_p"], T), dtype=torch.complex64, device=dev)
+    brow, prow, V = w[:, 4], w[:, 5], w[:, 6]
+    b[brow], b[brow + V], b[brow + 2 * V] = b0, b1, b2
+    p[prow], p[prow + V] = p1, p2
+    return _split_stages(table, b, p)
+
+
+def biquad_coefficients_batch(table, arena, sample_rate):
+    """K8: every biquad stage of a step in one launch of csrc/biquad.cu
+    (CUDA tensors) or ``biquad_coefficients_batch_plain`` (CPU tensors).
+    Returns one (b0, b1, b2 f32[V, T], p1, p2 c64[V, T]) per stage, each a
+    contiguous view of the output arenas."""
+    rows, consts = table["rows"], table["consts"]
+    if rows.device.type == "cpu":
+        return biquad_coefficients_batch_plain(table, arena, sample_rate)
+    req = cudabuild.require
+    req(rows, "rows", torch.int32, ndim=2)
+    req(consts, "consts", torch.float32, ndim=1)
+    src = consts if arena is None else arena
+    req(src, "arena", torch.float32, ndim=1)
+    T = table["frames"]
+    b = torch.empty((table["n_b"], T), dtype=torch.float32, device=rows.device)
+    p = torch.empty((table["n_p"], T), dtype=torch.complex64, device=rows.device)
+    _launch_k8(src, src, src, consts, rows, T, sample_rate, b, p)
+    return _split_stages(table, b, p)
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_rows(code: int, V: int, S: int, device: torch.device):
+    """The rows of one stage whose sources are separate [V, T] frequency
+    and Q and [V, S] gain tensors, on the card once per shape."""
+    T = S * FRAMES_PER_BLOCK
+    return torch.tensor([[code, (v * T) << 2 | SRC_ARATE, (v * T) << 2 | SRC_ARATE,
+                          (v * S) << 2 | SRC_KRATE, v, v, V, 0] for v in range(V)],
+                        dtype=torch.int32, device=device)
 
 
 def biquad_coefficients_plain(filter_type: str, freq, q, gain_blocks, sample_rate):
-    """Plain torch K8. freq, q f32[V, T] (a-rate values), gain_blocks
-    f32[V, S] (k-rate, one value per quantum). Returns (b0, b1, b2 f32[V, T],
-    p1, p2 c64[V, T])."""
+    """Plain torch K8 for one stage. freq, q f32[V, T] (a-rate values),
+    gain_blocks f32[V, S] (k-rate, one value per quantum). Returns (b0, b1,
+    b2 f32[V, T], p1, p2 c64[V, T])."""
     f = torch.clamp(freq, 1.0, sample_rate / 2.0)
     qq = torch.clamp(q, min=0.001)
     g = torch.repeat_interleave(gain_blocks, FRAMES_PER_BLOCK, dim=-1)
@@ -191,9 +368,9 @@ def biquad_coefficients_plain(filter_type: str, freq, q, gain_blocks, sample_rat
 
 
 def biquad_coefficients(filter_type: str, freq, q, gain_blocks, sample_rate):
-    """K8: the per-sample biquad coefficients and poles of a group, see
-    ``biquad_coefficients_plain``. CPU tensors take the plain version; CUDA
-    tensors launch csrc/biquad.cu."""
+    """K8 for one stage, see ``biquad_coefficients_plain``. CPU tensors
+    take the plain version; CUDA tensors launch csrc/biquad.cu as a
+    one-stage batch whose sources are the given tensors."""
     if freq.device.type == "cpu":
         return biquad_coefficients_plain(filter_type, freq, q, gain_blocks, sample_rate)
     V, T = freq.shape
@@ -203,17 +380,10 @@ def biquad_coefficients(filter_type: str, freq, q, gain_blocks, sample_rate):
     req(freq, "freq", torch.float32, shape=(V, T))
     req(q, "q", torch.float32, shape=(V, T))
     req(gain_blocks, "gain_blocks", torch.float32, shape=(V, S))
-    dev = freq.device
-    b = torch.empty((3, V, T), dtype=torch.float32, device=dev)
-    p = torch.empty((2, V, T), dtype=torch.complex64, device=dev)
-    status = cudabuild.launcher("ga_biquad_coeffs")(
-        freq.data_ptr(), q.data_ptr(), gain_blocks.data_ptr(), V, T,
-        FILTER_TYPES.index(filter_type), float(sample_rate) / 2.0,
-        float(_w0_scale(sample_rate)), b.data_ptr(), p.data_ptr(),
-        cudabuild.stream_of(freq),
-    )
-    cudabuild.check(status, "ga_biquad_coeffs")
-    cudabuild.launches["biquad_coefficients"] += 1
+    rows = _stage_rows(FILTER_TYPES.index(filter_type), V, S, freq.device)
+    b = torch.empty((3, V, T), dtype=torch.float32, device=freq.device)
+    p = torch.empty((2, V, T), dtype=torch.complex64, device=freq.device)
+    _launch_k8(freq, q, gain_blocks, freq, rows, T, sample_rate, b, p)
     return b[0], b[1], b[2], p[0], p[1]
 
 

@@ -2,9 +2,12 @@
 
 ``encode_events`` is the host-side encoder of the JAX package, copied: a
 sorted event list becomes fixed-shape numpy arrays (times f64, values f32,
-boundary values precomputed). ``eval_intrinsic_blocked`` evaluates the
-encoded curve for one superblock; it is K6: csrc/param_eval.cu on a CUDA
-tensor, ``eval_intrinsic_blocked_plain`` on a CPU tensor. Both follow the
+boundary values precomputed). ``pack_param_table`` packs every automated
+param of a graph's encoding into one table, once per encoding, and
+``eval_intrinsic_batch`` evaluates all of it for one superblock into one
+f32 arena; it is K6: one launch of csrc/param_eval.cu on CUDA tensors,
+``eval_intrinsic_batch_plain`` on CPU tensors. ``eval_intrinsic_blocked``
+evaluates one encoding (a one-entry batch on the card). All follow the
 JAX function (graphaudio_tpu/ops/param_eval.py:175-336, its non-exact
 branch): the event index from an f64 ABSOLUTE-time ``>=`` compare, the curve
 math in f32 on event times relative to each block start, all four curve
@@ -16,6 +19,10 @@ Times are float64 (the reference uses doubles for its clock); values float32.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -165,13 +172,170 @@ def eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt):
     return val.reshape(*enc["base"].shape, S * n_per_block)
 
 
+
+
+# ---- K6: the batched step table ---------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class ParamSlot:
+    """Where one param's values for a step lie. A param with events owns
+    ``lanes`` consecutive rows of the step's K6 arena from ``off``, each
+    ``per_lane`` = S * ``npb`` floats; a param without events (capacity 0)
+    owns none (``off`` = -1) and is its per-lane ``base`` value."""
+
+    off: int
+    npb: int
+    per_lane: int
+    shape: Tuple[int, ...]  # lead (lane) dims of the encoding
+    base: np.ndarray  # f32[lanes]
+
+    @property
+    def lanes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+
+def pack_param_table(entries, superblock: int):
+    """The K6 table of one encoding: every (key, enc, npb) in ``entries``
+    (numpy encodings with capacity > 0) becomes one row per lane, its event
+    fields padded to the batch's largest capacity as ``encode_events`` pads
+    them (times +inf, values 0, tcs 1, types 0, ``boundary`` repeating its
+    last value), which changes no output: padded times are never counted and
+    the index never passes a row's own ``n``.
+
+    Returns a dict of numpy arrays, ``times`` f64[R, cap], ``tcs`` f64,
+    ``values`` f32, ``types`` i32, ``boundary`` f32[R, cap+1], ``n`` i32[R],
+    ``base`` f32[R], ``rows`` i32[R, 2] (``npb``, arena offset), and two
+    host fields: ``size``, the arena's length in floats, and ``slots``, the
+    ``ParamSlot`` of each key.
+    """
+    cap = max((e["times"].shape[-1] for _, e, _ in entries), default=0)
+    fields = {"times": [], "tcs": [], "values": [], "types": [], "boundary": [],
+              "n": [], "base": [], "rows": []}
+    slots = {}
+    off = 0
+    for key, enc, npb in entries:
+        times, values, tcs, types, boundary, n, base = _lanes(enc)
+        L, c = times.shape
+        pad = ((0, 0), (0, cap - c))
+        fields["times"].append(np.pad(times, pad, constant_values=_INF))
+        fields["tcs"].append(np.pad(tcs, pad, constant_values=1.0))
+        fields["values"].append(np.pad(values, pad))
+        fields["types"].append(np.pad(types, pad))
+        fields["boundary"].append(np.pad(boundary, pad, mode="edge"))
+        fields["n"].append(n)
+        fields["base"].append(base)
+        per_lane = superblock * npb
+        fields["rows"].append(np.stack(
+            [np.full(L, npb), off + per_lane * np.arange(L)], axis=1))
+        slots[key] = ParamSlot(off, npb, per_lane, tuple(np.shape(enc["base"])),
+                               np.asarray(base, np.float32))
+        off += L * per_lane
+    if off >= 2 ** 31:
+        raise ValueError(f"the K6 arena of {off} floats needs 64-bit offsets")
+    dtypes = {"times": np.float64, "tcs": np.float64, "values": np.float32,
+              "types": np.int32, "boundary": np.float32, "n": np.int32,
+              "base": np.float32, "rows": np.int32}
+    widths = {"n": (), "base": (), "rows": (2,), "boundary": (cap + 1,)}
+    table = {
+        k: (np.concatenate(v).astype(dtypes[k]) if v
+            else np.zeros((0, *widths.get(k, (cap,))), dtypes[k]))
+        for k, v in fields.items()
+    }
+    table["size"] = off
+    table["slots"] = slots
+    return table
+
+
+def constant_slot(enc, npb: int, superblock: int) -> ParamSlot:
+    """The slot of a param without events (capacity 0): its base values."""
+    base = np.asarray(enc["base"], np.float32)
+    return ParamSlot(-1, npb, superblock * npb, base.shape, base.reshape(-1))
+
+
+def _table_fields(table):
+    return (table["times"], table["values"], table["tcs"], table["types"],
+            table["boundary"], table["n"], table["base"], table["rows"])
+
+
+def eval_intrinsic_batch_plain(table, block_times, sample_dt):
+    """Plain torch K6 over a ``pack_param_table`` table (tensors): each
+    row's curve, ``eval_intrinsic_blocked_plain`` over the rows of each
+    ``npb``, written at the row's arena offset. Returns f32[size]."""
+    times, values, tcs, types, boundary, n, base, rows = _table_fields(table)
+    S = block_times.shape[0]
+    out = torch.empty(table["size"], dtype=torch.float32, device=block_times.device)
+    rows_h = rows.cpu()
+    for npb in torch.unique(rows_h[:, 0]).tolist():
+        sel = torch.nonzero(rows_h[:, 0] == npb).flatten()
+        sub = {"times": times[sel], "values": values[sel], "tcs": tcs[sel],
+               "types": types[sel], "boundary": boundary[sel], "n": n[sel], "base": base[sel]}
+        vals = eval_intrinsic_blocked_plain(sub, block_times, npb, sample_dt)
+        at = rows_h[sel, 1].long()[:, None] + torch.arange(S * npb)
+        out[at.flatten().to(out.device)] = vals.flatten()
+    return out
+
+
+def _launch_k6(times, values, tcs, types, boundary, n, base, rows, block_times,
+               max_len, sample_dt, out):
+    """csrc/param_eval.cu over R rows of ``cap`` events (no checks)."""
+    R, cap = times.shape
+    status = cudabuild.launcher("ga_param_eval_batch")(
+        times.data_ptr(), values.data_ptr(), tcs.data_ptr(), types.data_ptr(),
+        boundary.data_ptr(), n.data_ptr(), base.data_ptr(), rows.data_ptr(),
+        block_times.data_ptr(), R, cap, block_times.shape[0], max_len, float(sample_dt),
+        out.data_ptr(), cudabuild.stream_of(block_times),
+    )
+    cudabuild.check(status, "ga_param_eval_batch")
+    cudabuild.launches["eval_intrinsic_batch"] += 1
+
+
+def _require_table(times, values, tcs, types, boundary, n, base, rows, block_times):
+    R, cap = times.shape
+    req = cudabuild.require
+    req(block_times, "block_times", torch.float64, ndim=1)
+    req(times, "times", torch.float64, shape=(R, cap))
+    req(values, "values", torch.float32, shape=(R, cap))
+    req(tcs, "tcs", torch.float64, shape=(R, cap))
+    req(types, "types", torch.int32, shape=(R, cap))
+    req(boundary, "boundary", torch.float32, shape=(R, cap + 1))
+    req(n, "n", torch.int32, shape=(R,))
+    req(base, "base", torch.float32, shape=(R,))
+    req(rows, "rows", torch.int32, shape=(R, 2))
+
+
+def eval_intrinsic_batch(table, block_times, sample_dt):
+    """K6: every row of a ``pack_param_table`` table for one superblock, in
+    one launch; see ``eval_intrinsic_batch_plain``. CPU tensors take the
+    plain version; CUDA tensors launch csrc/param_eval.cu. Returns the
+    arena f32[size]; a param's values are its slot's rows."""
+    if block_times.device.type == "cpu":
+        return eval_intrinsic_batch_plain(table, block_times, sample_dt)
+    fields = _table_fields(table)
+    _require_table(*fields, block_times)
+    out = torch.empty(table["size"], dtype=torch.float32, device=block_times.device)
+    max_len = block_times.shape[0] * max((s.npb for s in table["slots"].values()), default=0)
+    if max_len:
+        _launch_k6(*fields, block_times, max_len, sample_dt, out)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _uniform_rows(L: int, npb: int, S: int, device: torch.device):
+    """The ``rows`` of L lanes of one param: (npb, l * S * npb), on the card
+    once per shape."""
+    return torch.tensor([[npb, lane * S * npb] for lane in range(L)], dtype=torch.int32,
+                        device=device)
+
+
 def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
                            exact: bool = False):
     """Intrinsic (pre-modulation) param values for one superblock.
 
     ``enc`` holds tensors; leading lane dims of ``enc["base"]`` (a group's
     stacked lanes) carry through. ``block_times`` is f64[S].
-    Returns f32[..., S * n_per_block].
+    Returns f32[..., S * n_per_block]. On CUDA tensors a one-entry K6 batch
+    on the encoding's own fields.
     """
     base = enc["base"]
     S = block_times.shape[0]
@@ -185,24 +349,10 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
     if block_times.device.type == "cpu":
         return eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt)
     times, values, tcs, types, boundary, n, base_l = _lanes(enc)
-    L = times.shape[0]
-    req = cudabuild.require
-    req(block_times, "block_times", torch.float64, shape=(S,))
-    req(times, "times", torch.float64, shape=(L, cap))
-    req(values, "values", torch.float32, shape=(L, cap))
-    req(tcs, "tcs", torch.float64, shape=(L, cap))
-    req(types, "types", torch.int32, shape=(L, cap))
-    req(boundary, "boundary", torch.float32, shape=(L, cap + 1))
-    req(n, "n", torch.int32, shape=(L,))
-    req(base_l, "base", torch.float32, shape=(L,))
-    out = torch.empty((L, S * n_per_block), dtype=torch.float32,
+    rows = _uniform_rows(times.shape[0], n_per_block, S, block_times.device)
+    _require_table(times, values, tcs, types, boundary, n, base_l, rows, block_times)
+    out = torch.empty((times.shape[0], S * n_per_block), dtype=torch.float32,
                       device=block_times.device)
-    status = cudabuild.launcher("ga_param_eval")(
-        times.data_ptr(), values.data_ptr(), tcs.data_ptr(), types.data_ptr(),
-        boundary.data_ptr(), n.data_ptr(), base_l.data_ptr(),
-        block_times.data_ptr(), L, cap, S, n_per_block, float(sample_dt),
-        out.data_ptr(), cudabuild.stream_of(block_times),
-    )
-    cudabuild.check(status, "ga_param_eval")
-    cudabuild.launches["eval_intrinsic_blocked"] += 1
+    _launch_k6(times, values, tcs, types, boundary, n, base_l, rows, block_times,
+               S * n_per_block, sample_dt, out)
     return out.reshape(*base.shape, S * n_per_block)

@@ -1,0 +1,105 @@
+"""Synthetic K6 and K8 tables for the kernel checks (numpy, from a seed).
+
+``mixed_param_entries`` is a K6 table's input that mixes what the step's
+table can hold: a-rate and k-rate rows, capacities 1 to 32, single params
+and groups with phantom pad lanes, all four event types, events on block
+starts and sample instants. ``eight_type_stages`` is a K8 table's input:
+one biquad stage of each filter type, 1 to 4 lanes, its frequency, Q and
+gain read from a-rate rows, k-rate rows or constants, frequency past both
+clamps and Q below its floor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from graphaudio_tpu_torch.ops import param_eval as tpe
+from graphaudio_tpu_torch.ops.biquad import FILTER_TYPES
+
+SR = 48000
+DT = 1.0 / SR
+BLOCK = 128 / SR
+
+
+def block_clock(n_blocks):
+    """The reference's accumulated block clock (core/context.py)."""
+    return np.add.accumulate(np.full(n_blocks, BLOCK) * (np.arange(n_blocks) > 0))
+
+
+def _events(rng, n, t_end, lo, hi):
+    """n sorted events cycling through the four types; a third on block
+    starts, a third on sample instants, the rest anywhere."""
+    out = []
+    for k in range(n):
+        where = k % 3
+        if where == 0:
+            t = float(rng.integers(0, int(t_end / BLOCK))) * BLOCK
+        elif where == 1:
+            t = float(rng.integers(0, int(t_end * SR))) * DT
+        else:
+            t = float(rng.uniform(0.0, t_end))
+        value = float(rng.uniform(lo, hi)) * (1 if rng.random() > 0.1 else -1)
+        out.append(((k + int(rng.integers(0, 4))) % 4, t, value,
+                    float(rng.uniform(0.0005, 0.02))))
+    out.sort(key=lambda e: e[1])
+    return out
+
+
+def param_encoding(rng, real, padded, cap, t_end, lo=0.05, hi=2.0):
+    """A param's numpy encoding: one lane (``real`` None, no lane dims) or
+    ``real`` lanes padded to ``padded`` with copies of lane 0 (phantom pad
+    lanes, as ``CompiledGraph.encode_params`` stacks a group)."""
+    lanes = 1 if real is None else real
+    per = []
+    for lane in range(lanes):
+        n = [cap, max(cap - 3, 1), 1, cap // 2][lane % 4]
+        base = float(rng.uniform(lo, hi))
+        per.append(tpe.encode_events(base, _events(rng, n, t_end, lo, hi), cap))
+    if real is None:
+        return per[0]
+    per += [per[0]] * (padded - real)
+    return {k: np.stack([e[k] for e in per]) for k in per[0]}
+
+
+def mixed_param_entries(seed, t_end):
+    """(key, enc, npb) of a mixed K6 table, 21 rows: capacities 1, 4, 16
+    and 32, a-rate and k-rate, single params and padded groups; events up
+    to ``t_end`` seconds."""
+    rng = np.random.default_rng(seed)
+    spec = [("st1/single32", None, 1, 32, 128), ("st2/group16", 3, 4, 16, 128),
+            ("st3/k1", None, 1, 1, 1), ("st4/group_k4", 2, 2, 4, 1),
+            ("st5/group32", 5, 8, 32, 128), ("st6/a4", None, 1, 4, 128),
+            ("st7/k32", 4, 4, 32, 1)]
+    return [(key, param_encoding(rng, real, padded, cap, t_end), npb)
+            for key, real, padded, cap, npb in spec]
+
+
+def eight_type_stages(seed, superblock, t_end):
+    """A K6 table (``pack_param_table``) and the (filter type, slots) of
+    eight biquad stages, one of each type, for ``pack_coefficient_table``."""
+    rng = np.random.default_rng(seed)
+    lanes = [1, 2, 4, 1, 2, 4, 3, 1]
+    # (frequency, Q, gain) source kinds per stage: "a" a-rate row, "k"
+    # k-rate row, "c" constant (capacity 0)
+    kinds = [("a", "a", "c"), ("a", "k", "k"), ("k", "a", "c"), ("a", "c", "a"),
+             ("c", "a", "k"), ("a", "a", "k"), ("a", "c", "c"), ("a", "k", "a")]
+    ranges = {"frequency": (-100.0, 30000.0), "Q": (0.0002, 9.0), "gain": (-24.0, 24.0)}
+    entries, consts = [], {}
+    for k, (V, kind) in enumerate(zip(lanes, kinds)):
+        for name, kd in zip(("frequency", "Q", "gain"), kind):
+            key = f"st{k}/{name}"
+            lo, hi = ranges[name]
+            if kd == "c":
+                base = rng.uniform(max(lo, 0.01), hi, V).astype(np.float32)
+                consts[key] = tpe.constant_slot({"base": base}, 128, superblock)
+            else:
+                # a group's lanes, the last a phantom copy of lane 0
+                enc = param_encoding(rng, max(V - 1, 1), V, 16, t_end, lo, hi)
+                entries.append((key, enc, 128 if kd == "a" else 1))
+    table = tpe.pack_param_table(entries, superblock)
+    stages = []
+    for k, ftype in enumerate(FILTER_TYPES):
+        slots = {n: table["slots"].get(f"st{k}/{n}") or consts[f"st{k}/{n}"]
+                 for n in ("frequency", "Q", "gain")}
+        stages.append((ftype, slots))
+    return table, stages

@@ -46,10 +46,10 @@ _SIGNATURES = {
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],
     "ga_unity_gather": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "ga_param_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      ctypes.c_double, _P, _P],
-    "ga_biquad_coeffs": [_P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float,
-                         _P, _P, _P],
+    "ga_param_eval_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            ctypes.c_double, _P, _P],
+    "ga_biquad_coeffs_batch": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float,
+                               _P, _P, _P],
     "ga_biquad_cascade": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P, _P],
     "ga_first_order_tb": [_P, _P, _P, _P, _I, _I, _P, _P, _P],

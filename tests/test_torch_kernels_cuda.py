@@ -13,7 +13,7 @@ import torch
 
 import graphaudio_tpu_torch as gat
 from graphaudio_tpu_torch.core.context import pack_int16, pack_int16_plain
-from graphaudio_tpu_torch.core.graph import RenderContext
+from graphaudio_tpu_torch.core.graph import PARAM_TABLE, RenderContext, to_device
 from graphaudio_tpu_torch.core.mixing import fan_in_lanes, fan_in_lanes_plain
 from graphaudio_tpu_torch.nodes import spatial as tsp
 from graphaudio_tpu_torch.ops import biquad as tbq
@@ -23,6 +23,7 @@ from graphaudio_tpu_torch.ops import onepole as top
 from graphaudio_tpu_torch.ops import param_eval as tpe
 from graphaudio_tpu_torch.ops import resample as tres
 from graphaudio_tpu_torch.ops import unity as tun
+from graphaudio_tpu_torch.testing import tables as ttab
 from graphaudio_tpu_torch.testing.configs import (
     config2_mix_bus,
     config3_eq_chain,
@@ -205,6 +206,54 @@ def test_k8_biquad_coefficients(dev, ftype):
         # f64 sin/cos/pow rounded once on both sides: equal up to an ulp
         assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item())
     assert (got[3].imag >= 0).all()  # Im(p1) >= 0
+
+
+@pytest.mark.parametrize("step", [0, 5, 11])
+def test_k6_batch(dev, step):
+    """The batched kernel over a mixed table (capacities 1-32 padded to 32,
+    a-rate and k-rate rows, phantom lanes), bit for bit."""
+    S = 32
+    table = to_device(tpe.pack_param_table(ttab.mixed_param_entries(0, 12 * S * ttab.BLOCK), S),
+                      dev)
+    bt = torch.from_numpy(ttab.block_clock(12 * S)[step * S:(step + 1) * S]).to(dev)
+    cudabuild.launches.clear()
+    got = tpe.eval_intrinsic_batch(table, bt, ttab.DT)
+    assert cudabuild.launches["eval_intrinsic_batch"] == 1
+    want = tpe.eval_intrinsic_batch_plain(table, bt, ttab.DT)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("step", [0, 7])
+def test_k8_batch_eight_types(dev, step):
+    """The batched kernel over one stage of each type, sources from a-rate
+    and k-rate K6 rows and constants, bit for bit."""
+    S = 32
+    table, stages = ttab.eight_type_stages(3, S, 8 * S * ttab.BLOCK)
+    table = to_device(table, dev)
+    bt = torch.from_numpy(ttab.block_clock(8 * S)[step * S:(step + 1) * S]).to(dev)
+    arena = tpe.eval_intrinsic_batch(table, bt, ttab.DT)
+    ktable = to_device(tbq.pack_coefficient_table(stages, S), dev)
+    cudabuild.launches.clear()
+    got = tbq.biquad_coefficients_batch(ktable, arena, 48000)
+    assert cudabuild.launches["biquad_coefficients_batch"] == 1
+    want = tbq.biquad_coefficients_batch_plain(ktable, arena, 48000)
+    torch.cuda.synchronize()
+    for g_stage, w_stage in zip(got, want):
+        for a, b in zip(g_stage, w_stage):
+            assert a.is_contiguous() and torch.equal(a, b)
+
+
+def test_config3_one_k6_and_one_k8_launch_a_step(dev):
+    ctx = config3_eq_chain(superblock=32, device=dev)
+    ctx.render(32 * 128)
+    cudabuild.launches.clear()
+    out = ctx.render(10 * 32 * 128)
+    assert cudabuild.launches["eval_intrinsic_batch"] == 10
+    assert cudabuild.launches["biquad_coefficients_batch"] == 10
+    assert tuple(ctx._encs[PARAM_TABLE]["times"].shape) == (8, 32)
+    want = config3_eq_chain(superblock=32, device="cpu").render(11 * 32 * 128)[:, 32 * 128:]
+    assert np.abs(out - want).max() < 1e-5
 
 
 def _biquad_inputs(dev, V, C, T, seed):
