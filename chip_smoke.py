@@ -22,11 +22,14 @@ failure raises and the script exits non-zero:
      shapes its main path gives it, with the tolerance stated, and the
      median of 50 CUDA-event-timed calls of each (with the wrapper's
      Python) and its kernels' device time under torch.profiler (mean of 20
-     calls, over the windows that lost no kernel events): K1-K4 at
-     config-4 shapes, K2 also at config 5's reverb send and the 128 grain
-     (K2a beside one einsum over the unfolded delay line), K3 also at the
-     largest shape a config-5 step gives it; K5, K6, K8 and P2 at config-3
-     shapes, K5 also on config 2's 8-voice loop arena; K6 and K8 batched
+     calls, over the windows that lost no kernel events): K1 and K5 as
+     whole voice-group steps through ``process_poly_group`` and
+     ``process_unity_group``, mid-render, audio and new states bit for bit
+     (K1 at config 4, K5 at configs 3, 2 and 5; the bound is the whole
+     step's bytes); K2-K4 at config-4 shapes, K2 also at config 5's reverb
+     send and the 128 grain (K2a beside one einsum over the unfolded delay
+     line), K3 also at the largest shape a config-5 step gives it; K6, K8
+     and P2 at config-3 shapes; K6 and K8 batched
      as the step launches them, bit for bit: K6 on config 3's step table
      (8 rows, capacity 32) and config 2's (8 lanes of linear and
      exponential gain ramps), K8 on config 3's four stages and on eight
@@ -45,34 +48,34 @@ failure raises and the script exits non-zero:
      down to whole superblocks) through ``render`` and again through
      ``render_pcm16``: finite, non-silent, pcm16 bit-exact against the
      plain pack of the f32 render, every config-4 kernel launched by those
-     two runs; four more f32 runs for the spread; a profiler window as for
-     config 3;
+     two runs, K1 once a step; four more f32 runs for the spread; a
+     profiler window as for config 3;
   6. config 3 at full size (superblock 32, 30 s rounded down to whole
      superblocks, 351 steps) through ``render``, five fresh runs: finite,
      non-silent, the first 8192 frames within 1e-5 of the golden, every
-     config-3 kernel launched by the first run, K6 and K8 once a step; a
+     config-3 kernel launched by the first run, K5, K6 and K8 once a step; a
      torch.profiler window of 20 steps for the device time per step, per
      kernel and per group (K6, K8), over the unprofiled host time per step
      for the device busy share;
   7. config 5 at full size (128 voices, superblock 32, 351 superblocks)
      through ``render``, five fresh runs: finite, non-silent, the first
      8192 frames within 1e-5 of the golden, P1, K10b and the K2/K3/K5
-     calls launched by the first run; a profiler window as for config 3;
+     calls launched by the first run, K5 once a step; a profiler window as
+     for config 3;
   8. the occluded scene (config 5's Kit graph, 16 voices with occlusion
      and transmission, superblock 32, 8 steps): K9, P1 and K10b launched,
      within 1e-5 of the same render on the CPU (plain versions).
 
-``python3 chip_smoke.py --k2a`` runs phases 1 and 2, the K2 checks and
-config 4's profile window only; ``python3 chip_smoke.py --p1`` runs phases
-1 and 2, the P1 checks (config 5's mid-render shapes and the probe's row
-form) and three
-30 s config-5 renders with their profile window only; ``python3
-chip_smoke.py --k6k8`` runs phases 1 and 2, the K6 and K8 checks through
-their one-entry names and three 30 s config-3 renders with their profile
-window, and prints K6's and K8's device time a step by group (their kernel
-names changed when they were batched), the launches and host time a step
-and the sha256 of the first render's f32 output. Copied into another
-tree's checkout, each times that tree's kernels the same way.
+Each of ``--k2a``, ``--p1``, ``--k6k8`` and ``--k1k5`` runs phases 1 and
+2, one kernel pair's checks and three 30 s renders of the configs that
+run it, each render with its profile window (``render_runs``): K2 and
+config 4; P1 and config 5; K6 and K8 through their one-entry names and
+config 3; K1 and K5 as group steps through the public ``process_*_group``
+names, the goldens and configs 4, 3 and 5. They print the launches and
+host time a step, the device time a step by kernel group (the groups'
+substrings match the kernel names of older trees too) and each first
+render's sha256. Copied into another tree's checkout, each times that
+tree's kernels the same way.
 
 Each wrapper counts its launches in ``cudabuild.launches`` under its own
 name; the counts are set to 0 just before each path's run and read just
@@ -166,6 +169,11 @@ def device_ms(fn, calls=20, windows=5):
 #: name that this tree's and the parent trees' kernels share (K6's and K8's
 #: kernels were renamed when they were batched).
 K6K8_GROUPS = {"K6": "param_eval", "K8": "biquad_coeffs"}
+#: The source group steps' kernels, likewise (poly_resample_kernel and
+#: unity_gather_kernel in the trees whose plan ran as torch ops around a
+#: gather kernel, poly_step_kernel and unity_step_kernel in the one-launch
+#: steps).
+K1K5_GROUPS = {"K1": "poly_", "K5": "unity_"}
 
 
 def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
@@ -225,6 +233,45 @@ def spread(frames, walls):
     """xRT of the median run and of the slowest and fastest."""
     return {"wall_s": walls, "xrt_median": frames / SR / statistics.median(walls),
             "xrt_range": [frames / SR / max(walls), frames / SR / min(walls)]}
+
+
+def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3):
+    """``runs`` renders of ``frames`` frames of config ``n``, each from a
+    fresh context of ``build`` (after a one-step warm-up), then a profile
+    window (``profile_steps`` with ``groups``). The first run must be
+    finite, non-silent and within 1e-5 of the config's golden over its
+    first 8192 frames. ``counts`` ({label: wrapper names}) gives the first
+    run's launches under each label, the names summed so that an older
+    tree's names count too. Returns the host time a step of each run, the
+    profile, the xRT spread, the launches and the first run's sha256."""
+    import torch
+
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    steps = frames // step_frames
+    build().render(step_frames)
+    torch.cuda.synchronize()
+    cudabuild.launches.clear()
+    out, wall, bd = timed_render(build, frames)
+    launches = {label: sum(cudabuild.launches[w] for w in names)
+                for label, names in counts.items()}
+    walls = [wall] + [timed_render(build, frames)[1] for _ in range(runs - 1)]
+    sha = hashlib.sha256(np.ascontiguousarray(out, dtype=np.float32).tobytes()).hexdigest()
+    head_err = float(np.abs(out[:, :8192].astype(np.float64) - np.load(GOLDENS[n])["out"]).max())
+    host = [w / steps * 1e6 for w in walls]
+    prof = profile_steps(build(), step_frames, statistics.median(host), groups=groups)
+    phase("render", f"config {n} f32: {out.shape}; {runs} runs {walls!r} s; host us a step "
+          f"{host!r}; launches a step { {k: v / steps for k, v in launches.items()} }; "
+          f"sha256 of the first run {sha}; first 8192 frames vs golden max_abs_err="
+          f"{head_err!r}; first run breakdown {json.dumps(bd)}")
+    phase("profile", f"config {n}, 20 steps under torch.profiler: {json.dumps(prof)}")
+    if not (np.isfinite(out).all() and float(np.abs(out).max()) > 0 and head_err < 1e-5):
+        raise AssertionError(f"config-{n} render is not finite, non-silent and within 1e-5 "
+                             "of the golden at its start")
+    return {"host_us_per_step_median": statistics.median(host), "host_us_per_step": host,
+            "profile": prof, "f32": spread(frames, walls), "sha256": sha,
+            "head_vs_golden": head_err, "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()}}
 
 
 def host_us(fn, calls=10000):
@@ -304,27 +351,155 @@ def flat(outs):
                       for o in outs])
 
 
-def mid_render(ctx, dev, S=32, step=9):
-    """K5's arguments and the block clock of step ``step`` of ``ctx``
-    (superblock ``S``, one unity source group at stage 0), the voice
-    states advanced through the steps before it; the params encoded."""
+def group_step_fns(ctx):
+    """(si, fused, plain) for ctx's first buffer-source group, stage si:
+    ``fused(st, rc)`` is the public ``process_poly_group`` or
+    ``process_unity_group`` (with the packed geometry table where the tree
+    has one: on the card, then one launch a step), ``plain(st, rc)``
+    the plan then the plain gather; both return (new states, audio). Only
+    names that the parent trees have too are used."""
+    import graphaudio_tpu_torch as gat
+    from graphaudio_tpu_torch.ops import resample as tres
+    from graphaudio_tpu_torch.ops import unity as tun
+
+    node = gat.AudioBufferSourceNode
+    ctx._ensure_compiled()
+    si = min(ctx._compiled._bufsrc_cfg)
+    w, variant, _ = ctx._compiled._bufsrc_cfg[si]
+    c = ctx._consts
+    arena, geom = c[f"st{si}/arena"], c[f"st{si}/geom"]
+    # By keyword after geom: this tree takes gtab next to geom, older trees
+    # took it last or not at all.
+    kw = {"gtab": c[f"st{si}/gtab"]} if f"st{si}/gtab" in c else {}
+    if variant[0] == "poly":
+        _, p, q = variant
+        taps = (c[f"st{si}/poly_w"], c[f"st{si}/poly_b"])
+
+        def fused(st, rc):
+            return node.process_poly_group(st, arena, geom, rc=rc, w=w, p=p, q=q, taps=taps,
+                                           **kw)
+
+        def plain(st, rc):
+            new, args = node.poly_group_plan(st, geom, rc, w, p, q)
+            return new, tres.poly_resample_plain(arena, wtab=taps[0], btab=taps[1], p=p, q=q,
+                                                 **args)
+    else:
+        def fused(st, rc):
+            return node.process_unity_group(st, arena, geom, rc=rc, w=w, aligned=variant[1],
+                                            **kw)
+
+        def plain(st, rc):
+            new, args = node.unity_group_plan(st, geom, rc, w, variant[1])
+            return new, tun.unity_gather_plain(arena, **args)
+    return si, fused, plain
+
+
+def mid_render(ctx, dev, step=9):
+    """The source group's states and step context at step ``step`` of
+    ``ctx`` (its first buffer-source group), the states advanced by the
+    plain composition through the steps before it; the params encoded."""
+    import torch
+
+    from graphaudio_tpu_torch.core import graph as tgraph
+
+    ctx._ensure_compiled()
+    ctx._ensure_params_encoded()
+    S, T = ctx.superblock, ctx.superblock * 128
+    si, _, plain = group_step_fns(ctx)
+    clock = ctx._block_clock((step + 1) * S)
+    st = ctx._states[f"st{si}"]
+    for k in range(step + 1):
+        rc = tgraph.RenderContext(ctx._compiled.info, k * T,
+                                  torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev))
+        if k < step:
+            st, _ = plain(st, rc)
+    return st, rc
+
+
+def group_step_check(label, name, ctx, dev, step=9):
+    """The group step of ctx's first source group against its plain
+    composition at step ``step``, bit for bit: the audio (tolerance 0,
+    equal as integers) and every new state field (equal as integers). The bound is the whole
+    step's bytes: the states read and written, the geometry, the clocks,
+    the tap table, the audio written and the arena samples that this
+    step's valid outputs read (each once). Returns (JSON entry, audio)."""
     import torch
 
     import graphaudio_tpu_torch as gat
-    from graphaudio_tpu_torch.core import graph as tgraph
 
-    T = S * 128
-    ctx._ensure_compiled()
-    ctx._ensure_params_encoded()
-    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
-    clock = ctx._block_clock((step + 1) * S)
-    st = ctx._states["st0"]
-    for k in range(step + 1):
-        bt = torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev)
-        rc = tgraph.RenderContext(ctx._compiled.info, k * T, bt)
-        st, args = gat.AudioBufferSourceNode.unity_group_plan(
-            st, ctx._consts["st0/geom"], rc, w, variant[1])
-    return args, bt
+    si, fused, plain = group_step_fns(ctx)
+    st, rc = mid_render(ctx, dev, step)
+    w, variant, _ = ctx._compiled._bufsrc_cfg[si]
+    c = ctx._consts
+    new_f, out = fused(st, rc)
+    new_p, want = plain(st, rc)
+    torch.cuda.synchronize()
+    fields = ("x", "primed", "stop_time") if variant[0] == "poly" else ("pos", "stop_time")
+    as_int = lambda t: t.view(torch.int64 if t.element_size() == 8 else torch.int32) \
+        if t.is_floating_point() else t  # noqa: E731
+    # The one-launch steps are held to 0; a tree without the packed table
+    # ran its plan as torch ops around a gather kernel whose K1 let nvcc
+    # contract the tap sum, held to 1e-6 (its states are the plain plan's).
+    tol = 0.0 if f"st{si}/gtab" in c else (1e-6 if variant[0] == "poly" else 0.0)
+    differ = [f for f in fields if not torch.equal(as_int(new_f[f]), as_int(new_p[f]))]
+    err = float((out - want).abs().max())
+    if differ or err > tol or (tol == 0.0 and not torch.equal(as_int(out), as_int(want))):
+        raise AssertionError(f"{label}: the group step differs from its plain composition "
+                             f"(states {differ}, audio max_abs_err {err!r})")
+    V, C, T = out.shape
+    i = torch.arange(128, device=out.device)
+    if variant[0] == "poly":
+        _, p, q = variant
+        _, args = gat.AudioBufferSourceNode.poly_group_plan(st, c[f"st{si}/geom"], rc, w, p, q)
+        jpos = args["bidx"].long()[:, :, None] * 128 + i
+        ok = args["blk_ok"][:, :, None] & (args["looping"][:, None, None]
+                                            | (jpos.float() < args["jlim"][:, None, None]))
+        n = ok.sum(dim=(1, 2)).double()
+        read = int(torch.where(n > 0, torch.ceil(n * p / q) + 3, n).sum()) * C * 4
+        extra = nbytes(c[f"st{si}/poly_w"], c[f"st{si}/poly_b"])
+    else:
+        _, args = gat.AudioBufferSourceNode.unity_group_plan(st, c[f"st{si}/geom"], rc, w,
+                                                             variant[1])
+        ok = args["blk_ok"][:, :, None] & (
+            args["looping"][:, None, None]
+            | (args["g0"].long()[:, :, None] + i < args["end_bound"].long()[:, None, None]))
+        read, extra = int(ok.sum()) * C * 4, 0
+    gbytes = nbytes(c[f"st{si}/gtab"]) if f"st{si}/gtab" in c else 0
+    moved = (nbytes(*st.values()) + nbytes(*(new_f[f] for f in fields)) + gbytes
+             + nbytes(rc.block_times) * 2 + extra + nbytes(out) + read)
+    src = "poly_resample.cu" if variant[0] == "poly" else "unity.cu"
+    e = compare(f"{name} ({label}: V={V} C={C} S={T // 128}, mid-render step {step})", "cuda",
+                f"graphaudio_tpu_torch/csrc/{src}",
+                "graphaudio_tpu/nodes/sources.py:1212" if variant[0] == "poly"
+                else "graphaudio_tpu/nodes/sources.py:1104",
+                lambda: fused(st, rc)[1], lambda: plain(st, rc)[1], tol,
+                # 4 multiplies and 3 adds an output sample (K1), a copy (K5)
+                bnd=bound(moved, 7 * out.numel() if variant[0] == "poly" else 0))
+    e["states_bit_exact"] = list(fields)
+    return e, out
+
+
+def k1k5_checks(dev):
+    """K1 and K5, each a whole group step, against their plain composition
+    through the public ``process_*_group`` names, mid-render (step 9): K1
+    at config 4 (64 voices, superblock 64), K5 at config 3 (superblock 32),
+    and at config 2's and config 5's groups under "shapes". Returns the K1
+    and K5 entries and config 4's voices (K3's input)."""
+    from graphaudio_tpu_torch.testing.configs import (config2_mix_bus, config3_eq_chain,
+                                                      config4_conv_reverb, config5_spatial_scene)
+
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    k1, voices = group_step_check("config 4", "K1 polyphase group step",
+                                  config4_conv_reverb(superblock=64, voices=64, device=dev), dev)
+    k5, _ = group_step_check("config 3", "K5 unity group step",
+                             config3_eq_chain(superblock=32, device=dev), dev)
+    k5["shapes"] = [{k: e[k] for k in keys} for e, _ in (
+        group_step_check("config 2", "K5 unity group step",
+                         config2_mix_bus(superblock=32, device=dev), dev),
+        group_step_check("config 5", "K5 unity group step",
+                         config5_spatial_scene(superblock=32, device=dev), dev))]
+    k1["name"], k5["name"] = "K1 polyphase group step", "K5 unity group step"
+    return [k1, k5], voices
 
 
 def k6k8_checks(dev):
@@ -340,7 +515,7 @@ def k6k8_checks(dev):
 
     dt = 1.0 / SR
     ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
-    (_, bt3), (_, bt2) = mid_render(ctx3, dev), mid_render(ctx2, dev)
+    bt3, bt2 = (mid_render(c, dev)[1].block_times for c in (ctx3, ctx2))
     enc3, enc2 = ctx3._encs["st2/frequency"], ctx2._encs["st1/gain"]
 
     def k6_bound(enc, bt):
@@ -426,7 +601,7 @@ def k6k8_batch_checks(dev):
                        bnd=bound(moved, 40 * rows.shape[0] * T))
 
     ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
-    (_, bt3), (_, bt2) = mid_render(ctx3, dev), mid_render(ctx2, dev)
+    bt3, bt2 = (mid_render(c, dev)[1].block_times for c in (ctx3, ctx2))
     t3, t2 = ctx3._encs[tgraph.PARAM_TABLE], ctx2._encs[tgraph.PARAM_TABLE]
     R3, cap3 = t3["times"].shape
     k6 = k6_check(f"config 3 step table: {R3} rows, cap {cap3}, a-rate S=32", t3, bt3)
@@ -459,39 +634,22 @@ def torch_clock(dev, n_blocks, step, S):
 
 
 def config3_kernel_checks(dev):
-    """K5, K6, K8 and P2 against their plain versions on the card, at the
+    """K6, K8 and P2 against their plain versions on the card, at the
     shapes config 3 gives them mid-render (superblock 32, step 9: the
     frequency and Q ramps are moving): K6 and K8 batched as the step
     launches them (``k6k8_batch_checks``) and through their one-entry names
-    (``k6k8_checks``), K5 also on config 2's 8-voice loop arena, P2 also
-    with constant poles, on eight lanes and in the Pallas probe's form.
-    Returns the four JSON entries."""
+    (``k6k8_checks``), P2 also with constant poles, on eight lanes and in
+    the Pallas probe's form. Returns the three JSON entries."""
     import torch
 
     from graphaudio_tpu_torch.ops import biquad as tbq
     from graphaudio_tpu_torch.ops import param_eval as tpe
-    from graphaudio_tpu_torch.ops import unity as tun
-    from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
+    from graphaudio_tpu_torch.testing.configs import config3_eq_chain
 
     dt = 1.0 / SR
-    ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
-    (args3, bt3), (args2, bt2) = mid_render(ctx3, dev), mid_render(ctx2, dev)
-    arena3, arena2 = ctx3._consts["st0/arena"], ctx2._consts["st0/arena"]
-
-    def k5_bound(arena, args):
-        # a copy: each output sample read once from the arena, written once
-        out = tun.unity_gather(arena, **args)
-        return bound(2 * nbytes(out) + nbytes(*(v for v in args.values() if torch.is_tensor(v))), 0)
-
-    k5 = compare("K5 unity copy (config 3: V=1 C=2 S=32)", "cuda",
-                 "graphaudio_tpu_torch/csrc/unity.cu", "graphaudio_tpu/nodes/sources.py:1104",
-                 lambda: tun.unity_gather(arena3, **args3),
-                 lambda: tun.unity_gather_plain(arena3, **args3), 0.0,
-                 bnd=k5_bound(arena3, args3))
-    compare("K5 unity copy (config 2: 8-voice loop arena, C=1 S=32)", "cuda",
-            "graphaudio_tpu_torch/csrc/unity.cu", "graphaudio_tpu/nodes/sources.py:1104",
-            lambda: tun.unity_gather(arena2, **args2),
-            lambda: tun.unity_gather_plain(arena2, **args2), 0.0, bnd=k5_bound(arena2, args2))
+    ctx3 = config3_eq_chain(superblock=32, device=dev)
+    st3, rc3 = mid_render(ctx3, dev)
+    bt3 = rc3.block_times
 
     k6, k8 = k6k8_batch_checks(dev)
     k6["one_entry"], k8["one_entry"] = k6k8_checks(dev)
@@ -500,7 +658,7 @@ def config3_kernel_checks(dev):
     q = tpe.eval_intrinsic_blocked(ctx3._encs["st2/Q"], bt3, 128, dt)
     g = tpe.eval_intrinsic_blocked(ctx3._encs["st2/gain"], bt3, 1, dt).contiguous()
     coeffs = tbq.biquad_coefficients("peaking", f, q, g, SR)
-    x = tun.unity_gather(arena3, **args3)  # [1, 2, 4096]
+    x = group_step_fns(ctx3)[2](st3, rc3)[1]  # the source's audio, [1, 2, 4096]
     w1 = torch.tensor([[0.01, -0.02]], device=dev)
     w2 = torch.tensor([[0.005, 0.01]], device=dev)
 
@@ -548,10 +706,10 @@ def config3_kernel_checks(dev):
                     bnd=bound(nbytes(xr, xi, ar, ai) + 2 * nbytes(xr), 8 * xr.numel()))
     p2["probe_form"] = {k: probe[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "device_ms")}
-    for e, name in ((k5, "K5 unity copy"), (k6, "K6 param curve"),
-                    (k8, "K8 RBJ coefficients"), (p2, "P2 biquad cascade")):
+    for e, name in ((k6, "K6 param curve"), (k8, "K8 RBJ coefficients"),
+                    (p2, "P2 biquad cascade")):
         e["name"] = name
-    return [k5, k6, k8, p2]
+    return [k6, k8, p2]
 
 
 def moving_config5(dev, superblock=32):
@@ -779,7 +937,27 @@ def k2_checks(dev):
     return [macs[0], olas[0]]
 
 
-def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
+def goldens(dev):
+    """Configs 4, 3, 2 and 5 at superblock 4 over 8192 frames against
+    tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
+    from graphaudio_tpu_torch.testing.configs import (config2_mix_bus, config3_eq_chain,
+                                                      config4_conv_reverb, config5_spatial_scene)
+
+    golden_err = {}
+    for n, builder in ((4, config4_conv_reverb), (3, config3_eq_chain), (2, config2_mix_bus),
+                       (5, config5_spatial_scene)):
+        out = builder(superblock=4, device=dev).render(8192)
+        golden = np.load(GOLDENS[n])["out"]
+        err = float(np.abs(out.astype(np.float64) - golden).max())
+        golden_err[n] = err
+        phase("golden", f"config {n}, superblock 4, 8192 frames: max_abs_err={err!r} vs "
+              f"{os.path.relpath(GOLDENS[n], ROOT)} (tolerance 1e-05)")
+        if not (out.shape == golden.shape and err < 1e-5):
+            raise AssertionError(f"config-{n} golden mismatch: {err}")
+    return golden_err
+
+
+def main(device="cuda", only=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -798,9 +976,7 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
     sys.path.insert(0, ROOT)
     import graphaudio_tpu_torch as gat  # noqa: F401  (sets the TF32 policy)
     from graphaudio_tpu_torch.core import context as tcontext
-    from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.core import mixing as tmixing
-    from graphaudio_tpu_torch.ops import resample as tres
     from graphaudio_tpu_torch.testing.configs import config4_conv_reverb, config5_spatial_scene
     from graphaudio_tpu_torch.utils import cudabuild
 
@@ -828,108 +1004,51 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
     frames5 = (30 * SR // T5) * T5  # 351 superblocks
     b5 = lambda: config5_spatial_scene(superblock=32, device=dev)  # noqa: E731
 
-    def profile4(walls):
-        """Config 4's device time a step (torch.profiler, 20 steps) over the
-        host time a step of the unprofiled runs ``walls``."""
-        host = statistics.median(walls) / (frames // T) * 1e6
-        prof = profile_steps(b4(), T, host)
-        phase("profile", f"config 4, 20 steps under torch.profiler: {json.dumps(prof)}")
-        return {"host_us_per_step_median": host, "profile": prof}
-
-    if k2a_only:
-        entries = k2_checks(dev)
-        walls = [timed_render(b4, frames)[1] for _ in range(3)]
-        print(json.dumps({"kernels": entries, "config4": dict(profile4(walls), f32=spread(frames, walls)),
-                          "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                                 "count": torch.cuda.device_count()}}), flush=True)
-        return 0
-
-    if p1_only:
-        entries = [p1_checks(dev)]
-        b5().render(T5)
-        torch.cuda.synchronize()
-        cudabuild.launches.clear()
-        walls = [timed_render(b5, frames5)[1]]
-        entries[0]["launches"] = cudabuild.launches["hrtf_fir"]
-        walls += [timed_render(b5, frames5)[1] for _ in range(2)]
-        host = statistics.median(walls) / (frames5 // T5) * 1e6
-        prof = profile_steps(b5(), T5, host)
-        phase("profile", f"config 5, 20 steps under torch.profiler: {json.dumps(prof)}")
-        print(json.dumps({"kernels": entries, "config5": {
-            "host_us_per_step_median": host, "profile": prof, "f32": spread(frames5, walls)},
-            "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                                 "count": torch.cuda.device_count()}}), flush=True)
-        return 0
-
-    if k6k8_only:
+    if only:
         from graphaudio_tpu_torch.testing.configs import config3_eq_chain
 
-        entries = list(k6k8_checks(dev))
         T3 = 32 * 128
         frames3 = (30 * SR // T3) * T3  # 351 superblocks
-        steps3 = frames3 // T3
         b3 = lambda: config3_eq_chain(superblock=32, device=dev)  # noqa: E731
-        b3().render(T3)
-        torch.cuda.synchronize()
-        cudabuild.launches.clear()
-        out3, wall3, bd3 = timed_render(b3, frames3)
-        # launches under this tree's names and the parent trees'
-        k6_n = cudabuild.launches["eval_intrinsic_batch"] + cudabuild.launches["eval_intrinsic_blocked"]
-        k8_n = (cudabuild.launches["biquad_coefficients_batch"]
-                + cudabuild.launches["biquad_coefficients"])
-        entries[0]["launches"], entries[1]["launches"] = k6_n, k8_n
-        walls = [wall3] + [timed_render(b3, frames3)[1] for _ in range(2)]
-        sha = hashlib.sha256(np.ascontiguousarray(out3, dtype=np.float32).tobytes()).hexdigest()
-        head_err = float(np.abs(out3[:, :8192].astype(np.float64)
-                                - np.load(GOLDENS[3])["out"]).max())
-        host = statistics.median(walls) / steps3 * 1e6
-        prof = profile_steps(b3(), T3, host, groups=K6K8_GROUPS)
-        phase("render", f"config 3 f32: {out3.shape}; three runs {walls!r} s; host us a step "
-              f"{[w / steps3 * 1e6 for w in walls]!r}; K6 {k6_n / steps3!r} and K8 "
-              f"{k8_n / steps3!r} launches a step; sha256 of the first run {sha}; first 8192 "
-              f"frames vs golden max_abs_err={head_err!r}; first run breakdown {json.dumps(bd3)}")
-        phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(prof)}")
-        if not (np.isfinite(out3).all() and head_err < 1e-5):
-            raise AssertionError("config-3 render is not finite or not within 1e-5 of the golden")
-        print(json.dumps({"kernels": entries, "config3": {
-            "host_us_per_step_median": host,
-            "host_us_per_step": [w / steps3 * 1e6 for w in walls], "profile": prof,
-            "f32": spread(frames3, walls), "sha256": sha, "head_vs_golden": head_err,
-            "launches_per_step": {"K6": k6_n / steps3, "K8": k8_n / steps3}},
-            "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}), flush=True)
+        golden_err = None
+        if only == "k2a":
+            entries = k2_checks(dev)
+            runs = {"config4": render_runs(4, b4, T, frames, {"K2a": ("spectral_mac",)})}
+        elif only == "p1":
+            entries = [p1_checks(dev)]
+            runs = {"config5": render_runs(5, b5, T5, frames5, {"P1": ("hrtf_fir",)})}
+            entries[0]["launches"] = runs["config5"]["launches"]["P1"]
+        elif only == "k6k8":
+            entries = list(k6k8_checks(dev))
+            # launches under this tree's names and the parent trees'
+            runs = {"config3": render_runs(3, b3, T3, frames3, {
+                "K6": ("eval_intrinsic_batch", "eval_intrinsic_blocked"),
+                "K8": ("biquad_coefficients_batch", "biquad_coefficients")}, K6K8_GROUPS)}
+            for e, label in zip(entries, ("K6", "K8")):
+                e["launches"] = runs["config3"]["launches"][label]
+        else:  # k1k5
+            entries, _ = k1k5_checks(dev)
+            golden_err = goldens(dev)
+            # launches under this tree's wrapper names and the parent trees'
+            k1 = {"group step": ("poly_group_step", "poly_resample")}
+            k5 = {"group step": ("unity_group_step", "unity_gather")}
+            runs = {"config4": render_runs(4, b4, T, frames, k1, K1K5_GROUPS),
+                    "config3": render_runs(3, b3, T3, frames3, k5, K1K5_GROUPS),
+                    "config5": render_runs(5, b5, T5, frames5, k5, K1K5_GROUPS)}
+            for e, n in zip(entries, (4, 3)):
+                e["launches"] = runs[f"config{n}"]["launches"]["group step"]
+            for n in (4, 3, 5):
+                runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
+        print(json.dumps({"kernels": entries, **runs, "golden_max_abs_err": golden_err,
+                          "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}),
+              flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
     # -- 3. kernels against their plain versions, main-path shapes ------------
-    entries = []
-    ctx = config4_conv_reverb(superblock=S, voices=64, device=dev)
-    ctx._ensure_compiled()
-    st0, consts = ctx._states["st0"], ctx._consts
-    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
-    _, p, q = variant
-    # Mid-render inputs: advance the voice states 3 steps first, so the
-    # positions are not all at the buffer start.
-    clock = np.add.accumulate(np.full(4 * S, 128.0 / SR) * (np.arange(4 * S) > 0))
-    st = st0
-    for k in range(4):
-        rc = tgraph.RenderContext(ctx._compiled.info, k * T,
-                                  torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev))
-        st, args = gat.AudioBufferSourceNode.poly_group_plan(
-            st, consts["st0/geom"], rc, w, p, q)
-    k1_in = dict(arena=consts["st0/arena"], wtab=consts["st0/poly_w"],
-                 btab=consts["st0/poly_b"], p=p, q=q, **args)
-    voices = tres.poly_resample(**k1_in)  # [64, 1, 8192]
-    entries.append(compare(
-        "K1 poly resample", "cuda", "graphaudio_tpu_torch/csrc/poly_resample.cu",
-        "graphaudio_tpu/nodes/sources.py:1212",
-        lambda: tres.poly_resample(**k1_in), lambda: tres.poly_resample_plain(**k1_in),
-        1e-6,
-        # p/q input samples read per output sample, 4 taps (7 flops) each
-        bnd=bound(nbytes(voices) * (1 + p / q) + nbytes(k1_in["wtab"], k1_in["btab"]),
-                  7 * voices.numel())))
+    # K1 at config 4, K5 at configs 3, 2 and 5, each a whole group step
+    entries, voices = k1k5_checks(dev)  # voices: config 4's K1 audio, [64, 1, 8192]
 
     entries += k2_checks(dev)
 
@@ -957,7 +1076,6 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
         "graphaudio_tpu/core/context.py:37",
         lambda: tcontext.pack_int16(audio), lambda: tcontext.pack_int16_plain(audio), 0,
         bnd=bound(nbytes(audio) + audio.numel() * 2, 3 * audio.numel())))
-    del ctx
 
     # -- 3b. the config-3 and config-5 paths' kernels ----------------------------
     entries += config3_kernel_checks(dev)
@@ -968,19 +1086,9 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
                                                  "device_ms")}
 
     # -- 4. goldens ----------------------------------------------------------
-    from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
+    from graphaudio_tpu_torch.testing.configs import config3_eq_chain
 
-    golden_err = {}
-    for n, builder in ((4, config4_conv_reverb), (3, config3_eq_chain), (2, config2_mix_bus),
-                       (5, config5_spatial_scene)):
-        out = builder(superblock=4, device=dev).render(8192)
-        golden = np.load(GOLDENS[n])["out"]
-        err = float(np.abs(out.astype(np.float64) - golden).max())
-        golden_err[n] = err
-        phase("golden", f"config {n}, superblock 4, 8192 frames: max_abs_err={err!r} vs "
-              f"{os.path.relpath(GOLDENS[n], ROOT)} (tolerance 1e-05)")
-        if not (out.shape == golden.shape and err < 1e-5):
-            raise AssertionError(f"config-{n} golden mismatch: {err}")
+    golden_err = goldens(dev)
 
     # -- 5. the config-4 path at full size -------------------------------------
     t0 = time.perf_counter()
@@ -990,7 +1098,7 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
     phase("first", f"build graph + first superblock render: {first_s!r} s")
 
     # Each entry's wrapper, by the name it counts its launches on.
-    wrappers = {"K1 poly resample": "poly_resample", "K2a spectral MAC": "spectral_mac",
+    wrappers = {"K1 polyphase group step": "poly_group_step", "K2a spectral MAC": "spectral_mac",
                 "K2b overlap-add": "overlap_add", "K3 lane fan-in": "fan_in_lanes",
                 "K4 int16 pack": "pack_int16"}
     cudabuild.launches.clear()
@@ -1017,13 +1125,20 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
             e["launches"] = launches[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-4 path")
-    render4.update(profile4(walls4))
+    if launches["K1 polyphase group step"] != 2 * (frames // T):
+        raise AssertionError(f"K1: {launches['K1 polyphase group step']} launches in two renders "
+                             f"of {frames // T} steps, not one a step")
+    host4 = statistics.median(walls4) / (frames // T) * 1e6
+    profile4 = profile_steps(b4(), T, host4)
+    phase("profile", f"config 4, 20 steps under torch.profiler: {json.dumps(profile4)}")
+    render4.update(host_us_per_step_median=host4, profile=profile4)
 
     # -- 6. the config-3 path at full size -----------------------------------
     T3 = 32 * 128
     frames3 = (30 * SR // T3) * T3  # 351 superblocks
     b3 = lambda: config3_eq_chain(superblock=32, device=dev)  # noqa: E731
-    wrappers3 = {"K5 unity copy": "unity_gather", "K6 param curve": "eval_intrinsic_batch",
+    wrappers3 = {"K5 unity group step": "unity_group_step",
+                 "K6 param curve": "eval_intrinsic_batch",
                  "K8 RBJ coefficients": "biquad_coefficients_batch",
                  "P2 biquad cascade": "biquad_apply"}
     b3().render(T3)
@@ -1048,7 +1163,7 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
             e["launches"] = launches3[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-3 path")
-    for name in ("K6 param curve", "K8 RBJ coefficients"):
+    for name in ("K5 unity group step", "K6 param curve", "K8 RBJ coefficients"):
         if launches3[name] != frames3 // T3:
             raise AssertionError(f"{name}: {launches3[name]} launches in {frames3 // T3} steps, "
                                  "not one a step")
@@ -1059,7 +1174,7 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
     # -- 7. the config-5 path at full size -----------------------------------
     wrappers5 = {"P1 HRTF FIR": "hrtf_fir", "K10b spatial gains": "spatial_gains",
                  "K2a spectral MAC": "spectral_mac", "K2b overlap-add": "overlap_add",
-                 "K3 lane fan-in": "fan_in_lanes", "K5 unity copy": "unity_gather",
+                 "K3 lane fan-in": "fan_in_lanes", "K5 unity group step": "unity_group_step",
                  "K6 param curve": "eval_intrinsic_batch"}
     b5().render(T5)
     torch.cuda.synchronize()
@@ -1079,9 +1194,12 @@ def main(device="cuda", k2a_only=False, p1_only=False, k6k8_only=False):
         raise AssertionError("config-5 render is not finite, non-silent, [2, frames] "
                              "and within 1e-5 of the golden at its start")
     for name in ("P1 HRTF FIR", "K10b spatial gains", "K2a spectral MAC", "K3 lane fan-in",
-                 "K5 unity copy"):
+                 "K5 unity group step"):
         if launches5[name] <= 0:
             raise AssertionError(f"{name} was not launched by the config-5 path")
+    if launches5["K5 unity group step"] != frames5 // T5:
+        raise AssertionError(f"K5: {launches5['K5 unity group step']} launches in "
+                             f"{frames5 // T5} config-5 steps, not one a step")
     host_us5 = statistics.median(walls5) / (frames5 // T5) * 1e6
     profile5 = profile_steps(b5(), T5, host_us5)
     phase("profile", f"config 5, 20 steps under torch.profiler: {json.dumps(profile5)}")
@@ -1132,15 +1250,16 @@ if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k2a", action="store_true",
-                    help="only the build, the K2 checks at their three shapes and config 4's "
-                         "render profile (to alternate two trees' kernels in one call)")
-    ap.add_argument("--p1", action="store_true",
-                    help="only the build, the P1 checks and config 5's render profile (to "
-                         "alternate two trees' kernels in one call)")
-    ap.add_argument("--k6k8", action="store_true",
-                    help="only the build, the K6 and K8 checks through their one-entry names "
-                         "and three 30 s config-3 renders with their profile (to alternate two "
-                         "trees' kernels in one call)")
-    args = ap.parse_args()
-    sys.exit(main(k2a_only=args.k2a, p1_only=args.p1, k6k8_only=args.k6k8))
+    modes = {
+        "k2a": "the K2 checks at their three shapes and three 30 s config-4 renders",
+        "p1": "the P1 checks and three 30 s config-5 renders",
+        "k6k8": "the K6 and K8 checks through their one-entry names and three 30 s "
+                "config-3 renders",
+        "k1k5": "the K1 and K5 group-step checks through the public process_*_group "
+                "names, the goldens and three 30 s renders each of configs 4, 3 and 5",
+    }
+    for mode, what in modes.items():
+        ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,
+                        help=f"only the build, {what}, with their profiles (to alternate two "
+                             "trees in one call)")
+    sys.exit(main(only=ap.parse_args().only))

@@ -44,6 +44,7 @@ from graphaudio_tpu_torch.ops.param_eval import (
     pack_param_table,
 )
 from graphaudio_tpu_torch.ops.resample import poly_taps
+from graphaudio_tpu_torch.ops.voice_group import pack_group_table
 
 
 @dataclass(frozen=True)
@@ -290,7 +291,8 @@ class CompiledGraph:
 
         # ---- buffer-source arenas ------------------------------------------
         # One packed arena per buffer-source stage, width padded to a pow2
-        # bucket, plus stacked per-voice geometry (and the polyphase taps).
+        # bucket, plus stacked per-voice geometry (also packed as one table)
+        # and the polyphase taps.
         self.consts: Dict[str, object] = {}
         self._bufsrc_cfg: Dict[int, Tuple[int, tuple, int]] = {}
         for si, (kind, nodes, _) in enumerate(self.stages):
@@ -331,6 +333,8 @@ class CompiledGraph:
             stacked["off"] = np.asarray(offs, np.int32)
             self.consts[f"st{si}/arena"] = arena
             self.consts[f"st{si}/geom"] = stacked
+            # The same geometry packed for the card's one-launch group step.
+            self.consts[f"st{si}/gtab"] = pack_group_table(stacked, w, variant)
             if variant[0] == "poly":
                 wtab, btab = poly_taps(*variant[1:])
                 self.consts[f"st{si}/poly_w"] = wtab
@@ -740,14 +744,15 @@ class CompiledGraph:
                     # params (playbackRate is baked into the variant).
                     w, variant, _ = sp["bufsrc"]
                     arena, geom = consts[f"{key}/arena"], consts[f"{key}/geom"]
+                    gtab = consts[f"{key}/gtab"]
                     if variant[0] == "poly":
                         sts, out = type(rep).process_poly_group(
-                            states[key], arena, geom, rc, w, variant[1], variant[2],
+                            states[key], arena, geom, gtab, rc, w, variant[1], variant[2],
                             (consts[f"{key}/poly_w"], consts[f"{key}/poly_b"]),
                         )
                     else:
                         sts, out = type(rep).process_unity_group(
-                            states[key], arena, geom, rc, w, aligned=variant[1])
+                            states[key], arena, geom, gtab, rc, w, aligned=variant[1])
                     outs = [out]
                 else:
                     params = eval_params(sp, key)

@@ -14,10 +14,13 @@ float64, matching the reference's double accumulators
 
 The port renders two kernel variants of AudioBufferSourceNode, each over a
 whole voice group: the unity-rate copy (``kernel_variant() ==
-("unity", aligned)``: an asset at the context rate, playbackRate untouched)
-with ``process_unity_group`` around K5 (ops/unity.py), and the static
-polyphase resampler (``("poly", p, q)``: a constant rational rate such as
-44.1 kHz assets in a 48 kHz context) with ``process_poly_group`` around K1.
+("unity", aligned)``: an asset at the context rate, playbackRate untouched),
+``process_unity_group``, and the static polyphase resampler (``("poly", p,
+q)``: a constant rational rate such as 44.1 kHz assets in a 48 kHz
+context), ``process_poly_group``. On the card each group step is one
+kernel launch, K5 (ops/unity.py) and K1 (ops/resample.py), bookkeeping and
+audio together; on the CPU the plan functions below and the plain gathers
+compute the same step.
 The time-varying resampler raises NotImplementedError naming its ROADMAP
 item.
 """
@@ -34,8 +37,8 @@ import torch
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.core.node import AudioNode
 from graphaudio_tpu_torch.core.params import AutomationRate
-from graphaudio_tpu_torch.ops.resample import poly_resample
-from graphaudio_tpu_torch.ops.unity import unity_gather
+from graphaudio_tpu_torch.ops.resample import poly_group_step, poly_resample_plain
+from graphaudio_tpu_torch.ops.unity import unity_group_step, unity_gather_plain
 
 _INF = float("inf")
 
@@ -413,20 +416,38 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         return torch.minimum(de, length)
 
     @classmethod
-    def process_unity_group(cls, states, arena, geom, rc, w: int, aligned: bool):
-        """Unity-rate playback of a whole voice group (exact copy).
+    def process_unity_group(cls, states, arena, geom, gtab, rc, w: int, aligned: bool):
+        """Unity-rate playback of a whole voice group (exact copy): K5.
 
         states: dict of stacked [V] tensors; arena f32[C, W] (W a multiple
         of 128, every voice region 128-aligned); geom: stacked [V] geometry
-        incl. the arena offset ``off``. Returns (new_states, out f32[V, C,
-        T]); the audio comes from K5 (ops.unity.unity_gather).
+        incl. the arena offset ``off``; gtab: the same geometry packed by
+        ops/voice_group.pack_group_table (the card reads it, the CPU path
+        reads geom). Returns
+        (new_states, out f32[V, C, T]). On the card one launch computes the
+        whole step (ops.unity.unity_group_step); on the CPU the plain
+        composition does (``unity_group_step_plain``).
         """
+        if arena.is_cpu:
+            return cls.unity_group_step_plain(states, arena, geom, rc, w, aligned)
+        pos, stop_time, out = unity_group_step(states, arena, gtab, rc.block_times,
+                                               rc.block_end_times)
+        new_states = dict(states)
+        new_states["pos"] = pos
+        new_states["stop_time"] = stop_time
+        return new_states, out
+
+    @classmethod
+    def unity_group_step_plain(cls, states, arena, geom, rc, w: int, aligned: bool):
+        """K5's plain version: ``unity_group_plan`` then
+        ops.unity.unity_gather_plain."""
         new_states, args = cls.unity_group_plan(states, geom, rc, w, aligned)
-        return new_states, unity_gather(arena, **args)
+        return new_states, unity_gather_plain(arena, **args)
 
     @classmethod
     def unity_group_plan(cls, states, geom, rc, w: int, aligned: bool):
-        """The f64 per-voice bookkeeping of one unity step: returns
+        """The f64 per-voice bookkeeping of one unity step (CPU path; K5
+        recomputes it in its block prologue on the card): returns
         (new_states, K5's per-voice arguments row0, delta, bidx, g0,
         end_bound, looping, blk_ok).
 
@@ -510,23 +531,40 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         return new_states, args
 
     @classmethod
-    def process_poly_group(cls, states, arena, geom, rc, w: int, p: int, q: int,
+    def process_poly_group(cls, states, arena, geom, gtab, rc, w: int, p: int, q: int,
                            taps):
-        """Static polyphase resampling of a whole voice group.
+        """Static polyphase resampling of a whole voice group: K1.
 
         states: dict of stacked [V] tensors; arena f32[C, W]; geom: dict of
         stacked [V] tensors incl. the per-voice arena offset ``off``;
-        taps: (wtab f32[q, 4], btab i32[q]) from ops.resample.poly_taps.
-        Returns (new_states, out f32[V, C, T]); the audio comes from K1
-        (ops.resample.poly_resample).
+        gtab: the same geometry packed by ops/voice_group.pack_group_table
+        (the card reads it, the CPU path reads geom); taps: (wtab f32[q, 4],
+        btab i32[q]) from ops.resample.poly_taps. Returns (new_states, out f32[V, C, T]). On the card
+        one launch computes the whole step (ops.resample.poly_group_step);
+        on the CPU the plain composition does (``poly_group_step_plain``).
         """
+        if arena.is_cpu:
+            return cls.poly_group_step_plain(states, arena, geom, rc, w, p, q, taps)
+        x, primed, stop_time, out = poly_group_step(
+            states, arena, gtab, rc.block_times, rc.block_end_times, taps[0], taps[1])
+        new_states = dict(states)
+        new_states["x"] = x
+        new_states["primed"] = primed
+        new_states["stop_time"] = stop_time
+        return new_states, out
+
+    @classmethod
+    def poly_group_step_plain(cls, states, arena, geom, rc, w: int, p: int, q: int, taps):
+        """K1's plain version: ``poly_group_plan`` then
+        ops.resample.poly_resample_plain."""
         new_states, args = cls.poly_group_plan(states, geom, rc, w, p, q)
-        out = poly_resample(arena, wtab=taps[0], btab=taps[1], p=p, q=q, **args)
+        out = poly_resample_plain(arena, wtab=taps[0], btab=taps[1], p=p, q=q, **args)
         return new_states, out
 
     @classmethod
     def poly_group_plan(cls, states, geom, rc, w: int, p: int, q: int):
-        """The f64 per-voice bookkeeping of one polyphase step: returns
+        """The f64 per-voice bookkeeping of one polyphase step (CPU path;
+        K1 recomputes it in its block prologue on the card): returns
         (new_states, K1's per-voice arguments win_start, j0, bidx, blk_ok,
         jlim, looping).
 

@@ -8,10 +8,12 @@ period q. ``poly_matrix`` (numpy, copied from the JAX package) bakes them,
 computed in f64 and rounded once to f32; ``poly_taps`` compacts it to the
 four weights and base offset per phase that the kernel reads.
 
-``poly_resample`` is K1: it evaluates every output sample of a voice group
-straight from the packed sample arena (csrc/poly_resample.cu on a CUDA
-tensor, plain torch gathers on a CPU tensor). The f64 per-voice
-bookkeeping that feeds it lives in nodes/sources.process_poly_group.
+K1 is one whole step of a polyphase voice group: the f64 per-voice
+bookkeeping (nodes/sources.AudioBufferSourceNode.poly_group_plan) and every
+output sample read straight from the packed sample arena
+(``poly_resample_plain``). ``poly_group_step`` launches it as one kernel on
+the card (csrc/poly_resample.cu); on the CPU the plan and
+``poly_resample_plain`` are the path.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.ops import voice_group
 from graphaudio_tpu_torch.utils import cudabuild
 
 
@@ -73,9 +76,10 @@ def poly_taps(p: int, q: int):
 
 def poly_resample_plain(arena, win_start, j0, bidx, blk_ok, jlim, looping,
                         wtab, btab, p: int, q: int):
-    """Plain torch K1. Shapes: arena f32[C, W]; win_start i64[V]; j0 i32[V];
-    bidx i32[V, S]; blk_ok bool[V, S]; jlim f32[V]; looping bool[V];
-    wtab f32[q, 4]; btab i32[q]. Returns f32[V, C, S*128]."""
+    """The gather of K1's plain version, in torch. Shapes: arena f32[C, W];
+    win_start i64[V]; j0 i32[V]; bidx i32[V, S]; blk_ok bool[V, S];
+    jlim f32[V]; looping bool[V]; wtab f32[q, 4]; btab i32[q]. Returns
+    f32[V, C, S*128]."""
     V, S = bidx.shape
     C = arena.shape[0]
     i = torch.arange(FRAMES_PER_BLOCK, device=arena.device, dtype=torch.int64)
@@ -97,38 +101,44 @@ def poly_resample_plain(arena, win_start, j0, bidx, blk_ok, jlim, looping,
     return y.permute(1, 0, 2, 3).reshape(V, C, S * FRAMES_PER_BLOCK)
 
 
-def poly_resample(arena, win_start, j0, bidx, blk_ok, jlim, looping,
-                  wtab, btab, p: int, q: int):
-    """K1: the polyphase outputs of a voice group, f32[V, C, S*128].
+# The group's stacked [V] states the fused step reads, in the kernel's
+# argument order, with their dtypes.
+POLY_STATE_FIELDS = (("started", torch.int32), ("start_time", torch.float64),
+                     ("stop_time", torch.float64), ("offset", torch.float64),
+                     ("duration", torch.float64), ("pos", torch.float64),
+                     ("x", torch.float64), ("primed", torch.int32))
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Window reads stay inside the arena by construction: the caller clips
-    each window start to its voice's region (process_poly_group).
+
+def poly_group_step(states, arena, gtab, block_times, block_end_times, wtab, btab):
+    """K1: one step of a polyphase voice group in one launch on the card
+    (csrc/poly_resample.cu). Returns (x, primed, stop_time, out f32[V, C,
+    S*128]); the new states are fresh tensors, x and stop_time two rows of
+    one f64[2, V]. CUDA tensors only: the plain composition
+    (AudioBufferSourceNode.poly_group_step_plain) is the CPU path.
+
+    gtab is the group's packed geometry table
+    (ops/voice_group.pack_group_table: f64[V + 1, GEOM_COLS], the last
+    row the group constants p, q, ...); wtab f32[q, 4] and btab i32[q] from
+    ``poly_taps``.
     """
-    if arena.device.type == "cpu":
-        return poly_resample_plain(arena, win_start, j0, bidx, blk_ok, jlim,
-                                   looping, wtab, btab, p, q)
-    V, S = bidx.shape
+    V, S = voice_group.check_group_inputs(states, POLY_STATE_FIELDS, arena, gtab,
+                                          block_times, block_end_times)
     C, W = arena.shape
-    req = cudabuild.require
-    req(arena, "arena", torch.float32, ndim=2)
-    req(win_start, "win_start", torch.int64, shape=(V,))
-    req(j0, "j0", torch.int32, shape=(V,))
-    req(bidx, "bidx", torch.int32, shape=(V, S))
-    req(blk_ok, "blk_ok", torch.bool, shape=(V, S))
-    req(jlim, "jlim", torch.float32, shape=(V,))
-    req(looping, "looping", torch.bool, shape=(V,))
-    req(wtab, "wtab", torch.float32, shape=(q, 4))
-    req(btab, "btab", torch.int32, shape=(q,))
-    out = torch.empty((V, C, S * FRAMES_PER_BLOCK), dtype=torch.float32,
-                      device=arena.device)
-    # bool tensors are one byte per element: passed as uint8 pointers.
-    status = cudabuild.launcher("ga_poly_resample")(
-        arena.data_ptr(), W, C, V, S, win_start.data_ptr(), j0.data_ptr(),
-        bidx.data_ptr(), blk_ok.data_ptr(), jlim.data_ptr(), looping.data_ptr(),
-        wtab.data_ptr(), btab.data_ptr(), p, q, out.data_ptr(),
-        cudabuild.stream_of(arena),
-    )
-    cudabuild.check(status, "ga_poly_resample")
-    cudabuild.launches["poly_resample"] += 1
-    return out
+    q = btab.shape[0]
+    if not (wtab.is_cuda and wtab.dtype == torch.float32 and wtab.is_contiguous()
+            and tuple(wtab.shape) == (q, 4) and btab.is_cuda and btab.dtype == torch.int32
+            and btab.is_contiguous()):
+        cudabuild.require(wtab, "wtab", torch.float32, shape=(q, 4))
+        cudabuild.require(btab, "btab", torch.int32, ndim=1)
+    out = arena.new_empty((V, C, S * FRAMES_PER_BLOCK))
+    st_out = gtab.new_empty((2, V))
+    primed = states["primed"].new_empty((V,))
+    ptr = [states[name].data_ptr() for name, _ in POLY_STATE_FIELDS]
+    status = cudabuild.launcher("ga_poly_group_step")(
+        arena.data_ptr(), W, C, V, S, gtab.data_ptr(), *ptr, block_times.data_ptr(),
+        block_end_times.data_ptr(), wtab.data_ptr(), btab.data_ptr(), out.data_ptr(),
+        st_out.data_ptr(), primed.data_ptr(), cudabuild.stream_of(arena))
+    if status:
+        cudabuild.check(status, "ga_poly_group_step")
+    cudabuild.launches["poly_group_step"] += 1
+    return st_out[0], primed, st_out[1], out

@@ -5,10 +5,14 @@ superblock of a voice group is a copy of 128-frame blocks out of the packed
 sample arena. The JAX package (graphaudio_tpu/nodes/sources.py
 process_unity_group :1104, _gather_blocks_group :1073) fetches them as
 128-sample row gathers and shifts unaligned voices with one-hot lane-shift
-matmuls, because element gathers are slow on a TPU. ``unity_gather`` reads
-each sample straight from the arena instead: csrc/unity.cu on a CUDA
-tensor, ``unity_gather_plain`` on a CPU tensor. The f64 bookkeeping that
-feeds it lives in nodes/sources.unity_group_plan.
+matmuls, because element gathers are slow on a TPU. The port reads each
+sample straight from the arena instead (``unity_gather_plain``).
+
+K5 is one whole step of a unity-rate voice group: the f64 per-voice
+bookkeeping (nodes/sources.AudioBufferSourceNode.unity_group_plan) and the
+masked copy. ``unity_group_step`` launches it as one kernel on the card
+(csrc/unity.cu); on the CPU the plan and ``unity_gather_plain`` are the
+path.
 """
 
 from __future__ import annotations
@@ -16,13 +20,15 @@ from __future__ import annotations
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.ops import voice_group
 from graphaudio_tpu_torch.utils import cudabuild
 
 
 def unity_gather_plain(arena, row0, delta, bidx, g0, end_bound, looping, blk_ok):
-    """Plain torch K5. arena f32[C, W] (W a multiple of 128); per voice:
-    row0 i64[V] (first arena row of the window), delta i32[V] (lane offset
-    within the row), end_bound i32[V], looping bool[V]; per block: bidx
+    """The gather of K5's plain version, in torch. arena f32[C, W] (W a
+    multiple of 128); per voice: row0 i64[V] (first arena row of the
+    window), delta i32[V] (lane offset within the row), end_bound i32[V],
+    looping bool[V]; per block: bidx
     i32[V, S] (row index after row0), g0 i32[V, S] (original-coordinate
     index of the block's first sample), blk_ok bool[V, S].
 
@@ -48,34 +54,34 @@ def unity_gather_plain(arena, row0, delta, bidx, g0, end_bound, looping, blk_ok)
     return out.permute(1, 0, 2, 3).reshape(V, C, S * FRAMES_PER_BLOCK)
 
 
-def unity_gather(arena, row0, delta, bidx, g0, end_bound, looping, blk_ok):
-    """K5: the unity-rate samples of a voice group, f32[V, C, S*128] (see
-    ``unity_gather_plain``). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    if arena.device.type == "cpu":
-        return unity_gather_plain(arena, row0, delta, bidx, g0, end_bound, looping,
-                                  blk_ok)
-    V, S = bidx.shape
+# The group's stacked [V] states the fused step reads, in the kernel's
+# argument order, with their dtypes.
+UNITY_STATE_FIELDS = (("started", torch.int32), ("start_time", torch.float64),
+                      ("stop_time", torch.float64), ("offset", torch.float64),
+                      ("duration", torch.float64), ("pos", torch.float64))
+
+
+def unity_group_step(states, arena, gtab, block_times, block_end_times):
+    """K5: one step of a unity-rate voice group in one launch on the card
+    (csrc/unity.cu). Returns (pos, stop_time, out f32[V, C, S*128]); the
+    new states are fresh tensors, two rows of one f64[2, V]. CUDA tensors
+    only: the plain composition (AudioBufferSourceNode
+    .unity_group_step_plain) is the CPU path. gtab is the group's packed
+    geometry table (ops/voice_group.pack_group_table); the arena's width
+    is a multiple of 128."""
+    V, S = voice_group.check_group_inputs(states, UNITY_STATE_FIELDS, arena, gtab,
+                                          block_times, block_end_times)
     C, W = arena.shape
     if W % FRAMES_PER_BLOCK:
         raise ValueError(f"arena width {W} is not a multiple of {FRAMES_PER_BLOCK}")
-    req = cudabuild.require
-    req(arena, "arena", torch.float32, ndim=2)
-    req(row0, "row0", torch.int64, shape=(V,))
-    req(delta, "delta", torch.int32, shape=(V,))
-    req(bidx, "bidx", torch.int32, shape=(V, S))
-    req(g0, "g0", torch.int32, shape=(V, S))
-    req(end_bound, "end_bound", torch.int32, shape=(V,))
-    req(looping, "looping", torch.bool, shape=(V,))
-    req(blk_ok, "blk_ok", torch.bool, shape=(V, S))
-    out = torch.empty((V, C, S * FRAMES_PER_BLOCK), dtype=torch.float32,
-                      device=arena.device)
-    # bool tensors are one byte per element: passed as uint8 pointers.
-    status = cudabuild.launcher("ga_unity_gather")(
-        arena.data_ptr(), W, C, V, S, row0.data_ptr(), delta.data_ptr(),
-        bidx.data_ptr(), g0.data_ptr(), end_bound.data_ptr(), looping.data_ptr(),
-        blk_ok.data_ptr(), out.data_ptr(), cudabuild.stream_of(arena),
-    )
-    cudabuild.check(status, "ga_unity_gather")
-    cudabuild.launches["unity_gather"] += 1
-    return out
+    out = arena.new_empty((V, C, S * FRAMES_PER_BLOCK))
+    st_out = gtab.new_empty((2, V))
+    ptr = [states[name].data_ptr() for name, _ in UNITY_STATE_FIELDS]
+    status = cudabuild.launcher("ga_unity_group_step")(
+        arena.data_ptr(), W, C, V, S, gtab.data_ptr(), *ptr, block_times.data_ptr(),
+        block_end_times.data_ptr(), out.data_ptr(), st_out.data_ptr(),
+        cudabuild.stream_of(arena))
+    if status:
+        cudabuild.check(status, "ga_unity_group_step")
+    cudabuild.launches["unity_group_step"] += 1
+    return st_out[0], st_out[1], out

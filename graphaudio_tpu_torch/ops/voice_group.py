@@ -1,0 +1,75 @@
+"""What the fused buffer-source group steps (K1, K5) share: the packed
+geometry table and the input checks of their launches.
+
+A buffer-source group's geometry (each voice's buffer length, rate, loop
+frames, region and arena offset) does not change between steps. The graph
+stacks it once into a dict of [V] arrays (the plain path reads it) and
+packs it once more here into one f64 table, so a step's launch passes one
+pointer for it: row v holds voice v's fields in ``GEOM_FIELDS`` order (the
+integers and flags exactly, as doubles), and one more row holds the group's
+constants, computed in Python exactly as the plain plan computes them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.utils import cudabuild
+
+#: Columns of the table, in the kernels' order (csrc/poly_resample.cu,
+#: csrc/unity.cu).
+GEOM_FIELDS = ("length", "rate", "lsf", "lef", "llen", "looping", "loop_flag",
+               "region_len", "front", "off")
+GEOM_COLS = len(GEOM_FIELDS)
+
+
+def pack_group_table(geom, w: int, variant) -> np.ndarray:
+    """f64[V + 1, GEOM_COLS]: the stacked geometry ``geom`` (dict of [V]
+    arrays, ``off`` included) and, in the last row, the constants of the
+    kernel variant: for ("poly", p, q) p, q, p^-1 mod q, w, 1/q, 128p/q,
+    127p/q and 1/p (the plan's own expressions); for ("unity", aligned) w
+    and the aligned flag."""
+    V = len(geom["off"])
+    table = np.zeros((V + 1, GEOM_COLS), np.float64)
+    for i, name in enumerate(GEOM_FIELDS):
+        table[:V, i] = np.asarray(geom[name]).astype(np.float64)
+    if variant[0] == "poly":
+        p, q = variant[1:]
+        pinv = pow(p, -1, q) if q > 1 else 0
+        consts = [p, q, pinv, w, 1.0 / q, FRAMES_PER_BLOCK * p / q, 127.0 * p / q, 1.0 / p]
+    else:
+        consts = [w, 1.0 if variant[1] else 0.0]
+    table[V, :len(consts)] = consts
+    return table
+
+
+def check_group_inputs(states, fields, arena, gtab, block_times, block_end_times):
+    """Raise unless a fused group step's inputs are contiguous CUDA tensors
+    of the kernel's dtypes and shapes: the states named in ``fields``
+    ((name, dtype) pairs) [V], gtab f64[V + 1, GEOM_COLS], the clocks
+    f64[S], arena f32[C, W]. One combined test passes the common case;
+    otherwise the failing input is named. Returns (V, S)."""
+    V = gtab.shape[0] - 1
+    S = block_times.shape[0]
+    ok = (arena.is_cuda and arena.dtype == torch.float32 and arena.dim() == 2
+          and arena.is_contiguous() and gtab.is_cuda and gtab.dtype == torch.float64
+          and gtab.is_contiguous() and tuple(gtab.shape) == (V + 1, GEOM_COLS))
+    for t in (block_times, block_end_times):
+        ok = ok and t.is_cuda and t.dtype == torch.float64 and t.is_contiguous() \
+            and tuple(t.shape) == (S,)
+    for name, dtype in fields:
+        t = states[name]
+        ok = ok and t.is_cuda and t.dtype == dtype and t.is_contiguous() \
+            and tuple(t.shape) == (V,)
+    if ok:
+        return V, S
+    req = cudabuild.require
+    req(arena, "arena", torch.float32, ndim=2)
+    req(gtab, "gtab", torch.float64, shape=(V + 1, GEOM_COLS))
+    req(block_times, "block_times", torch.float64, shape=(S,))
+    req(block_end_times, "block_end_times", torch.float64, shape=(S,))
+    for name, dtype in fields:
+        req(states[name], name, dtype, shape=(V,))
+    raise ValueError("the group step's inputs do not match")

@@ -1,0 +1,115 @@
+"""Buffer-source voice groups with every edge case of the group steps (K1,
+K5), for the CPU emulation test and the card tests.
+
+Each builder returns a context whose stage 0 is one source group: looping
+and one-shot voices, a loop shorter than a superblock (it wraps inside
+one), a buffer that runs out and a duration that ends mid-superblock (the
+clear and the shortened stop_time), a start inside a later superblock, a
+stop before the second superblock, a start past the render, and phantom
+lanes (the voice count is not a power of two). Buffer lengths and times
+are in superblocks of the context's own length, so every superblock size
+sees each case within five steps.
+``group_inputs`` walks a group step by step along the plain composition
+and yields each step's inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import graphaudio_tpu_torch as ga
+from graphaudio_tpu_torch.core.graph import RenderContext
+
+SR = 48000
+BLOCK = 128
+
+# (length, loop, loop_start, loop_end, when, offset, duration, stop): loop
+# points and offsets in seconds, the rest in superblocks.
+POLY_VOICES = [
+    (4.3, True, 0.0, 0.0, 0.0, 0.0, None, None),
+    (8, True, 0.01, 0.013, 0.5, 0.005, None, None),
+    (1.7, False, 0.0, 0.0, 0.0, 0.01, None, None),
+    (40, False, 0.0, 0.0, 0.1, 0.0, 1.5, None),
+    (2, False, 0.0, 0.0, 2.5, 0.0, None, None),
+    (5, True, 0.0, 0.0, 0.0, 0.0, None, 0.5),
+    (5, False, 0.0, 0.0, 1000.0, 0.0, None, None),
+]
+# Aligned: positions and loop lengths are multiples of 128 frames (4.25
+# superblocks are, from superblock 4 up).
+UNITY_ALIGNED = [
+    (1.7, False, 0.0, 0.0, 0.0, 0.0, None, None),
+    (8, True, 128 / SR, 1152 / SR, 0.5, 256 / SR, None, None),
+    (4.25, True, 0.0, 0.0, 0.0, 0.0, None, 1.5),
+    (40, False, 0.0, 0.0, 0.1, 512 / SR, 1.5, None),
+    (2, False, 0.0, 0.0, 2.5, 0.0, None, None),
+    (5, False, 0.0, 0.0, 0.0, 0.0, None, 0.5),
+]
+UNITY_UNALIGNED = [
+    (1.7, False, 0.0, 0.0, 0.0, 0.0013, None, None),
+    (8, True, 0.01, 0.03, 0.5, 0.005, None, None),
+    (4.3, True, 0.0, 0.0, 0.0, 0.001, None, 1.5),
+    (40, False, 0.0, 0.0, 0.1, 0.02, 1.5, None),
+    (2, False, 0.0, 0.0, 2.5, 0.0007, None, None),
+    (5, True, 0.0, 0.0, 0.0, 0.0021, None, 0.5),
+    (5, False, 0.0, 0.0, 1000.0, 0.003, None, None),
+]
+
+
+def voice_group(specs, superblock, buffer_rate, channels=1, device="cpu", seed=41):
+    """A context whose stage 0 is one group of the voices ``specs``."""
+    rng = np.random.default_rng(seed)
+    step_s = superblock * BLOCK / SR
+    ctx = ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
+    for length, loop, ls, le, when, off, dur, stop in specs:
+        n = max(16, int(length * superblock * BLOCK * buffer_rate / SR))
+        chans = [(rng.standard_normal(n) * 0.3).astype(np.float32) for _ in range(channels)]
+        src = ga.AudioBufferSourceNode(ctx)
+        src.buffer = (ga.PlayableAudioBuffer.from_mono_array(chans[0], buffer_rate)
+                      if channels == 1 else
+                      ga.PlayableAudioBuffer.from_stereo_arrays(*chans, buffer_rate))
+        src.loop = loop
+        src.loop_start, src.loop_end = ls, le
+        src.connect(ctx.destination)
+        src.start(when * step_s, off, float("inf") if dur is None else dur * step_s)
+        if stop is not None:
+            src.stop(stop * step_s)
+    ctx._ensure_compiled()
+    return ctx
+
+
+def poly_group(superblock, device="cpu", buffer_rate=44100):
+    """Mono voices at ``buffer_rate`` in a 48 kHz context: the ("poly", 147,
+    160) variant at 44.1 kHz; at 10 Hz ("poly", 1, 4800), whose phase table
+    is too large for K1 to stage in shared memory."""
+    return voice_group(POLY_VOICES, superblock, buffer_rate, 1, device)
+
+
+def unity_group(superblock, aligned, device="cpu"):
+    """48 kHz stereo voices at the context's rate: the ("unity", aligned)
+    variant."""
+    return voice_group(UNITY_ALIGNED if aligned else UNITY_UNALIGNED, superblock, SR, 2,
+                       device)
+
+
+def group_inputs(ctx, steps):
+    """(states, rc) of each of the first ``steps`` steps of ctx's stage-0
+    source group, the states advanced by the plain composition on ctx's
+    device."""
+    S = ctx.superblock
+    cfg = ctx._compiled._bufsrc_cfg[0]
+    w, variant, _ = cfg
+    node = ctx._compiled.stages[0][1][0]
+    consts, st = ctx._consts, ctx._states["st0"]
+    clock = ctx._block_clock(steps * S)
+    for k in range(steps):
+        rc = RenderContext(ctx._compiled.info, k * S * BLOCK,
+                           torch.from_numpy(clock[k * S:(k + 1) * S]).to(ctx.device))
+        yield st, rc
+        if variant[0] == "poly":
+            st, _ = type(node).poly_group_step_plain(
+                st, consts["st0/arena"], consts["st0/geom"], rc, w, variant[1], variant[2],
+                (consts["st0/poly_w"], consts["st0/poly_b"]))
+        else:
+            st, _ = type(node).unity_group_step_plain(
+                st, consts["st0/arena"], consts["st0/geom"], rc, w, variant[1])

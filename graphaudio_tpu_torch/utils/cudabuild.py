@@ -38,14 +38,16 @@ _I64 = ctypes.c_int64
 # C signature of every exported launcher (all return the cudaError_t of the
 # launch as an int).
 _SIGNATURES = {
-    "ga_poly_resample": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _P, _P],
+    # arena, W, C, V, S, gtab, 8 states, clocks, wtab, btab, outputs, stream
+    "ga_poly_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 8, _P, _P, _P, _P,
+                           _P, _P, _P, _P],
     "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P],
     "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _P],
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],
-    "ga_unity_gather": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # arena, W, C, V, S, gtab, 6 states, clocks, outputs, stream
+    "ga_unity_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 6, _P, _P, _P, _P, _P],
     "ga_param_eval_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             ctypes.c_double, _P, _P],
     "ga_biquad_coeffs_batch": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float,

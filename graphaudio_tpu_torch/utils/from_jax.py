@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.graph import to_device
+from graphaudio_tpu_torch.ops.voice_group import pack_group_table
 
 
 def conv_state_from_jax(st: dict, sub_blocks: int, device, head: int = 0) -> dict:
@@ -64,14 +65,21 @@ def states_from_jax(ctx, jax_states: dict) -> dict:
 def consts_from_jax(ctx, jax_consts: dict) -> dict:
     """The port's stage constants with the JAX package's arena, geometry and
     IR spectra (same layout in both packages); port-only constants (the
-    polyphase tap tables) are kept."""
+    polyphase tap tables) are kept, and a source group's packed geometry
+    table is packed again from the JAX geometry."""
     ctx._ensure_compiled()
     out = dict(ctx._consts)
     for name, v in jax_consts.items():
         if name not in out:
             raise KeyError(f"JAX constant {name!r} has no counterpart in the port's graph")
         if isinstance(v, dict):
-            out[name] = to_device({k: np.asarray(x) for k, x in v.items()}, ctx.device)
+            geom = {k: np.asarray(x) for k, x in v.items()}
+            out[name] = to_device(geom, ctx.device)
+            key = name[:-len("/geom")] if name.endswith("/geom") else None
+            if f"{key}/gtab" in out:
+                w, variant, _ = ctx._compiled._bufsrc_cfg[int(key[2:])]
+                out[f"{key}/gtab"] = torch.from_numpy(
+                    pack_group_table(geom, w, variant)).to(ctx.device)
         else:
             out[name] = torch.from_numpy(np.asarray(v).copy()).to(ctx.device)
     return out

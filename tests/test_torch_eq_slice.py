@@ -86,10 +86,16 @@ def test_mid_render_handoff_from_jax():
     jctx = _source_into_eq(ga, superblock)
     jctx.render(2 * T)
     tctx = _source_into_eq(gat, superblock, device="cpu")
+    tctx._ensure_compiled()
+    own = tctx._consts["st0/gtab"]
     from_jax.load_render_state(
         tctx, jax.device_get(jctx._states), jax.device_get(jctx._consts),
         jctx._current_frame, jctx._current_time,
     )
+    # The packed geometry table (which only the card reads) was packed again
+    # from the JAX geometry, and equals the port's own.
+    assert tctx._consts["st0/gtab"] is not own
+    np.testing.assert_array_equal(tctx._consts["st0/gtab"].numpy(), own.numpy())
     # The source position and the biquad's running state came across.
     assert tctx._states["st0"]["pos"].item() == 2 * T
     assert np.abs(tctx._states["st1"]["w1"].numpy()).max() > 0.0

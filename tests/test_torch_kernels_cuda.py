@@ -13,7 +13,7 @@ import torch
 
 import graphaudio_tpu_torch as gat
 from graphaudio_tpu_torch.core.context import pack_int16, pack_int16_plain
-from graphaudio_tpu_torch.core.graph import PARAM_TABLE, RenderContext, to_device
+from graphaudio_tpu_torch.core.graph import PARAM_TABLE, to_device
 from graphaudio_tpu_torch.core.mixing import fan_in_lanes, fan_in_lanes_plain
 from graphaudio_tpu_torch.nodes import spatial as tsp
 from graphaudio_tpu_torch.ops import biquad as tbq
@@ -21,8 +21,7 @@ from graphaudio_tpu_torch.ops import convolve as tconv
 from graphaudio_tpu_torch.ops import hrtf as th
 from graphaudio_tpu_torch.ops import onepole as top
 from graphaudio_tpu_torch.ops import param_eval as tpe
-from graphaudio_tpu_torch.ops import resample as tres
-from graphaudio_tpu_torch.ops import unity as tun
+from graphaudio_tpu_torch.testing import groups
 from graphaudio_tpu_torch.testing import tables as ttab
 from graphaudio_tpu_torch.testing.configs import (
     config2_mix_bus,
@@ -42,29 +41,55 @@ def dev():
     return torch.device("cuda")
 
 
-def test_k1_poly_resample(dev):
-    ctx = config4_conv_reverb(superblock=8, voices=8, device="cpu")
-    ctx._ensure_compiled()
-    geom = ctx._consts["st0/geom"]
-    V, S, q = 8, 8, 160
-    g = torch.Generator().manual_seed(1)
-    args = dict(
-        arena=ctx._consts["st0/arena"],
-        win_start=geom["off"].long() + geom["front"].long() + 3,
-        j0=torch.randint(0, q, (V,), generator=g, dtype=torch.int32),
-        bidx=torch.randint(0, S, (V, S), generator=g, dtype=torch.int32),
-        blk_ok=torch.rand(V, S, generator=g) > 0.2,
-        jlim=torch.tensor([1e9, 500.0, 2000.0, -5.0] * 2),
-        looping=torch.tensor([True, False, False, False] * 2),
-        wtab=ctx._consts["st0/poly_w"], btab=ctx._consts["st0/poly_b"],
-    )
-    on_card = {k: v.to(dev) for k, v in args.items()}
-    ref = tres.poly_resample_plain(**on_card, p=147, q=q)
-    got = tres.poly_resample(**on_card, p=147, q=q)
-    torch.cuda.synchronize()
-    assert (got - ref).abs().max().item() < 1e-6
+def _int_view(t):
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()]) \
+        if t.is_floating_point() else t
 
 
+def _check_group_steps(ctx, steps):
+    """The fused step of ctx's stage-0 source group (one launch) against
+    its plain composition on the card, bit for bit, audio and every new
+    state field, over ``steps`` steps; returns the audio's abs sum."""
+    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
+    node = ctx._compiled.stages[0][1][0]
+    c = ctx._consts
+    heard = 0.0
+    for st, rc in groups.group_inputs(ctx, steps):
+        head = (st, c["st0/arena"], c["st0/geom"])
+        if variant[0] == "poly":
+            tail = (rc, w, variant[1], variant[2], (c["st0/poly_w"], c["st0/poly_b"]))
+            got = type(node).process_poly_group(*head, c["st0/gtab"], *tail)
+            want = type(node).poly_group_step_plain(*head, *tail)
+            fields = ("x", "primed", "stop_time")
+        else:
+            tail = (rc, w, variant[1])
+            got = type(node).process_unity_group(*head, c["st0/gtab"], *tail)
+            want = type(node).unity_group_step_plain(*head, *tail)
+            fields = ("pos", "stop_time")
+        torch.cuda.synchronize()
+        assert torch.equal(_int_view(got[1]), _int_view(want[1]))
+        for f in fields:
+            assert got[0][f].is_contiguous()
+            assert torch.equal(_int_view(got[0][f]), _int_view(want[0][f])), f
+        for f in st:
+            if f not in fields:
+                assert got[0][f] is st[f]
+        heard += float(want[1].abs().sum())
+    return heard
+
+
+@pytest.mark.parametrize("case", ["config4 S=8 V=8", "edges S=4", "edges S=32", "edges S=64",
+                                  "edges S=32 q=4800"])
+def test_k1_poly_resample(dev, case):
+    if case.startswith("config4"):
+        ctx = config4_conv_reverb(superblock=8, voices=8, device=dev)
+        ctx._ensure_compiled()
+        steps = 12
+    else:
+        S = int(case.split()[1][2:])
+        ctx = groups.poly_group(S, dev, buffer_rate=10 if "q=" in case else 44100)
+        steps = 5
+    assert _check_group_steps(ctx, steps) > 0
 # (K, L, P, B, rev): the 128 grain, config 4's shape, config 5's reverb
 # send, L = 1 at both grains, a ragged sub-block tile, two tiles; P = 97
 # is not a multiple of the lags a group (tconv.mac_plan).
@@ -132,37 +157,90 @@ def test_config4_golden_on_card(dev):
     assert np.abs(out.astype(np.float64) - golden).max() < 1e-5
 
 
-def _k5_args(ctx, steps, dev):
-    """K5's arguments for config 2's first ``steps`` superblocks, planned
-    on the CPU."""
-    ctx._ensure_compiled()
-    S = ctx.superblock
-    consts, st = ctx._consts, ctx._states["st0"]
+@pytest.mark.parametrize("case", ["config2 S=8", "config3 S=32", "aligned S=4",
+                                  "aligned S=32", "aligned S=64", "unaligned S=4",
+                                  "unaligned S=32", "unaligned S=64"])
+def test_k5_unity_gather(dev, case):
+    label, sb = case.split()
+    S = int(sb[2:])
+    if label.startswith("config"):
+        ctx = (config2_mix_bus if label == "config2" else config3_eq_chain)(superblock=S,
+                                                                           device=dev)
+        ctx._ensure_compiled()
+        steps = 30 if label == "config2" else 12
+    else:
+        ctx = groups.unity_group(S, label == "aligned", dev)
+        steps = 5
+    assert _check_group_steps(ctx, steps) > 0
+
+
+def _step_kernels(call, windows=5):
+    """Names of the CUDA kernels of one ``call()`` under torch.profiler, per
+    window: a window now and then loses a ctypes launch's event, so the
+    caller reads several."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        seen.append([e.name for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")])
+    return seen
+
+
+@pytest.mark.parametrize("config", [4, 3])
+def test_group_step_is_one_launch(dev, config):
+    """One process_poly_group (config 4: V=64, S=64) or process_unity_group
+    (config 3: V=1, C=2, S=32) call runs exactly one CUDA kernel, the fused
+    step, and no other."""
+    if config == 4:
+        ctx = config4_conv_reverb(superblock=64, voices=64, device=dev)
+        ctx._ensure_compiled()
+        name = "poly_step_kernel"
+    else:
+        ctx = config3_eq_chain(superblock=32, device=dev)
+        ctx._ensure_compiled()
+        name = "unity_step_kernel"
     w, variant, _ = ctx._compiled._bufsrc_cfg[0]
-    clock = ctx._block_clock(steps * S)
-    out = []
-    for k in range(steps):
-        rc = RenderContext(ctx._compiled.info, k * S * 128,
-                           torch.from_numpy(clock[k * S:(k + 1) * S]))
-        st, args = gat.AudioBufferSourceNode.unity_group_plan(
-            st, consts["st0/geom"], rc, w, variant[1])
-        out.append({k: v.to(dev) for k, v in args.items()})
-    return consts["st0/arena"].to(dev), out
+    node = ctx._compiled.stages[0][1][0]
+    c = ctx._consts
+    st, rc = next(groups.group_inputs(ctx, 1))
+    if variant[0] == "poly":
+        def call():
+            return type(node).process_poly_group(
+                st, c["st0/arena"], c["st0/geom"], c["st0/gtab"], rc, w, variant[1],
+                variant[2], (c["st0/poly_w"], c["st0/poly_b"]))
+    else:
+        def call():
+            return type(node).process_unity_group(st, c["st0/arena"], c["st0/geom"],
+                                                  c["st0/gtab"], rc, w, aligned=variant[1])
+    cudabuild.launches.clear()
+    seen = _step_kernels(call)
+    assert cudabuild.launches["poly_group_step" if config == 4 else "unity_group_step"] == 6
+    assert all(len(k) <= 1 for k in seen), seen
+    assert any(len(k) == 1 and name in k[0] for k in seen), seen
 
 
-def test_k5_unity_gather(dev):
-    ctx = config2_mix_bus(superblock=8, device="cpu")
-    arena, steps = _k5_args(ctx, 30, dev)
-    for args in steps:
-        got = tun.unity_gather(arena, **args)
-        ref = tun.unity_gather_plain(arena, **args)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ref)  # a copy: bit-exact
-    g = torch.Generator().manual_seed(5)
-    args = dict(steps[3])
-    args["delta"] = torch.randint(0, 128, args["delta"].shape, generator=g,
-                                  dtype=torch.int32).to(dev)  # unaligned voices
-    assert torch.equal(tun.unity_gather(arena, **args), tun.unity_gather_plain(arena, **args))
+def test_group_step_checks_the_table(dev):
+    """The fused unity step raises (and launches nothing) when the packed
+    geometry table is not a contiguous f64[V + 1, GEOM_COLS] on the card."""
+    ctx = config3_eq_chain(superblock=32, device=dev)
+    ctx._ensure_compiled()
+    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
+    node = ctx._compiled.stages[0][1][0]
+    c = ctx._consts
+    st, rc = next(groups.group_inputs(ctx, 1))
+    gtab = c["st0/gtab"]
+    cudabuild.launches.clear()
+    for bad in (gtab.cpu(), gtab.float(), gtab[1:], gtab.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            type(node).process_unity_group(st, c["st0/arena"], c["st0/geom"], bad, rc, w,
+                                           aligned=variant[1])
+    assert cudabuild.launches["unity_group_step"] == 0
 
 
 def _param_encoding(dev, lanes=3, cap=16, seed=6):

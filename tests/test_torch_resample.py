@@ -80,7 +80,8 @@ def test_poly_group_matches_jax(superblock, steps):
         jst, jout = jstep(jst, jnp.asarray(bt), jnp.int64(frame0))
         rc = tgraph.RenderContext(tinfo, frame0, torch.from_numpy(bt))
         tst, tout = gat.AudioBufferSourceNode.process_poly_group(
-            tst, tctx._consts["st0/arena"], tctx._consts["st0/geom"], rc, w, p, q, taps
+            tst, tctx._consts["st0/arena"], tctx._consts["st0/geom"], tctx._consts["st0/gtab"],
+            rc, w, p, q, taps
         )
         for key in ("x", "primed", "stop_time"):
             np.testing.assert_array_equal(tst[key].numpy(), np.asarray(jst[key]), err_msg=key)

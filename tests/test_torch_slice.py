@@ -100,6 +100,8 @@ def test_mid_render_handoff_from_jax():
     jctx = _small_config4(ga, superblock)
     jctx.render(2 * T)
     tctx = _small_config4(gat, superblock, device="cpu")
+    tctx._ensure_compiled()
+    own = {k: v for k, v in tctx._consts.items() if k.endswith("/gtab")}
     from_jax.load_render_state(
         tctx,
         jax.device_get(jctx._states),
@@ -107,6 +109,12 @@ def test_mid_render_handoff_from_jax():
         jctx._current_frame,
         jctx._current_time,
     )
+    # The source group's packed geometry table (which only the card reads)
+    # was packed again from the JAX geometry, and equals the port's own.
+    assert own
+    for k, v in own.items():
+        assert tctx._consts[k] is not v
+        np.testing.assert_array_equal(tctx._consts[k].numpy(), v.numpy(), err_msg=k)
     want = jctx.render(3 * T)
     got = tctx.render(3 * T)
     assert tctx.current_time == jctx.current_time

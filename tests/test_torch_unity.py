@@ -94,7 +94,8 @@ def test_unity_group_matches_jax(specs, aligned, superblock):
         jst, jout = jstep(jst, jnp.asarray(bt), jnp.int64(frame0))
         rc = tgraph.RenderContext(tinfo, frame0, torch.from_numpy(bt))
         tst, tout = gat.AudioBufferSourceNode.process_unity_group(
-            tst, tctx._consts["st0/arena"], tctx._consts["st0/geom"], rc, w, aligned=aligned)
+            tst, tctx._consts["st0/arena"], tctx._consts["st0/geom"], tctx._consts["st0/gtab"],
+            rc, w, aligned=aligned)
         for key in jst:
             np.testing.assert_array_equal(tst[key].numpy(), np.asarray(jst[key]), err_msg=key)
         np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
