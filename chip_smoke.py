@@ -28,7 +28,9 @@ failure raises and the script exits non-zero:
      (K1 at config 4, K5 at configs 3, 2 and 5; the bound is the whole
      step's bytes); K2-K4 at config-4 shapes, K2 also at config 5's reverb
      send and the 128 grain (K2a beside one einsum over the unfolded delay
-     line), K3 also at the largest shape a config-5 step gives it; K6, K8
+     line), K2b also with a true-stereo 4-channel IR's combine and beside
+     ``torch.nn.functional.fold``, K3 also at the largest shape a config-5
+     step gives it; K6, K8
      and P2 at config-3 shapes; K6 and K8 batched
      as the step launches them, bit for bit: K6 on config 3's step table
      (8 rows, capacity 32) and config 2's (8 lanes of linear and
@@ -38,7 +40,9 @@ failure raises and the script exits non-zero:
      also with constant poles, on eight lanes, and in the Pallas probe's
      own 128x128 constant-pole form; P1 and K10b at config-5 shapes taken
      mid-render with moving sources, P1 also in the probe's row form beside
-     torch's grouped conv1d; K9 at the occluded scene's shapes. Each entry
+     torch's grouped conv1d, K10b as the step's one batched launch (also
+     over two panner groups under two distance models) and bit for bit
+     against its one-entry name; K9 at the occluded scene's shapes. Each entry
      carries the bound (the larger of bytes over HBM rate and operations
      over peak rate) and, where one PyTorch call computes the same
      function, that call's time; K3's host time a call beside torch.sum's;
@@ -48,30 +52,34 @@ failure raises and the script exits non-zero:
      down to whole superblocks) through ``render`` and again through
      ``render_pcm16``: finite, non-silent, pcm16 bit-exact against the
      plain pack of the f32 render, every config-4 kernel launched by those
-     two runs, K1 once a step; four more f32 runs for the spread; a
-     profiler window as for config 3;
+     two runs, K1 and K2b once a step; four more f32 runs for the spread; a
+     profiler window as for config 3, and the step's PyTorch ops by source
+     line (``attribute_ops``);
   6. config 3 at full size (superblock 32, 30 s rounded down to whole
      superblocks, 351 steps) through ``render``, five fresh runs: finite,
      non-silent, the first 8192 frames within 1e-5 of the golden, every
      config-3 kernel launched by the first run, K5, K6 and K8 once a step; a
      torch.profiler window of 20 steps for the device time per step, per
      kernel and per group (K6, K8), over the unprofiled host time per step
-     for the device busy share;
+     for the device busy share; the step's PyTorch ops by source line;
   7. config 5 at full size (128 voices, superblock 32, 351 superblocks)
      through ``render``, five fresh runs: finite, non-silent, the first
      8192 frames within 1e-5 of the golden, P1, K10b and the K2/K3/K5
-     calls launched by the first run, K5 once a step; a profiler window as
-     for config 3;
+     calls launched by the first run, K5, K10b and K2b once a step; a
+     profiler window and the ops by source line as for config 3;
   8. the occluded scene (config 5's Kit graph, 16 voices with occlusion
      and transmission, superblock 32, 8 steps): K9, P1 and K10b launched,
      within 1e-5 of the same render on the CPU (plain versions).
 
-Each of ``--k2a``, ``--p1``, ``--k6k8`` and ``--k1k5`` runs phases 1 and
-2, one kernel pair's checks and three 30 s renders of the configs that
-run it, each render with its profile window (``render_runs``): K2 and
-config 4; P1 and config 5; K6 and K8 through their one-entry names and
-config 3; K1 and K5 as group steps through the public ``process_*_group``
-names, the goldens and configs 4, 3 and 5. They print the launches and
+Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5`` and ``--k2bk10b`` runs
+phases 1 and 2, one kernel pair's checks and three 30 s renders of the
+configs that run it, each render with its profile window and its ops by
+source line (``render_runs``): K2 and config 4; P1 and config 5; K6 and
+K8 through their one-entry names and config 3; K1 and K5 as group steps
+through the public ``process_*_group`` names, the goldens and configs 4, 3
+and 5; K2a and K2b at four shapes and K10b at two (a tree without the
+batched K10b through its one-entry calls), the goldens and configs 4 and
+5. They print the launches and
 host time a step, the device time a step by kernel group (the groups'
 substrings match the kernel names of older trees too) and each first
 render's sha256. Copied into another tree's checkout, each times that
@@ -174,6 +182,9 @@ K6K8_GROUPS = {"K6": "param_eval", "K8": "biquad_coeffs"}
 #: gather kernel, poly_step_kernel and unity_step_kernel in the one-launch
 #: steps).
 K1K5_GROUPS = {"K1": "poly_", "K5": "unity_"}
+#: K2b's and K10b's kernels (conv_ola_kernel and spatial_gains_kernel in
+#: this tree and the parent trees).
+K2BK10B_GROUPS = {"K2b": "conv_ola", "K10b": "spatial_gains"}
 
 
 def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
@@ -212,6 +223,59 @@ def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
                     "kernels": sorted(k for k in per_kernel if sub in k)}
             for label, sub in groups.items()}
     return out
+
+
+def attribute_ops(ctx, step_frames, steps=10):
+    """The step's device work that is not a hand kernel, by source line:
+    ``steps`` steps of ``ctx`` (after two warm-up steps) under
+    torch.profiler, with every PyTorch call inside a ``record_function``
+    range named after its call site (the innermost frame in
+    graphaudio_tpu_torch, found by a ``TorchFunctionMode``) and the call;
+    each range's device time is that of the kernels its call launched
+    (the profiler also records a device-side copy of each range, which is
+    left out).
+    Returns {"file:line function | call": [device us a step, launches a
+    step]}, largest first. The hand kernels, launched through ctypes, are
+    no PyTorch call and belong to no range."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pkg = os.path.join(ROOT, "graphaudio_tpu_torch")
+
+    class CallSites(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            f = sys._getframe(1)
+            while f is not None and not f.f_code.co_filename.startswith(pkg):
+                f = f.f_back
+            where = "(outside the package)" if f is None else (
+                f"{os.path.relpath(f.f_code.co_filename, ROOT)}:{f.f_lineno} {f.f_code.co_name}")
+            with record_function(f"@{where} | {getattr(func, '__name__', func)}"):
+                return func(*args, **(kwargs or {}))
+
+    def kernels(e):
+        """The device kernels under ``e``: its own and its children's, not
+        the device-side copies of the ``record_function`` ranges."""
+        own = [k for k in getattr(e, "kernels", []) or [] if not k.name.startswith("@")]
+        return own + [k for c in e.cpu_children for k in kernels(c)]
+
+    ctx.render(2 * step_frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with CallSites():
+            ctx.render(steps * step_frames)
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if not e.name.startswith("@"):
+            continue
+        ks = kernels(e)
+        if not ks:
+            continue
+        us, n = rows.get(e.name[1:], (0.0, 0.0))
+        rows[e.name[1:]] = (us + sum(k.duration for k in ks) / steps, n + len(ks) / steps)
+    return {k: [round(us, 3), round(n, 3)]
+            for k, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])}
 
 
 def timed_render(build, frames, method="render"):
@@ -260,6 +324,9 @@ def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3):
     head_err = float(np.abs(out[:, :8192].astype(np.float64) - np.load(GOLDENS[n])["out"]).max())
     host = [w / steps * 1e6 for w in walls]
     prof = profile_steps(build(), step_frames, statistics.median(host), groups=groups)
+    ops = attribute_ops(build(), step_frames)
+    phase("ops", f"config {n}, the step's PyTorch ops by source line (device us, launches a "
+          f"step): {json.dumps(ops)}")
     phase("render", f"config {n} f32: {out.shape}; {runs} runs {walls!r} s; host us a step "
           f"{host!r}; launches a step { {k: v / steps for k, v in launches.items()} }; "
           f"sha256 of the first run {sha}; first 8192 frames vs golden max_abs_err="
@@ -270,7 +337,7 @@ def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3):
                              "of the golden at its start")
     return {"host_us_per_step_median": statistics.median(host), "host_us_per_step": host,
             "profile": prof, "f32": spread(frames, walls), "sha256": sha,
-            "head_vs_golden": head_err, "launches": launches,
+            "head_vs_golden": head_err, "launches": launches, "torch_ops": ops,
             "launches_per_step": {k: v / steps for k, v in launches.items()}}
 
 
@@ -712,10 +779,12 @@ def config3_kernel_checks(dev):
     return [k6, k8, p2]
 
 
-def moving_config5(dev, superblock=32):
+def moving_config5(dev, superblock=32, linear_half=False):
     """Config 5 with every source moving along the chord to the point a
     quarter turn further round the circle over 3 s (per-quantum position
-    automation)."""
+    automation); with ``linear_half`` every other voice's panner is under
+    the linear distance model with an 8 m maximum, so the panners form two
+    groups."""
     from graphaudio_tpu_torch.testing.configs import config5_spatial_scene
 
     ctx = config5_spatial_scene(superblock=superblock, device=dev)
@@ -725,6 +794,33 @@ def moving_config5(dev, superblock=32):
         for prm, fn in ((pan.position_x, np.cos), (pan.position_z, np.sin)):
             prm.set_value_at_time(float(5 * fn(a)), 0.0)
             prm.linear_ramp_to_value_at_time(float(5 * fn(a + np.pi / 2)), 3.0)
+        if linear_half and v % 2:
+            pan.distance_model = type(pan.distance_model).LINEAR
+            pan.max_distance.value = 8.0
+    return ctx
+
+
+def true_stereo_config4(dev, superblock=64):
+    """Config 4's wiring with a 4-channel 2 s IR under the true-stereo
+    matrix (outL = L*ir0 + R*ir2, outR = L*ir1 + R*ir3): 8 voices into
+    the convolver, four instances a step at grain 1024."""
+    import graphaudio_tpu_torch as gat
+
+    rng = np.random.default_rng(41)
+    ctx = gat.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=dev)
+    conv = gat.ConvolverNode(ctx)
+    n = 2 * SR
+    decay = np.exp(-np.arange(n) / (0.3 * SR))
+    conv.buffer = gat.PlayableAudioBuffer.from_channel_arrays(
+        [(rng.standard_normal(n) * decay).astype(np.float32) for _ in range(4)], SR)
+    conv.connect(ctx.destination)
+    for v in range(8):
+        src = gat.AudioBufferSourceNode(ctx)
+        src.buffer = gat.PlayableAudioBuffer.from_stereo_arrays(
+            *(rng.standard_normal((2, SR)) * 0.2).astype(np.float32), SR)
+        src.loop = True
+        src.connect(conv)
+        src.start(0.001 * v)
     return ctx
 
 
@@ -816,11 +912,11 @@ def p1_checks(dev):
 
 
 def config5_kernel_checks(dev):
-    """P1 (``p1_checks``) and K10b against their plain versions at config-5
-    shapes (128 voices, superblock 32), K10b on the arguments of the fourth
-    step of a render whose sources move every quantum; K9 on the arguments
-    of the occluded scene's second step; K3 on the largest of that fourth
-    step's fan-ins. Returns the three JSON entries and K3's."""
+    """P1 (``p1_checks``) and K10b (``k10b_checks``) against their plain
+    versions at config-5 shapes (128 voices, superblock 32); K9 on the
+    arguments of the occluded scene's second step; K3 on the largest of the
+    fan-ins of the fourth step of a render whose sources move every
+    quantum. Returns the three JSON entries and K3's."""
     from unittest import mock
 
     import torch
@@ -830,21 +926,12 @@ def config5_kernel_checks(dev):
     from graphaudio_tpu_torch.ops import onepole as top
 
     p1 = p1_checks(dev)
-    # The panner and the step function look their kernels up in their own
-    # modules: spies there see the arguments of each call.
+    k10b = k10b_checks(dev)
+    # The step function looks K3 up in its own module: a spy there sees
+    # the arguments of each call.
     ctx = moving_config5(dev)
-    with mock.patch.object(tsp, "spatial_gains", wraps=tsp.spatial_gains) as sg, \
-            mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
+    with mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
         ctx.render(4 * 32 * 128)
-    pp, listener, model = sg.call_args.args
-    k10b = compare(f"K10b spatial gains (config 5 step 4: V={pp.shape[1]} S={pp.shape[2]})", "cuda",
-                   "graphaudio_tpu_torch/csrc/spatial_gains.cu",
-                   "graphaudio_tpu/nodes/spatial.py:270",
-                   lambda: tsp.spatial_gains(pp, listener, model),
-                   lambda: tsp.spatial_gains_plain(pp, listener, model), 1e-6,
-                   # 17 params in, 6 rows out; ~150 flops per (voice, quantum)
-                   # counting each transcendental as ~10
-                   bnd=bound(nbytes(pp) + 48 + 6 * pp[0].numel() * 4, 150 * pp[0].numel()))
 
     occ = occluded_scene(dev)
     with mock.patch.object(tsp, "onepole_lowpass", wraps=tsp.onepole_lowpass) as op:
@@ -861,19 +948,50 @@ def config5_kernel_checks(dev):
     xf, dst = max((c.args for c in fan.call_args_list), key=lambda a: a[0].numel())
     k3 = k3_check(f"config 5 step 4, its largest: {list(xf.shape)} -> [{dst}, {xf.shape[2]}]",
                   xf, dst)
-    k10b["name"], k9["name"] = "K10b spatial gains", "K9 one-pole lowpass"
+    k9["name"] = "K9 one-pole lowpass"
     return [p1, k10b, k9], k3
+
+
+def ola_fns(yfull, ov0, combine):
+    """(kernel, plain) calls of K2b on ``yfull`` and a copy each of the
+    carried tail ``ov0``, with the convolver's ``combine``. A tree whose
+    K2b takes no combine (before it wrote the true-stereo sums) is timed
+    with the stack of sums its convolver issued after it."""
+    import inspect
+
+    import torch
+
+    from graphaudio_tpu_torch.ops import convolve as tconv
+
+    # Each call replaces its tail with yfull's last one: the first call of
+    # each reads ov0, every later one the same new tail, the same work.
+    ov_k, ov_p = ov0.clone(), ov0.clone()
+    if "combine" in inspect.signature(tconv.overlap_add).parameters:
+        return (lambda: tconv.overlap_add(yfull, ov_k, combine),
+                lambda: tconv.overlap_add_plain(yfull, ov_p, combine))
+
+    def stacked(fn, ov):
+        y = fn(yfull, ov)
+        return y if combine is None else torch.stack([y[a] + y[b] for a, b in combine])
+
+    return (lambda: stacked(tconv.overlap_add, ov_k),
+            lambda: stacked(tconv.overlap_add_plain, ov_p))
 
 
 def k2_checks(dev):
     """K2a and K2b against their plain versions at the shapes the main paths
     give them: config 4's (grain 1024), config 5's reverb send (K, L and P
-    read from its compiled plan) and the 128 grain (superblock 4, the
-    goldens' grain). K2a also beside the library call: one einsum over the
-    unfolded delay line, the JAX reference's form (without the ring write),
-    on a contiguous complex delay line and correlation-order spectra built
-    before the clock starts. Returns the K2a and K2b entries at config 4's
-    shape, each with the other two shapes under "shapes"."""
+    read from its compiled plan), the 128 grain (superblock 4, the goldens'
+    grain) and a true-stereo 4-channel IR at config 4's grain
+    (``true_stereo_config4``), K2b with the convolver's combine there. K2a
+    also beside the library call: one einsum over the unfolded delay line,
+    the JAX reference's form (without the ring write), on a contiguous
+    complex delay line and correlation-order spectra built before the clock
+    starts; K2b beside ``torch.nn.functional.fold`` (stride B, the carried
+    tail as the first block, the blocks built before the clock), except
+    with the combine, which no one call computes. Returns the K2a and K2b
+    entries at config 4's shape, each with the other shapes under
+    "shapes"."""
     import torch
 
     from graphaudio_tpu_torch.ops import convolve as tconv
@@ -883,10 +1001,13 @@ def k2_checks(dev):
     macs, olas = [], []
     for label, cctx in (("config 4, grain 1024", config4_conv_reverb(superblock=64, voices=64, device=dev)),
                         ("config 5 reverb send, grain 1024", config5_spatial_scene(superblock=32, device=dev)),
-                        ("128 grain", config4_conv_reverb(superblock=4, voices=1, device=dev))):
+                        ("128 grain", config4_conv_reverb(superblock=4, voices=1, device=dev)),
+                        ("true-stereo 4-channel IR, grain 1024", true_stereo_config4(dev))):
         cctx._ensure_compiled()
-        si = next(sp["si"] for sp in cctx._compiled.plan
+        sp = next(sp for sp in cctx._compiled.plan
                   if sp["kind"] == "single" and f"st{sp['si']}/conv_hr" in cctx._consts)
+        si = sp["si"]
+        combine = ((0, 2), (1, 3)) if sp["rep"]._is_true_stereo else None
         hr, hi = cctx._consts[f"st{si}/conv_hr"], cctx._consts[f"st{si}/conv_hi"]
         K, P, NB = hr.shape
         B = NB - 1
@@ -919,15 +1040,36 @@ def k2_checks(dev):
         if not torch.equal(rk, rp):
             raise AssertionError(f"K2a's ring writes differ from the plain version's ({label})")
         phase("kernels", f"K2a library einsum vs plain: max_abs_err={e['library_max_abs_err']!r}")
+        macs.append(e)
         yfull = torch.fft.irfft(mac_k(), n=2 * B, dim=-1).contiguous()
         ov0 = torch.from_numpy(rng.standard_normal((K, B)).astype(np.float32)).to(dev)
-        f = compare(f"K2b overlap-add ({label}: K={K} L={L} B={B})", "cuda",
+        ola_k, ola_p = ola_fns(yfull, ov0, combine)
+        lib = None
+        if combine is None:
+            # fold's blocks: the carried tail behind B zeros, then the L rows
+            cols = torch.cat([torch.cat([torch.zeros_like(ov0), ov0], 1)[:, None], yfull], 1)
+            cols = cols.transpose(1, 2).contiguous()  # [K, 2B, L + 1]
+            lib = lambda: torch.nn.functional.fold(  # noqa: E731
+                cols, (1, (L + 2) * B), (1, 2 * B), stride=(1, B))
+        C = K if combine is None else len(combine)
+        f = compare(f"K2b overlap-add ({label}: K={K} L={L} B={B}"
+                    f"{', combine ' + str(combine) if combine else ''})", "cuda",
                     "graphaudio_tpu_torch/csrc/conv.cu",
                     "graphaudio_tpu/ops/convolve.py:229" if rev else "graphaudio_tpu/ops/convolve.py:120",
-                    lambda: tconv.overlap_add(yfull, ov0.clone()),
-                    lambda: tconv.overlap_add_plain(yfull, ov0.clone()), 0.0,
-                    bnd=bound(nbytes(yfull) + 2 * nbytes(ov0) + K * L * B * 4, K * L * B))
-        macs.append(e)
+                    ola_k, ola_p, 0.0, library=lib, device_times=True,
+                    # yfull read once, the tails read and written, y written;
+                    # an add a sample and instance
+                    bnd=bound(nbytes(yfull) + 2 * nbytes(ov0) + C * L * B * 4, K * L * B))
+        want = ola_p()
+        if not torch.equal(ola_k().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"K2b differs from its plain version in some bit ({label})")
+        if lib is not None:
+            folded = lib()[:, 0, 0]
+            ov1 = ov0.clone()
+            y1 = tconv.overlap_add_plain(yfull, ov1)
+            f["library_max_abs_err"] = max(float((folded[:, B:(L + 1) * B] - y1).abs().max()),
+                                           float((folded[:, (L + 1) * B:] - ov1).abs().max()))
+            phase("kernels", f"K2b library fold vs plain: max_abs_err={f['library_max_abs_err']!r}")
         olas.append(f)
     keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "plain_device_ms", "library_device_ms", "library_max_abs_err")
@@ -935,6 +1077,90 @@ def k2_checks(dev):
         group[0]["shapes"] = [{k: e[k] for k in keys if k in e} for e in group[1:]]
         group[0]["name"] = name
     return [macs[0], olas[0]]
+
+
+def k10b_checks(dev):
+    """K10b against its plain version at config 5 step 4 (sources moving
+    every quantum, ``moving_config5``) and at step 4 of the same scene with
+    every other panner under the linear model (two panner groups), on the
+    arguments the render gave it: this tree's batch of every panner stage
+    (``spatial_gains_batch``, spied where the step's prologue calls it),
+    bit-identical too to the one-entry ``spatial_gains`` on each stage's
+    params as the kernel reads them. A tree without the batch is timed
+    through its one-entry calls of that step (one a group, then one
+    concatenation). Returns the entry at config 5, the other shape under
+    "shapes"."""
+    from unittest import mock
+
+    import torch
+
+    from graphaudio_tpu_torch.nodes import spatial as tsp
+
+    batched = hasattr(tsp, "spatial_gains_batch")
+    found = []
+    for label, linear_half in (("config 5 step 4", False),
+                               ("two panner groups, inverse and linear, step 4", True)):
+        ctx = moving_config5(dev, linear_half=linear_half)
+        name = "spatial_gains_batch" if batched else "spatial_gains"
+        with mock.patch.object(tsp, name, wraps=getattr(tsp, name)) as spy:
+            ctx.render(4 * 32 * 128)
+        if batched:
+            table, arena, listener = spy.call_args.args
+            S = table["superblock"]
+            n_pairs = sum(V for _, V, _, _ in table["stages"]) * S
+
+            def kernel(table=table, arena=arena, listener=listener):
+                outs = tsp.spatial_gains_batch(table, arena, listener)
+                if outs[0].untyped_storage().nbytes() == 4 * table["size"]:
+                    return outs[0].as_strided((table["size"],), (1,), 0)  # the one arena
+                return flat(outs)
+
+            def plain(table=table, arena=arena, listener=listener):
+                return flat(tsp.spatial_gains_batch_plain(table, arena, listener))
+
+            # bytes: each (lane, param) read once (a constant one float, an
+            # arena row S floats), the plans, the listener, the rows out
+            read = sum(V * (1 if w & 3 == 2 else S) for _, V, _, words in table["stages"]
+                       for w in words) * 4
+            moved = read + sum(len(p) for p in table["plans"]) + 48 + table["size"] * 4
+            shapes = [f"V={V} model {code}" for _, V, code, _ in table["stages"]]
+            # the one-entry name on each stage's params as the kernel reads them
+            models = {0: tsp.DistanceModelType.LINEAR, 1: tsp.DistanceModelType.INVERSE,
+                      2: tsp.DistanceModelType.EXPONENTIAL}
+            for out, (_, V, code, words) in zip(tsp.spatial_gains_batch(table, arena, listener),
+                                                table["stages"]):
+                p = tsp._stage_sources(words, V, S, arena, table["consts"]).contiguous()
+                if not torch.equal(tsp.spatial_gains(p, listener, models[code]).view(torch.int32),
+                                   out.view(torch.int32)):
+                    raise AssertionError(f"K10b's batch differs from the one-entry spatial_gains "
+                                         f"on the same rows ({label})")
+        else:
+            per_step = spy.call_count // 4
+            calls = [c.args for c in spy.call_args_list[-per_step:]]
+
+            def kernel(calls=calls):
+                outs = [tsp.spatial_gains(*a) for a in calls]
+                return outs[0].flatten() if len(outs) == 1 else flat(outs)
+
+            def plain(calls=calls):
+                return flat([tsp.spatial_gains_plain(*a) for a in calls])
+
+            n_pairs = sum(a[0][0].numel() for a in calls)
+            moved = sum(nbytes(a[0]) for a in calls) + 48 + 6 * n_pairs * 4
+            shapes = [f"V={a[0].shape[1]} {a[2].value}" for a in calls]
+        found.append(compare(
+            f"K10b spatial gains ({label}: {', '.join(shapes)}, {n_pairs} (lane, quantum) pairs"
+            f"{', one launch' if batched else ''})", "cuda",
+            "graphaudio_tpu_torch/csrc/spatial_gains.cu", "graphaudio_tpu/nodes/spatial.py:270",
+            kernel, plain, 1e-6,
+            # ~150 flops per (lane, quantum), each transcendental as ~10
+            bnd=bound(moved, 150 * n_pairs)))
+    k10b = found[0]
+    k10b["shapes"] = [{k: e[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "device_ms")} for e in found[1:]]
+    k10b["one_entry_bit_identical"] = batched
+    k10b["name"] = "K10b spatial gains"
+    return k10b
 
 
 def goldens(dev):
@@ -1026,6 +1252,18 @@ def main(device="cuda", only=None):
                 "K8": ("biquad_coefficients_batch", "biquad_coefficients")}, K6K8_GROUPS)}
             for e, label in zip(entries, ("K6", "K8")):
                 e["launches"] = runs["config3"]["launches"][label]
+        elif only == "k2bk10b":
+            entries = k2_checks(dev) + [k10b_checks(dev)]
+            golden_err = goldens(dev)
+            # launches under this tree's wrapper names and the parent trees'
+            counts = {"K2b": ("overlap_add",), "K10b": ("spatial_gains_batch", "spatial_gains")}
+            runs = {"config4": render_runs(4, b4, T, frames, {"K2b": counts["K2b"]},
+                                           K2BK10B_GROUPS),
+                    "config5": render_runs(5, b5, T5, frames5, counts, K2BK10B_GROUPS)}
+            for e, label in zip(entries[1:], ("K2b", "K10b")):
+                e["launches"] = runs["config5"]["launches"][label]
+            for n in (4, 5):
+                runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
         else:  # k1k5
             entries, _ = k1k5_checks(dev)
             golden_err = goldens(dev)
@@ -1125,13 +1363,17 @@ def main(device="cuda", only=None):
             e["launches"] = launches[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-4 path")
-    if launches["K1 polyphase group step"] != 2 * (frames // T):
-        raise AssertionError(f"K1: {launches['K1 polyphase group step']} launches in two renders "
-                             f"of {frames // T} steps, not one a step")
+    for name in ("K1 polyphase group step", "K2b overlap-add"):
+        if launches[name] != 2 * (frames // T):
+            raise AssertionError(f"{name}: {launches[name]} launches in two renders of "
+                                 f"{frames // T} steps, not one a step")
     host4 = statistics.median(walls4) / (frames // T) * 1e6
-    profile4 = profile_steps(b4(), T, host4)
+    profile4 = profile_steps(b4(), T, host4, groups=K2BK10B_GROUPS)
     phase("profile", f"config 4, 20 steps under torch.profiler: {json.dumps(profile4)}")
-    render4.update(host_us_per_step_median=host4, profile=profile4)
+    ops4 = attribute_ops(b4(), T)
+    phase("ops", f"config 4, the step's PyTorch ops by source line (device us, launches a step): "
+          f"{json.dumps(ops4)}")
+    render4.update(host_us_per_step_median=host4, profile=profile4, torch_ops=ops4)
 
     # -- 6. the config-3 path at full size -----------------------------------
     T3 = 32 * 128
@@ -1170,9 +1412,12 @@ def main(device="cuda", only=None):
     host_us3 = statistics.median(walls3) / (frames3 // T3) * 1e6
     profile3 = profile_steps(b3(), T3, host_us3, groups=K6K8_GROUPS)
     phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(profile3)}")
+    ops3 = attribute_ops(b3(), T3)
+    phase("ops", f"config 3, the step's PyTorch ops by source line (device us, launches a step): "
+          f"{json.dumps(ops3)}")
 
     # -- 7. the config-5 path at full size -----------------------------------
-    wrappers5 = {"P1 HRTF FIR": "hrtf_fir", "K10b spatial gains": "spatial_gains",
+    wrappers5 = {"P1 HRTF FIR": "hrtf_fir", "K10b spatial gains": "spatial_gains_batch",
                  "K2a spectral MAC": "spectral_mac", "K2b overlap-add": "overlap_add",
                  "K3 lane fan-in": "fan_in_lanes", "K5 unity group step": "unity_group_step",
                  "K6 param curve": "eval_intrinsic_batch"}
@@ -1197,16 +1442,20 @@ def main(device="cuda", only=None):
                  "K5 unity group step"):
         if launches5[name] <= 0:
             raise AssertionError(f"{name} was not launched by the config-5 path")
-    if launches5["K5 unity group step"] != frames5 // T5:
-        raise AssertionError(f"K5: {launches5['K5 unity group step']} launches in "
-                             f"{frames5 // T5} config-5 steps, not one a step")
+    for name in ("K5 unity group step", "K10b spatial gains", "K2b overlap-add"):
+        if launches5[name] != frames5 // T5:
+            raise AssertionError(f"{name}: {launches5[name]} launches in {frames5 // T5} "
+                                 "config-5 steps, not one a step")
     host_us5 = statistics.median(walls5) / (frames5 // T5) * 1e6
-    profile5 = profile_steps(b5(), T5, host_us5)
+    profile5 = profile_steps(b5(), T5, host_us5, groups=K2BK10B_GROUPS)
     phase("profile", f"config 5, 20 steps under torch.profiler: {json.dumps(profile5)}")
+    ops5 = attribute_ops(b5(), T5)
+    phase("ops", f"config 5, the step's PyTorch ops by source line (device us, launches a step): "
+          f"{json.dumps(ops5)}")
 
     # -- 8. the occluded scene -------------------------------------------------
     wrappers_occ = {"K9 one-pole lowpass": "onepole_lowpass", "P1 HRTF FIR": "hrtf_fir",
-                    "K10b spatial gains": "spatial_gains"}
+                    "K10b spatial gains": "spatial_gains_batch"}
     occ = occluded_scene(dev)
     occ._ensure_compiled()
     cudabuild.launches.clear()
@@ -1234,10 +1483,10 @@ def main(device="cuda", only=None):
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
         "config3": {"frames": frames3, "f32": render3, "host_us_per_step_median": host_us3,
                     "golden_max_abs_err": golden_err[3], "head_vs_golden": head_err,
-                    "launches": launches3, "profile": profile3},
+                    "launches": launches3, "profile": profile3, "torch_ops": ops3},
         "config5": {"frames": frames5, "f32": render5, "host_us_per_step_median": host_us5,
                     "golden_max_abs_err": golden_err[5], "head_vs_golden": head_err5,
-                    "launches": launches5, "profile": profile5},
+                    "launches": launches5, "profile": profile5, "torch_ops": ops5},
         "occluded": {"max_abs_err_vs_cpu": err_occ, "launches": launches_occ},
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
@@ -1257,6 +1506,9 @@ if __name__ == "__main__":
                 "config-3 renders",
         "k1k5": "the K1 and K5 group-step checks through the public process_*_group "
                 "names, the goldens and three 30 s renders each of configs 4, 3 and 5",
+        "k2bk10b": "the K2 checks at four shapes (one a true-stereo IR), the K10b checks "
+                   "at config 5 and with two panner groups, the goldens and three 30 s "
+                   "renders each of configs 4 and 5",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

@@ -14,8 +14,8 @@ there is no compiled program: the step issues the stage kernels directly.
 Work that depends on params alone is batched at the top of the step, where
 XLA would fuse it: one K6 launch evaluates every automated param into one
 arena (``encode_params`` packs its table once per encoding), and each batch
-function of the stages' ``prologue_request``s (K8 for the biquads) runs
-once for all of its stages.
+function of the stages' ``prologue_request``s (K8 for the biquads, K10b
+for the spatial panners) runs once for all of its stages.
 
 Left out so far (see ROADMAP.md): chain fusion into pipelined stages
 (``_fuse_chains``), mesh sharding (``_compute_sharding`` / ``shard_map``),
@@ -632,10 +632,12 @@ class CompiledGraph:
         plan = self.plan
         dest_channels = self.input_channels[(self.destination.node_id, 0)]
 
-        # (name, a-rate, exact, encoding key) of each stage's params
+        # (name, a-rate, exact, encoding key) of each stage's params, but
+        # those that only its prologue request reads
         stage_params = {
             sp["key"]: [(name, a_rate, exact, f"{sp['key']}/{name}")
-                        for name, a_rate, exact in sp["params"]]
+                        for name, a_rate, exact in sp["params"]
+                        if name not in sp["rep"].prologue_params]
             for sp in plan
         }
 
@@ -648,7 +650,7 @@ class CompiledGraph:
 
             # Prologue: one K6 launch evaluates every automated param of the
             # step into one arena, then each batch function of the stages'
-            # requests (K8 for the biquads) runs once.
+            # requests (K8 for the biquads, K10b for the panners) runs once.
             table = encs[PARAM_TABLE]
             slots = table["slots"]
             arena = eval_intrinsic_batch(table, block_times, rc.dt) if table["size"] else None

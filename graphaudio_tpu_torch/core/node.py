@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import enum
 import itertools
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 from graphaudio_tpu_torch.core.constants import MAX_CHANNELS
 from graphaudio_tpu_torch.core.params import AudioParam, AutomationRate
@@ -272,6 +272,11 @@ class AudioNode:
         Returns (new_state, [f32[channels, T] per output port]).
         """
         raise NotImplementedError
+
+    #: Params that only this node's ``prologue_request`` reads: the step
+    #: does not evaluate them for the stage, and ``process`` gets none of
+    #: them. A node that names any must always return a request.
+    prologue_params: Tuple[str, ...] = ()
 
     def prologue_request(self, slots) -> Optional[PrologueRequest]:
         """Work of this node's stage that depends on its params alone and can

@@ -46,9 +46,24 @@
 // which the MAC reads from X, never from the ring; the past slots it reads
 // are disjoint from them, so there is no race and no barrier between them.
 //
-// OLA: y[k, l*B + t] = yfull[k, l, t] + (l ? yfull[k, l-1, B+t] : overlap[k, t]),
-// then overlap[k, t] = yfull[k, L-1, B+t]; one thread per (k, t) walks l, so
-// the carried overlap is read before it is replaced.
+// OLA (K2b) replaces graphaudio_tpu/ops/convolve.py:120 and :229 (the
+// overlap-add at the end of conv_superblock and conv_superblock_sub) and
+// the true-stereo combine of graphaudio_tpu/nodes/convolver.py:284-287:
+//     z[k, l*B + t] = yfull[k, l, t] + (l ? yfull[k, l-1, B+t] : overlap[k, t]),
+//     overlap[k, t] = yfull[k, L-1, B+t],
+//     y[c] = z[a[c]]  or  z[a[c]] + z[b[c]]   (the combine map, c < C),
+// the sum in exactly that order, so y is bit for bit the plain version's
+// overlap-add followed by its stack of sums. One thread per (output c,
+// sub-block l, 4-sample group) loops over nothing: it reads a float4 head
+// of row l and a float4 tail of row l - 1 (or the carried overlap for
+// l = 0) of each of its instances and writes one float4 of y. The thread
+// that writes l = 0 also writes its instances' new overlap from row
+// L - 1's tail, so the old tail's reader and the new tail's writer are one
+// thread and blocks cannot race; the map covers every instance once, so
+// all K overlaps are carried. B is a multiple of 128, so every float4 is
+// aligned. Bound on the H100: bytes, about 213 KB at config 4's shape (K=2
+// L=8 B=1024: yfull read once, the overlaps read and written, y written),
+// 0.064 us at 3.35 TB/s; in practice the launch (4096 threads, 32 blocks).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -209,20 +224,39 @@ __global__ void __launch_bounds__(kCols * kMaxGroups)
   cluster.sync();  // no block leaves while another still reads its part
 }
 
-__global__ void conv_ola_kernel(const float* __restrict__ yfull, float* __restrict__ overlap,
-                                float* __restrict__ y, int L, int B) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = blockIdx.y;
-  if (t >= B) return;
-  const float* yk = yfull + static_cast<int64_t>(k) * L * 2 * B;
-  float* outk = y + static_cast<int64_t>(k) * L * B;
-  float prev = overlap[static_cast<int64_t>(k) * B + t];
-  for (int l = 0; l < L; ++l) {
-    const float* row = yk + static_cast<int64_t>(l) * 2 * B;
-    outk[static_cast<int64_t>(l) * B + t] = row[t] + prev;
-    prev = row[B + t];
-  }
-  overlap[static_cast<int64_t>(k) * B + t] = prev;
+constexpr int kOlaThreads = 128;
+constexpr int kMaxOut = 32;  // output channels of the combine map (MAX_CHANNELS)
+
+// Output c sums instance a[c] and, where b[c] >= 0, instance b[c].
+struct OlaMap {
+  int a[kMaxOut];
+  int b[kMaxOut];
+};
+
+__device__ __forceinline__ float4 add4(float4 u, float4 v) {
+  return make_float4(__fadd_rn(u.x, v.x), __fadd_rn(u.y, v.y), __fadd_rn(u.z, v.z),
+                     __fadd_rn(u.w, v.w));
+}
+
+__global__ void __launch_bounds__(kOlaThreads)
+    conv_ola_kernel(const float4* __restrict__ yfull, float4* __restrict__ overlap,
+                    float4* __restrict__ y, int C, int L, int G,
+                    const __grid_constant__ OlaMap map) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // (c, l, g), g fastest: y's order
+  if (i >= C * L * G) return;
+  const int g = i % G, r = i / G, l = r % L, c = r / L;
+  // G = B / 4 float4s a half row; row l of instance k starts at (k*L + l)*2G.
+  auto part = [&](int k) {
+    const float4* yk = yfull + static_cast<int64_t>(k) * L * 2 * G;
+    const float4 head = yk[static_cast<int64_t>(l) * 2 * G + g];
+    float4* ov = overlap + static_cast<int64_t>(k) * G + g;
+    const float4 tail = l ? yk[static_cast<int64_t>(l - 1) * 2 * G + G + g] : *ov;
+    if (l == 0) *ov = yk[static_cast<int64_t>(L - 1) * 2 * G + G + g];
+    return add4(head, tail);
+  };
+  float4 v = part(map.a[c]);
+  if (map.b[c] >= 0) v = add4(v, part(map.b[c]));
+  y[i] = v;
 }
 
 template <int LT>
@@ -281,12 +315,35 @@ GA_EXPORT int ga_conv_mac(const float* X, const float* hr, const float* hi, floa
   return err != cudaSuccess ? static_cast<int>(err) : ga_launch_status();
 }
 
-GA_EXPORT int ga_conv_ola(const float* yfull, float* overlap, float* y, int K, int L, int B,
-                          void* stream) {
-  const int threads = 256;
-  dim3 grid((B + threads - 1) / threads, K);
-  conv_ola_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(yfull, overlap,
-                                                                            y, L, B);
+// comb: host int32[2, C], row 0 each output's first instance, row 1 its
+// second or -1; every instance k < K must appear exactly once. yfull f32[K,
+// L, 2B], overlap f32[K, B] (replaced), y f32[C, L*B]; B % 4 == 0 and the
+// three 16-byte aligned.
+GA_EXPORT int ga_conv_ola(const float* yfull, float* overlap, float* y, int K, int C, int L, int B,
+                          const int* comb, void* stream) {
+  if (C < 1 || C > kMaxOut || K < 1 || K > 2 * kMaxOut || L < 1 || B < 4 || B % 4 ||
+      ((reinterpret_cast<uintptr_t>(yfull) | reinterpret_cast<uintptr_t>(overlap) |
+        reinterpret_cast<uintptr_t>(y)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  OlaMap map;
+  int seen[2 * kMaxOut] = {};
+  for (int c = 0; c < C; ++c) {
+    map.a[c] = comb[c];
+    map.b[c] = comb[C + c];
+    if (map.a[c] < 0 || map.a[c] >= K || map.b[c] < -1 || map.b[c] >= K)
+      return static_cast<int>(cudaErrorInvalidValue);
+    ++seen[map.a[c]];
+    if (map.b[c] >= 0) ++seen[map.b[c]];
+  }
+  for (int k = 0; k < K; ++k)
+    if (seen[k] != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = B / 4;
+  const int64_t n = static_cast<int64_t>(C) * L * G;
+  if (n >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  conv_ola_kernel<<<static_cast<unsigned>((n + kOlaThreads - 1) / kOlaThreads), kOlaThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(yfull), reinterpret_cast<float4*>(overlap),
+      reinterpret_cast<float4*>(y), C, L, G, map);
   return ga_launch_status();
 }
 

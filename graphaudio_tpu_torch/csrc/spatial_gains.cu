@@ -1,35 +1,84 @@
-// K10b: the spatial panner's closed-form direct path, per (voice, quantum).
+// K10b: the spatial panner's closed-form direct path, per (lane, quantum),
+// for every panner stage of a step in one launch.
 //
 // Replaces graphaudio_tpu/nodes/spatial.py _direct_gains (:270-348) with
 // the source direction of process (:399-400): listener-basis direction,
 // cone directivity, the three distance models, the occlusion band gains
 // and the blend, then azimuth = atan2(dx, -dz), elevation = asin(dy).
 // The plain version (nodes/spatial.py spatial_gains_plain) is the same
-// arithmetic as some sixty torch launches; here it is one.
+// arithmetic as some sixty torch launches; here it is one launch a step,
+// over every lane of every panner stage, and it reads the 17 k-rate params
+// where they lie: no [17, V, S] tensor is built.
 //
-// Inputs: p f32[17, N] (N = V*S), the k-rate params in GAIN_PARAMS order
-// (nodes/spatial.py), the listener's position and basis f32[3] each.
-// Output: f32[6, N]: azimuth, elevation, low/mid/high band gains, blend.
-// One thread per (voice, quantum). Every f32 operation is spelled __f*_rn
-// in the plain version's order, so nvcc contracts nothing; sqrt, acos,
-// atan2, asin and pow are the CUDA math library's, as torch's are.
+// Plan (nodes/spatial.py pack_gains_table, once per param encoding), passed
+// by value as a __grid_constant__ struct, so a thread reads it from the
+// constant bank and the params are its only dependent global loads: per
+// stage its first lane, its distance model (data, as K8 takes the filter
+// type), the offset of its f32[6, V, S] output and one source word a
+// param, off << 2 | mode (ops/param_eval.py source_words) of the stage's
+// lane 0. SRC_KRATE reads src[off + v*S + s] (lane v's k-rate row of the
+// step's K6 arena), SRC_ARATE src[off + 128 (v*S + s)] (an a-rate row),
+// SRC_CONST consts[off + v] (lane v's base value of a param without
+// events). The listener's position and basis are f32[3] each (the step's
+// globals). Output, per stage: azimuth, elevation, low/mid/high band gains
+// and blend, the rows P1 reads. A launch takes up to kMaxStages stages.
 //
-// Bound on the H100: launch. Config 5 has N = 4096: 278 KB in, 98 KB out,
-// a few hundred flops each, well under a microsecond on either limit.
+// One thread per (lane, quantum), blocks of 32 threads, so config 5's 4096
+// pairs take 128 blocks on 128 SMs: each thread's dependent chain of sqrt,
+// divides, acos, pow, atan2 and asin runs beside the others. Every f32
+// operation is spelled __f*_rn in the plain version's order, so nvcc
+// contracts nothing; sqrt, acos, atan2, asin and pow are the CUDA math
+// library's, as torch's are.
+//
+// Bound on the H100: launch. Config 5 (V=128, S=32): 278 KB of params in at
+// most, 98 KB out, a few hundred flops a pair, well under a microsecond on
+// either limit.
+#include <cstring>
+
 #include "common.cuh"
 
 namespace {
 
 enum { kLinear = 0, kInverse = 1, kExponential = 2 };
+enum { kSrcArate = 0, kSrcKrate = 1, kSrcConst = 2 };
+constexpr int kParams = 17;
+constexpr int kMaxStages = 32;
+constexpr int kThreads = 32;
 
-__global__ void spatial_gains_kernel(const float* __restrict__ p, const float* __restrict__ lpos,
-                                     const float* __restrict__ right, const float* __restrict__ up,
-                                     const float* __restrict__ ahead, int N, int model,
-                                     float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  float q[17];
-  for (int j = 0; j < 17; ++j) q[j] = p[static_cast<int64_t>(j) * N + i];
+// The layout of nodes/spatial.py _plan_words, int32 words in this order.
+struct GainsPlan {
+  int n;                         // stages
+  int lane0[kMaxStages + 1];     // first lane of each stage, then the lane count
+  int model[kMaxStages];
+  int out[kMaxStages];           // offset of the stage's [6, V, S] output
+  int src[kMaxStages][kParams];  // lane 0's source word of each param
+};
+
+__global__ void __launch_bounds__(kThreads)
+    spatial_gains_kernel(const float* __restrict__ src, const float* __restrict__ consts, int S,
+                         const float* __restrict__ lpos, const float* __restrict__ right,
+                         const float* __restrict__ up, const float* __restrict__ ahead,
+                         float* __restrict__ out, const __grid_constant__ GainsPlan plan) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // (lane, quantum), quantum fastest
+  const int lane = i / S, s = i - lane * S;
+  if (lane >= plan.lane0[plan.n]) return;
+  int k = 0;
+  while (lane >= plan.lane0[k + 1]) ++k;
+  const int v = lane - plan.lane0[k], V = plan.lane0[k + 1] - plan.lane0[k];
+  float q[kParams];
+#pragma unroll
+  for (int j = 0; j < kParams; ++j) {
+    // 32-bit: every index is below the K6 arena's size, which
+    // pack_param_table keeps under 2^31 floats.
+    const int word = plan.src[k][j], mode = word & 3;
+    const int at = (word >> 2) + (mode == kSrcConst   ? v
+                                  : mode == kSrcKrate ? v * S + s
+                                                      : (v * S + s) * 128);
+    q[j] = __ldg((mode == kSrcConst ? consts : src) + at);
+  }
+  const int model = plan.model[k];
+  float* o = out + plan.out[k] + static_cast<int64_t>(v) * S + s;
+  const int64_t stride = static_cast<int64_t>(V) * S;
   const float px = q[0], py = q[1], pz = q[2], ox = q[3], oy = q[4], oz = q[5];
   const float ref = q[6], mx = q[7], rolloff = q[8], inner = q[9], outer = q[10];
   const float outer_gain = q[11], blend = q[12], occ = q[13], tl = q[14], tm = q[15], th = q[16];
@@ -86,22 +135,34 @@ __global__ void spatial_gains_kernel(const float* __restrict__ p, const float* _
   };
   const float base = __fmul_rn(atten, directivity);
 
-  out[i] = atan2f(dx, -dz);
-  out[N + i] = asinf(fminf(fmaxf(dy, -1.0f), 1.0f));
-  out[2 * N + i] = __fmul_rn(base, band(tl));
-  out[3 * N + i] = __fmul_rn(base, band(tm));
-  out[4 * N + i] = __fmul_rn(base, band(th));
-  out[5 * N + i] = blend;
+  o[0] = atan2f(dx, -dz);
+  o[stride] = asinf(fminf(fmaxf(dy, -1.0f), 1.0f));
+  o[2 * stride] = __fmul_rn(base, band(tl));
+  o[3 * stride] = __fmul_rn(base, band(tm));
+  o[4 * stride] = __fmul_rn(base, band(th));
+  o[5 * stride] = blend;
 }
 
 }  // namespace
 
-GA_EXPORT int ga_spatial_gains(const float* p, const float* lpos, const float* right,
-                               const float* up, const float* ahead, int N, int model, float* out,
-                               void* stream) {
-  const int threads = 128;
-  spatial_gains_kernel<<<(N + threads - 1) / threads, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(p, lpos, right, up, ahead, N,
-                                                              model, out);
+// src: the K6 arena (or any f32 the source words index), consts: the base
+// values, S quanta; plan: host int32 words of a GainsPlan.
+GA_EXPORT int ga_spatial_gains_batch(const float* src, const float* consts, int S,
+                                     const float* lpos, const float* right, const float* up,
+                                     const float* ahead, float* out, const int* plan_words,
+                                     void* stream) {
+  GainsPlan plan;
+  static_assert(sizeof(GainsPlan) % sizeof(int) == 0, "int32 words");
+  std::memcpy(&plan, plan_words, sizeof(GainsPlan));
+  if (plan.n < 1 || plan.n > kMaxStages || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  for (int k = 0; k < plan.n; ++k)
+    if (plan.lane0[k + 1] <= plan.lane0[k] || plan.model[k] < kLinear ||
+        plan.model[k] > kExponential)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = static_cast<int64_t>(plan.lane0[plan.n]) * S;
+  if (plan.lane0[0] != 0 || n >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  spatial_gains_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(src, consts, S, lpos, right, up,
+                                                              ahead, out, plan);
   return ga_launch_status();
 }

@@ -10,7 +10,8 @@ context's (:48-49).
 The partition grain is chosen exactly as in the JAX package (``_grain_for``),
 so both packages partition the IR the same way: 128 frames for superblocks
 below 1024 frames, else the largest multiple-of-128 divisor of the
-superblock up to 1024. All grains run through ops.convolve.conv_step (K2).
+superblock up to 1024. All grains run through ops.convolve.conv_step (K2),
+whose overlap-add (K2b) also writes the true-stereo matrix's sums.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ _SUB_GRAIN_MIN = 512
 # process() tells the 128 grain from a big grain by spectra width, which
 # holds only while no big grain can equal FRAMES_PER_BLOCK.
 assert _SUB_GRAIN_MIN > FRAMES_PER_BLOCK
+# The true-stereo matrix as K2b's combine: outL = y0 + y2, outR = y1 + y3.
+_TRUE_STEREO = ((0, 2), (1, 3))
 
 
 def _pick_big_grain(T: int) -> int:
@@ -183,17 +186,18 @@ class ConvolverNode(AudioNode):
         grain = 0 if bins == NUM_BINS else bins - 1
         B = grain or FRAMES_PER_BLOCK
         T = x.shape[-1]
-        # Route input channels to convolver instances: [K, L, B].
-        xs = torch.stack([x[src] for src in self._conv_inputs]).reshape(
-            len(self._conv_inputs), T // B, B
-        )
-        y, head = conv_step(
-            xs, hr, hi, state["ring_r"], state["ring_i"], state["head"],
-            state["overlap"], rev=bool(grain),
-        )
+        K = len(self._conv_inputs)
         if self._is_true_stereo:
-            out = torch.stack([y[0] + y[2], y[1] + y[3]])
+            # Convolvers 0, 1 read L and 2, 3 read R: the one routing copy;
+            # K2b writes outL = y0 + y2, outR = y1 + y3.
+            xs = torch.stack([x[src] for src in self._conv_inputs]).reshape(K, T // B, B)
+            combine = _TRUE_STEREO
         else:
-            out = y
+            xs = x.reshape(K, T // B, B)  # instance k reads channel k: a view
+            combine = None
+        out, head = conv_step(
+            xs, hr, hi, state["ring_r"], state["ring_i"], state["head"],
+            state["overlap"], rev=bool(grain), combine=combine,
+        )
         new_state = dict(state, head=head)
         return new_state, [out]

@@ -11,8 +11,10 @@ interpolation and a SpatialBlend crossfade (:250-260).
 Panners sharing a channel layout, distance model, HRIR grid and occlusion
 state run as one group stage; ``process`` takes the stacked lanes:
 
-* K10b ``spatial_gains`` (csrc/spatial_gains.cu): the direct path per
-  (voice, quantum): direction, gains, blend;
+* K10b ``spatial_gains_batch`` (csrc/spatial_gains.cu): the direct path
+  per (voice, quantum): direction, gains, blend; one launch in the step's
+  prologue for every panner stage, its params read where they lie
+  (``prologue_request``);
 * K9 ``onepole_lowpass`` twice (ops/onepole.py), only once occlusion or
   transmission was touched: the 3-band split;
 * P1 ``hrtf_fir`` (ops/hrtf.py, csrc/hrtf_fir.cu): the direct gain, the
@@ -26,13 +28,19 @@ Left out (ROADMAP.md): HRIRs past 128 taps (the partitioned path, item
 from __future__ import annotations
 
 import enum
+import functools
 import math
 
 import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
-from graphaudio_tpu_torch.core.node import AudioNode, ChannelCountMode, ChannelInterpretation
+from graphaudio_tpu_torch.core.node import (
+    AudioNode,
+    ChannelCountMode,
+    ChannelInterpretation,
+    PrologueRequest,
+)
 from graphaudio_tpu_torch.core.params import AutomationRate
 from graphaudio_tpu_torch.ops.hrtf import (
     N_AZIMUTH,
@@ -45,6 +53,7 @@ from graphaudio_tpu_torch.ops.hrtf import (
     load_hrir_grid,
 )
 from graphaudio_tpu_torch.ops.onepole import onepole_lowpass
+from graphaudio_tpu_torch.ops.param_eval import SRC_ARATE, SRC_CONST, SRC_KRATE, source_words
 from graphaudio_tpu_torch.utils import cudabuild
 
 _F32MAX = 3.4028235e38
@@ -146,28 +155,163 @@ def spatial_gains_plain(p, listener, model: DistanceModelType):
                         base * band(th), blend])
 
 
+# ---- K10b batched: every panner stage of a step in one launch ------------------
+#
+# The step's panner stages share one table, packed once per encoding by
+# ``pack_gains_table``: per stage its first lane, distance model code,
+# output offset and one source word a param (ops/param_eval.py
+# ``source_words``: lane 0's K6 arena row or base value, the other lanes
+# following at a fixed stride), as int32 words in csrc/spatial_gains.cu's
+# ``GainsPlan`` layout; the base values of params without events, per lane,
+# in ``consts``. The output is one arena of each stage's f32[6, V, S] in
+# step order.
+
+GAINS_MAX_STAGES = 32  # stages a launch takes (kMaxStages)
+
+
+def _plan_words(stages, first_lane: int):
+    """The int32 words of one ``GainsPlan`` (csrc/spatial_gains.cu) for up
+    to GAINS_MAX_STAGES (lane0, V, model code, output offset, 17 source
+    words) entries, lanes counted from ``first_lane``."""
+    P, M = len(GAIN_PARAMS), GAINS_MAX_STAGES
+    n = len(stages)
+    lane0 = np.zeros(M + 1, np.int32)
+    lane0[:n + 1] = [lane - first_lane for lane, *_ in stages] + [
+        stages[-1][0] + stages[-1][1] - first_lane]
+    lane0[n + 1:] = lane0[n]
+    model, out, src = np.zeros(M, np.int32), np.zeros(M, np.int32), np.zeros((M, P), np.int32)
+    for k, (_, _, code, off, words) in enumerate(stages):
+        model[k], out[k], src[k] = code, off, words
+    return np.concatenate([[n], lane0, model, out, src.reshape(-1)]).astype(np.int32)
+
+
+def pack_gains_table(stages, superblock: int):
+    """The K10b table of one encoding. ``stages``: (distance model code,
+    {GAIN_PARAMS name: ParamSlot}) per panner stage, in step order. Returns
+    numpy ``consts`` f32 and the host fields ``plans`` (the GainsPlan
+    words of each launch as bytes, GAINS_MAX_STAGES stages a launch),
+    ``stages`` ((output offset, V, model code, 17 source words)
+    each), ``size`` (the output arena's floats) and ``superblock`` (S)."""
+    S = superblock
+    consts, entries = [], []
+    lane = size = 0
+    for code, slots in stages:
+        V = slots[GAIN_PARAMS[0]].lanes
+        # lane 0's word; lane v's follows it by v rows (or v constants)
+        words = tuple(source_words(slots[name], consts)[0] for name in GAIN_PARAMS)
+        entries.append((lane, V, code, size, words))
+        lane += V
+        size += 6 * V * S
+    if entries and max(max(e[4]) for e in entries) >= 2 ** 31:
+        raise ValueError("the K10b table's source offsets need more than 29 bits")
+    if size >= 2 ** 31:
+        raise ValueError(f"the K10b output arena of {size} floats needs 64-bit offsets")
+    plans = tuple(_plan_words(entries[c:c + GAINS_MAX_STAGES], entries[c][0]).tobytes()
+                  for c in range(0, len(entries), GAINS_MAX_STAGES))
+    return {"consts": np.asarray(consts or [0.0], np.float32), "plans": plans,
+            "stages": tuple((off, V, code, words) for _, V, code, off, words in entries),
+            "size": size, "superblock": S}
+
+
+def _split_gains(table, out):
+    S = table["superblock"]
+    return [out.narrow(0, off, 6 * V * S).view(6, V, S) for off, V, _, _ in table["stages"]]
+
+
+def _stage_sources(words, V: int, S: int, arena, consts):
+    """The [17, V, S] params of one stage as the kernel reads them."""
+    rows = []
+    v = torch.arange(V, device=consts.device)[:, None]
+    s = torch.arange(S, device=consts.device)[None, :]
+    for word in words:
+        mode, off = word & 3, word >> 2
+        if mode == SRC_CONST:
+            rows.append(consts[off + v].expand(V, S))
+        else:
+            rows.append(arena[off + (v * S + s) * (FRAMES_PER_BLOCK if mode == SRC_ARATE else 1)])
+    return torch.stack(rows)
+
+
+def spatial_gains_batch_plain(table, arena, listener):
+    """Plain torch K10b over a ``pack_gains_table`` table (its ``consts`` a
+    tensor), the params read from ``arena`` (the step's K6 arena, None when
+    no param has events) or the table's constants: each stage's p f32[17,
+    V, S] as the kernel reads it, then ``spatial_gains_plain`` under the
+    stage's model. Returns one f32[6, V, S] per stage."""
+    S = table["superblock"]
+    models = {c: m for m, c in _MODEL_CODE.items()}
+    return [spatial_gains_plain(_stage_sources(words, V, S, arena, table["consts"]), listener,
+                                models[code])
+            for _, V, code, words in table["stages"]]
+
+
+def _launch_k10b(src, consts, plans, S, listener, out):
+    """csrc/spatial_gains.cu, one launch a plan (no checks but the
+    listener's); the plans' output offsets are into ``out``."""
+    ls = [listener[k] for k in _LISTENER_KEYS]
+    for k, t in zip(_LISTENER_KEYS, ls):
+        cudabuild.require(t, k, torch.float32, shape=(3,))
+    launch = cudabuild.launcher("ga_spatial_gains_batch")
+    stream = cudabuild.stream_of(out)
+    for words in plans:
+        status = launch(src.data_ptr(), consts.data_ptr(), S, *(t.data_ptr() for t in ls),
+                        out.data_ptr(), words, stream)
+        cudabuild.check(status, "ga_spatial_gains_batch")
+        cudabuild.launches["spatial_gains_batch"] += 1
+
+
+def spatial_gains_batch(table, arena, listener):
+    """K10b: every panner stage of a step in one launch of
+    csrc/spatial_gains.cu (one for each GAINS_MAX_STAGES stages; CUDA
+    tensors) or
+    ``spatial_gains_batch_plain`` (CPU tensors). Returns one f32[6, V, S]
+    per stage, each a contiguous view of one output arena."""
+    consts = table["consts"]
+    if consts.device.type == "cpu":
+        return spatial_gains_batch_plain(table, arena, listener)
+    req = cudabuild.require
+    req(consts, "consts", torch.float32, ndim=1)
+    src = consts if arena is None else arena
+    req(src, "arena", torch.float32, ndim=1)
+    out = torch.empty(table["size"], dtype=torch.float32, device=consts.device)
+    _launch_k10b(src, consts, table["plans"], table["superblock"], listener, out)
+    return _split_gains(table, out)
+
+
+def _step_gains(table, arena, rc):
+    """The prologue's K10b call: every panner stage of the step at once."""
+    return spatial_gains_batch(table, arena, rc.globals)
+
+
+@functools.lru_cache(maxsize=64)
+def _one_stage_plan(V: int, S: int, code: int) -> bytes:
+    """The plan of one stage whose params are the k-rate rows of one
+    f32[17, V, S] tensor."""
+    words = tuple(((j * V * S) << 2) | SRC_KRATE for j in range(len(GAIN_PARAMS)))
+    return _plan_words([(0, V, code, 0, words)], 0).tobytes()
+
+
 def spatial_gains(p, listener, model: DistanceModelType):
-    """K10b: csrc/spatial_gains.cu on a CUDA tensor, the plain version on a
-    CPU tensor. Arguments and result as ``spatial_gains_plain``."""
+    """K10b for one stage: a one-stage batch of csrc/spatial_gains.cu whose
+    arena is ``p`` on a CUDA tensor, the plain version on a CPU tensor.
+    Arguments and result as ``spatial_gains_plain``."""
     if p.device.type == "cpu":
         return spatial_gains_plain(p, listener, model)
     cudabuild.require(p, "p", torch.float32, ndim=3)
     if p.shape[0] != len(GAIN_PARAMS):
         raise ValueError(f"p must be [{len(GAIN_PARAMS)}, V, S], got {tuple(p.shape)}")
-    ls = [listener[k] for k in _LISTENER_KEYS]
-    for k, t in zip(_LISTENER_KEYS, ls):
-        cudabuild.require(t, k, torch.float32, shape=(3,))
     _, V, S = p.shape
     out = torch.empty((6, V, S), dtype=torch.float32, device=p.device)
-    status = cudabuild.launcher("ga_spatial_gains")(
-        p.data_ptr(), *(t.data_ptr() for t in ls), V * S, _MODEL_CODE[model],
-        out.data_ptr(), cudabuild.stream_of(p))
-    cudabuild.check(status, "ga_spatial_gains")
-    cudabuild.launches["spatial_gains"] += 1
+    plan = _one_stage_plan(V, S, _MODEL_CODE[model])
+    _launch_k10b(p.view(-1), p, (plan,), S, listener, out)
     return out
 
 
 class SpatialPannerNode(AudioNode):
+    # K10b in the step's prologue reads these params; the stage's process
+    # gets none of them.
+    prologue_params = GAIN_PARAMS
+
     def __init__(self, context):
         super().__init__(context, input_count=1, output_count=1, name="SpatialPanner")
         self.inputs[0].set_channel_count(2)
@@ -293,12 +437,18 @@ class SpatialPannerNode(AudioNode):
             "xhigh": np.zeros((self._channels,), np.float32),
         }
 
+    def prologue_request(self, slots):
+        """K10b's item: the distance model and where the 17 params lie."""
+        return PrologueRequest(_step_gains, pack_gains_table,
+                               (_MODEL_CODE[self._distance_model],
+                                {n: slots[n] for n in GAIN_PARAMS}))
+
     def process(self, state, inputs, params, rc):
         """A group of V lanes: x f32[V, C, T]; state ola f32[V, 2, W],
-        xlow / xhigh f32[V, C]. Returns [f32[V, 2, T]]."""
+        xlow / xhigh f32[V, C]; the direct path f32[6, V, S] from the
+        prologue's K10b. Returns [f32[V, 2, T]]."""
         x = inputs[0]
-        p = torch.stack([params[name].per_block() for name in GAIN_PARAMS])
-        az, el, gl, gm, gh, blend = spatial_gains(p, rc.globals, self._distance_model)
+        az, el, gl, gm, gh, blend = rc.prologue_result
         grid = rc.stage_consts["hrtf_grid"]
         if self._occlusion_active():
             # Direct effect: per-band per-quantum gains (the reference

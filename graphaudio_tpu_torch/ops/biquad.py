@@ -57,6 +57,12 @@ import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.ops import xla_rounding
+from graphaudio_tpu_torch.ops.param_eval import (
+    SRC_ARATE,
+    SRC_CONST,
+    SRC_KRATE,
+    source_words,
+)
 from graphaudio_tpu_torch.utils import cudabuild
 
 #: index order of the filter types (matches FilterType declaration order and
@@ -222,26 +228,15 @@ def split_poles(a1, a2):
 # A step's biquad stages share one coefficient table, packed once per
 # encoding by ``pack_coefficient_table``: a row of eight int32 words per
 # (stage, lane), (type code, frequency source, Q source, gain source, b0 row,
-# p1 row, V, 0). A source word is ``off << 2 | mode``: SRC_ARATE reads
-# src[off + t], SRC_KRATE src[off + t // 128] (a k-rate param's K6 row),
-# SRC_CONST consts[off] (the base value of a param without events). The
+# p1 row, V, 0). A source word is ``off << 2 | mode`` (ops/param_eval.py
+# ``source_words``): SRC_ARATE reads src[off + t], SRC_KRATE
+# src[off + t // 128] (a k-rate param's K6 row), SRC_CONST consts[off] (the
+# base value of a param without events). The
 # output is two arenas, b f32[n_b, T] and p c64[n_p, T]: a stage's b0, b1,
 # b2 are V consecutive rows each from its b0 row, its p1, p2 from its p1
 # row, so each is a contiguous [V, T] view as P2 takes it.
 
-SRC_ARATE, SRC_KRATE, SRC_CONST = 0, 1, 2
 _SRC_NAMES = ("frequency", "Q", "gain")
-
-
-def _src_words(slot, consts):
-    """One source word per lane of a ``ParamSlot``; a constant slot's base
-    values are appended to ``consts``."""
-    if slot.off < 0:
-        first = len(consts)
-        consts.extend(slot.base.tolist())
-        return [((first + v) << 2) | SRC_CONST for v in range(slot.lanes)]
-    mode = SRC_ARATE if slot.npb == FRAMES_PER_BLOCK else SRC_KRATE
-    return [((slot.off + v * slot.per_lane) << 2) | mode for v in range(slot.lanes)]
 
 
 def pack_coefficient_table(stages, superblock: int):
@@ -253,7 +248,7 @@ def pack_coefficient_table(stages, superblock: int):
     n_b = n_p = 0
     for ftype, slots in stages:
         V = slots["frequency"].lanes
-        words = [_src_words(slots[name], consts) for name in _SRC_NAMES]
+        words = [source_words(slots[name], consts) for name in _SRC_NAMES]
         code = FILTER_TYPES.index(ftype)
         rows += [[code, *(w[v] for w in words), n_b + v, n_p + v, V, 0] for v in range(V)]
         layout.append((n_b, n_p, V))

@@ -18,7 +18,8 @@ grain B with L sub-blocks per step, and ``conv_step`` is that computation:
      spectra are written into it in the same pass) — K2's first kernel;
   3. inverse real FFTs (torch.fft.irfft, 1/N scaled like the JAX RealDft /
      BigRealDft inverse);
-  4. ``overlap_add`` of heads and carried tails — K2's second kernel.
+  4. ``overlap_add`` of heads and carried tails, with the instances'
+     combine (the convolver's true-stereo matrix) — K2's second kernel.
 
 Spectra order: ``prepare_ir`` rows are in lag order (row p multiplies the
 sub-block p steps ago); ``prepare_ir_big`` rows are reversed (newest-input
@@ -191,52 +192,78 @@ def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
     return acc
 
 
-# ---- K2b: overlap-add ------------------------------------------------------
+# ---- K2b: overlap-add -------------------------------------------------------
 
 
-def overlap_add_plain(y_full, overlap):
+def overlap_add_plain(y_full, overlap, combine=None):
     """Plain torch K2b. y_full f32[K, L, 2B] inverse transforms; overlap
-    f32[K, B] carried tail, replaced in place by the last tail.
-    Returns y f32[K, L*B]."""
+    f32[K, B] carried tail, replaced in place by the last tail. Returns y
+    f32[K, L*B], or with ``combine`` (a tuple of one tuple of 1 or 2
+    instances per output channel, each instance in exactly one) f32[C, L*B] whose row c
+    is the sum of its instances' rows in tuple order: the true-stereo
+    matrix ((0, 2), (1, 3)) gives ``y[0] + y[2], y[1] + y[3]``."""
     K, L, B2 = y_full.shape
     B = B2 // 2
     heads = y_full[:, :, :B]
     tails = torch.cat([overlap[:, None], y_full[:, :-1, B:]], dim=1)
     y = (heads + tails).reshape(K, L * B)
     overlap.copy_(y_full[:, -1, B:])
-    return y
+    if combine is None:
+        return y
+    return torch.stack([y[ks[0]] if len(ks) == 1 else y[ks[0]] + y[ks[1]] for ks in combine])
 
 
-def overlap_add(y_full, overlap):
-    """K2b: overlap-add of one step's inverse transforms (see
-    overlap_add_plain). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+@functools.cache
+def _ola_map(combine, K: int) -> np.ndarray:
+    """K2b's combine map as the kernel takes it: int32[2, C], each output's
+    first instance and its second or -1 (the identity when ``combine`` is
+    None). Cached, so the host buffer outlives every launch that reads
+    it."""
+    combine = tuple((k,) for k in range(K)) if combine is None else combine
+    if sorted(k for ks in combine for k in ks) != list(range(K)) or not all(
+            1 <= len(ks) <= 2 for ks in combine):
+        raise ValueError(f"combine must use each of {K} instances once, 1 or 2 an output: "
+                         f"{combine!r}")
+    return np.array([[ks[0] for ks in combine], [ks[-1] if len(ks) == 2 else -1 for ks in combine]],
+                    np.int32)
+
+
+def overlap_add(y_full, overlap, combine=None):
+    """K2b: overlap-add of one step's inverse transforms, with the
+    instances' combine (see overlap_add_plain). CPU tensors take the plain
+    version; CUDA tensors launch the kernel, one thread per (output, sub-
+    block, 4 samples)."""
     if y_full.device.type == "cpu":
-        return overlap_add_plain(y_full, overlap)
+        return overlap_add_plain(y_full, overlap, combine)
     K, L, B2 = y_full.shape
     B = B2 // 2
     cudabuild.require(y_full, "y_full", torch.float32, shape=(K, L, 2 * B))
     cudabuild.require(overlap, "overlap", torch.float32, shape=(K, B))
-    y = torch.empty((K, L * B), dtype=torch.float32, device=y_full.device)
+    comb = _ola_map(combine, K)
+    C = comb.shape[1]
+    y = torch.empty((C, L * B), dtype=torch.float32, device=y_full.device)
     status = cudabuild.launcher("ga_conv_ola")(
-        y_full.data_ptr(), overlap.data_ptr(), y.data_ptr(), K, L, B, cudabuild.stream_of(y_full))
+        y_full.data_ptr(), overlap.data_ptr(), y.data_ptr(), K, C, L, B, comb.ctypes.data,
+        cudabuild.stream_of(y_full))
     cudabuild.check(status, "ga_conv_ola")
     cudabuild.launches["overlap_add"] += 1
     return y
 
 
-def conv_step(x, hr, hi, ring_r, ring_i, head: int, overlap, rev: bool):
+def conv_step(x, hr, hi, ring_r, ring_i, head: int, overlap, rev: bool, combine=None):
     """Convolve one step of K channels: x f32[K, L, B] (L sub-blocks of B
-    frames) against partition spectra hr, hi f32[K, P, B+1].
+    frames) against partition spectra hr, hi f32[K, P, B+1], the
+    instances' outputs combined as ``overlap_add_plain``'s ``combine``
+    says (None: one output per instance).
 
     The ring (f32[K, P-1+L, B+1]) and ``overlap`` (f32[K, B]) are updated in
     place — the delay line is the largest state of the render, and the
     in-place ring replaces the JAX package's copy of the whole line per
-    step. Returns (y f32[K, L*B], new head).
+    step. Returns (y f32[C, L*B], new head).
     """
     K, L, B = x.shape
     X = torch.fft.rfft(x, n=2 * B, dim=-1)  # complex64 [K, L, B+1]
     acc = spectral_mac(X, hr, hi, ring_r, ring_i, head, rev)
     y_full = torch.fft.irfft(acc, n=2 * B, dim=-1)  # [K, L, 2B], 1/(2B) scaled
-    y = overlap_add(y_full.contiguous(), overlap)
+    y = overlap_add(y_full.contiguous(), overlap, combine)
     return y, (head + L) % ring_r.shape[1]

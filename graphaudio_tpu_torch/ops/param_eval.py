@@ -27,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.ops import xla_rounding
 from graphaudio_tpu_torch.utils import cudabuild
 
@@ -251,6 +252,25 @@ def constant_slot(enc, npb: int, superblock: int) -> ParamSlot:
     """The slot of a param without events (capacity 0): its base values."""
     base = np.asarray(enc["base"], np.float32)
     return ParamSlot(-1, npb, superblock * npb, base.shape, base.reshape(-1))
+
+
+# Where a batched prologue kernel (K8, K10b) reads a param: a source word
+# ``off << 2 | mode`` per lane. SRC_ARATE: the lane's a-rate row of the K6
+# arena from ``off`` (sample t at off + t); SRC_KRATE: its k-rate row
+# (quantum s at off + s); SRC_CONST: ``consts[off]``, the lane's base value
+# of a param without events.
+SRC_ARATE, SRC_KRATE, SRC_CONST = 0, 1, 2
+
+
+def source_words(slot: ParamSlot, consts: list):
+    """One source word per lane of a ``ParamSlot``; a constant slot's base
+    values are appended to ``consts``."""
+    if slot.off < 0:
+        first = len(consts)
+        consts.extend(slot.base.tolist())
+        return [((first + v) << 2) | SRC_CONST for v in range(slot.lanes)]
+    mode = SRC_ARATE if slot.npb == FRAMES_PER_BLOCK else SRC_KRATE
+    return [((slot.off + v * slot.per_lane) << 2) | mode for v in range(slot.lanes)]
 
 
 def _table_fields(table):

@@ -1,4 +1,4 @@
-"""Synthetic K6 and K8 tables for the kernel checks (numpy, from a seed).
+"""Synthetic K6, K8 and K10b tables for the kernel checks (numpy, from a seed).
 
 ``mixed_param_entries`` is a K6 table's input that mixes what the step's
 table can hold: a-rate and k-rate rows, capacities 1 to 32, single params
@@ -6,7 +6,10 @@ and groups with phantom pad lanes, all four event types, events on block
 starts and sample instants. ``eight_type_stages`` is a K8 table's input:
 one biquad stage of each filter type, 1 to 4 lanes, its frequency, Q and
 gain read from a-rate rows, k-rate rows or constants, frequency past both
-clamps and Q below its floor.
+clamps and Q below its floor. ``panner_stages`` is a K10b table's input:
+two spatial-panner stages under two distance models, each of the 17
+params read from an a-rate row, a k-rate row or a constant, one stage
+occluded with transmission.
 """
 
 from __future__ import annotations
@@ -102,4 +105,45 @@ def eight_type_stages(seed, superblock, t_end):
         slots = {n: table["slots"].get(f"st{k}/{n}") or consts[f"st{k}/{n}"]
                  for n in ("frequency", "Q", "gain")}
         stages.append((ftype, slots))
+    return table, stages
+
+
+#: (lo, hi) of each panner param's draws, in GAIN_PARAMS order
+_PANNER_RANGES = ((-6.0, 6.0),) * 3 + ((-1.0, 1.0),) * 3 + (
+    (0.5, 3.0), (4.0, 20.0), (0.5, 2.0), (30.0, 360.0), (60.0, 360.0), (0.0, 1.0),
+    (0.0, 1.0), (0.0, 1.0), (0.0, 1.0), (0.0, 1.0), (0.0, 1.0))
+
+
+def panner_stages(seed, superblock, t_end, models=(1, 2)):
+    """A K6 table (``pack_param_table``) and the (distance model code,
+    slots) of two panner stages for ``nodes.spatial.pack_gains_table``:
+    stage 0 with 4 lanes (the last a phantom copy of lane 0) and no
+    occlusion, stage 1 with 2 lanes, occluded with transmission. Each
+    param's source is an a-rate row ("a"), a k-rate row ("k") or a
+    constant ("c"); positions ramp, a cone narrows."""
+    from graphaudio_tpu_torch.nodes.spatial import GAIN_PARAMS
+
+    rng = np.random.default_rng(seed)
+    kinds = ("kkk" "ccc" "ckc" "acc" "a" "c" "ccc",
+             "kak" "kcc" "cca" "ckk" "c" "k" "ckc")
+    lanes = (4, 2)
+    entries, consts = [], {}
+    for k, (V, kind) in enumerate(zip(lanes, kinds)):
+        for name, kd, (lo, hi) in zip(GAIN_PARAMS, kind, _PANNER_RANGES):
+            key = f"st{k}/{name}"
+            if name == "occlusion" and k == 0:
+                lo = hi = 0.0
+            if kd == "c":
+                base = rng.uniform(lo, hi, V).astype(np.float32)
+                if name.startswith("cone") and name != "coneOuterGain":
+                    base[::2] = 360.0  # half the lanes without a cone
+                consts[key] = tpe.constant_slot({"base": base}, 1, superblock)
+            else:
+                enc = param_encoding(rng, max(V - 1, 1), V, 8, t_end, max(lo, 0.01), max(hi, 0.01))
+                entries.append((key, enc, 128 if kd == "a" else 1))
+    table = tpe.pack_param_table(entries, superblock)
+    stages = []
+    for k, code in enumerate(models):
+        slots = {n: table["slots"].get(f"st{k}/{n}") or consts[f"st{k}/{n}"] for n in GAIN_PARAMS}
+        stages.append((code, slots))
     return table, stages

@@ -43,7 +43,8 @@ _SIGNATURES = {
                            _P, _P, _P, _P],
     "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P],
-    "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _P],
+    # yfull, overlap, y, K, C, L, B, host combine map, stream
+    "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],
     # arena, W, C, V, S, gtab, 6 states, clocks, outputs, stream
@@ -58,7 +59,8 @@ _SIGNATURES = {
     "ga_hrtf_fir": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P],
     "ga_hrtf_fir_rows": [_P, _P, _I, _I, _I, _P, _P],
-    "ga_spatial_gains": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # src, consts, S, listener pos/right/up/ahead, out, host plan words, stream
+    "ga_spatial_gains_batch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "ga_onepole": [_P, _P, ctypes.c_double, _I, _I, _P, _P, _P],
 }
 

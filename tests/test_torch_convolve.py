@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import graphaudio_tpu as ga
+import graphaudio_tpu_torch as gat
 from graphaudio_tpu.ops import convolve as jconv
 from graphaudio_tpu_torch.ops import convolve as tconv
 from graphaudio_tpu_torch.utils.from_jax import conv_state_from_jax
@@ -224,3 +226,133 @@ def test_mac_kernel_plan_emulation(case):
                                     np.ascontiguousarray(lag_r), np.ascontiguousarray(lag_i))
         assert np.abs(got[k].real - np.asarray(jr)).max() < 1e-5 * scale
         assert np.abs(got[k].imag - np.asarray(ji)).max() < 1e-5 * scale
+
+
+def _four_channel_ir_ctx(mod, superblock, true_stereo, seed=31, **ctx_kw):
+    """A stereo source through a ConvolverNode with a 4-channel IR into the
+    destination: with ``true_stereo`` the 2-in/2-out matrix (outL = L*ir0 +
+    R*ir2, outR = L*ir1 + R*ir3), else 4 discrete channels (the destination
+    set to 4 channels, Explicit)."""
+    rng = np.random.default_rng(seed)
+    ctx = mod.OfflineAudioContext(sample_rate=SR, superblock=superblock, **ctx_kw)
+    if not true_stereo:
+        ctx.destination.set_channel_count(4)
+        ctx.destination.inputs[0].set_channel_count_mode(mod.ChannelCountMode.EXPLICIT)
+    n = 6 * superblock * 128
+    xs = [(rng.standard_normal(n) * 0.5).astype(np.float32) for _ in range(2)]
+    irs = [(rng.standard_normal(1800) * np.exp(-np.arange(1800) / 600.0) * 0.3)
+           .astype(np.float32) for _ in range(4)]
+    src = mod.AudioBufferSourceNode(ctx)
+    src.buffer = mod.PlayableAudioBuffer.from_channel_arrays(xs, SR)
+    src.loop = True
+    conv = mod.ConvolverNode(ctx)
+    conv.enable_true_stereo = true_stereo
+    conv.buffer = mod.PlayableAudioBuffer.from_channel_arrays(irs, SR)
+    src.connect(conv).connect(ctx.destination)
+    src.start(0)
+    return ctx
+
+
+@pytest.mark.parametrize("true_stereo", [True, False], ids=["true_stereo", "discrete4"])
+@pytest.mark.parametrize("superblock", [4, 16], ids=["grain128", "grain1024"])
+def test_four_channel_ir_node_matches_jax(superblock, true_stereo):
+    """A 4-channel IR ConvolverNode in the port and in the JAX package on
+    the same seeded input, at the 128 grain (superblock 4) and at grain
+    1024 (superblock 16, two sub-blocks a step), over a render that ends
+    mid-superblock: within 1e-5 max abs. Without ``enable_true_stereo`` the
+    output is 4 discrete channels."""
+    frames = 3 * superblock * 128 + 300
+    want = _four_channel_ir_ctx(ga, superblock, true_stereo).render(frames)
+    tctx = _four_channel_ir_ctx(gat, superblock, true_stereo, device="cpu")
+    got = np.concatenate([tctx.render(700), tctx.render(frames - 700)], axis=1)
+    assert got.shape == want.shape == (2 if true_stereo else 4, frames)
+    assert np.abs(want).max() > 1e-3  # not comparing silence
+    assert np.abs(got - want).max() < TOL
+
+
+def _old_overlap_add_then_stack(y_full, overlap, true_stereo):
+    """The composition K2b's combine replaces: the overlap-add, then the
+    true-stereo stack of sums the convolver issued after it."""
+    K, L, B2 = y_full.shape
+    B = B2 // 2
+    tails = torch.cat([overlap[:, None], y_full[:, :-1, B:]], dim=1)
+    y = (y_full[:, :, :B] + tails).reshape(K, L * B)
+    overlap.copy_(y_full[:, -1, B:])
+    return torch.stack([y[0] + y[2], y[1] + y[3]]) if true_stereo else y
+
+
+OLA_CASES = [(1, 1, False), (1, 8, False), (2, 1, False), (2, 8, False), (4, 1, False),
+             (4, 8, False), (4, 1, True), (4, 8, True)]
+
+
+def _ola_inputs(K, L, B, seed):
+    rng = np.random.default_rng(seed)
+    y_full = torch.from_numpy(rng.standard_normal((K, L, 2 * B)).astype(np.float32))
+    overlap = torch.from_numpy(rng.standard_normal((K, B)).astype(np.float32))
+    return y_full, overlap
+
+
+@pytest.mark.parametrize("K, L, true_stereo", OLA_CASES)
+def test_overlap_add_combine_is_the_old_composition(K, L, true_stereo):
+    """overlap_add_plain with the combine equals, bit for bit, the
+    overlap-add followed by the stack of sums, output and carried tail."""
+    B = 128 if L == 8 else 1024
+    y_full, ov_old = _ola_inputs(K, L, B, 40 + K + L)
+    ov_new = ov_old.clone()
+    want = _old_overlap_add_then_stack(y_full, ov_old, true_stereo)
+    got = tconv.overlap_add(y_full, ov_new, ((0, 2), (1, 3)) if true_stereo else None)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ov_new, ov_old)
+
+
+def _walk_ola_kernel(y_full, overlap, comb, threads=128):
+    """csrc/conv.cu conv_ola_kernel in numpy f32, thread by thread in blocks
+    of ``threads``: thread i is (output c, sub-block l, float4 group g), g
+    fastest; it adds each instance's head and tail (the carried overlap at
+    l = 0, which that thread then replaces from row L-1's tail) and sums
+    the map's instances in order."""
+    K, L, B2 = y_full.shape
+    G = B2 // 8
+    C = comb.shape[1]
+    yf = y_full.reshape(K, L, 2 * G, 4)
+    ov = overlap.reshape(K, G, 4)
+    y = np.full((C * L * G, 4), np.nan, np.float32)
+    n = C * L * G
+    for blk in range(-(-n // threads)):
+        for i in range(blk * threads, min(n, (blk + 1) * threads)):
+            g, r = i % G, i // G
+            l, c = r % L, r // L
+
+            def part(k):
+                tail = yf[k, l - 1, G + g] if l else ov[k, g].copy()
+                if l == 0:
+                    ov[k, g] = yf[k, L - 1, G + g]
+                return yf[k, l, g] + tail
+
+            v = part(comb[0, c])
+            if comb[1, c] >= 0:
+                v = v + part(comb[1, c])
+            y[i] = v
+    return y.reshape(C, L * G * 4)
+
+
+@pytest.mark.parametrize("K, L, true_stereo", [(1, 4, False), (2, 8, False), (4, 2, True),
+                                               (4, 1, True)])
+def test_overlap_add_kernel_walk(K, L, true_stereo):
+    """The kernel's thread plan and combine map (``_ola_map``), walked in
+    numpy, bit for bit against the plain version, output and new tails."""
+    B = 128
+    y_full, ov = _ola_inputs(K, L, B, 50 + K * L)
+    combine = ((0, 2), (1, 3)) if true_stereo else None
+    comb = tconv._ola_map(combine, K)
+    ov_walk = ov.numpy().copy()
+    got = _walk_ola_kernel(y_full.numpy(), ov_walk, comb)
+    want = tconv.overlap_add_plain(y_full, ov, combine)
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
+    assert np.array_equal(ov_walk, ov.numpy())
+
+
+def test_overlap_add_rejects_a_bad_combine():
+    for bad in (((0, 1),), ((0, 2), (1, 2)), ((0, 1, 2), (3,))):
+        with pytest.raises(ValueError):
+            tconv._ola_map(bad, 4)

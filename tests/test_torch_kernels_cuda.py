@@ -129,6 +129,58 @@ def test_k2_mac_and_overlap_add(dev, K, L, P, B, rev, head):
     assert torch.equal(y, y_ref) and torch.equal(ov, ov2)
 
 
+@pytest.mark.parametrize("K, L, B, true_stereo", [
+    (1, 4, 1024, False), (2, 8, 1024, False), (2, 4, 128, False), (4, 1, 128, False),
+    (4, 8, 1024, False), (4, 1, 128, True), (4, 8, 1024, True), (4, 32, 128, True)])
+def test_k2b_overlap_add_combine(dev, K, L, B, true_stereo):
+    """The one-pass overlap-add against its plain version, error 0, output
+    and carried tails, with the true-stereo combine (K = 4) and without."""
+    g = torch.Generator().manual_seed(K * 100 + L)
+    yf = torch.randn(K, L, 2 * B, generator=g).to(dev)
+    ov = torch.randn(K, B, generator=g).to(dev)
+    ov2 = ov.clone()
+    combine = ((0, 2), (1, 3)) if true_stereo else None
+    cudabuild.launches.clear()
+    y = tconv.overlap_add(yf, ov2, combine)
+    assert cudabuild.launches["overlap_add"] == 1
+    y_ref = tconv.overlap_add_plain(yf, ov, combine)
+    torch.cuda.synchronize()
+    assert y.shape == y_ref.shape == (2 if true_stereo else K, L * B)
+    assert torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
+    assert torch.equal(ov.view(torch.int32), ov2.view(torch.int32))
+
+
+def test_true_stereo_convolver_on_card(dev):
+    """A 4-channel IR (true stereo) and a 4-channel discrete convolver on
+    the card against the same graphs on the CPU, within 1e-5."""
+    def scene(device, true_stereo):
+        rng = np.random.default_rng(31)
+        ctx = gat.OfflineAudioContext(sample_rate=48000, superblock=16, device=device)
+        if not true_stereo:
+            ctx.destination.set_channel_count(4)
+            ctx.destination.inputs[0].set_channel_count_mode(gat.ChannelCountMode.EXPLICIT)
+        xs = [(rng.standard_normal(8192) * 0.5).astype(np.float32) for _ in range(2)]
+        irs = [(rng.standard_normal(3000) * np.exp(-np.arange(3000) / 900.0) * 0.3)
+               .astype(np.float32) for _ in range(4)]
+        src = gat.AudioBufferSourceNode(ctx)
+        src.buffer = gat.PlayableAudioBuffer.from_channel_arrays(xs, 48000)
+        src.loop = True
+        conv = gat.ConvolverNode(ctx)
+        conv.enable_true_stereo = true_stereo
+        conv.buffer = gat.PlayableAudioBuffer.from_channel_arrays(irs, 48000)
+        src.connect(conv).connect(ctx.destination)
+        src.start(0)
+        return ctx
+
+    for true_stereo in (True, False):
+        cudabuild.launches.clear()
+        got = scene(dev, true_stereo).render(6 * 2048)
+        assert cudabuild.launches["overlap_add"] == 6
+        want = scene("cpu", true_stereo).render(6 * 2048)
+        assert got.shape == want.shape == (2 if true_stereo else 4, 6 * 2048)
+        assert np.abs(want).max() > 1e-3 and np.abs(got - want).max() < 1e-5
+
+
 @pytest.mark.parametrize("T", [128, 4096, 8192])
 @pytest.mark.parametrize("V", [1, 3, 64, 128, 130])
 def test_k3_fan_in(dev, V, T):
@@ -488,6 +540,50 @@ def test_k10b_spatial_gains(dev, model):
     ref = tsp.spatial_gains_plain(p, listener, model)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("models", [(1, 2), (0, 1)])
+@pytest.mark.parametrize("step", [0, 3, 5])
+def test_k10b_batch(dev, step, models):
+    """The batched K10b over two stages (a-rate, k-rate and constant
+    sources, two distance models, one stage occluded) against its plain
+    version, bit for bit, and against the one-entry ``spatial_gains`` on
+    each stage's stacked params."""
+    S = 8
+    k6, stages = ttab.panner_stages(4, S, 6 * S * ttab.BLOCK, models)
+    k6 = to_device(k6, dev)
+    bt = torch.from_numpy(ttab.block_clock(6 * S)[step * S:(step + 1) * S]).to(dev)
+    arena = tpe.eval_intrinsic_batch(k6, bt, ttab.DT)
+    table = to_device(tsp.pack_gains_table(stages, S), dev)
+    listener = {"listener_pos": torch.tensor([0.5, 0.1, -0.3]),
+                "listener_right": torch.tensor([0.8, 0.0, 0.6]),
+                "listener_up": torch.tensor([0.0, 1.0, 0.0]),
+                "listener_ahead": torch.tensor([-0.6, 0.0, 0.8])}
+    listener = {k: v.to(dev) for k, v in listener.items()}
+    cudabuild.launches.clear()
+    got = tsp.spatial_gains_batch(table, arena, listener)
+    assert cudabuild.launches["spatial_gains_batch"] == 1
+    want = tsp.spatial_gains_batch_plain(table, arena, listener)
+    torch.cuda.synchronize()
+    for out, ref, (_, V, code, words) in zip(got, want, table["stages"]):
+        assert out.is_contiguous() and torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        p = tsp._stage_sources(words, V, S, arena, table["consts"]).contiguous()
+        model = {0: tsp.DistanceModelType.LINEAR, 1: tsp.DistanceModelType.INVERSE,
+                 2: tsp.DistanceModelType.EXPONENTIAL}[code]
+        assert torch.equal(tsp.spatial_gains(p, listener, model), out)
+
+
+def test_config5_one_k2b_and_one_k10b_launch_a_step(dev):
+    """Config 5 (128 voices, superblock 32): K2b and K10b launch once a
+    step each, the one-entry K10b never; the render is finite and heard."""
+    ctx = config5_spatial_scene(superblock=32, device=dev)
+    ctx.render(32 * 128)
+    cudabuild.launches.clear()
+    out = ctx.render(10 * 32 * 128)
+    assert cudabuild.launches["overlap_add"] == 10
+    assert cudabuild.launches["spatial_gains_batch"] == 10
+    assert cudabuild.launches["spatial_gains"] == 0
+    assert np.isfinite(out).all() and np.abs(out).max() > 1e-3
 
 
 @pytest.mark.parametrize("hz", [800.0, 8000.0])
