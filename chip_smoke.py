@@ -10,9 +10,9 @@ polyphase resampler -> 2 s stereo convolver -> gain -> destination),
 BASELINE config 3 (a looped stereo 48 kHz buffer -> four biquads whose
 frequency and Q ramp every 3 s -> destination) and BASELINE config 5 (Kit
 engine: 128 looped mono voices -> gain -> HRTF spatial panner -> sfx bus
--> reverb send with a 1 s mono IR -> master -> destination), plus a small
-occluded scene for the panner's 3-band split. Phases, one line each; any
-failure raises and the script exits non-zero:
+-> reverb send with a 1 s mono IR -> master -> destination), and config
+5's scene with every voice occluded (the panner's 3-band split). Phases,
+one line each; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from graphaudio_tpu_torch/csrc (one nvcc per
@@ -42,7 +42,10 @@ failure raises and the script exits non-zero:
      mid-render with moving sources, P1 also in the probe's row form beside
      torch's grouped conv1d, K10b as the step's one batched launch (also
      over two panner groups under two distance models) and bit for bit
-     against its one-entry name; K9 at the occluded scene's shapes. Each entry
+     against its one-entry name; K9's band split (both crossovers and the
+     band combine, one launch) against its plain version at the
+     full-size occluded scene's step-2 arguments and at S = 1, 4, 64 and
+     one mono shape, and its one-pole mode at the same input. Each entry
      carries the bound (the larger of bytes over HBM rate and operations
      over peak rate) and, where one PyTorch call computes the same
      function, that call's time; K3's host time a call beside torch.sum's;
@@ -67,19 +70,26 @@ failure raises and the script exits non-zero:
      8192 frames within 1e-5 of the golden, P1, K10b and the K2/K3/K5
      calls launched by the first run, K5, K10b and K2b once a step; a
      profiler window and the ops by source line as for config 3;
-  8. the occluded scene (config 5's Kit graph, 16 voices with occlusion
-     and transmission, superblock 32, 8 steps): K9, P1 and K10b launched,
-     within 1e-5 of the same render on the CPU (plain versions).
+  8. the occluded scene (config 5's Kit graph, every voice occluded with
+     transmission, superblock 32): 16 voices for 8 steps within 1e-5 of
+     the same render on the CPU (plain versions), K9, P1 and K10b
+     launched; then all 128 voices for 351 superblocks through
+     ``render``, five fresh runs (``render_runs``): finite, non-silent,
+     the first 8 superblocks within 1e-5 of the CPU render, the band
+     split once a step (one occluded panner stage), a profile window and
+     the ops by source line.
 
-Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5`` and ``--k2bk10b`` runs
-phases 1 and 2, one kernel pair's checks and three 30 s renders of the
-configs that run it, each render with its profile window and its ops by
-source line (``render_runs``): K2 and config 4; P1 and config 5; K6 and
+Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
+``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
+renders of the configs that run it, each render with its profile window
+and its ops by source line (``render_runs``): K2 and config 4; P1 and config 5; K6 and
 K8 through their one-entry names and config 3; K1 and K5 as group steps
 through the public ``process_*_group`` names, the goldens and configs 4, 3
 and 5; K2a and K2b at four shapes and K10b at two (a tree without the
 batched K10b through its one-entry calls), the goldens and configs 4 and
-5. They print the launches and
+5; the K9 checks (a tree without the band split timed as its panner
+ran it: two one-pole launches and the torch combine), the goldens, the
+full-size occluded scene and configs 4 and 5. They print the launches and
 host time a step, the device time a step by kernel group (the groups'
 substrings match the kernel names of older trees too) and each first
 render's sha256. Copied into another tree's checkout, each times that
@@ -112,6 +122,8 @@ GOLDENS = {n: os.path.join(ROOT, "tests", "goldens", f"{name}.npz") for n, name 
     (2, "config2_mix_bus_ramps"), (3, "config3_biquad_eq_chain"), (4, "config4_conv_reverb_64"),
     (5, "config5_spatial_scene_128"))}
 REPEATS = 50
+#: Voices of the full-size occluded scene (config 5's 128, every one occluded).
+OCCLUDED_VOICES = 128
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at its 700 W
 # limit): HBM bytes/s, f32 and f64 non-tensor-core FLOP/s.
@@ -185,6 +197,9 @@ K1K5_GROUPS = {"K1": "poly_", "K5": "unity_"}
 #: K2b's and K10b's kernels (conv_ola_kernel and spatial_gains_kernel in
 #: this tree and the parent trees).
 K2BK10B_GROUPS = {"K2b": "conv_ola", "K10b": "spatial_gains"}
+#: K9's kernel (onepole_kernel in the parent trees, onepole_split_kernel
+#: since the band split).
+K9_GROUPS = {"K9": "onepole"}
 
 
 def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
@@ -299,12 +314,12 @@ def spread(frames, walls):
             "xrt_range": [frames / SR / max(walls), frames / SR / min(walls)]}
 
 
-def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3):
+def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3, ref=None):
     """``runs`` renders of ``frames`` frames of config ``n``, each from a
     fresh context of ``build`` (after a one-step warm-up), then a profile
     window (``profile_steps`` with ``groups``). The first run must be
-    finite, non-silent and within 1e-5 of the config's golden over its
-    first 8192 frames. ``counts`` ({label: wrapper names}) gives the first
+    finite, non-silent and within 1e-5 of ``ref`` over its first frames
+    (by default the config's golden, 8192 frames). ``counts`` ({label: wrapper names}) gives the first
     run's launches under each label, the names summed so that an older
     tree's names count too. Returns the host time a step of each run, the
     profile, the xRT spread, the launches and the first run's sha256."""
@@ -321,7 +336,9 @@ def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3):
                 for label, names in counts.items()}
     walls = [wall] + [timed_render(build, frames)[1] for _ in range(runs - 1)]
     sha = hashlib.sha256(np.ascontiguousarray(out, dtype=np.float32).tobytes()).hexdigest()
-    head_err = float(np.abs(out[:, :8192].astype(np.float64) - np.load(GOLDENS[n])["out"]).max())
+    if ref is None:
+        ref = np.load(GOLDENS[n])["out"]
+    head_err = float(np.abs(out[:, :ref.shape[1]].astype(np.float64) - ref).max())
     host = [w / steps * 1e6 for w in walls]
     prof = profile_steps(build(), step_frames, statistics.median(host), groups=groups)
     ops = attribute_ops(build(), step_frames)
@@ -329,12 +346,13 @@ def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3):
           f"step): {json.dumps(ops)}")
     phase("render", f"config {n} f32: {out.shape}; {runs} runs {walls!r} s; host us a step "
           f"{host!r}; launches a step { {k: v / steps for k, v in launches.items()} }; "
-          f"sha256 of the first run {sha}; first 8192 frames vs golden max_abs_err="
+          f"sha256 of the first run {sha}; first {ref.shape[1]} frames vs "
+          f"{'golden' if n in GOLDENS else 'reference'} max_abs_err="
           f"{head_err!r}; first run breakdown {json.dumps(bd)}")
     phase("profile", f"config {n}, 20 steps under torch.profiler: {json.dumps(prof)}")
     if not (np.isfinite(out).all() and float(np.abs(out).max()) > 0 and head_err < 1e-5):
         raise AssertionError(f"config-{n} render is not finite, non-silent and within 1e-5 "
-                             "of the golden at its start")
+                             "of its reference at its start")
     return {"host_us_per_step_median": statistics.median(host), "host_us_per_step": host,
             "profile": prof, "f32": spread(frames, walls), "sha256": sha,
             "head_vs_golden": head_err, "launches": launches, "torch_ops": ops,
@@ -826,7 +844,8 @@ def true_stereo_config4(dev, superblock=64):
 
 def occluded_scene(dev, voices=16):
     """Config 5's Kit graph with ``voices`` voices, every one occluded with
-    transmission: the panner runs its 3-band split (two K9 crossovers)."""
+    transmission: the panners form one group that runs the 3-band split
+    (K9's band split)."""
     from graphaudio_tpu_torch.testing.configs import config5_spatial_scene
 
     ctx = config5_spatial_scene(superblock=32, voices=voices, device=dev)
@@ -834,6 +853,125 @@ def occluded_scene(dev, voices=16):
         snd.occlusion = 0.5
         snd.set_transmission(0.8, 0.4, 0.1)
     return ctx
+
+
+def occluded_split_args(dev, steps=2):
+    """The band split's arguments (x, a_low, a_high, y0_low, y0_high, gl,
+    gm, gh) at step ``steps`` of the full-size occluded scene (128 voices),
+    read from the panner's ``process`` (spied on its class, where the step
+    looks it up), so that a tree without the band split gives them too."""
+    import math
+    from unittest import mock
+
+    from graphaudio_tpu_torch.nodes import spatial as tsp
+
+    seen = []
+    process = tsp.SpatialPannerNode.process
+
+    def spy(self, state, inputs, params, rc):
+        if self._occlusion_active():
+            _, _, gl, gm, gh, _ = rc.prologue_result
+            seen.append((inputs[0], state["xlow"], state["xhigh"], gl, gm, gh, rc.sample_rate))
+        return process(self, state, inputs, params, rc)
+
+    occ = occluded_scene(dev, OCCLUDED_VOICES)
+    with mock.patch.object(tsp.SpatialPannerNode, "process", spy):
+        occ.render(steps * 32 * 128)
+    x, y0l, y0h, gl, gm, gh, sr = seen[-1]
+    al, ah = (math.exp(-2.0 * math.pi * hz / sr) for hz in (tsp.XOVER_LOW_HZ, tsp.XOVER_HIGH_HZ))
+    return x, al, ah, y0l, y0h, gl, gm, gh
+
+
+def split_fns(args):
+    """(kernel, plain) calls of the band split on ``args``, each returning
+    (direct, new y0_low, new y0_high). A tree without ``band_split`` is
+    timed as its panner ran it: two one-pole launches and the torch
+    combine."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import onepole as top
+
+    if hasattr(top, "band_split"):
+        return lambda: top.band_split(*args), lambda: top.band_split_plain(*args)
+    x, al, ah, y0l, y0h, gl, gm, gh = args
+
+    def composed(lowpass):
+        low, xlow = lowpass(x, al, y0l)
+        lowmid, xhigh = lowpass(x, ah, y0h)
+
+        def expand(g):  # [V, S] -> [V, 1, T]
+            return torch.repeat_interleave(g, 128, dim=-1)[:, None, :]
+
+        return (low * expand(gl) + (lowmid - low) * expand(gm) + (x - lowmid) * expand(gh),
+                xlow, xhigh)
+
+    return lambda: composed(top.onepole_lowpass), lambda: composed(top.onepole_lowpass_plain)
+
+
+def k9_checks(dev):
+    """K9's band split against its plain version within 1e-6 x max at the
+    full-size occluded scene's step-2 arguments (``occluded_split_args``)
+    and on seeded inputs at S = 1, 4 and 64 (V=128, C=2) and one mono shape
+    (V=128, C=1, S=32), each carry-out checked too; its one-pole mode
+    against ``onepole_lowpass_plain`` at the scene's x. The timed calls
+    return the signal alone (no concatenation). Returns the band split's
+    entry, the one-pole mode's under "one_pole_mode" (the panner does not
+    call it, so it is no kernel of a main path)."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import onepole as top
+
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+
+    def split_check(label, args):
+        kernel, plain = split_fns(args)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for g, w, name in zip(got[1:], want[1:], ("y0_low", "y0_high")):
+            err = float((g - w).abs().max())
+            if err > 1e-6 * max(1.0, float(w.abs().max())):
+                raise AssertionError(f"K9 band split's carry-out {name} is {err} off ({label})")
+        x, gains, y0 = args[0], args[5:], args[3]
+        n = x.numel()
+        return compare(f"K9 band split ({label}: x {list(x.shape)})", "cuda",
+                       "graphaudio_tpu_torch/csrc/onepole.cu", "graphaudio_tpu/nodes/spatial.py:350",
+                       lambda: kernel()[0], lambda: plain()[0], 1e-6, rel=True,
+                       # x read once, direct written once, the gains read,
+                       # two carries in and out; per sample two poles' f64
+                       # steps (3 flops each) and the f32 combine's 7 flops,
+                       # counted in f64 time
+                       bnd=bound(2 * nbytes(x) + nbytes(*gains) + 4 * nbytes(y0),
+                                 6 * n + 7 * n * F64_FLOPS / F32_FLOPS, F64_FLOPS))
+
+    args = occluded_split_args(dev)
+    split = split_check("occluded config 5 step 2", args)
+    rng = np.random.default_rng(12)
+    shapes = []
+    for V, C, S in ((128, 2, 1), (128, 2, 4), (128, 2, 64), (128, 1, 32)):
+        x = rng.standard_normal((V, C, S * 128)) * 0.05
+        y0 = rng.standard_normal((2, V, C)) * 0.05
+        g = rng.uniform(0.0, 1.0, (3, V, S))
+        t = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, *y0, *g)]
+        shapes.append(split_check(f"seeded, S={S} C={C}", (t[0], *args[1:3], *t[1:])))
+    split["shapes"] = [{k: e[k] for k in keys} for e in shapes]
+    split["name"] = "K9 band split"
+
+    x, al, y0 = args[0], args[1], args[3]
+    got, want = top.onepole_lowpass(x, al, y0)[1], top.onepole_lowpass_plain(x, al, y0)[1]
+    if float((got - want).abs().max()) > 1e-6 * max(1.0, float(want.abs().max())):
+        raise AssertionError("K9 one-pole carry-out disagrees with its plain version")
+    onepole = compare(f"K9 one-pole lowpass (one-pole mode, occluded config 5 step 2: x "
+                      f"{list(x.shape)}, a={al:.6f})", "cuda",
+                      "graphaudio_tpu_torch/csrc/onepole.cu", "graphaudio_tpu/ops/onepole.py:62",
+                      lambda: top.onepole_lowpass(x, al, y0)[0],
+                      lambda: top.onepole_lowpass_plain(x, al, y0)[0], 1e-6, rel=True,
+                      # x read once, y written once, the carry in and out;
+                      # one f64 step (3 flops) a sample
+                      bnd=bound(2 * nbytes(x) + 2 * nbytes(y0), 3 * x.numel(), F64_FLOPS))
+    split["one_pole_mode"] = {k: onepole[k] for k in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "device_ms")}
+    return split
 
 
 def k3_check(label, x, dst):
@@ -913,17 +1051,13 @@ def p1_checks(dev):
 
 def config5_kernel_checks(dev):
     """P1 (``p1_checks``) and K10b (``k10b_checks``) against their plain
-    versions at config-5 shapes (128 voices, superblock 32); K9 on the
-    arguments of the occluded scene's second step; K3 on the largest of the
-    fan-ins of the fourth step of a render whose sources move every
+    versions at config-5 shapes (128 voices, superblock 32); K9
+    (``k9_checks``) at the full-size occluded scene's; K3 on the largest of
+    the fan-ins of the fourth step of a render whose sources move every
     quantum. Returns the three JSON entries and K3's."""
     from unittest import mock
 
-    import torch
-
     from graphaudio_tpu_torch.core import graph as tgraph
-    from graphaudio_tpu_torch.nodes import spatial as tsp
-    from graphaudio_tpu_torch.ops import onepole as top
 
     p1 = p1_checks(dev)
     k10b = k10b_checks(dev)
@@ -932,24 +1066,10 @@ def config5_kernel_checks(dev):
     ctx = moving_config5(dev)
     with mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
         ctx.render(4 * 32 * 128)
-
-    occ = occluded_scene(dev)
-    with mock.patch.object(tsp, "onepole_lowpass", wraps=tsp.onepole_lowpass) as op:
-        occ.render(2 * 32 * 128)
-    xo, a, y0 = op.call_args.args
-    k9 = compare(f"K9 one-pole lowpass (occluded scene step 2: x {list(xo.shape)}, a={a:.6f})",
-                 "cuda", "graphaudio_tpu_torch/csrc/onepole.cu", "graphaudio_tpu/ops/onepole.py:62",
-                 lambda: torch.cat([o.flatten() for o in top.onepole_lowpass(xo, a, y0)]),
-                 lambda: torch.cat([o.flatten() for o in top.onepole_lowpass_plain(xo, a, y0)]),
-                 1e-6, rel=True,
-                 # x read once, y written once; two f64 sweeps of a multiply
-                 # and an fma (3 flops) per sample
-                 bnd=bound(2 * nbytes(xo) + 2 * nbytes(y0), 6 * xo.numel(), F64_FLOPS))
     xf, dst = max((c.args for c in fan.call_args_list), key=lambda a: a[0].numel())
     k3 = k3_check(f"config 5 step 4, its largest: {list(xf.shape)} -> [{dst}, {xf.shape[2]}]",
                   xf, dst)
-    k9["name"] = "K9 one-pole lowpass"
-    return [p1, k10b, k9], k3
+    return [p1, k10b, k9_checks(dev)], k3
 
 
 def ola_fns(yfull, ov0, combine):
@@ -1264,6 +1384,23 @@ def main(device="cuda", only=None):
                 e["launches"] = runs["config5"]["launches"][label]
             for n in (4, 5):
                 runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
+        elif only == "k9":
+            entries = [k9_checks(dev)]
+            golden_err = goldens(dev)
+            ref_occ = occluded_scene("cpu", OCCLUDED_VOICES).render(8 * T5)
+            # launches under this tree's wrapper names and the parent trees'
+            counts = {"K9": ("band_split", "onepole_lowpass"), "K9 band split": ("band_split",),
+                      "K9 one-pole lowpass": ("onepole_lowpass",)}
+            runs = {"occluded": render_runs("5 occluded",
+                                            lambda: occluded_scene(dev, OCCLUDED_VOICES), T5,
+                                            frames5, counts, K9_GROUPS, ref=ref_occ),
+                    "config4": render_runs(4, b4, T, frames, {}, K9_GROUPS),
+                    "config5": render_runs(5, b5, T5, frames5, {}, K9_GROUPS)}
+            entries[0]["launches"] = runs["occluded"]["launches"]["K9 band split"]
+            entries[0]["one_pole_mode"]["launches"] = \
+                runs["occluded"]["launches"]["K9 one-pole lowpass"]
+            for n in (4, 5):
+                runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
         else:  # k1k5
             entries, _ = k1k5_checks(dev)
             golden_err = goldens(dev)
@@ -1348,8 +1485,10 @@ def main(device="cuda", only=None):
 
     rms = float(np.sqrt(np.mean(f32.astype(np.float64) ** 2)))
     seconds = frames / SR
+    render4["sha256"] = hashlib.sha256(np.ascontiguousarray(f32).tobytes()).hexdigest()
     phase("render", f"f32: {f32.shape}; five runs {walls4!r} s, median "
-          f"{render4['f32']['xrt_median']!r} xRT; rms {rms!r}; first run breakdown {json.dumps(bd_f)}")
+          f"{render4['f32']['xrt_median']!r} xRT; rms {rms!r}; sha256 of the first run "
+          f"{render4['sha256']}; first run breakdown {json.dumps(bd_f)}")
     phase("render", f"pcm16: {pcm.shape} in {wall_p!r} s = {seconds / wall_p!r} xRT; "
           f"breakdown {json.dumps(bd_p)}")
     if not (f32.shape == (2, frames) and np.isfinite(f32).all() and rms > 0):
@@ -1431,8 +1570,10 @@ def main(device="cuda", only=None):
     head_err5 = float(np.abs(first5[:, :8192].astype(np.float64)
                              - np.load(GOLDENS[5])["out"]).max())
     render5 = spread(frames5, walls5)
+    sha5 = hashlib.sha256(np.ascontiguousarray(first5).tobytes()).hexdigest()
     phase("render", f"config 5 f32: {first5.shape}; five runs {walls5!r} s, median "
-          f"{render5['xrt_median']!r} xRT; rms {rms5!r}; first 8192 frames vs golden "
+          f"{render5['xrt_median']!r} xRT; rms {rms5!r}; sha256 of the first run {sha5}; "
+          f"first 8192 frames vs golden "
           f"max_abs_err={head_err5!r}; first run breakdown {json.dumps(bd5)}; launches {launches5}")
     if not (first5.shape == (2, frames5) and np.isfinite(first5).all() and rms5 > 0
             and head_err5 < 1e-5):
@@ -1454,7 +1595,7 @@ def main(device="cuda", only=None):
           f"{json.dumps(ops5)}")
 
     # -- 8. the occluded scene -------------------------------------------------
-    wrappers_occ = {"K9 one-pole lowpass": "onepole_lowpass", "P1 HRTF FIR": "hrtf_fir",
+    wrappers_occ = {"K9 band split": "band_split", "P1 HRTF FIR": "hrtf_fir",
                     "K10b spatial gains": "spatial_gains_batch"}
     occ = occluded_scene(dev)
     occ._ensure_compiled()
@@ -1472,11 +1613,27 @@ def main(device="cuda", only=None):
     for name, n in launches_occ.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched by the occluded scene")
+    # The full-size occluded scene: every one of the 128 voices in one
+    # occluded panner stage, so the band split launches once a step.
+    ref_full = occluded_scene("cpu", OCCLUDED_VOICES).render(8 * T5)
+    full_occ = render_runs("5 occluded", lambda: occluded_scene(dev, OCCLUDED_VOICES), T5,
+                           frames5, {name: (w,) for name, w in (*wrappers_occ.items(), (
+                               "K9 one-pole lowpass", "onepole_lowpass"))},
+                           K9_GROUPS, runs=5, ref=ref_full)
+    launches_full = full_occ["launches"]
+    if launches_full["K9 band split"] != frames5 // T5:
+        raise AssertionError(f"K9 band split: {launches_full['K9 band split']} launches in "
+                             f"{frames5 // T5} steps of the full-size occluded scene, not one a step")
+    for name in ("P1 HRTF FIR", "K10b spatial gains"):
+        if launches_full[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the full-size occluded scene")
     for e in entries:
         if e["name"] in ("P1 HRTF FIR", "K10b spatial gains"):
             e["launches"] = launches5[e["name"]]
-        elif e["name"] == "K9 one-pole lowpass":
-            e["launches"] = launches_occ[e["name"]]
+        elif e["name"] == "K9 band split":
+            e["launches"] = launches_full["K9 band split"]
+            # the one-pole mode is not on the panner's path: 0
+            e["one_pole_mode"]["launches"] = launches_full["K9 one-pole lowpass"]
 
     print(json.dumps({"kernels": entries, "render": {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
@@ -1485,9 +1642,11 @@ def main(device="cuda", only=None):
                     "golden_max_abs_err": golden_err[3], "head_vs_golden": head_err,
                     "launches": launches3, "profile": profile3, "torch_ops": ops3},
         "config5": {"frames": frames5, "f32": render5, "host_us_per_step_median": host_us5,
+                    "sha256": sha5,
                     "golden_max_abs_err": golden_err[5], "head_vs_golden": head_err5,
                     "launches": launches5, "profile": profile5, "torch_ops": ops5},
         "occluded": {"max_abs_err_vs_cpu": err_occ, "launches": launches_occ},
+        "occluded_full": full_occ,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1509,6 +1668,8 @@ if __name__ == "__main__":
         "k2bk10b": "the K2 checks at four shapes (one a true-stereo IR), the K10b checks "
                    "at config 5 and with two panner groups, the goldens and three 30 s "
                    "renders each of configs 4 and 5",
+        "k9": "the K9 band split and one-pole checks, the goldens and three 30 s renders "
+              "each of the full-size occluded config 5 and of configs 4 and 5",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

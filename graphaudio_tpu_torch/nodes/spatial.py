@@ -15,8 +15,9 @@ state run as one group stage; ``process`` takes the stacked lanes:
   per (voice, quantum): direction, gains, blend; one launch in the step's
   prologue for every panner stage, its params read where they lie
   (``prologue_request``);
-* K9 ``onepole_lowpass`` twice (ops/onepole.py), only once occlusion or
-  transmission was touched: the 3-band split;
+* K9 ``band_split`` (ops/onepole.py, csrc/onepole.cu), only once occlusion
+  or transmission was touched: both crossovers and the 3-band combine in
+  one launch;
 * P1 ``hrtf_fir`` (ops/hrtf.py, csrc/hrtf_fir.cu): the direct gain, the
   mono downmix, the per-quantum interpolated HRIR filter and the blend.
 
@@ -52,7 +53,7 @@ from graphaudio_tpu_torch.ops.hrtf import (
     hrtf_fir,
     load_hrir_grid,
 )
-from graphaudio_tpu_torch.ops.onepole import onepole_lowpass
+from graphaudio_tpu_torch.ops.onepole import band_split
 from graphaudio_tpu_torch.ops.param_eval import SRC_ARATE, SRC_CONST, SRC_KRATE, source_words
 from graphaudio_tpu_torch.utils import cudabuild
 
@@ -454,15 +455,10 @@ class SpatialPannerNode(AudioNode):
             # Direct effect: per-band per-quantum gains (the reference
             # applies the DirectEffect in place on the input, :247-248).
             sr = rc.sample_rate
-            low, xlow = onepole_lowpass(x, math.exp(-2.0 * math.pi * XOVER_LOW_HZ / sr),
-                                        state["xlow"])
-            lowmid, xhigh = onepole_lowpass(x, math.exp(-2.0 * math.pi * XOVER_HIGH_HZ / sr),
-                                            state["xhigh"])
-
-            def expand(g):  # [V, S] -> [V, 1, T]
-                return torch.repeat_interleave(g, FRAMES_PER_BLOCK, dim=-1)[:, None, :]
-
-            direct = low * expand(gl) + (lowmid - low) * expand(gm) + (x - lowmid) * expand(gh)
+            direct, xlow, xhigh = band_split(
+                x, math.exp(-2.0 * math.pi * XOVER_LOW_HZ / sr),
+                math.exp(-2.0 * math.pi * XOVER_HIGH_HZ / sr), state["xlow"], state["xhigh"],
+                gl, gm, gh)
             out, ola = hrtf_fir(direct, None, az, el, blend, grid, state["ola"])
         else:
             # All band gains equal attenuation x directivity: one broadband

@@ -600,6 +600,61 @@ def test_k9_onepole(dev, hz):
         assert (a_ - b_).abs().max().item() <= 1e-6 * max(1.0, b_.abs().max().item())
 
 
+_XOVERS = tuple(float(np.exp(-2.0 * np.pi * hz / 48000)) for hz in (800.0, 8000.0))
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("S", [1, 4, 32, 64])
+def test_k9_band_split(dev, S, C):
+    """The band split (one launch: both crossovers and the combine) against
+    its plain version within 1e-6 x max, and its direct signal bit for bit
+    the plain combine of the one-pole mode's bands."""
+    g = torch.Generator().manual_seed(17 + S + C)
+    V = 8
+    x = (torch.randn(V, C, S * 128, generator=g) * 0.3).to(dev)
+    y0l, y0h = ((torch.randn(V, C, generator=g) * 0.1).to(dev) for _ in range(2))
+    gains = [torch.rand(V, S, generator=g).to(dev) for _ in range(3)]
+    al, ah = _XOVERS
+    cudabuild.launches.clear()
+    got = top.band_split(x, al, ah, y0l, y0h, *gains)
+    assert cudabuild.launches["band_split"] == 1
+    assert cudabuild.launches["onepole_lowpass"] == 0
+    ref = top.band_split_plain(x, al, ah, y0l, y0h, *gains)
+    (low, xlow), (lowmid, xhigh) = (top.onepole_lowpass(x, al, y0l),
+                                    top.onepole_lowpass(x, ah, y0h))
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, ref):
+        assert (a_ - b_).abs().max().item() <= 1e-6 * max(1.0, b_.abs().max().item())
+    combined = top.band_combine_plain(x, low, lowmid, *gains)
+    assert torch.equal(got[0].view(torch.int32), combined.view(torch.int32))
+    assert torch.equal(got[1], xlow) and torch.equal(got[2], xhigh)
+
+
+def test_occluded_render_one_band_split_a_step(dev):
+    """A small occluded Kit scene (8 voices, every one occluded with
+    transmission, superblock 8): the panners' band split launches once a
+    step, the one-pole mode never; the render matches the CPU's within
+    1e-5."""
+
+    def scene(device):
+        ctx = config5_spatial_scene(superblock=8, voices=8, device=device)
+        for snd in ctx._sounds:
+            snd.occlusion = 0.5
+            snd.set_transmission(0.8, 0.4, 0.1)
+        return ctx
+
+    ctx = scene(dev)
+    head = ctx.render(8 * 128)
+    cudabuild.launches.clear()
+    out = ctx.render(4 * 8 * 128)
+    assert cudabuild.launches["band_split"] == 4
+    assert cudabuild.launches["onepole_lowpass"] == 0
+    want = scene("cpu").render(5 * 8 * 128)
+    got = np.concatenate([head, out], axis=1)
+    assert np.abs(want).max() > 1e-3
+    assert np.abs(got.astype(np.float64) - want).max() < 1e-5
+
+
 def test_config5_golden_on_card(dev):
     out = config5_spatial_scene(superblock=4, device=dev).render(8192)
     golden = np.load("tests/goldens/config5_spatial_scene_128.npz")["out"]
