@@ -10,9 +10,11 @@ polyphase resampler -> 2 s stereo convolver -> gain -> destination),
 BASELINE config 3 (a looped stereo 48 kHz buffer -> four biquads whose
 frequency and Q ramp every 3 s -> destination) and BASELINE config 5 (Kit
 engine: 128 looped mono voices -> gain -> HRTF spatial panner -> sfx bus
--> reverb send with a 1 s mono IR -> master -> destination), and config
-5's scene with every voice occluded (the panner's 3-band split). Phases,
-one line each; any failure raises and the script exits non-zero:
+-> reverb send with a 1 s mono IR -> master -> destination), config 5's
+scene with every voice occluded (the panner's 3-band split), config 4
+delivered as G.711 mu-law and IMA ADPCM, and BASELINE config 6 (64 looped
+voices, each gain modulated by its own oscillator). Phases, one line
+each; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from graphaudio_tpu_torch/csrc (one nvcc per
@@ -45,11 +47,15 @@ one line each; any failure raises and the script exits non-zero:
      against its one-entry name; K9's band split (both crossovers and the
      band combine, one launch) against its plain version at the
      full-size occluded scene's step-2 arguments and at S = 1, 4, 64 and
-     one mono shape, and its one-pole mode at the same input. Each entry
+     one mono shape, and its one-pole mode at the same input; K4mu and K4a
+     bit for bit at config 4's launch chunk (K4a with carry_len 0, 1 and
+     504), K11 (four waveforms, base values and rows, within 1e-6; its
+     constant-source mode bit for bit) and K6m (a-rate, k-rate, stereo
+     CHAIN, explicit rows; bit for bit) at config 6's shapes. Each entry
      carries the bound (the larger of bytes over HBM rate and operations
      over peak rate) and, where one PyTorch call computes the same
      function, that call's time; K3's host time a call beside torch.sum's;
-  4. configs 4, 3, 2 and 5 at superblock 4 over 8192 frames against
+  4. configs 4, 3, 2, 5 and 6 at superblock 4 over 8192 frames against
      tests/goldens/*.npz within 1e-5 max abs;
   5. config 4 at full size (64 voices, 2 s IR, superblock 64, 30 s rounded
      down to whole superblocks) through ``render`` and again through
@@ -77,7 +83,16 @@ one line each; any failure raises and the script exits non-zero:
      ``render``, five fresh runs (``render_runs``): finite, non-silent,
      the first 8 superblocks within 1e-5 of the CPU render, the band
      split once a step (one occluded panner stage), a profile window and
-     the ops by source line.
+     the ops by source line;
+  9. config 4 at full size through ``render_mulaw`` and ``render_adpcm``,
+     five fresh runs each: bit for bit the host encoders of phase 5's f32
+     render, K4mu or K4a once a launch chunk, the xRT spread, the wire
+     bytes and each format's SNR against the f32 render;
+ 10. config 6 at full size (superblock 32, 351 superblocks), modulated and
+     not, five fresh runs each (``render_runs``): the modulated one's
+     first 8192 frames within 1e-5 of the golden, the other's within 1e-5
+     of its CPU render, K11 once a step in both and K6m once a step in the
+     modulated one.
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -89,7 +104,9 @@ and 5; K2a and K2b at four shapes and K10b at two (a tree without the
 batched K10b through its one-entry calls), the goldens and configs 4 and
 5; the K9 checks (a tree without the band split timed as its panner
 ran it: two one-pole launches and the torch combine), the goldens, the
-full-size occluded scene and configs 4 and 5. They print the launches and
+full-size occluded scene and configs 4 and 5. ``--wire6`` runs phases 1
+and 2, the K4mu, K4a, K11 and K6m checks, the goldens and phases 9 and 10
+(after one 30 s f32 render of config 4). They print the launches and
 host time a step, the device time a step by kernel group (the groups'
 substrings match the kernel names of older trees too) and each first
 render's sha256. Copied into another tree's checkout, each times that
@@ -120,7 +137,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 48000
 GOLDENS = {n: os.path.join(ROOT, "tests", "goldens", f"{name}.npz") for n, name in (
     (2, "config2_mix_bus_ramps"), (3, "config3_biquad_eq_chain"), (4, "config4_conv_reverb_64"),
-    (5, "config5_spatial_scene_128"))}
+    (5, "config5_spatial_scene_128"), (6, "config6_lfo_tremolo_64"))}
 REPEATS = 50
 #: Voices of the full-size occluded scene (config 5's 128, every one occluded).
 OCCLUDED_VOICES = 128
@@ -130,6 +147,12 @@ OCCLUDED_VOICES = 128
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
+#: 32-bit integer operations a second: 64 INT32 lanes an SM a clock (Hopper
+#: white paper) x 132 SMs x the 1,980 MHz boost clock.
+INT32_OPS = 64 * 132 * 1.98e9
+#: One dependent operation a clock on one thread: the least time a chain of
+#: operations that each need the one before can take (the boost clock).
+CHAIN_OPS = 1.98e9
 
 
 def phase(name, msg):
@@ -200,6 +223,11 @@ K2BK10B_GROUPS = {"K2b": "conv_ola", "K10b": "spatial_gains"}
 #: K9's kernel (onepole_kernel in the parent trees, onepole_split_kernel
 #: since the band split).
 K9_GROUPS = {"K9": "onepole"}
+#: This slice's kernels: the wire packs and config 6's source and
+#: modulation steps.
+WIRE_GROUPS = {"K4mu": "pack_mulaw", "K4a": "ima_encode"}
+K11K6M_GROUPS = {"K11": "oscillator_kernel", "K6m": "apply_modulation", "K5": "unity_",
+                 "K3": "fan_in"}
 
 
 def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
@@ -379,11 +407,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(moved_bytes, ops, peak=F32_FLOPS):
+def bound(moved_bytes, ops, peak=F32_FLOPS, int_ops=0):
     """The least time the card could take: the larger of the bytes that
-    must move over the HBM rate and the operations over the peak rate.
+    must move over the HBM rate and the operations over the peak rate
+    (``int_ops`` more 32-bit integer operations at ``INT32_OPS``, added).
     Returns (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = moved_bytes / HBM_BYTES_S, ops / peak
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_S, ops / peak + int_ops / INT32_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1283,15 +1312,286 @@ def k10b_checks(dev):
     return k10b
 
 
+def wire_checks(dev, frames):
+    """K4mu and K4a against their plain versions, bit for bit, at config
+    4's launch chunk ([2, frames] f32), K4a with carry_len 0, 1 and 504 (the
+    new carry row checked too; the timed calls return the blocks alone).
+    Each bound counts the function's fewest operations, not the kernel's.
+    K4mu: per sample 4 f32 operations (clip as max and min, the multiply,
+    the rounding conversion) and 14 integer ones (sign, magnitude, clamp,
+    bias; the exponent from a count of leading zeros, a subtract and a max;
+    the mantissa's add, shift and mask; the byte's two shifts, a
+    three-input or and the inverting xor), under its bytes. K4a: the
+    dependent chain of one block, one operation a clock at the boost
+    clock. The header index first, as trees: |diff| (a subtract and an
+    absolute value) summed over 504 in 9 levels, then 89 independent
+    compares counted in 7 levels and a clamp: 2 + 9 + 1 + 7 + 1 = 20. Then
+    each of the 504 steps: from one step's index to the next, the
+    step-table read, the magnitude's compare, subtract, compare, subtract
+    and compare, forming delta, the index-table read, the add and the
+    clamp's two: 11; the predictor's path through the same step (the
+    difference, its absolute value, the same five, the vp sum, the signed
+    add and the clamp's two) is 11 as well and runs beside it. Returns the
+    two entries."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import wire as twire
+
+    rng = np.random.default_rng(13)
+    audio = torch.from_numpy((rng.standard_normal((2, frames)) * 0.3).astype(np.float32)).to(dev)
+    n = audio.numel()
+    mu = compare(f"K4mu mu-law pack (config 4 launch chunk: {list(audio.shape)})", "cuda",
+                 "graphaudio_tpu_torch/csrc/pack.cu", "graphaudio_tpu/ops/wire.py:66",
+                 lambda: twire.pack_mulaw(audio), lambda: twire.pack_mulaw_plain(audio), 0,
+                 # 4 bytes read and 1 written a sample; 4 f32 and 14
+                 # integer operations a sample (see above)
+                 bnd=bound(nbytes(audio) + n, 4 * n, int_ops=14 * n))
+    mu["name"] = "K4mu mu-law pack"
+    spb = 505
+    cases = []
+    for carry_len in (0, 1, spb - 1):
+        carry = torch.from_numpy(rng.integers(-30000, 30000, (2, spb - 1)).astype(np.int16)).to(dev)
+        got = twire.ima_chunk_encode(audio, carry, carry_len)
+        want = twire.ima_chunk_encode_plain(audio, carry, carry_len)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"K4a's new carry differs from its plain version (carry_len "
+                                 f"{carry_len})")
+        ncap = got[0].shape[0]
+        chain = 20 + 11 * (spb - 1)
+        cases.append(compare(
+            f"K4a IMA ADPCM chunk encoder (config 4 launch chunk: {list(audio.shape)}, "
+            f"carry_len {carry_len}, {ncap} blocks a channel)", "cuda",
+            "graphaudio_tpu_torch/csrc/adpcm.cu", "graphaudio_tpu/ops/wire.py:338",
+            lambda: twire.ima_chunk_encode(audio, carry, carry_len)[0],
+            lambda: twire.ima_chunk_encode_plain(audio, carry, carry_len)[0], 0,
+            # audio and carry read once, blocks and carry written once; the
+            # serial chain of one block, one dependent operation a clock
+            bnd=max(bound(nbytes(audio, carry, got[0], got[1]), 0),
+                    (chain / CHAIN_OPS * 1e3, "operations"))))
+    ima = dict(cases[0], name="K4a IMA ADPCM chunk encoder",
+               carry_cases=[{k: c[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
+                                               "device_ms")} for c in cases])
+    return [mu, ima]
+
+
+def mid_config6(dev, step=9):
+    """Config 6 (superblock 32) rendered ``step`` steps on ``dev``: the
+    context, its oscillator stage's key and the block clock of step
+    ``step``."""
+    from graphaudio_tpu_torch.nodes.sources import OscillatorNode
+    from graphaudio_tpu_torch.testing.configs import config6_lfo_tremolo
+
+    ctx = config6_lfo_tremolo(superblock=32, device=dev)
+    ctx.render(step * 32 * 128)
+    key = next(sp["key"] for sp in ctx._compiled.plan if isinstance(sp["rep"], OscillatorNode))
+    return ctx, key, torch_clock(dev, (step + 1) * 32, step, 32)
+
+
+def k11k6m_checks(dev):
+    """K11 and K6m against their plain versions at config 6's shapes (64
+    lanes, superblock 32) on the oscillator stage's state after 9 steps of
+    a config-6 render: K11 for the four waveforms over the base-value view
+    of the frequency (config 6's case) and over per-sample rows, within
+    1e-6, the new phase bit for bit; its constant-source mode bit for bit;
+    K6m bit for bit, a-rate over the gain's base values with a CHAIN
+    stereo modulation and the gain's clamp range (config 6's case: the
+    depth group's stereo output), a mono CHAIN, k-rate, and an explicit
+    route's rows. K11's bound is the larger of its bytes and its serial
+    chain (16 adds of a run, thread 0's f64 anchors: 10 operations a
+    quantum, the run prefix and one sample's phase and sine, about 60).
+    Returns the two entries."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import oscillator as tosc
+    from graphaudio_tpu_torch.ops import param_eval as tpe
+
+    ctx, key, bt = mid_config6(dev)
+    st = ctx._states[key]
+    V, S = st["phase"].shape[0], bt.shape[0]
+    T = S * 128
+    base = ctx._encs[f"{key}/frequency"]["base"]
+    views = {"base values": base[:, None].expand(V, T),
+             "rows": (base[:, None] * torch.linspace(0.5, 2.0, T, device=dev)).contiguous()}
+    sched = (st["started"], st["start_time"], st["stop_time"])
+    chain = 16 + 10 * S + 7 + 60
+    osc = []
+    for wave in tosc.WAVE_CODES:
+        for label, f in views.items():
+            args = (f, *sched, st["phase"], bt, 48000, wave)
+            got = tosc.oscillator_group_step(*args)
+            want = tosc.oscillator_group_step_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"K11's new phase differs from its plain version ({wave})")
+            osc.append(compare(
+                f"K11 oscillator group step (config 6 step 9: {wave}, frequency {label}, "
+                f"[{V}, {T}])", "cuda", "graphaudio_tpu_torch/csrc/oscillator.cu",
+                "graphaudio_tpu/nodes/sources.py:294",
+                lambda args=args: tosc.oscillator_group_step(*args)[0],
+                lambda args=args: tosc.oscillator_group_step_plain(*args)[0], 1e-6,
+                # f (rows or base values) and the states read once, out and
+                # the phase written once; or the serial chain
+                bnd=max(bound(nbytes(f if f.is_contiguous() else base, *sched, st["phase"], bt)
+                              + V * T * 4 + V * 8, 0),
+                        (chain / CHAIN_OPS * 1e3, "operations"))))
+    off = views["base values"] * 0.5
+    const = compare(f"K11 constant-source mode (config 6 step 9 states, [{V}, {T}])", "cuda",
+                    "graphaudio_tpu_torch/csrc/oscillator.cu",
+                    "graphaudio_tpu/nodes/sources.py:231",
+                    lambda: tosc.constant_group_step(off, *sched, bt, 48000),
+                    lambda: tosc.constant_group_step_plain(off, *sched, bt, 48000), 0,
+                    bnd=bound(nbytes(base, *sched, bt) + V * T * 4, 0))
+    k11 = dict(osc[0], name="K11 oscillator group step",
+               cases=[{k: c[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "device_ms")} for c in osc],
+               constant_mode={k: const[k] for k in ("name", "route", "source", "replaces",
+                                                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "library_ms", "device_ms")})
+
+    rng = np.random.default_rng(14)
+    gain = torch.full((V,), 0.6, device=dev)
+    mods = {c: torch.from_numpy((rng.standard_normal((V, c, T)) * 0.35).astype(np.float32)).to(dev)
+            for c in (1, 2)}
+    rows = torch.from_numpy(rng.standard_normal((V, T)).astype(np.float32)).to(dev)
+    fmax = float(np.finfo(np.float32).max)  # GainNode.gain's range
+    mcases = []
+    for label, intr, mod, a_rate, lo, hi in (
+            ("config 6: a-rate, gain base values, CHAIN stereo", gain[:, None].expand(V, T),
+             mods[2], True, -fmax, fmax),
+            ("a-rate, base values, CHAIN mono", gain[:, None].expand(V, T), mods[1], True,
+             -1e9, 1e9),
+            ("k-rate, base values, CHAIN mono", gain[:, None].expand(V, S), mods[1], False,
+             -1e9, 1e9),
+            ("a-rate, rows, explicit route", rows, mods[1], True, -1e9, 1e9)):
+        L, Cm = intr.shape[1], mod.shape[1]
+        scale = float(np.float32(1.0 / np.sqrt(Cm)))
+        mcases.append(compare(
+            f"K6m param modulation ({label}: mod {list(mod.shape)})", "cuda",
+            "graphaudio_tpu_torch/csrc/param_eval.cu", "graphaudio_tpu/ops/param_eval.py:339",
+            lambda intr=intr, mod=mod, a=a_rate, lo=lo, hi=hi:
+                tpe.apply_modulation(intr, mod, lo, hi, a),
+            lambda intr=intr, mod=mod, a=a_rate, lo=lo, hi=hi:
+                tpe.apply_modulation_plain(intr, mod, lo, hi, a), 0,
+            # intr (rows, or one value a lane) and mod read once (k-rate:
+            # one sample a quantum), out written once; flops a sample: the
+            # add and the clamp's two (mono), or Cm - 1 adds, an fma (2)
+            # and the clamp's two (Cm channels)
+            bnd=bound(nbytes(intr if intr.is_contiguous() else gain)
+                      + (nbytes(mod) if a_rate else V * S * 4 * Cm) + V * L * 4,
+                      (3 if Cm == 1 else Cm + 3) * V * L),
+            library=(lambda intr=intr, mod=mod, lo=lo, hi=hi, scale=scale:
+                     torch.clamp(intr + (mod[:, 0] if mod.shape[1] == 1
+                                         else mod.sum(1) * scale), lo, hi))
+            if a_rate else None, device_times=True))
+    k6m = dict(mcases[0], name="K6m param modulation",
+               cases=[{k: c[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "library_ms", "device_ms")} for c in mcases])
+    return [k11, k6m]
+
+
+def wire_runs(dev, build, step_frames, frames, f32, runs=5):
+    """``runs`` 30 s renders each through ``render_mulaw`` and
+    ``render_adpcm`` of config 4 from fresh contexts: each packed render
+    equal to the host encoders of ``f32`` (a 30 s f32 render from the same
+    tree) bit for bit, K4mu and K4a launched once a launch chunk; the xRT
+    spread, the wire bytes, and each format's SNR against ``f32``. Then one
+    render of each 4321 frames shorter, which ends inside a superblock
+    (its kept frames packed on the device, the rest carried as f32), timed and
+    held to the host encoders of ``f32``'s first frames bit for bit."""
+    from graphaudio_tpu_torch.ops import wire as twire
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    def snr_db(got):
+        ref = f32.astype(np.float64)
+        return float(10 * np.log10(np.sum(ref ** 2) / np.sum((got - ref) ** 2)))
+
+    q = twire.quantize_i16(f32)
+    spb = twire.DEFAULT_SAMPLES_PER_BLOCK
+    padded = np.concatenate([q, np.zeros((q.shape[0], (-frames) % spb), np.int16)], axis=1)
+    want = {"render_mulaw": twire.mulaw_encode_np(f32),
+            "render_adpcm": twire.ima_encode_np(padded, spb)}
+    ragged = frames - 4321
+    q_r = np.concatenate([q[:, :ragged], np.zeros((q.shape[0], (-ragged) % spb), np.int16)],
+                         axis=1)
+    want_ragged = {"render_mulaw": twire.mulaw_encode_np(f32[:, :ragged]),
+                   "render_adpcm": twire.ima_encode_np(q_r, spb)}
+    counts = {"render_mulaw": "pack_mulaw", "render_adpcm": "ima_chunk_encode"}
+    out = {}
+    for method, wrapper in counts.items():
+        build().render(step_frames)
+        cudabuild.launches.clear()
+        got, wall, bd = timed_render(build, frames, method)
+        launches = cudabuild.launches[wrapper]
+        walls = [wall] + [timed_render(build, frames, method)[1] for _ in range(runs - 1)]
+        data = got if method == "render_mulaw" else got.blocks
+        if not np.array_equal(data, want[method]):
+            raise AssertionError(f"{method} differs from the host encoder of the f32 render")
+        if launches != bd["n_launches"]:
+            raise AssertionError(f"{method}: {launches} {wrapper} launches for "
+                                 f"{bd['n_launches']} launch chunks")
+        decoded = (twire.mulaw_decode_np(got, f32.shape[0]) if method == "render_mulaw"
+                   else got.decode())
+        got_r, wall_r, _ = timed_render(build, ragged, method)
+        if not np.array_equal(got_r if method == "render_mulaw" else got_r.blocks,
+                              want_ragged[method]):
+            raise AssertionError(f"{method} of {ragged} frames differs from the host encoder "
+                                 "of the f32 render's first frames")
+        out[method] = {"wire_bytes": int(data.nbytes), "f32_bytes": int(f32.nbytes),
+                       "snr_db_vs_f32": snr_db(decoded), "launches": launches,
+                       "launch_chunks": bd["n_launches"], **spread(frames, walls),
+                       "breakdown": bd, "ragged": {"frames": ragged, "wall_s": wall_r,
+                                                   "xrt": ragged / SR / wall_r}}
+        phase("render", f"config 4 {method}: {data.shape} {data.dtype}, {data.nbytes} bytes "
+              f"({f32.nbytes} as f32); bit for bit the host encoder of the f32 render; "
+              f"SNR {out[method]['snr_db_vs_f32']!r} dB against it; {runs} runs {walls!r} s, "
+              f"median {out[method]['xrt_median']!r} xRT; {launches} launches for "
+              f"{bd['n_launches']} launch chunks; first run breakdown {json.dumps(bd)}; "
+              f"{ragged} frames (ragged end) {wall_r!r} s, bit for bit")
+    return out
+
+
+def config6_runs(dev, runs=5):
+    """Config 6 at full size (64 voices, superblock 32, 351 superblocks),
+    modulated and not, ``runs`` renders each (``render_runs``): the
+    modulated one's first 8192 frames within 1e-5 of the golden, the
+    unmodulated one's of its CPU render; K11 once a step in both, K6m once
+    a step in the modulated one and never in the other."""
+    from graphaudio_tpu_torch.testing.configs import config6_lfo_tremolo
+
+    T6 = 32 * 128
+    frames6 = (30 * SR // T6) * T6
+    steps = frames6 // T6
+    counts = {"K11": ("oscillator_group_step",), "K11 constant": ("constant_group_step",),
+              "K6m": ("apply_modulation",), "K5": ("unity_group_step",),
+              "K3": ("fan_in_lanes",)}
+    ref_u = config6_lfo_tremolo(superblock=32, modulated=False, device="cpu").render(2 * T6)
+    out = {
+        "modulated": render_runs(6, lambda: config6_lfo_tremolo(superblock=32, device=dev), T6,
+                                 frames6, counts, K11K6M_GROUPS, runs=runs),
+        "unmodulated": render_runs(
+            "6 unmodulated",
+            lambda: config6_lfo_tremolo(superblock=32, modulated=False, device=dev), T6,
+            frames6, counts, K11K6M_GROUPS, runs=runs, ref=ref_u),
+    }
+    for variant, k6m in (("modulated", steps), ("unmodulated", 0)):
+        got = out[variant]["launches"]
+        if got["K11"] != steps or got["K6m"] != k6m:
+            raise AssertionError(f"config 6 {variant}: K11 {got['K11']} and K6m {got['K6m']} "
+                                 f"launches in {steps} steps, not {steps} and {k6m}")
+    return out
+
+
 def goldens(dev):
-    """Configs 4, 3, 2 and 5 at superblock 4 over 8192 frames against
+    """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
     from graphaudio_tpu_torch.testing.configs import (config2_mix_bus, config3_eq_chain,
-                                                      config4_conv_reverb, config5_spatial_scene)
+                                                      config4_conv_reverb, config5_spatial_scene,
+                                                      config6_lfo_tremolo)
 
     golden_err = {}
     for n, builder in ((4, config4_conv_reverb), (3, config3_eq_chain), (2, config2_mix_bus),
-                       (5, config5_spatial_scene)):
+                       (5, config5_spatial_scene), (6, config6_lfo_tremolo)):
         out = builder(superblock=4, device=dev).render(8192)
         golden = np.load(GOLDENS[n])["out"]
         err = float(np.abs(out.astype(np.float64) - golden).max())
@@ -1384,6 +1684,19 @@ def main(device="cuda", only=None):
                 e["launches"] = runs["config5"]["launches"][label]
             for n in (4, 5):
                 runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
+        elif only == "wire6":
+            entries = wire_checks(dev, 64 * T) + k11k6m_checks(dev)
+            golden_err = goldens(dev)
+            f32, _, _ = timed_render(b4, frames)
+            runs = {"config4_wire": wire_runs(dev, b4, T, frames, f32),
+                    "config6": config6_runs(dev)}
+            runs["config6"]["golden_max_abs_err"] = golden_err[6]
+            for e, where in zip(entries, ("render_mulaw", "render_adpcm")):
+                e["launches"] = runs["config4_wire"][where]["launches"]
+            for e, label in zip(entries[2:], ("K11", "K6m")):
+                e["launches"] = runs["config6"]["modulated"]["launches"][label]
+            entries[2]["constant_mode"]["launches"] = \
+                runs["config6"]["modulated"]["launches"]["K11 constant"]
         elif only == "k9":
             entries = [k9_checks(dev)]
             golden_err = goldens(dev)
@@ -1452,8 +1765,11 @@ def main(device="cuda", only=None):
         lambda: tcontext.pack_int16(audio), lambda: tcontext.pack_int16_plain(audio), 0,
         bnd=bound(nbytes(audio) + audio.numel() * 2, 3 * audio.numel())))
 
-    # -- 3b. the config-3 and config-5 paths' kernels ----------------------------
+    entries += wire_checks(dev, 64 * T)  # config 4's launch chunk: 64 steps
+
+    # -- 3b. the config-3, config-5 and config-6 paths' kernels ---------------------
     entries += config3_kernel_checks(dev)
+    entries += k11k6m_checks(dev)
     c5, k3_c5 = config5_kernel_checks(dev)
     entries += c5
     k3["config5_shape"] = {k: k3_c5[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
@@ -1532,8 +1848,10 @@ def main(device="cuda", only=None):
     head_err = float(np.abs(out3[:, :8192].astype(np.float64)
                             - np.load(GOLDENS[3])["out"]).max())
     render3 = spread(frames3, walls3)
+    sha3 = hashlib.sha256(np.ascontiguousarray(out3).tobytes()).hexdigest()
     phase("render", f"config 3 f32: {out3.shape}; five runs {walls3!r} s, median "
-          f"{render3['xrt_median']!r} xRT; rms {rms3!r}; first 8192 frames vs golden "
+          f"{render3['xrt_median']!r} xRT; rms {rms3!r}; sha256 of the first run {sha3}; "
+          f"first 8192 frames vs golden "
           f"max_abs_err={head_err!r}; first run breakdown {json.dumps(bd3)}; launches {launches3}")
     if not (out3.shape == (2, frames3) and np.isfinite(out3).all() and rms3 > 0
             and head_err < 1e-5):
@@ -1635,10 +1953,27 @@ def main(device="cuda", only=None):
             # the one-pole mode is not on the panner's path: 0
             e["one_pole_mode"]["launches"] = launches_full["K9 one-pole lowpass"]
 
+    # -- 9. the wire formats on config 4 ------------------------------------------
+    wire4 = wire_runs(dev, b4, T, frames, f32)
+
+    # -- 10. config 6 at full size -----------------------------------------------------
+    runs6 = config6_runs(dev)
+    for e in entries:
+        if e["name"] == "K4mu mu-law pack":
+            e["launches"] = wire4["render_mulaw"]["launches"]
+        elif e["name"] == "K4a IMA ADPCM chunk encoder":
+            e["launches"] = wire4["render_adpcm"]["launches"]
+        elif e["name"] == "K11 oscillator group step":
+            e["launches"] = runs6["modulated"]["launches"]["K11"]
+            e["constant_mode"]["launches"] = runs6["modulated"]["launches"]["K11 constant"]
+        elif e["name"] == "K6m param modulation":
+            e["launches"] = runs6["modulated"]["launches"]["K6m"]
+
     print(json.dumps({"kernels": entries, "render": {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
         "config3": {"frames": frames3, "f32": render3, "host_us_per_step_median": host_us3,
+                    "sha256": sha3,
                     "golden_max_abs_err": golden_err[3], "head_vs_golden": head_err,
                     "launches": launches3, "profile": profile3, "torch_ops": ops3},
         "config5": {"frames": frames5, "f32": render5, "host_us_per_step_median": host_us5,
@@ -1647,6 +1982,8 @@ def main(device="cuda", only=None):
                     "launches": launches5, "profile": profile5, "torch_ops": ops5},
         "occluded": {"max_abs_err_vs_cpu": err_occ, "launches": launches_occ},
         "occluded_full": full_occ,
+        "config4_wire": wire4,
+        "config6": dict(runs6, golden_max_abs_err=golden_err[6]),
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1670,6 +2007,9 @@ if __name__ == "__main__":
                    "renders each of configs 4 and 5",
         "k9": "the K9 band split and one-pole checks, the goldens and three 30 s renders "
               "each of the full-size occluded config 5 and of configs 4 and 5",
+        "wire6": "the K4mu, K4a, K11 and K6m checks, the goldens, five 30 s render_mulaw "
+                 "and render_adpcm of config 4 and five 30 s renders each of config 6 "
+                 "modulated and not",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

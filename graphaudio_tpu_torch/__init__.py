@@ -41,10 +41,13 @@ from graphaudio_tpu_torch.nodes import (  # noqa: E402
     AudioBufferSourceNode,
     AudioDestinationNode,
     BiQuadFilterNode,
+    ConstantSourceNode,
     ConvolverNode,
     DistanceModelType,
     FilterType,
     GainNode,
+    OscillatorNode,
+    OscillatorType,
     SpatialPannerNode,
 )
 from graphaudio_tpu_torch import kit  # noqa: E402
@@ -68,6 +71,9 @@ __all__ = [
     "AudioDestinationNode",
     "GainNode",
     "AudioBufferSourceNode",
+    "ConstantSourceNode",
+    "OscillatorNode",
+    "OscillatorType",
     "ConvolverNode",
     "BiQuadFilterNode",
     "FilterType",

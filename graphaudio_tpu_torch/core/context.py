@@ -11,7 +11,8 @@ CUDA where there is none raises — nothing falls back to the CPU. State lives
 on that device as dicts of tensors between calls; graph edits apply at
 render boundaries.
 
-``pack_int16`` is K4, the interleaved int16 PCM pack of ``render_pcm16``.
+``pack_int16`` is K4, the interleaved int16 PCM pack of ``render_pcm16``;
+``render_mulaw`` and ``render_adpcm`` pack with K4mu and K4a (ops/wire.py).
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from graphaudio_tpu_torch.core.constants import (
     FRAMES_PER_BLOCK,
 )
 from graphaudio_tpu_torch.core.graph import CompiledGraph, StaticRenderInfo, to_device
+from graphaudio_tpu_torch.ops import wire
 from graphaudio_tpu_torch.ops.hrtf import N_AZIMUTH, N_ELEVATION, load_hrir_grid
+from graphaudio_tpu_torch.ops.wire import ImaDeviceStream, pack_mulaw
 from graphaudio_tpu_torch.utils import cudabuild
 from graphaudio_tpu_torch.utils.profiling import RenderStats
 
@@ -516,9 +519,15 @@ class AudioContextBase:
 
     # -- rendering ------------------------------------------------------------
 
-    def _render_steps(self, n_steps: int, pack: str = None) -> np.ndarray:
-        """Render ``n_steps`` superblocks; returns f32[channels, n_steps*S*128]
-        (or flat interleaved int16 with ``pack="int16"``).
+    def _render_steps(self, n_steps: int, pack=None, keep=None):
+        """Render ``n_steps`` superblocks; returns f32[channels, n_steps*S*128].
+
+        With ``pack``, a function of one launch's f32 device audio [C, F]
+        (``pack_int16``, ``pack_mulaw``, ``ImaDeviceStream.pack``), every
+        launch is packed on the device and the call returns (the packed
+        launches joined along axis 0, None). With ``keep`` too, only the
+        first ``keep`` frames are packed (``keep`` lies in the last
+        superblock) and the rest comes back unpacked: (packed, f32[C, n]).
 
         Drains pending commands first (parity: DrainCommands at block start,
         AudioContextBase.cs:272), then enqueues the steps in launches of
@@ -527,8 +536,6 @@ class AudioContextBase:
         """
         if self._disposed:
             raise RuntimeError("context is disposed")
-        if pack not in (None, "int16"):
-            raise ValueError(f"unsupported pack {pack!r}")
         t0 = time.perf_counter()
         self._drain_commands()
         self._ensure_compiled()
@@ -552,6 +559,7 @@ class AudioContextBase:
 
         cuda = self.device.type == "cuda"
         pending = []
+        tail = None
         launched = 0
         chunk_i = 0
         while launched < n_steps:
@@ -563,8 +571,13 @@ class AudioContextBase:
                 self._states, self._encs, self._consts,
                 block_times[launched:launched + this], frame0s,
             )
-            if pack == "int16":
-                out = pack_int16(out)
+            if keep is not None and launched + this == n_steps:
+                cut = keep - launched * frames_per_step
+                tail = out[:, cut:].contiguous()
+                tail = tail.to("cpu", non_blocking=True) if cuda else tail
+                out = out[:, :cut].contiguous()
+            if pack is not None:
+                out = pack(out)
             # Async device-to-host copy (into pinned memory) so the device
             # keeps working while the host enqueues the next launch.
             pending.append(out.to("cpu", non_blocking=True) if cuda else out)
@@ -575,6 +588,8 @@ class AudioContextBase:
         parts = [p.numpy() for p in pending]
         axis = 1 if pack is None else 0
         out_np = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
+        if tail is not None:
+            tail = tail.numpy()
         t_notify = time.perf_counter()
 
         self._current_frame += n_steps * frames_per_step
@@ -595,7 +610,7 @@ class AudioContextBase:
                 "n_launches": chunk_i,
             },
         )
-        return out_np
+        return out_np if pack is None else (out_np, tail)
 
     def _notify_sources(self) -> None:
         """Fire ended-events / self-disposal on scheduled sources that can
@@ -718,38 +733,73 @@ class AudioContextBase:
         dequantized (v / 32767), which re-quantizes bit-identically.
         Returns int16[frame_count * channels].
         """
+        return self._render_flat(
+            frame_count, pack_int16,
+            lambda part: np.ascontiguousarray(wire.quantize_i16(part).T).reshape(-1),
+            np.int16(0),
+            decode=lambda frames: frames.T.astype(np.float32) / np.float32(32767.0))
+
+    # -- compressed wire formats ------------------------------------------------
+    #
+    # Standard lossy delivery formats encoded on the device: G.711 mu-law (1
+    # byte a sample) and IMA ADPCM (about 4.06 bits a sample). The f32 and
+    # pcm16 paths remain the accuracy-bearing surfaces.
+
+    def render_mulaw(self, frame_count: int) -> np.ndarray:
+        """Render ``frame_count`` frames as interleaved G.711 mu-law bytes.
+
+        The companding of the int16-quantized signal runs on the device
+        (K4mu, ops.wire.pack_mulaw), decodable by any G.711 decoder (as a
+        WAV with ops.wire.mulaw_wav_bytes) or ops.wire.mulaw_decode_np.
+        Frames carried in from an earlier render encode on the host with the
+        same formula; frames over-rendered past ``frame_count`` come back
+        unpacked and carry as exact float32, so later calls continue
+        bit-identically to an all-f32 session.
+        """
+        return self._render_flat(frame_count, pack_mulaw, wire.mulaw_encode_np, np.uint8(0xFF))
+
+    def _render_flat(self, frame_count, pack, encode, silence, decode=None) -> np.ndarray:
+        """Render ``frame_count`` frames as one flat interleaved format.
+
+        ``pack`` packs each launch on the device; ``encode`` (f32 [C, n] ->
+        flat interleaved) encodes frames carried in from an earlier render
+        on the host. Frames rendered past ``frame_count`` are packed too and
+        carried back through ``decode`` (packed [n, C] -> f32 [C, n]) where
+        it is given, else they come back unpacked and carry as they are.
+        Segments rendered before a mid-call change of the channel count are
+        padded to the widest count with ``silence``, whose type is the
+        format's.
+        """
         if frame_count < 0:
             raise ValueError("frame_count must be non-negative")
         if frame_count == 0:
-            return np.zeros(0, dtype=np.int16)
+            return np.zeros(0, dtype=silence.dtype)
 
-        chunks = []  # (flat interleaved int16, channel count)
+        chunks = []  # (flat interleaved samples, channel count)
         got = 0
         if self._carry is not None and self._carry.shape[1] > 0:
             take = min(frame_count, self._carry.shape[1])
             part = self._carry[:, :take]
             self._carry = self._carry[:, take:] if take < self._carry.shape[1] else None
-            pcm = np.round(np.clip(part, -1.0, 1.0) * np.float32(32767.0))
-            chunks.append((
-                np.ascontiguousarray(pcm.T.astype(np.int16)).reshape(-1),
-                part.shape[0],
-            ))
+            chunks.append((encode(part), part.shape[0]))
             got += take
 
         remaining = frame_count - got
         frames_per_step = self.superblock * FRAMES_PER_BLOCK
         while remaining > 0:
             n_steps = self._segment_cap(-(-remaining // frames_per_step))
-            out = self._render_steps(n_steps, pack="int16")
+            over = n_steps * frames_per_step > remaining
+            out, tail = self._render_steps(
+                n_steps, pack=pack, keep=remaining if over and decode is None else None)
             ch = max(self._dest_channels or 0, 1)
             total = out.shape[0] // ch
             if total > remaining:
-                flat = out.reshape(total, ch)
-                self._carry = np.ascontiguousarray(
-                    flat[remaining:].T.astype(np.float32) / np.float32(32767.0)
-                )
-                out = np.ascontiguousarray(flat[:remaining]).reshape(-1)
+                frames = out.reshape(total, ch)
+                tail = decode(frames[remaining:])
+                out = np.ascontiguousarray(frames[:remaining]).reshape(-1)
                 total = remaining
+            if tail is not None:
+                self._carry = np.ascontiguousarray(tail)
             chunks.append((out, ch))
             remaining -= total
 
@@ -766,10 +816,82 @@ class AudioContextBase:
                 padded.append(flat)
                 continue
             frames = flat.reshape(-1, c)
-            wide = np.zeros((frames.shape[0], width), dtype=np.int16)
+            wide = np.full((frames.shape[0], width), silence, dtype=silence.dtype)
             wide[:, :c] = frames
             padded.append(wide.reshape(-1))
         return np.concatenate(padded)
+
+    def render_adpcm(self, frame_count: int, samples_per_block: int = None):
+        """Render ``frame_count`` frames as a standard IMA ADPCM stream.
+
+        Returns an ``ops.wire.AdpcmStream`` of WAV tag-0x11 blocks (about
+        4.06 bits a sample at the default 505-sample block). Blocks encode
+        on the device (K4a), with the block-boundary carry threaded across
+        launch chunks so the call yields one contiguous stream
+        (``stream.write_wav(path)``). Frames over-rendered past
+        ``frame_count`` come back unpacked and carry as exact float32. An
+        ADPCM stream has a fixed channel layout: a timed command that
+        changes the destination channel count mid-call raises.
+        """
+        if frame_count < 0:
+            raise ValueError("frame_count must be non-negative")
+        spb = wire._validate_spb(
+            samples_per_block if samples_per_block is not None
+            else wire.DEFAULT_SAMPLES_PER_BLOCK
+        )
+        # The stream's channel layout is fixed up front: drain + build now.
+        self._drain_commands()
+        self._ensure_compiled()
+        ch = max(self._dest_channels or 0, 1)
+        stream = ImaDeviceStream(ch, spb)
+        block_parts: List[np.ndarray] = []
+
+        def host_blocks(q: np.ndarray) -> None:
+            """Host-encode int16 [ch, n]: its whole blocks; the remainder
+            seeds the stream's carry."""
+            whole = (q.shape[1] // spb) * spb
+            if whole:
+                block_parts.append(wire.ima_encode_np(q[:, :whole], spb))
+            stream.set_carry(q[:, whole:])
+
+        got = 0
+        if self._carry is not None and self._carry.shape[1] > 0:
+            take = min(frame_count, self._carry.shape[1])
+            part = self._carry[:, :take]
+            self._carry = self._carry[:, take:] if take < self._carry.shape[1] else None
+            if part.shape[0] != ch:  # topology edited since the carry
+                fixed = np.zeros((ch, part.shape[1]), np.float32)
+                fixed[: min(ch, part.shape[0])] = part[: min(ch, part.shape[0])]
+                part = fixed
+            host_blocks(wire.quantize_i16(part))
+            got += take
+
+        remaining = frame_count - got
+        frames_per_step = self.superblock * FRAMES_PER_BLOCK
+        while remaining > 0:
+            n_steps = self._segment_cap(-(-remaining // frames_per_step))
+            seg = n_steps * frames_per_step
+            # Frames past frame_count come back unpacked and carry as exact
+            # float32; the ones before them pack on the device.
+            blocks, tail = self._render_steps(
+                n_steps, pack=stream.pack, keep=remaining if seg > remaining else None)
+            if blocks.size:
+                block_parts.append(blocks)
+            if tail is not None:
+                self._carry = np.ascontiguousarray(tail)
+            remaining -= min(seg, remaining)
+        if stream.carry_len:
+            # Flush: the last partial block, zero-padded, on the host.
+            rem = stream.pull_carry()
+            padded = np.concatenate([rem, np.zeros((ch, spb - rem.shape[1]), np.int16)], axis=1)
+            block_parts.append(wire.ima_encode_np(padded, spb))
+
+        blocks_all = (
+            np.concatenate(block_parts, axis=0) if block_parts
+            else np.zeros((0, stream.block_align), np.uint8)
+        )
+        return wire.AdpcmStream(blocks=blocks_all, channels=ch, samples_per_block=spb,
+                                sample_rate=self.sample_rate, frames=frame_count)
 
 
 class OfflineAudioContext(AudioContextBase):

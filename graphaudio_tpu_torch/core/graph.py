@@ -17,9 +17,15 @@ arena (``encode_params`` packs its table once per encoding), and each batch
 function of the stages' ``prologue_request``s (K8 for the biquads, K10b
 for the spatial panners) runs once for all of its stages.
 
+A modulated param (an AudioNode output connected to it) gets its
+modulation added and clamped by K6m (``apply_modulation``) once a step,
+after its intrinsic values; a group routes its lanes' modulators like
+per-lane audio inputs, the 1:1 per-voice LFO -> param chain as CHAIN.
+
 Left out so far (see ROADMAP.md): chain fusion into pipelined stages
 (``_fuse_chains``), mesh sharding (``_compute_sharding`` / ``shard_map``),
-modulated params, and the time-varying-rate buffer-source variant.
+modulated params that a stage's prologue reads (the biquad's and the
+spatial panner's), and the time-varying-rate buffer-source variant.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from graphaudio_tpu_torch.core.mixing import (
 )
 from graphaudio_tpu_torch.core.params import AutomationRate
 from graphaudio_tpu_torch.ops.param_eval import (
+    apply_modulation,
     constant_slot,
     eval_intrinsic_batch,
     eval_intrinsic_blocked,
@@ -443,13 +450,32 @@ class CompiledGraph:
                     for inp in rep.inputs
                 )
             for n in nodes:
-                if n._params_modulated():
-                    raise NotImplementedError(
-                        "modulated AudioParams are not ported yet "
-                        "(ROADMAP.md module item 8)"
-                    )
+                for name in n.prologue_params:
+                    if n.params[name]._mod_outputs:
+                        raise NotImplementedError(
+                            f"a modulated {type(n).__name__} {name!r} is read by the "
+                            "step's prologue, which runs before any node: not ported "
+                            "yet (ROADMAP.md module item 8b)"
+                        )
+            # (name, a_rate, exact, modspec): modspec is None without
+            # modulation, else (min, max, routing). A group's lanes agree on
+            # WHICH params are modulated (the mod signature is in the group
+            # key) and route their modulators like audio inputs, the 1:1
+            # per-voice LFO -> param chain as CHAIN.
             params = tuple(
-                (name, p.automation_rate == AutomationRate.A_RATE, p.exact_eval)
+                (
+                    name,
+                    p.automation_rate == AutomationRate.A_RATE,
+                    p.exact_eval,
+                    (
+                        float(p.min_value),
+                        float(p.max_value),
+                        chain_or_lanes(
+                            nodes, lambda n, name=name: n.params[name]._mod_outputs,
+                            self.stage_pad[si][1],
+                        ) if kind == "group" else producers(p._mod_outputs),
+                    ) if p._mod_outputs else None,
+                )
                 for name, p in rep.params.items()
             )
             out_counts = tuple(
@@ -595,7 +621,7 @@ class CompiledGraph:
         for sp in self.plan:
             if not _evaluates_params(sp):
                 continue
-            for name, a_rate, exact in sp["params"]:
+            for name, a_rate, exact, _ in sp["params"]:
                 key = f"{sp['key']}/{name}"
                 if encs[key]["times"].shape[-1] and not exact:
                     entries.append((key, encs[key], FRAMES_PER_BLOCK if a_rate else 1))
@@ -605,7 +631,7 @@ class CompiledGraph:
             if not _evaluates_params(sp):
                 continue
             slots = {}
-            for name, a_rate, exact in sp["params"]:
+            for name, a_rate, exact, _ in sp["params"]:
                 key = f"{sp['key']}/{name}"
                 slot = table["slots"].get(key)
                 if slot is None and not encs[key]["times"].shape[-1]:
@@ -632,11 +658,11 @@ class CompiledGraph:
         plan = self.plan
         dest_channels = self.input_channels[(self.destination.node_id, 0)]
 
-        # (name, a-rate, exact, encoding key) of each stage's params, but
-        # those that only its prologue request reads
+        # (name, a-rate, exact, modspec, encoding key) of each stage's
+        # params, but those that only its prologue request reads
         stage_params = {
-            sp["key"]: [(name, a_rate, exact, f"{sp['key']}/{name}")
-                        for name, a_rate, exact in sp["params"]
+            sp["key"]: [(name, a_rate, exact, modspec, f"{sp['key']}/{name}")
+                        for name, a_rate, exact, modspec in sp["params"]
                         if name not in sp["rep"].prologue_params]
             for sp in plan
         }
@@ -688,11 +714,23 @@ class CompiledGraph:
                     acc = acc + p
                 return acc
 
+            def modulation(sp, routing):
+                """A modulated param's modulation input, f32[V, Cm, T]: a
+                CHAIN route's producer group output as it is, else each
+                lane's mixed mono sum (a stage's one lane: [1, 1, T])."""
+                if sp["kind"] != "group":
+                    return mixed_signal(routing, 1)[None]
+                if routing and routing[0] == "CHAIN":
+                    return out_table[(routing[1], routing[2])]
+                return torch.stack([mixed_signal(pl, 1) for pl in routing])
+
             def eval_params(sp, key):
                 """Each param's values: its rows of the arena, or (no
-                events) its base value as a broadcast view."""
+                events) its base value as a broadcast view; a modulated
+                param then goes through K6m (apply_modulation), once a
+                step."""
                 params = {}
-                for name, a_rate, exact, pkey in stage_params[key]:
+                for name, a_rate, exact, modspec, pkey in stage_params[key]:
                     slot = slots.get(pkey)
                     if slot is None:
                         vals = eval_intrinsic_blocked(
@@ -702,6 +740,11 @@ class CompiledGraph:
                     else:
                         vals = arena.narrow(0, slot.off, slot.lanes * slot.per_lane).view(
                             *slot.shape, slot.per_lane)
+                    if modspec is not None:
+                        lo, hi, routing = modspec
+                        mod = modulation(sp, routing)
+                        vals = apply_modulation(vals.reshape(mod.shape[0], -1), mod, lo, hi,
+                                                a_rate).reshape(vals.shape)
                     params[name] = ParamSignal(vals, a_rate)
                 return params
 

@@ -151,3 +151,54 @@ GA_EXPORT int ga_param_eval_batch(const double* times, const float* values, cons
       times, values, tcs, types, boundary, nev, base, rows, block_times, cap, S, dt, out);
   return ga_launch_status();
 }
+
+// K6m: an AudioParam's modulation, added and clamped.
+//
+// Replaces graphaudio_tpu/ops/param_eval.py apply_modulation (:339) and its
+// two inline uses in graphaudio_tpu/core/graph.py (:1163-1175, one stage;
+// :1271-1297, a group): out = clamp(intrinsic + mono(mod), lo, hi), the
+// hidden mono modulation input of AudioParam.cs:66-70. The intrinsic
+// values are a row per lane (an arena row, or K6m's own earlier output) or,
+// for a param without events, one base value per lane (the broadcast view
+// is never copied). mod is the producer's [V, Cm, T]: a CHAIN route's group
+// output, down-mixed here as adapt_channels does (the channels summed in
+// order, times fl32(1/sqrt(Cm)), a multiply that XLA contracts with the add
+// into one fma, and so does this kernel), or an explicit route's stacked
+// mono sums (Cm = 1). A k-rate param (npb = 1, L = S) reads the modulation at sample
+// 0 of each quantum (AudioParam.cs:150-156). The clamp is min(max(x, lo),
+// hi) written as comparisons, so a NaN passes as torch.clamp passes it.
+//
+// Bound on the H100: memory (8 to 12 bytes a sample of a-rate output); at
+// config 6's [64, 4096] that is under a microsecond of HBM time, so the
+// launch dominates. One thread per output element.
+namespace {
+
+__global__ void apply_modulation_kernel(const float* __restrict__ intr, int intr_rows,
+                                        const float* __restrict__ mod, int Cm, int T, int L,
+                                        int npb, float scale, float lo, float hi,
+                                        float* __restrict__ out) {
+  const int v = blockIdx.y;
+  const int j = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+  if (j >= L) return;
+  const int t = npb == 1 ? j * 128 : j;
+  const float* m = mod + static_cast<int64_t>(v) * Cm * T + t;
+  float sum = m[0];
+  for (int c = 1; c < Cm; ++c) sum = __fadd_rn(sum, m[static_cast<int64_t>(c) * T]);
+  const int64_t at = static_cast<int64_t>(v) * L + j;
+  const float base = intr_rows ? intr[at] : intr[v];
+  float x = Cm == 1 ? __fadd_rn(base, sum) : fmaf(sum, scale, base);
+  x = x < lo ? lo : x;
+  x = x > hi ? hi : x;
+  out[at] = x;
+}
+
+}  // namespace
+
+GA_EXPORT int ga_apply_modulation(const float* intr, int intr_rows, const float* mod, int V,
+                                  int Cm, int T, int L, int npb, float scale, float lo, float hi,
+                                  float* out, void* stream) {
+  const dim3 grid((L + kThreads - 1) / kThreads, V);
+  apply_modulation_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      intr, intr_rows, mod, Cm, T, L, npb, scale, lo, hi, out);
+  return ga_launch_status();
+}

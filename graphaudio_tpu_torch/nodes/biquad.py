@@ -138,6 +138,9 @@ class BiQuadFilterNode(AudioNode):
         keeps running filter state, but never a stale type selector."""
         return {"__type_sel__": self._type_onehot()}
 
+    #: K8 in the step's prologue reads all three params; ``process`` none.
+    prologue_params = ("frequency", "Q", "gain")
+
     def prologue_request(self, slots):
         """K8's item: the type and where frequency, Q and gain lie."""
         return PrologueRequest(_step_coefficients, pack_coefficient_table,

@@ -1,4 +1,4 @@
-"""Scheduled sources: ScheduledSourceNode and AudioBufferSourceNode.
+"""Scheduled sources: ConstantSourceNode, OscillatorNode, AudioBufferSourceNode.
 
 Scheduled sources (parity: IAudioScheduledSourceNode.cs:8-25):
 ``start(when, offset, duration)`` is once-only, ``stop(when)`` is
@@ -23,10 +23,16 @@ audio together; on the CPU the plan functions below and the plain gathers
 compute the same step.
 The time-varying resampler raises NotImplementedError naming its ROADMAP
 item.
+
+The constant source and the oscillator run as group stages too: each
+step of a stage is one K11 launch on the card (ops/oscillator.py), the
+sample gate, the f64 phase anchors and the waveform together. The
+oscillator's phase is an f64 state, reset by ``start``.
 """
 
 from __future__ import annotations
 
+import enum
 import math
 from fractions import Fraction
 from typing import Callable, List
@@ -37,6 +43,11 @@ import torch
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.core.node import AudioNode
 from graphaudio_tpu_torch.core.params import AutomationRate
+from graphaudio_tpu_torch.ops.oscillator import (
+    constant_group_step,
+    oscillator_group_step,
+    sample_gate,
+)
 from graphaudio_tpu_torch.ops.resample import poly_group_step, poly_resample_plain
 from graphaudio_tpu_torch.ops.unity import unity_group_step, unity_gather_plain
 
@@ -125,6 +136,18 @@ class ScheduledSourceNode(AudioNode):
             & (rc.block_times < states["stop_time"][..., None])
         )
 
+    @staticmethod
+    def _sample_gate(states, rc):
+        """bool[..., S, 128]: the sample-accurate sub-block gate (parity:
+        OscillatorNode.cs:104-118), startFrame = ceil((start-t0)*sr) when
+        the start falls inside a quantum, endFrame = floor((stop-t0)*sr)
+        when the stop does; over any leading state dims."""
+        lead = states["started"].shape
+        flat = {k: states[k].reshape(-1) for k in ("started", "start_time", "stop_time")}
+        gate = sample_gate(flat["started"], flat["start_time"], flat["stop_time"],
+                           rc.block_times, rc.sample_rate)
+        return gate.reshape(*lead, *gate.shape[1:])
+
     # -- host-side ended handling ------------------------------------------------
 
     def _device_may_end(self) -> bool:
@@ -151,6 +174,113 @@ class ScheduledSourceNode(AudioNode):
                 except Exception:
                     pass  # parity: ended-event handler errors never stop rendering
             self.dispose()  # self-dispose (parity: OscillatorNode.cs:163-172)
+
+
+def _lanes_of(state):
+    """A stage's lane count and its states as [L] tensors (a single node's
+    0-d states become one lane)."""
+    lead = state["started"].shape
+    return lead, {k: v.reshape(-1) if isinstance(v, torch.Tensor) else v
+                  for k, v in state.items()}
+
+
+class ConstantSourceNode(ScheduledSourceNode):
+    """Emits the a-rate ``offset`` param (parity: ConstantSourceNode.cs:14),
+    typically as a modulation source connected to other nodes' params."""
+
+    def __init__(self, context):
+        super().__init__(context, output_count=1, name="ConstantSource")
+        self.offset = self.create_audio_param(
+            "offset", 1.0, automation_rate=AutomationRate.A_RATE
+        )
+
+    def output_channel_counts(self, input_channels):
+        return [1]
+
+    def group_key(self, input_channels):
+        return ("const-source", self._mod_signature())
+
+    def init_state(self, info):
+        return self._sched_state()
+
+    def process(self, state, inputs, params, rc):
+        """``gate ? offset : 0``: K11's constant step over the stage's
+        lanes (one launch on the card)."""
+        lead, st = _lanes_of(state)
+        L = st["started"].shape[0]
+        out = constant_group_step(
+            params["offset"].per_sample().reshape(L, -1), st["started"], st["start_time"],
+            st["stop_time"], rc.block_times, rc.sample_rate)
+        return state, [out.reshape(*lead, 1, rc.frames)]
+
+
+class OscillatorType(enum.Enum):
+    """Parity: OscillatorNode.cs:208-214."""
+
+    SINE = "sine"
+    SQUARE = "square"
+    SAWTOOTH = "sawtooth"
+    TRIANGLE = "triangle"
+
+
+class OscillatorNode(ScheduledSourceNode):
+    """Periodic waveform generator (parity: OscillatorNode.cs:12).
+
+    The reference accumulates a double phase per sample with a 2*pi wrap
+    (:139-148); here the f64 phase is anchored once per 128-frame quantum
+    from f64 sums of the gated frequency, and runs in f32 inside the
+    quantum (ops/oscillator.py), as in the JAX package.
+    """
+
+    def __init__(self, context, type: OscillatorType = OscillatorType.SINE):
+        super().__init__(context, output_count=1, name="Oscillator")
+        self._type = type
+        self.frequency = self.create_audio_param(
+            "frequency",
+            440.0,
+            min_value=0.0,
+            max_value=context.sample_rate / 2.0,
+            automation_rate=AutomationRate.A_RATE,
+        )
+        # The phase INTEGRATES frequency values: automated curves evaluate
+        # in f64 (the exact branch, ROADMAP.md module item 7).
+        self.frequency.exact_eval = True
+
+    @property
+    def type(self) -> OscillatorType:
+        return self._type
+
+    @type.setter
+    def type(self, value: OscillatorType) -> None:
+        if value != self._type:
+            self._type = value
+            self._config_changed()  # the waveform is part of the stage
+
+    def output_channel_counts(self, input_channels):
+        return [1]
+
+    def group_key(self, input_channels):
+        return ("oscillator", self._type, self._mod_signature())
+
+    def init_state(self, info):
+        st = self._sched_state()
+        st["phase"] = np.float64(0.0)
+        return st
+
+    def _on_start(self, updates, offset, duration):
+        updates["phase"] = 0.0  # parity: OscillatorNode.cs:63
+
+    def process(self, state, inputs, params, rc):
+        """K11's oscillator step over the stage's lanes (one launch on the
+        card): the gated waveform and the new f64 phase."""
+        lead, st = _lanes_of(state)
+        L = st["started"].shape[0]
+        out, phase = oscillator_group_step(
+            params["frequency"].per_sample().reshape(L, -1), st["started"], st["start_time"],
+            st["stop_time"], st["phase"], rc.block_times, rc.sample_rate, self._type.value)
+        new_state = dict(state)
+        new_state["phase"] = phase.reshape(lead)
+        return new_state, [out.reshape(*lead, 1, rc.frames)]
 
 
 class AudioBufferSourceNode(ScheduledSourceNode):

@@ -41,8 +41,8 @@ _INF = np.float64(np.inf)
 
 _EXACT_TODO = (
     "exact (f64) automation curves are not ported yet: they serve "
-    "playbackRate, delay time and oscillator frequency (ROADMAP.md module "
-    "items 7, 8 and 10)"
+    "playbackRate, delay time and an automated oscillator frequency "
+    "(ROADMAP.md module item 7)"
 )
 
 
@@ -376,3 +376,58 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
     _launch_k6(times, values, tcs, types, boundary, n, base_l, rows, block_times,
                S * n_per_block, sample_dt, out)
     return out.reshape(*base.shape, S * n_per_block)
+
+
+# ---- K6m: modulation ---------------------------------------------------------
+
+
+def apply_modulation_plain(intr, mod, min_value, max_value, a_rate: bool):
+    """Plain torch K6m, the JAX package's ``apply_modulation``
+    (graphaudio_tpu/ops/param_eval.py:339) as graph.py applies it:
+    ``clamp(intr + mono(mod), min, max)``. intr: f32[V, L] (L = T a-rate,
+    S k-rate; any strides); mod: f32[V, Cm, T]. The mono signal is channel
+    0, or the channels summed in order times fl32(1/sqrt(Cm)) as
+    ``adapt_channels(x, 1)`` does, whose multiply XLA contracts with the
+    add into one fma. A k-rate param reads the modulation at sample 0 of
+    each quantum."""
+    Cm = mod.shape[1]
+    acc = mod[:, 0]
+    for c in range(1, Cm):
+        acc = acc + mod[:, c]
+    if not a_rate:
+        acc = acc[:, ::FRAMES_PER_BLOCK]
+    if Cm == 1:
+        x = intr + acc
+    else:
+        scale = torch.tensor(np.float32(1.0 / np.sqrt(Cm)), device=mod.device)
+        x = xla_rounding.fma(acc, scale, intr)
+    return torch.clamp(x, float(np.float32(min_value)), float(np.float32(max_value)))
+
+
+def apply_modulation(intr, mod, min_value, max_value, a_rate: bool):
+    """K6m: a param's values with its modulation added and clamped; the
+    contract of ``apply_modulation_plain``, bit for bit. ``intr`` may be
+    the broadcast view of one base value per lane (stride 0 along time):
+    the kernel reads the base values, nothing is copied. CPU tensors take
+    the plain version; CUDA tensors launch csrc/param_eval.cu."""
+    if mod.device.type == "cpu":
+        return apply_modulation_plain(intr, mod, min_value, max_value, a_rate)
+    cudabuild.require(mod, "mod", torch.float32, ndim=3)
+    V, Cm, T = mod.shape
+    L = T if a_rate else T // FRAMES_PER_BLOCK
+    if intr.shape != (V, L):
+        raise ValueError(f"intr must be [{V}, {L}], got {tuple(intr.shape)}")
+    if intr.stride(-1) == 0 and intr.select(-1, 0).is_contiguous():
+        src, rows = intr.select(-1, 0), 0
+    else:
+        src, rows = intr, 1
+    cudabuild.require(src, "intr", torch.float32)
+    out = torch.empty((V, L), dtype=torch.float32, device=mod.device)
+    scale = float(np.float32(1.0 / np.sqrt(Cm)))
+    status = cudabuild.launcher("ga_apply_modulation")(
+        src.data_ptr(), rows, mod.data_ptr(), V, Cm, T, L,
+        FRAMES_PER_BLOCK if a_rate else 1, scale, float(np.float32(min_value)),
+        float(np.float32(max_value)), out.data_ptr(), cudabuild.stream_of(mod))
+    cudabuild.check(status, "ga_apply_modulation")
+    cudabuild.launches["apply_modulation"] += 1
+    return out

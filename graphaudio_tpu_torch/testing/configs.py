@@ -145,3 +145,37 @@ def config5_spatial_scene(superblock=32, voices=128, device="cuda"):
     ctx._engine = engine  # keep alive; callers may move sounds via engine
     ctx._sounds = sounds
     return ctx
+
+
+def config6_lfo_tremolo(superblock=32, voices=64, modulated=True, device="cuda"):
+    """64 voices with PER-VOICE LFO -> gain modulation (tremolo). With
+    ``modulated=False`` the LFO -> depth chains are kept but routed to a
+    silent audio sink instead of the params, so the two variants differ by
+    the modulation plumbing alone."""
+    rng = np.random.default_rng(6)
+    ctx = ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
+    master = ga.GainNode(ctx)
+    master.gain.value = 1.0 / voices
+    master.connect(ctx.destination)
+    sink = None
+    if not modulated:
+        sink = ga.GainNode(ctx)
+        sink.gain.value = 0.0
+        sink.connect(master)
+    for v in range(voices):
+        sig = (rng.standard_normal(SR) * 0.2).astype(np.float32)
+        src = ga.AudioBufferSourceNode(ctx)
+        src.buffer = ga.PlayableAudioBuffer.from_mono_array(sig, SR)
+        src.loop = True
+        g = ga.GainNode(ctx)
+        g.gain.value = 0.6
+        lfo = ga.OscillatorNode(ctx)
+        lfo.frequency.value = 1.0 + 0.25 * v  # per-voice tremolo rate
+        depth = ga.GainNode(ctx)
+        depth.gain.value = 0.35
+        lfo.connect(depth)
+        depth.connect(g.gain if modulated else sink)
+        lfo.start(0)
+        src.connect(g).connect(master)
+        src.start(0)
+    return ctx

@@ -8,7 +8,9 @@ from the same point of a render.
 
 Both packages schedule stages the same way, so stage keys ("st<i>") and
 group lane order agree, and most states have the same layout in both: the
-sources, biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), and
+sources (the buffer sources' positions; the oscillator's f64 ``phase`` and
+every scheduled source's ``started`` / ``start_time`` / ``stop_time``),
+the biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), and
 the ``__globals__`` entry (the listener transform, f32[3] each). What
 differs is the convolver's delay line: the JAX package keeps the P-1 past
 spectra oldest first (``hist_r`` / ``hist_i`` [K, P-1, bins]); the port

@@ -20,7 +20,9 @@ from graphaudio_tpu_torch.ops import biquad as tbq
 from graphaudio_tpu_torch.ops import convolve as tconv
 from graphaudio_tpu_torch.ops import hrtf as th
 from graphaudio_tpu_torch.ops import onepole as top
+from graphaudio_tpu_torch.ops import oscillator as tosc
 from graphaudio_tpu_torch.ops import param_eval as tpe
+from graphaudio_tpu_torch.ops import wire
 from graphaudio_tpu_torch.testing import groups
 from graphaudio_tpu_torch.testing import tables as ttab
 from graphaudio_tpu_torch.testing.configs import (
@@ -28,6 +30,7 @@ from graphaudio_tpu_torch.testing.configs import (
     config3_eq_chain,
     config4_conv_reverb,
     config5_spatial_scene,
+    config6_lfo_tremolo,
 )
 from graphaudio_tpu_torch.utils import cudabuild
 
@@ -659,3 +662,141 @@ def test_config5_golden_on_card(dev):
     out = config5_spatial_scene(superblock=4, device=dev).render(8192)
     golden = np.load("tests/goldens/config5_spatial_scene_128.npz")["out"]
     assert np.abs(out.astype(np.float64) - golden).max() < 1e-5
+
+
+# ---- K4mu, K4a: the wire formats -------------------------------------------------------
+
+
+def test_k4mu_pack_mulaw(dev):
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 10000, generator=g) * 0.6
+    x[0, :6] = torch.tensor([0.5 / 32767, -0.5 / 32767, 1.5 / 32767, 1.5, -7.0, 0.0])
+    got = wire.pack_mulaw(x.to(dev))
+    assert torch.equal(got, wire.pack_mulaw_plain(x.to(dev)))
+    np.testing.assert_array_equal(got.cpu().numpy(), wire.mulaw_encode_np(x.numpy()))
+
+
+@pytest.mark.parametrize("spb", [9, 89, 505])
+@pytest.mark.parametrize("C", [1, 2])
+def test_k4a_ima_chunk_encode(dev, C, spb):
+    rng = np.random.default_rng(C * 100 + spb)
+    for F in (5, 40, 3 * spb + 17, 8192):
+        for carry_len in sorted({0, 1, spb - 1}):
+            audio = torch.from_numpy((rng.standard_normal((C, F)) * 0.4).astype(np.float32))
+            carry = torch.from_numpy(rng.integers(-30000, 30000, (C, spb - 1)).astype(np.int16))
+            got = wire.ima_chunk_encode(audio.to(dev), carry.to(dev), carry_len)
+            want = wire.ima_chunk_encode_plain(audio.to(dev), carry.to(dev), carry_len)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (F, carry_len)
+
+
+def test_k4a_stream_matches_host(dev):
+    """Chunks of a config-4 launch's size and ragged ones, threaded by
+    ImaDeviceStream on the card, equal one host pass."""
+    spb = 505
+    x = (np.random.default_rng(5).standard_normal((2, 3 * 8192 + 1000)) * 0.3).astype(np.float32)
+    stream = wire.ImaDeviceStream(2, spb)
+    parts, off = [], 0
+    for size in (8192, 777, 8192, 8192 + 1000 - 777):
+        blocks, nblk = stream.encode_chunk(torch.from_numpy(x[:, off:off + size]).to(dev))
+        parts.append(blocks[:nblk].cpu().numpy())
+        off += size
+    lead = stream.pull_carry()
+    q = wire.quantize_i16(x)
+    whole = (q.shape[1] // spb) * spb
+    np.testing.assert_array_equal(np.concatenate(parts), wire.ima_encode_np(q[:, :whole], spb))
+    np.testing.assert_array_equal(lead, q[:, whole:])
+
+
+def test_packed_renders_on_card(dev):
+    """render_mulaw / render_adpcm of config 4 (16 voices, superblock 4)
+    equal the host encoders of the card's own f32 render, bit for bit."""
+    frames = 6 * 512 + 300
+    f32 = config4_conv_reverb(superblock=4, voices=16, device=dev).render(frames)
+    mu = config4_conv_reverb(superblock=4, voices=16, device=dev).render_mulaw(frames)
+    np.testing.assert_array_equal(mu, wire.mulaw_encode_np(f32))
+    stream = config4_conv_reverb(superblock=4, voices=16, device=dev).render_adpcm(frames)
+    q = wire.quantize_i16(f32)
+    q = np.concatenate([q, np.zeros((2, (-frames) % 505), np.int16)], axis=1)
+    np.testing.assert_array_equal(stream.blocks, wire.ima_encode_np(q, 505))
+
+
+# ---- K11, K6m: the sources and the modulation ----------------------------------------------
+
+
+def _source_states(L, S, seed):
+    """L lanes: started or not, starts and stops inside quanta, some never."""
+    rng = np.random.default_rng(seed)
+    dt = 128 / 48000
+    start = rng.uniform(0.0, S * dt * 0.6, L)
+    stop = np.where(rng.random(L) < 0.5, start + rng.uniform(0.0, S * dt, L), np.inf)
+    started = (rng.random(L) < 0.85).astype(np.int32)
+    phase = rng.uniform(0.0, 2 * np.pi, L)
+    return [torch.from_numpy(a) for a in (started, start, stop, phase)]
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["base values", "rows"])
+@pytest.mark.parametrize("S", [4, 32, 33, 64])
+@pytest.mark.parametrize("wave", list(tosc.WAVE_CODES))
+def test_k11_oscillator(dev, wave, S, per_sample):
+    L, T = 64, S * 128
+    started, start, stop, phase = (t.to(dev) for t in _source_states(L, S, S))
+    bt = torch.from_numpy((7 + np.arange(S)) * (128 / 48000)).to(dev)
+    g = torch.Generator().manual_seed(S)
+    if per_sample:
+        f = (torch.rand(L, T, generator=g) * 20000.0).to(dev)
+    else:
+        f = (torch.rand(L, generator=g) * 20000.0).to(dev)[:, None].expand(L, T)
+    got = tosc.oscillator_group_step(f, started, start, stop, phase, bt, 48000, wave)
+    want = tosc.oscillator_group_step_plain(f, started, start, stop, phase, bt, 48000, wave)
+    torch.cuda.synchronize()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    assert torch.equal(got[1], want[1])
+    assert want[0].abs().max().item() > 0.5
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["base values", "rows"])
+def test_k11_constant(dev, per_sample):
+    L, S = 64, 32
+    T = S * 128
+    started, start, stop, _ = (t.to(dev) for t in _source_states(L, S, 3))
+    bt = torch.from_numpy((3 + np.arange(S)) * (128 / 48000)).to(dev)
+    g = torch.Generator().manual_seed(4)
+    off = torch.randn(L, T, generator=g).to(dev) if per_sample else \
+        torch.randn(L, generator=g).to(dev)[:, None].expand(L, T)
+    got = tosc.constant_group_step(off, started, start, stop, bt, 48000)
+    want = tosc.constant_group_step_plain(off, started, start, stop, bt, 48000)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("base_view", [False, True])
+@pytest.mark.parametrize("a_rate", [True, False], ids=["a-rate", "k-rate"])
+@pytest.mark.parametrize("Cm", [1, 2])
+def test_k6m_apply_modulation(dev, Cm, a_rate, base_view):
+    V, S = 64, 32
+    T = S * 128
+    L = T if a_rate else S
+    g = torch.Generator().manual_seed(Cm)
+    mod = torch.randn(V, Cm, T, generator=g).to(dev)
+    intr = (torch.randn(V, generator=g).to(dev)[:, None].expand(V, L) if base_view
+            else torch.randn(V, L, generator=g).to(dev))
+    got = tpe.apply_modulation(intr, mod, -0.75, 1.5, a_rate)
+    want = tpe.apply_modulation_plain(intr, mod, -0.75, 1.5, a_rate)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("modulated", [True, False])
+def test_config6_on_card(dev, modulated):
+    """The golden (modulated; the npz is that render) or the CPU render
+    (unmodulated), and K11 and K6m once a step."""
+    frames = 8192
+    cudabuild.launches.clear()
+    out = config6_lfo_tremolo(superblock=4, modulated=modulated, device=dev).render(frames)
+    steps = frames // 512
+    if modulated:
+        ref = np.load("tests/goldens/config6_lfo_tremolo_64.npz")["out"]
+    else:
+        ref = config6_lfo_tremolo(superblock=4, modulated=False, device="cpu").render(frames)
+    assert np.abs(out.astype(np.float64) - ref).max() < 1e-5
+    assert cudabuild.launches["oscillator_group_step"] == steps
+    assert cudabuild.launches["apply_modulation"] == (steps if modulated else 0)
