@@ -208,6 +208,30 @@ def device_ms(fn, calls=20, windows=5):
     return statistics.median([t for n, t in reads if n == most])
 
 
+def burst_ms(fn, calls=5, bursts=3):
+    """Device time a call of ``fn``, one read for each of ``bursts`` bursts
+    of ``calls`` calls issued back to back between two CUDA events (after
+    one warm call). For a kernel that runs far longer than the host takes
+    to issue it, the stream stays busy from the first launch to the last,
+    so the events' span over ``calls`` is the device time a launch; no
+    profiler window is involved, so no lost event can skew it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(bursts):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        reads.append(a.elapsed_time(b) / calls)
+    return reads
+
+
 #: Kernel groups of config 3's profile, by a substring of the kernel's
 #: name that this tree's and the parent trees' kernels share (K6's and K8's
 #: kernels were renamed when they were batched).
@@ -1312,8 +1336,9 @@ def k10b_checks(dev):
     return k10b
 
 
-def wire_checks(dev, frames):
-    """K4mu and K4a against their plain versions, bit for bit, at config
+def wire_checks(dev, frames, mulaw=True):
+    """K4mu (unless not ``mulaw``) and K4a against their plain versions,
+    bit for bit, at config
     4's launch chunk ([2, frames] f32), K4a with carry_len 0, 1 and 504 (the
     new carry row checked too; the timed calls return the blocks alone).
     Each bound counts the function's fewest operations, not the kernel's.
@@ -1332,7 +1357,7 @@ def wire_checks(dev, frames):
     clamp's two: 11; the predictor's path through the same step (the
     difference, its absolute value, the same five, the vp sum, the signed
     add and the clamp's two) is 11 as well and runs beside it. Returns the
-    two entries."""
+    entries, K4mu's first."""
     import torch
 
     from graphaudio_tpu_torch.ops import wire as twire
@@ -1340,13 +1365,15 @@ def wire_checks(dev, frames):
     rng = np.random.default_rng(13)
     audio = torch.from_numpy((rng.standard_normal((2, frames)) * 0.3).astype(np.float32)).to(dev)
     n = audio.numel()
-    mu = compare(f"K4mu mu-law pack (config 4 launch chunk: {list(audio.shape)})", "cuda",
-                 "graphaudio_tpu_torch/csrc/pack.cu", "graphaudio_tpu/ops/wire.py:66",
-                 lambda: twire.pack_mulaw(audio), lambda: twire.pack_mulaw_plain(audio), 0,
-                 # 4 bytes read and 1 written a sample; 4 f32 and 14
-                 # integer operations a sample (see above)
-                 bnd=bound(nbytes(audio) + n, 4 * n, int_ops=14 * n))
-    mu["name"] = "K4mu mu-law pack"
+    entries = []
+    if mulaw:
+        mu = compare(f"K4mu mu-law pack (config 4 launch chunk: {list(audio.shape)})", "cuda",
+                     "graphaudio_tpu_torch/csrc/pack.cu", "graphaudio_tpu/ops/wire.py:66",
+                     lambda: twire.pack_mulaw(audio), lambda: twire.pack_mulaw_plain(audio), 0,
+                     # 4 bytes read and 1 written a sample; 4 f32 and 14
+                     # integer operations a sample (see above)
+                     bnd=bound(nbytes(audio) + n, 4 * n, int_ops=14 * n))
+        entries.append(dict(mu, name="K4mu mu-law pack"))
     spb = 505
     cases = []
     for carry_len in (0, 1, spb - 1):
@@ -1371,8 +1398,49 @@ def wire_checks(dev, frames):
                     (chain / CHAIN_OPS * 1e3, "operations"))))
     ima = dict(cases[0], name="K4a IMA ADPCM chunk encoder",
                carry_cases=[{k: c[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
-                                               "device_ms")} for c in cases])
-    return [mu, ima]
+                                               "device_ms")} for c in cases],
+               long_block=k4a_long_block(dev))
+    return entries + [ima]
+
+
+def k4a_long_block(dev, spb=32769):
+    """K4a on a mono chunk of three blocks of ``spb`` samples (a stage over
+    the 48 KB shared-memory default) with carry_len 3 (every slot off its
+    16-byte boundary): bit for bit its plain version, which runs on the CPU
+    (its spb-1 sequential torch steps take seconds on the card) and is
+    timed once; the kernel timed as the other cases, and on the device by
+    CUDA events over bursts of back-to-back launches (``burst_ms``; a call
+    is one launch of about 2 ms). torch.profiler is not used here: its
+    windows lose most of this kernel's launches on the chip machine (2 of
+    5 recorded in some runs, none in others)."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import wire as twire
+
+    rng = np.random.default_rng(32769)
+    F = 3 * spb - 100
+    audio = torch.from_numpy((rng.standard_normal((1, F)) * 0.3).astype(np.float32)).to(dev)
+    carry = torch.from_numpy(rng.integers(-30000, 30000, (1, spb - 1)).astype(np.int16)).to(dev)
+    name = f"K4a IMA ADPCM chunk encoder (mono, spb {spb}, [1, {F}], carry_len 3)"
+    got = twire.ima_chunk_encode(audio, carry, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = twire.ima_chunk_encode_plain(audio.cpu(), carry.cpu(), 3)
+    plain_s = time.perf_counter() - t0
+    if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])):
+        raise AssertionError(f"{name} differs from its plain version")
+    ms = median_ms(lambda: twire.ima_chunk_encode(audio, carry, 3), repeats=10)
+    calls = 5
+    reads = burst_ms(lambda: twire.ima_chunk_encode(audio, carry, 3), calls)
+    dev_ms = statistics.median(reads)
+    bound_ms = (20 + 11 * (spb - 1)) / CHAIN_OPS * 1e3
+    phase("kernels", f"{name}: bit for bit the plain version (on the CPU, {plain_s!r} s); "
+          f"kernel {ms!r} ms a call, {dev_ms!r} ms a launch on the device (CUDA events "
+          f"over bursts of {calls} launches: {reads}); bound {bound_ms!r} ms "
+          "(operations: one block's chain)")
+    return {"name": name, "max_abs_err": 0, "ms": ms, "device_ms": dev_ms,
+            "device_bursts_ms": reads, "plain_cpu_s": plain_s, "bound_ms": bound_ms,
+            "bound_by": "operations"}
 
 
 def mid_config6(dev, step=9):
@@ -1435,6 +1503,7 @@ def k11k6m_checks(dev):
                 bnd=max(bound(nbytes(f if f.is_contiguous() else base, *sched, st["phase"], bt)
                               + V * T * 4 + V * 8, 0),
                         (chain / CHAIN_OPS * 1e3, "operations"))))
+    k11_shapes = k11_superblocks(dev)
     off = views["base values"] * 0.5
     const = compare(f"K11 constant-source mode (config 6 step 9 states, [{V}, {T}])", "cuda",
                     "graphaudio_tpu_torch/csrc/oscillator.cu",
@@ -1442,7 +1511,7 @@ def k11k6m_checks(dev):
                     lambda: tosc.constant_group_step(off, *sched, bt, 48000),
                     lambda: tosc.constant_group_step_plain(off, *sched, bt, 48000), 0,
                     bnd=bound(nbytes(base, *sched, bt) + V * T * 4, 0))
-    k11 = dict(osc[0], name="K11 oscillator group step",
+    k11 = dict(osc[0], name="K11 oscillator group step", superblocks=k11_shapes,
                cases=[{k: c[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "device_ms")} for c in osc],
                constant_mode={k: const[k] for k in ("name", "route", "source", "replaces",
@@ -1490,7 +1559,47 @@ def k11k6m_checks(dev):
     return [k11, k6m]
 
 
-def wire_runs(dev, build, step_frames, frames, f32, runs=5):
+def k11_superblocks(dev, L=64):
+    """K11 against its plain version at superblocks 1, 8, 33 and 128 (one
+    quantum, one tile, a partial last tile, up to four passes of sums), seeded
+    states whose starts and stops fall on and inside quanta: sine and
+    square bit for bit, sawtooth and triangle within 1e-6, the new phase
+    bit for bit, over base values and rows. Returns the errors."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import oscillator as tosc
+
+    dt = 128 / SR
+    errs = {}
+    for S in (1, 8, 33, 128):
+        rng = np.random.default_rng(S)
+        start = 5 * dt + dt * rng.integers(0, S + 1, L) + dt * np.where(rng.random(L) < 0.5,
+                                                                         rng.random(L), 0.0)
+        stop = np.where(rng.random(L) < 0.3, np.inf, start + dt * rng.integers(0, S + 1, L)
+                        + dt * rng.random(L))
+        st = [torch.from_numpy(a).to(dev) for a in (
+            (rng.random(L) < 0.9).astype(np.int32), start, stop, rng.uniform(0, 2 * np.pi, L),
+            5 * dt + np.arange(S) * dt)]
+        rows = torch.from_numpy((rng.random((L, S * 128)) * 20000).astype(np.float32)).to(dev)
+        base = rows[:, 0].contiguous()
+        for label, f in (("base values", base[:, None].expand(L, S * 128)), ("rows", rows)):
+            for wave in tosc.WAVE_CODES:
+                args = (f, *st, SR, wave)
+                got = tosc.oscillator_group_step(*args)
+                want = tosc.oscillator_group_step_plain(*args)
+                err = float((got[0] - want[0]).abs().max())
+                exact = wave in ("sine", "square")
+                if (err > 0 if exact else err > 1e-6) or not torch.equal(got[1], want[1]):
+                    raise AssertionError(f"K11 at S={S} ({wave}, {label}) differs from its "
+                                         f"plain version: {err}")
+                errs[f"S={S} {wave} {label}"] = err
+    phase("kernels", f"K11 at superblocks 1, 8, 33 and 128: max_abs_err "
+          f"{max(errs.values())!r} (sine and square 0, others 1e-6; new phase bit for bit) OK")
+    return errs
+
+
+def wire_runs(dev, build, step_frames, frames, f32, runs=5,
+              methods=("render_mulaw", "render_adpcm"), profile=False):
     """``runs`` 30 s renders each through ``render_mulaw`` and
     ``render_adpcm`` of config 4 from fresh contexts: each packed render
     equal to the host encoders of ``f32`` (a 30 s f32 render from the same
@@ -1498,7 +1607,9 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5):
     spread, the wire bytes, and each format's SNR against ``f32``. Then one
     render of each 4321 frames shorter, which ends inside a superblock
     (its kept frames packed on the device, the rest carried as f32), timed and
-    held to the host encoders of ``f32``'s first frames bit for bit."""
+    held to the host encoders of ``f32``'s first frames bit for bit. Only
+    ``methods`` run; with ``profile``, one more render of each under
+    torch.profiler gives its pack kernel's device time a launch."""
     from graphaudio_tpu_torch.ops import wire as twire
     from graphaudio_tpu_torch.utils import cudabuild
 
@@ -1518,7 +1629,8 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5):
                    "render_adpcm": twire.ima_encode_np(q_r, spb)}
     counts = {"render_mulaw": "pack_mulaw", "render_adpcm": "ima_chunk_encode"}
     out = {}
-    for method, wrapper in counts.items():
+    for method in methods:
+        wrapper = counts[method]
         build().render(step_frames)
         cudabuild.launches.clear()
         got, wall, bd = timed_render(build, frames, method)
@@ -1537,7 +1649,9 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5):
                               want_ragged[method]):
             raise AssertionError(f"{method} of {ragged} frames differs from the host encoder "
                                  "of the f32 render's first frames")
+        sha = hashlib.sha256(np.ascontiguousarray(data).tobytes()).hexdigest()
         out[method] = {"wire_bytes": int(data.nbytes), "f32_bytes": int(f32.nbytes),
+                       "sha256": sha,
                        "snr_db_vs_f32": snr_db(decoded), "launches": launches,
                        "launch_chunks": bd["n_launches"], **spread(frames, walls),
                        "breakdown": bd, "ragged": {"frames": ragged, "wall_s": wall_r,
@@ -1547,7 +1661,37 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5):
               f"SNR {out[method]['snr_db_vs_f32']!r} dB against it; {runs} runs {walls!r} s, "
               f"median {out[method]['xrt_median']!r} xRT; {launches} launches for "
               f"{bd['n_launches']} launch chunks; first run breakdown {json.dumps(bd)}; "
-              f"{ragged} frames (ragged end) {wall_r!r} s, bit for bit")
+              f"{ragged} frames (ragged end) {wall_r!r} s, bit for bit; sha256 {sha}")
+        if profile:
+            out[method]["profile"] = profile_render(build, frames, method, WIRE_GROUPS)
+            phase("profile", f"config 4 {method}, one 30 s render under torch.profiler: "
+                  f"{json.dumps(out[method]['profile'])}")
+    return out
+
+
+def profile_render(build, frames, method, groups):
+    """One render of ``frames`` frames through ``method`` from a fresh
+    context under torch.profiler: each kernel group's device time in all
+    and a launch, and its launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = build()
+    ctx._ensure_compiled()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        getattr(ctx, method)(frames)
+        torch.cuda.synchronize()
+    out = {}
+    for label, sub in groups.items():
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            t_us = getattr(e, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(e, "self_cuda_time_total", 0.0)
+            if sub in e.key and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                us, n = us + t_us, n + e.count
+        out[label] = {"device_us": us, "launches": n, "us_a_launch": us / n if n else None}
     return out
 
 
@@ -1696,6 +1840,19 @@ def main(device="cuda", only=None):
             for e, label in zip(entries[2:], ("K11", "K6m")):
                 e["launches"] = runs["config6"]["modulated"]["launches"][label]
             entries[2]["constant_mode"]["launches"] = \
+                runs["config6"]["modulated"]["launches"]["K11 constant"]
+        elif only == "k11k4a":
+            entries = wire_checks(dev, 64 * T, mulaw=False) + k11k6m_checks(dev)
+            golden_err = goldens(dev)
+            f32, _, _ = timed_render(b4, frames)
+            runs = {"config4_adpcm": wire_runs(dev, b4, T, frames, f32, runs=3,
+                                               methods=("render_adpcm",), profile=True),
+                    "config6": config6_runs(dev, runs=3)}
+            runs["config6"]["golden_max_abs_err"] = golden_err[6]
+            entries[0]["launches"] = runs["config4_adpcm"]["render_adpcm"]["launches"]
+            for e, label in zip(entries[1:], ("K11", "K6m")):
+                e["launches"] = runs["config6"]["modulated"]["launches"][label]
+            entries[1]["constant_mode"]["launches"] = \
                 runs["config6"]["modulated"]["launches"]["K11 constant"]
         elif only == "k9":
             entries = [k9_checks(dev)]
@@ -2010,6 +2167,10 @@ if __name__ == "__main__":
         "wire6": "the K4mu, K4a, K11 and K6m checks, the goldens, five 30 s render_mulaw "
                  "and render_adpcm of config 4 and five 30 s renders each of config 6 "
                  "modulated and not",
+        "k11k4a": "the K4a (also at spb 32769), K11 (also at superblocks 1, 8, 33 "
+                  "and 128) and K6m checks, the goldens, three 30 s render_adpcm of "
+                  "config 4 (one more profiled) and three 30 s renders each of config 6 "
+                  "modulated and not",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

@@ -12,27 +12,48 @@
 // over the channels. The new carry row is the buffer from the first block
 // the caller does not keep, nblk = (carry_len+F)/spb.
 //
-// Bound on the H100: the serial recurrence. A block's 504 steps depend on
-// each other (a chain of 11 dependent integer operations a step), and a
-// chunk has only C*ncap blocks (34 at one config-4 step), so the kernel is
-// latency-bound: its floor is one thread's chain, not the bytes. The design
-// keeps that chain short: the step table lives in shared memory (lanes
-// index it divergently, which the constant cache would serialise), and a
-// warp's 32 consecutive blocks of one channel are staged through shared
-// memory with coalesced loads (one thread's block starts 2 KB after its
-// neighbour's in global memory), so every step reads shared memory only.
-// The staging loops are unrolled so that a thread's loads are in flight
-// together (a warp whose blocks lie inside the chunk's audio takes a
-// branch-free one; the edge warps, which also read the carry, one over
-// predicated loads): with one warp on most SMs, a load at a time left the
-// edge warps, and with them the launch, about 1.5x slower. Threads write
-// whole 32-bit words of the output rows.
+// Bound on the H100: the serial recurrence. A block's spb-1 steps depend on
+// each other, so the kernel's floor is one thread's chain of steps, not
+// the bytes. The design keeps everything else off that chain:
+// - a thread block (512 threads) takes `sb` <= 16 consecutive blocks of
+//   one channel (ops/wire.ima_chunk_plan; config 4's chunk is 2 x 65
+//   thread blocks on 132 SMs) and stages their span of the chunk's f32
+//   audio into shared memory with one thread's 1-D bulk copies (the Tensor
+//   Memory Accelerator, completion on an mbarrier): a 16-byte-aligned
+//   superset of the span cut to the tensor's own 16-byte words, placed so
+//   that sample j of the span lands on word lead + j (the at most 3
+//   samples at either end of the tensor that the cut leaves out are read
+//   directly);
+// - all its threads then turn the span into int16 samples in place (int
+//   bits in the f32 words): the quantized audio, and outside the chunk the
+//   carry's samples or 0, so no quantize is left on a block's chain;
+// - the header runs a warp a block: partial |diff| sums (integers, exact
+//   in any order) and the 89 threshold compares split 32 ways, each
+//   reduced by warp shuffles;
+// - the step is branch-free: the magnitude's code from 7 independent
+//   compares against thresholds known from the step size at the step's
+//   start (one level, where the reference's greedy compares are three in
+//   series), a select tree for vp and one for the next (index, step size)
+//   among the five possible next indices (index - 1, + 2, + 4, + 6, + 8,
+//   clamped), read as packed words from a padded table in shared memory
+//   while the step's compares run, so no shared-memory read is on the
+//   chain from one step to the next. What bounds a step is then issue:
+//   about 60 integer instructions, at two clocks each on a sub-partition's
+//   16 integer lanes, near 120 clocks a step.
+// Blocks too long for shared memory raise in the wrapper (the limit is
+// ops/wire.IMA_MAX_SPB).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kStageBytes = 40 * 1024;  // under the 48 KB default with step_tab
+constexpr int kThreads = 512;
+constexpr int kHeaderLanes = 32;                  // a warp a block's header
+constexpr int kMaxBlocks = kThreads / kHeaderLanes;  // 16 blocks a thread block
+constexpr int kCopyBytes = 32 * 1024;  // bytes a bulk copy
+// The step table padded and packed: entry i holds (step[j] << 8) | j for
+// j = clamp(i - 1, 0, 88), so tab[index + 1 + k] gives the step size and the
+// index clamp(index + k) for k in [-1, 8] in one word.
+constexpr int kPadTab = 89 + 9;
 
 __constant__ int kImaStep[89] = {
     7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 21, 23, 25, 28, 31, 34, 37,
@@ -43,116 +64,212 @@ __constant__ int kImaStep[89] = {
     6484, 7132, 7845, 8630, 9493, 10442, 11487, 12635, 13899, 15289,
     16818, 18500, 20350, 22385, 24623, 27086, 29794, 32767};
 
-// Sample j of channel c's stream buffer. Written as selects over
-// predicated loads, so an unrolled loop keeps several loads in flight.
-__device__ __forceinline__ int16_t buffer_sample(const float* __restrict__ audio,
-                                                 const int16_t* __restrict__ carry, int c,
-                                                 int64_t F, int spb, int carry_len, int64_t j) {
-  const int64_t a = j - carry_len;
-  const bool in_chunk = a >= 0 && a < F;
-  const bool in_carry = j < spb - 1;
-  const float x = in_chunk ? audio[c * F + a] : 0.0f;
-  const int16_t k = in_carry ? carry[static_cast<int64_t>(c) * (spb - 1) + j] : 0;
+__device__ __forceinline__ int quantize(float x) {
   const float v = fminf(fmaxf(x, -1.0f), 1.0f);
-  return in_chunk ? static_cast<int16_t>(__float2int_rn(__fmul_rn(v, 32767.0f))) : k;
+  return static_cast<int16_t>(__float2int_rn(__fmul_rn(v, 32767.0f)));
+}
+
+// Sample j of channel c's stream buffer when it is not in the chunk: the
+// carry row's, or 0.
+__device__ __forceinline__ int edge_sample(const int16_t* __restrict__ carry, int c, int spb,
+                                           int64_t j) {
+  return j < spb - 1 ? carry[static_cast<int64_t>(c) * (spb - 1) + j] : 0;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
     const float* __restrict__ audio, const int16_t* __restrict__ carry, int C, int64_t F,
-    int spb, int carry_len, int ncap, int slots, uint8_t* __restrict__ blocks,
+    int spb, int carry_len, int ncap, int sb, uint8_t* __restrict__ blocks,
     int16_t* __restrict__ new_carry) {
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   if (blockIdx.x == gridDim.x - 1) {  // the new carry row of channel c
     const int64_t start = static_cast<int64_t>((carry_len + F) / spb) * spb;
-    for (int k = tid; k < spb - 1; k += kThreads)
-      new_carry[static_cast<int64_t>(c) * (spb - 1) + k] =
-          buffer_sample(audio, carry, c, F, spb, carry_len, start + k);
+    for (int k = tid; k < spb - 1; k += kThreads) {
+      const int64_t j = start + k, a = j - carry_len;
+      new_carry[static_cast<int64_t>(c) * (spb - 1) + k] = static_cast<int16_t>(
+          a >= 0 && a < F ? quantize(audio[c * F + a]) : edge_sample(carry, c, spb, j));
+    }
     return;
   }
-  __shared__ int step_tab[89];
-  extern __shared__ int16_t stage[];  // [slots, spb]
-  for (int k = tid; k < 89; k += kThreads) step_tab[k] = kImaStep[k];
-  const int slot0 = blockIdx.x * slots;
-  const int n = min(slots, ncap - slot0);
-  const int64_t j0 = static_cast<int64_t>(slot0) * spb;
+  __shared__ int tab[kPadTab];
+  __shared__ int hdr_index[kMaxBlocks];
+  __shared__ __align__(8) uint64_t bar;
+  extern __shared__ __align__(16) float stage[];  // sb * spb words, the lead and the tail
+
+  const int slot0 = blockIdx.x * sb;
+  const int n = min(sb, ncap - slot0);
   const int total = n * spb;
-  if (j0 >= carry_len && j0 + total <= carry_len + F) {
-    // Every sample from the chunk's audio (all but the edge warps): a
-    // branch-free loop whose unrolled loads are in flight together.
-    const float* src = audio + c * F + (j0 - carry_len);
-#pragma unroll 8
-    for (int j = tid; j < total; j += kThreads) {
-      const float v = fminf(fmaxf(src[j], -1.0f), 1.0f);
-      stage[j] = static_cast<int16_t>(__float2int_rn(__fmul_rn(v, 32767.0f)));
+  // the audio index of the span's sample 0, and the span's part in the chunk
+  const int64_t a_lo = static_cast<int64_t>(slot0) * spb - carry_len;
+  const int64_t c_lo = a_lo > 0 ? a_lo : 0, c_hi = a_lo + total < F ? a_lo + total : F;
+  const float* row = audio + c * F;
+  // The copy: [c_lo, c_hi) widened to 16-byte boundaries (m samples before,
+  // at most 3 after), to words d + lead.. with d + lead a multiple of 4, then
+  // cut to the 16-byte words that lie wholly in the tensor, so that it reads
+  // nothing outside it: it brings the row's samples [k_lo, k_hi), and the at
+  // most 3 of the chunk at either end of the tensor that the cut leaves out
+  // are read directly.
+  int lead = 0;
+  int64_t k_lo = c_hi, k_hi = c_hi;
+  uint32_t bytes = 0;
+  if (c_lo < c_hi) {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(row + c_lo);
+    const uintptr_t g_lo = lo & ~uintptr_t(15);
+    const uintptr_t g_hi = (reinterpret_cast<uintptr_t>(row + c_hi) + 15) & ~uintptr_t(15);
+    const uintptr_t t_lo = (reinterpret_cast<uintptr_t>(audio) + 15) & ~uintptr_t(15);
+    const uintptr_t t_hi = reinterpret_cast<uintptr_t>(audio + C * F) & ~uintptr_t(15);
+    const uintptr_t b_lo = g_lo > t_lo ? g_lo : t_lo, b_hi = g_hi < t_hi ? g_hi : t_hi;
+    const int m = static_cast<int>((lo - g_lo) / 4);
+    const int d = static_cast<int>(c_lo - m - a_lo);  // >= -3
+    lead = (-d) & 3;
+    if (b_lo < b_hi) {
+      bytes = static_cast<uint32_t>(b_hi - b_lo);
+      const int cut = static_cast<int>((b_lo - g_lo) / 4);
+      k_lo = c_lo - m + cut;
+      k_hi = k_lo + bytes / 4;
+      if (tid == 0) {
+        const uint32_t b = smem_addr(&bar);
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                     "r"(bytes)
+                     : "memory");
+        const uint32_t dst = smem_addr(stage + d + lead + cut);
+        for (uint32_t off = 0; off < bytes; off += kCopyBytes) {
+          const uint32_t len = min(bytes - off, static_cast<uint32_t>(kCopyBytes));
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+              "%2, [%3];\n" ::"r"(dst + off),
+              "l"(b_lo + off), "r"(len), "r"(b)
+              : "memory");
+        }
+      }
     }
-  } else {
-#pragma unroll 8
-    for (int j = tid; j < total; j += kThreads)
-      stage[j] = buffer_sample(audio, carry, c, F, spb, carry_len, j0 + j);
+  }
+  for (int k = tid; k < kPadTab; k += kThreads) {
+    const int j = min(max(k - 1, 0), 88);
+    tab[k] = (kImaStep[j] << 8) | j;
+  }
+  __syncthreads();  // the barrier's init before any thread waits on it
+  if (bytes) {
+    const uint32_t b = smem_addr(&bar);
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(b), "r"(0u)
+          : "memory");
+  }
+  // The span's words become int16 samples in place (int bits in the f32
+  // words): in the chunk the quantized audio; outside it (after the copy,
+  // whose widened edges may cover them) the carry's samples or 0.
+  const int in_lo = static_cast<int>(c_lo - a_lo < total ? c_lo - a_lo : total);
+  const int in_hi = c_hi > c_lo ? static_cast<int>(c_hi - a_lo) : in_lo;
+  const int cp_lo = static_cast<int>(k_lo - a_lo), cp_hi = static_cast<int>(k_hi - a_lo);
+  float* const xw = stage + lead;
+#pragma unroll 4
+  for (int i = in_lo + tid; i < in_hi; i += kThreads)
+    xw[i] = __int_as_float(quantize(i >= cp_lo && i < cp_hi ? xw[i] : row[a_lo + i]));
+  const int64_t j0 = static_cast<int64_t>(slot0) * spb;
+  for (int i = tid; i < in_lo; i += kThreads)
+    xw[i] = __int_as_float(edge_sample(carry, c, spb, j0 + i));
+  for (int i = in_hi + tid; i < total; i += kThreads)
+    xw[i] = __int_as_float(edge_sample(carry, c, spb, j0 + i));
+  __syncthreads();
+
+  const int nm1 = spb - 1;
+  // 1. the header index: a warp a block, each lane a share of the |diff|s
+  //    and of the 89 compares, reduced over the warp
+  {
+    const int b = tid / kHeaderLanes, part = tid % kHeaderLanes;
+    uint32_t sad = 0;
+    if (b < n) {  // lanes on consecutive t: no bank conflicts
+      const float* xs = xw + b * spb;
+#pragma unroll 4
+      for (int t = 1 + part; t < spb; t += kHeaderLanes)
+        sad += static_cast<uint32_t>(abs(__float_as_int(xs[t]) - __float_as_int(xs[t - 1])));
+    }
+#pragma unroll
+    for (int o = 1; o < kHeaderLanes; o <<= 1) sad += __shfl_xor_sync(0xffffffffu, sad, o);
+    // sum |diff| > step * (spb - 1), as the plain version's int32 compare
+    const long long s = static_cast<int>(sad);
+    int count = 0;
+    for (int k = part; k < 89; k += kHeaderLanes)
+      count += s > static_cast<long long>(tab[k + 1] >> 8) * nm1 ? 1 : 0;
+#pragma unroll
+    for (int o = 1; o < kHeaderLanes; o <<= 1) count += __shfl_xor_sync(0xffffffffu, count, o);
+    if (b < n && part == 0) hdr_index[b] = min(count, 88);
   }
   __syncthreads();
   if (tid >= n) return;
 
-  const int16_t* xs = stage + tid * spb;
-  const int nm1 = spb - 1;
-  int sad = 0;
-  for (int t = 1; t < spb; ++t) sad += abs(static_cast<int>(xs[t]) - static_cast<int>(xs[t - 1]));
-  int index = 0;
-  for (int k = 0; k < 89; ++k)
-    index += static_cast<long long>(sad) > static_cast<long long>(step_tab[k]) * nm1 ? 1 : 0;
-  index = min(index, 88);
-  int pred = xs[0];
-
+  // 2. one thread a block: the spb-1 steps. The magnitude's code delta is
+  //    the number of its 7 increasing thresholds (s1, s2, s2+s1, step,
+  //    step+s1, step+s2, step+s2+s1) that |diff| reaches, the greedy
+  //    compares of the reference in one level; vp is step/8 plus the
+  //    largest threshold reached.
+  const float* xs = xw + tid * spb;
+  int index = hdr_index[tid];
+  int pred = __float_as_int(xs[0]);
+  int step = tab[index + 1] >> 8;
   const int block_align = C * (4 + nm1 / 2);
-  uint8_t* row = blocks + static_cast<int64_t>(slot0 + tid) * block_align;
-  reinterpret_cast<uint32_t*>(row)[c] =
+  uint8_t* out_row = blocks + static_cast<int64_t>(slot0 + tid) * block_align;
+  reinterpret_cast<uint32_t*>(out_row)[c] =
       (static_cast<uint32_t>(pred) & 0xFFFFu) | (static_cast<uint32_t>(index) << 16);
-  uint32_t* words = reinterpret_cast<uint32_t*>(row + 4 * C);
-  uint32_t word = 0;
-  for (int t = 1; t < spb; ++t) {
-    const int step = step_tab[index];
-    const int diff = static_cast<int>(xs[t]) - pred;
-    const int sign = diff < 0 ? 1 : 0;
-    int adiff = sign ? -diff : diff;
-    int delta = 0;
-    int vp = step >> 3;
-    if (adiff >= step) {
-      delta = 4;
-      adiff -= step;
-      vp += step;
+  uint32_t* words = reinterpret_cast<uint32_t*>(out_row + 4 * C);
+  for (int w = 0; w < nm1 / 8; ++w) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int xt = __float_as_int(xs[8 * w + k + 1]);
+      const int* tp = tab + index;  // tp[1 + k]: clamp(index + k) and its step
+      const int cm1 = tp[0], c2 = tp[3], c4 = tp[5], c6 = tp[7], c8 = tp[9];
+      const int s1 = step >> 2, s2 = step >> 1;
+      const int t3 = s2 + s1, t5 = step + s1, t6 = step + s2, t7 = t6 + s1;
+      const int diff = xt - pred;
+      const bool neg = diff < 0;
+      const int ad = abs(diff);
+      const bool p1 = ad >= s1, p2 = ad >= s2, p3 = ad >= t3, p4 = ad >= step;
+      const bool p5 = ad >= t5, p6 = ad >= t6, p7 = ad >= t7;
+      const bool b2 = p4 ? p6 : p2, b1 = p4 ? (p6 ? p7 : p5) : (p2 ? p3 : p1);
+      const int top = p4 ? (p6 ? (p7 ? t7 : t6) : (p5 ? t5 : step))
+                         : (p2 ? (p3 ? t3 : s2) : (p1 ? s1 : 0));
+      const int vp = (step >> 3) + top;
+      pred = min(max(neg ? pred - vp : pred + vp, -32768), 32767);
+      const int next = p4 ? (b2 ? (b1 ? c8 : c6) : (b1 ? c4 : c2)) : cm1;
+      step = next >> 8;
+      index = next & 0xFF;
+      word |= static_cast<uint32_t>((p4 ? 4 : 0) | (b2 ? 2 : 0) | (b1 ? 1 : 0) | (neg ? 8 : 0))
+              << (4 * k);
     }
-    const int s2 = step >> 1;
-    if (adiff >= s2) {
-      delta += 2;
-      adiff -= s2;
-      vp += s2;
-    }
-    const int s1 = step >> 2;
-    if (adiff >= s1) {
-      delta += 1;
-      vp += s1;
-    }
-    pred = min(max(sign ? pred - vp : pred + vp, -32768), 32767);
-    index = min(max(index + (delta < 4 ? -1 : 2 * (delta - 3)), 0), 88);
-    const int m = t - 1;  // nibble m of the block's data
-    word |= static_cast<uint32_t>(delta + 8 * sign) << (4 * (m & 7));
-    if ((m & 7) == 7) {
-      words[(m >> 3) * C + c] = word;
-      word = 0;
-    }
+    words[w * C + c] = word;
   }
 }
 
 }  // namespace
 
+// The geometry is ops/wire.ima_chunk_plan's: sb blocks a thread block
+// (1..16), `tiles` thread blocks a channel (the last writes the new carry
+// row), `smem` bytes of stage (sb * spb samples and the copy's lead and
+// tail words).
 GA_EXPORT int ga_ima_chunk_encode(const float* audio, const int16_t* carry, int C, int64_t F,
-                                  int spb, int carry_len, int ncap, uint8_t* blocks,
-                                  int16_t* new_carry, void* stream) {
-  const int slots = max(1, min(kThreads, kStageBytes / (2 * spb)));
-  const dim3 grid((ncap + slots - 1) / slots + 1, C);
-  const size_t smem = static_cast<size_t>(slots) * spb * sizeof(int16_t);
-  ima_encode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      audio, carry, C, F, spb, carry_len, ncap, slots, blocks, new_carry);
+                                  int spb, int carry_len, int ncap, int sb, int tiles, int smem,
+                                  uint8_t* blocks, int16_t* new_carry, void* stream) {
+  if (sb < 1 || sb > kMaxBlocks || static_cast<int64_t>(tiles - 1) * sb < ncap || spb < 9 ||
+      (spb - 1) % 8 || carry_len < 0 || carry_len >= spb)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ima_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ima_encode_kernel<<<dim3(tiles, C), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      audio, carry, C, F, spb, carry_len, ncap, sb, blocks, new_carry);
   return ga_launch_status();
 }

@@ -24,6 +24,11 @@ the 8 runs, then the quanta), in the plain version and the kernel alike.
 ``constant_group_step`` is the ``ConstantSourceNode``'s: the gated
 ``offset``.
 
+On the card a lane's superblock is cut into tiles of quanta (``kTile`` in
+csrc/oscillator.cu), one block each; each block sums the quanta before its
+tile itself, ``kPass`` quanta a pass, so the anchors are the same ascending
+sums as here and the kernel's bits are the plain version's.
+
 Both take the frequency (offset) either as f32[L, T] rows or, where the
 param has no events and no modulation, as its broadcast base-value view
 (stride 0 along time): the kernels then read the base values and nothing
@@ -181,8 +186,9 @@ def oscillator_group_step(f, started, start_time, stop_time, phase, block_times,
     status = cudabuild.launcher("ga_oscillator_step")(
         vals.data_ptr(), per_sample, started.data_ptr(), start_time.data_ptr(),
         stop_time.data_ptr(), phase.data_ptr(), block_times.data_ptr(), L, S,
-        float(sample_rate), float(np.float32(TWO_PI / sample_rate)), TWO_PI / sample_rate,
-        WAVE_CODES[wave], out.data_ptr(), new_phase.data_ptr(), cudabuild.stream_of(phase))
+        float(sample_rate), float(FRAMES_PER_BLOCK) / sample_rate,
+        float(np.float32(TWO_PI / sample_rate)), TWO_PI / sample_rate, WAVE_CODES[wave],
+        out.data_ptr(), new_phase.data_ptr(), cudabuild.stream_of(phase))
     cudabuild.check(status, "ga_oscillator_step")
     cudabuild.launches["oscillator_group_step"] += 1
     return out, new_phase

@@ -328,6 +328,41 @@ def ima_chunk_slots(frames: int, samples_per_block: int) -> int:
     return (samples_per_block - 1 + frames) // samples_per_block
 
 
+#: Blocks a thread block of csrc/adpcm.cu takes at most: its 512 threads
+#: run a header warp a block (the launcher refuses more).
+IMA_MAX_BLOCKS_PER_TB = 16
+#: f32 words of K4a's stage beyond its blocks' samples (the copy's
+#: alignment lead and tail, at most 3 words each). The plan below is the
+#: one owner of the kernel's geometry: the launcher takes it as given.
+IMA_STAGE_SLACK = 8
+#: Dynamic shared memory K4a's stage may take: the 227 KB a block can use
+#: on the H100, less 1 KB for the kernel's static arrays.
+IMA_MAX_STAGE_BYTES = 227 * 1024 - 1024
+#: The longest WAV-IMA block K4a encodes on the card: its f32 stage must
+#: fit in shared memory.
+IMA_MAX_SPB = ((IMA_MAX_STAGE_BYTES // 4 - IMA_STAGE_SLACK - 1) // 8) * 8 + 1
+_IMA_DEFAULT_SMEM = 48 * 1024
+
+
+def ima_chunk_plan(frames: int, samples_per_block: int):
+    """K4a's geometry for a chunk of ``frames`` frames: (sb, thread blocks
+    a channel, dynamic shared-memory bytes). A thread block stages ``sb``
+    consecutive block slots of one channel, as many as fit in the 48 KB
+    default (at most ``IMA_MAX_BLOCKS_PER_TB``, at least one); the last
+    thread block of each channel writes the new carry row. A block longer
+    than ``IMA_MAX_SPB`` samples raises."""
+    spb = samples_per_block
+    if spb > IMA_MAX_SPB:
+        raise ValueError(
+            f"samples_per_block {spb} is over {IMA_MAX_SPB}, the longest block the "
+            f"card's ADPCM encoder stages: one block's f32 samples must fit in "
+            f"{IMA_MAX_STAGE_BYTES} bytes of shared memory")
+    sb = max(1, min(IMA_MAX_BLOCKS_PER_TB,
+                    (_IMA_DEFAULT_SMEM // 4 - IMA_STAGE_SLACK) // spb))
+    ncap = ima_chunk_slots(frames, spb)
+    return sb, -(-ncap // sb) + 1, (sb * spb + IMA_STAGE_SLACK) * 4
+
+
 def ima_chunk_encode_plain(audio, carry, carry_len: int):
     """Plain torch K4a, the JAX package's ``make_ima_chunk_encoder``
     (graphaudio_tpu/ops/wire.py:338-459) with the same contract:
@@ -394,7 +429,8 @@ def ima_chunk_encode(audio, carry, carry_len: int):
     ``ima_chunk_encode_plain``, bit for bit. CPU tensors take the plain
     version; CUDA tensors launch csrc/adpcm.cu (one thread per (channel,
     block slot) for the sequential in-block recurrence, plus the new
-    carry, in one launch)."""
+    carry, in one launch; ``ima_chunk_plan`` gives its geometry and raises
+    for a block too long to stage)."""
     if audio.device.type == "cpu":
         return ima_chunk_encode_plain(audio, carry, carry_len)
     cudabuild.require(audio, "audio", torch.float32, ndim=2)
@@ -405,10 +441,11 @@ def ima_chunk_encode(audio, carry, carry_len: int):
         raise ValueError(f"carry must be int16[{C}, spb-1] with 0 <= carry_len < spb, got "
                          f"{tuple(carry.shape)} and carry_len={carry_len}")
     ncap = ima_chunk_slots(F, spb)
+    sb, tiles, smem = ima_chunk_plan(F, spb)
     blocks = torch.empty((ncap, ima_block_align(C, spb)), dtype=torch.uint8, device=audio.device)
     new_carry = torch.empty_like(carry)
     status = cudabuild.launcher("ga_ima_chunk_encode")(
-        audio.data_ptr(), carry.data_ptr(), C, F, spb, int(carry_len), ncap,
+        audio.data_ptr(), carry.data_ptr(), C, F, spb, int(carry_len), ncap, sb, tiles, smem,
         blocks.data_ptr(), new_carry.data_ptr(), cudabuild.stream_of(audio))
     cudabuild.check(status, "ga_ima_chunk_encode")
     cudabuild.launches["ima_chunk_encode"] += 1

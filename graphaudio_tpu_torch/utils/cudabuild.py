@@ -48,8 +48,9 @@ _SIGNATURES = {
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],
     "ga_pack_mulaw": [_P, _P, _I, _I64, _P],
-    # audio, carry, C, F, spb, carry_len, ncap, blocks, new carry, stream
-    "ga_ima_chunk_encode": [_P, _P, _I, _I64, _I, _I, _I, _P, _P, _P],
+    # audio, carry, C, F, spb, carry_len, ncap, blocks a thread block, thread
+    # blocks a channel, stage bytes, blocks, new carry, stream
+    "ga_ima_chunk_encode": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # arena, W, C, V, S, gtab, 6 states, clocks, outputs, stream
     "ga_unity_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 6, _P, _P, _P, _P, _P],
     "ga_param_eval_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -57,10 +58,10 @@ _SIGNATURES = {
     # intr, per-sample rows?, mod, V, Cm, T, L, npb, down-mix scale, lo, hi, out, stream
     "ga_apply_modulation": [_P, _I, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float,
                             ctypes.c_float, _P, _P],
-    # f, per-sample?, started, start, stop, phase, clocks, L, S, sr, fl32(2pi/sr),
-    # 2pi/sr, wave, out, new phase, stream
+    # f, per-sample?, started, start, stop, phase, clocks, L, S, sr, 128/sr,
+    # fl32(2pi/sr), 2pi/sr, wave, out, new phase, stream
     "ga_oscillator_step": [_P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_double,
-                           ctypes.c_float, ctypes.c_double, _I, _P, _P, _P],
+                           ctypes.c_double, ctypes.c_float, ctypes.c_double, _I, _P, _P, _P],
     # offset, per-sample?, started, start, stop, clocks, L, S, sr, out, stream
     "ga_constant_step": [_P, _I, _P, _P, _P, _P, _I, _I, ctypes.c_double, _P, _P],
     "ga_biquad_coeffs_batch": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float,

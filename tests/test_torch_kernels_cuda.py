@@ -690,6 +690,29 @@ def test_k4a_ima_chunk_encode(dev, C, spb):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (F, carry_len)
 
 
+@pytest.mark.parametrize("spb, C, F, offset, carry_lens", [
+    (32769, 1, 70000, 1, (0, 3, 32768)),
+    (505, 2, 524289, 0, (0, 1, 2, 3, 5, 252, 504)),
+    (505, 2, 524289, 3, (1, 2, 3, 504)),
+    (89, 2, 4099, 1, (0, 1, 2, 3, 44, 88)),
+    (89, 2, 4099, 2, (1, 3, 88))])
+def test_k4a_long_blocks_and_misaligned_chunks(dev, spb, C, F, offset, carry_lens):
+    """spb 32769 (a stage over 48 KB of shared memory), and chunks whose
+    rows start off 16-byte boundaries: odd F, an audio view ``offset``
+    floats into its storage, carry_len values that shift every slot. The
+    plain version runs on the CPU (its spb-1 sequential torch steps take
+    seconds on the card at spb 32769)."""
+    rng = np.random.default_rng(spb + offset)
+    base = torch.from_numpy((rng.standard_normal(C * F + offset) * 0.5).astype(np.float32))
+    audio = base.to(dev)[offset:].view(C, F)
+    for carry_len in carry_lens:
+        carry = torch.from_numpy(rng.integers(-32768, 32768, (C, spb - 1)).astype(np.int16))
+        got = wire.ima_chunk_encode(audio, carry.to(dev), carry_len)
+        want = wire.ima_chunk_encode_plain(base[offset:].view(C, F), carry, carry_len)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), \
+            carry_len
+
+
 def test_k4a_stream_matches_host(dev):
     """Chunks of a config-4 launch's size and ragged ones, threaded by
     ImaDeviceStream on the card, equal one host pass."""
@@ -753,6 +776,41 @@ def test_k11_oscillator(dev, wave, S, per_sample):
     assert (got[0] - want[0]).abs().max().item() <= 1e-6
     assert torch.equal(got[1], want[1])
     assert want[0].abs().max().item() > 0.5
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["base values", "rows"])
+@pytest.mark.parametrize("S", [1, 8, 128])
+@pytest.mark.parametrize("wave", list(tosc.WAVE_CODES))
+def test_k11_oscillator_tile_edges(dev, wave, S, per_sample):
+    """Superblocks of one quantum, one tile and sixteen tiles (the last
+    block sums four passes of quanta before its tile), with starts and
+    stops on tile and quantum edges and inside quanta."""
+    L, T = 48, S * 128
+    dt = 128 / 48000
+    t0 = 5 * dt
+    bt = torch.from_numpy(t0 + np.arange(S) * dt).to(dev)
+    edges = [0, 1, 7, 8, 9, 16, 63, 64, 65, 120, S - 1, S]
+    start = np.array([t0 + dt * min(edges[i % len(edges)], S) + (0.3 * dt if i % 3 == 1 else 0)
+                      for i in range(L)])
+    stop = np.array([np.inf if i % 4 == 0 else
+                     start[i] + dt * edges[(i * 5) % len(edges)] + (0.55 * dt if i % 3 == 2 else 0)
+                     for i in range(L)])
+    started = torch.from_numpy((np.arange(L) % 7 != 3).astype(np.int32)).to(dev)
+    phase = torch.from_numpy(np.random.default_rng(S).uniform(0, 2 * np.pi, L)).to(dev)
+    g = torch.Generator().manual_seed(S + 1)
+    if per_sample:
+        f = (torch.rand(L, T, generator=g) * 20000.0).to(dev)
+    else:
+        f = (torch.rand(L, generator=g) * 20000.0).to(dev)[:, None].expand(L, T)
+    args = (f, started, torch.from_numpy(start).to(dev), torch.from_numpy(stop).to(dev), phase,
+            bt, 48000, wave)
+    got = tosc.oscillator_group_step(*args)
+    want = tosc.oscillator_group_step_plain(*args)
+    torch.cuda.synchronize()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    if wave in ("sine", "square"):
+        assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("per_sample", [False, True], ids=["base values", "rows"])
