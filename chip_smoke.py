@@ -48,8 +48,9 @@ each; any failure raises and the script exits non-zero:
      band combine, one launch) against its plain version at the
      full-size occluded scene's step-2 arguments and at S = 1, 4, 64 and
      one mono shape, and its one-pole mode at the same input; K4mu and K4a
-     bit for bit at config 4's launch chunk (K4a with carry_len 0, 1 and
-     504), K11 (four waveforms, base values and rows, within 1e-6; its
+     bit for bit at config 4's launch chunk (K4mu also timed cold, its
+     inputs rotated through more than the card's L2; K4a with carry_len 0,
+     1 and 504), K11 (four waveforms, base values and rows, within 1e-6; its
      constant-source mode bit for bit) and K6m (a-rate, k-rate, stereo
      CHAIN, explicit rows; bit for bit) at config 6's shapes. Each entry
      carries the bound (the larger of bytes over HBM rate and operations
@@ -106,7 +107,15 @@ batched K10b through its one-entry calls), the goldens and configs 4 and
 ran it: two one-pole launches and the torch combine), the goldens, the
 full-size occluded scene and configs 4 and 5. ``--wire6`` runs phases 1
 and 2, the K4mu, K4a, K11 and K6m checks, the goldens and phases 9 and 10
-(after one 30 s f32 render of config 4). They print the launches and
+(after one 30 s f32 render of config 4). ``--k11k4a`` runs the K4a, K11
+and K6m checks, the goldens, three 30 s ``render_adpcm`` of config 4 and
+three 30 s renders each of config 6 modulated and not. ``--k4mu`` runs
+K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
+loads), mono, three channels (through shared memory) and a base one float
+off a 16-byte boundary, each bit for bit, warm and cold, and three 30 s
+``render_mulaw`` of config 4 (each bit for bit the host encoder of an
+f32 render and hashed, K4mu once a launch chunk) plus one under the
+profiler for K4mu's device time a launch in the render. They print the launches and
 host time a step, the device time a step by kernel group (the groups'
 substrings match the kernel names of older trees too) and each first
 render's sha256. Copied into another tree's checkout, each times that
@@ -1338,17 +1347,12 @@ def k10b_checks(dev):
 
 def wire_checks(dev, frames, mulaw=True):
     """K4mu (unless not ``mulaw``) and K4a against their plain versions,
-    bit for bit, at config
-    4's launch chunk ([2, frames] f32), K4a with carry_len 0, 1 and 504 (the
+    bit for bit, at config 4's launch chunk ([2, frames] f32): K4mu as
+    ``k4mu_case`` (warm and cold), K4a with carry_len 0, 1 and 504 (the
     new carry row checked too; the timed calls return the blocks alone).
     Each bound counts the function's fewest operations, not the kernel's.
-    K4mu: per sample 4 f32 operations (clip as max and min, the multiply,
-    the rounding conversion) and 14 integer ones (sign, magnitude, clamp,
-    bias; the exponent from a count of leading zeros, a subtract and a max;
-    the mantissa's add, shift and mask; the byte's two shifts, a
-    three-input or and the inverting xor), under its bytes. K4a: the
-    dependent chain of one block, one operation a clock at the boost
-    clock. The header index first, as trees: |diff| (a subtract and an
+    K4a: the dependent chain of one block, one operation a clock at the
+    boost clock. The header index first, as trees: |diff| (a subtract and an
     absolute value) summed over 504 in 9 levels, then 89 independent
     compares counted in 7 levels and a clamp: 2 + 9 + 1 + 7 + 1 = 20. Then
     each of the 504 steps: from one step's index to the next, the
@@ -1364,15 +1368,9 @@ def wire_checks(dev, frames, mulaw=True):
 
     rng = np.random.default_rng(13)
     audio = torch.from_numpy((rng.standard_normal((2, frames)) * 0.3).astype(np.float32)).to(dev)
-    n = audio.numel()
     entries = []
     if mulaw:
-        mu = compare(f"K4mu mu-law pack (config 4 launch chunk: {list(audio.shape)})", "cuda",
-                     "graphaudio_tpu_torch/csrc/pack.cu", "graphaudio_tpu/ops/wire.py:66",
-                     lambda: twire.pack_mulaw(audio), lambda: twire.pack_mulaw_plain(audio), 0,
-                     # 4 bytes read and 1 written a sample; 4 f32 and 14
-                     # integer operations a sample (see above)
-                     bnd=bound(nbytes(audio) + n, 4 * n, int_ops=14 * n))
+        mu = k4mu_case(f"config 4 launch chunk: {list(audio.shape)}", audio)
         entries.append(dict(mu, name="K4mu mu-law pack"))
     spb = 505
     cases = []
@@ -1401,6 +1399,95 @@ def wire_checks(dev, frames, mulaw=True):
                                                "device_ms")} for c in cases],
                long_block=k4a_long_block(dev))
     return entries + [ima]
+
+
+#: Bytes of inputs a cold timing rotates through: more than the H100's 50
+#: MB L2, so each call finds its input in device memory.
+COLD_BYTES = 64 << 20
+
+
+def cold_times(fn, x):
+    """(call ms, device ms) of ``fn`` for a cold caller: ``fn`` takes
+    copies of ``x`` in turn, more than ``COLD_BYTES`` of them in all, so no
+    call finds its input in L2 (each copy has ``x``'s offset in its
+    storage). The call time is ``median_ms``'s, the device time
+    ``device_ms``'s."""
+    import itertools
+
+    import torch
+
+    base = x.storage_offset()
+    copies = []
+    for _ in range(COLD_BYTES // nbytes(x) + 2):
+        buf = torch.empty(base + x.numel(), dtype=x.dtype, device=x.device)
+        copies.append(buf[base:].view(x.shape).copy_(x))
+    turn = itertools.cycle(copies)
+    return median_ms(lambda: fn(next(turn))), device_ms(lambda: fn(next(turn)))
+
+
+def k4mu_case(label, audio):
+    """K4mu on f32 ``audio`` [C, T]: bit for bit its plain version and
+    ``mulaw_encode_np``, one launch counted; warm (``compare``) and cold
+    (``cold_times``) times. The bound counts the function's fewest
+    operations: per sample 4 f32 operations (clip as max and min, the
+    multiply, the rounding conversion) and 14 integer ones (sign,
+    magnitude, clamp, bias; the exponent from a count of leading zeros, a
+    subtract and a max; the mantissa's add, shift and mask; the byte's two
+    shifts, a three-input or and the inverting xor), under its bytes (4
+    read and 1 written a sample). Only public names of ``ops/wire.py`` are
+    used, so an older tree runs it too."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import wire as twire
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    n = audio.numel()
+    before = cudabuild.launches["pack_mulaw"]
+    got = twire.pack_mulaw(audio)
+    torch.cuda.synchronize()
+    if cudabuild.launches["pack_mulaw"] != before + 1:
+        raise AssertionError(f"K4mu ({label}) did not count one launch")
+    if not np.array_equal(got.cpu().numpy(), twire.mulaw_encode_np(audio.cpu().numpy())):
+        raise AssertionError(f"K4mu ({label}) differs from mulaw_encode_np")
+    e = compare(f"K4mu mu-law pack ({label})", "cuda", "graphaudio_tpu_torch/csrc/pack.cu",
+                "graphaudio_tpu/ops/wire.py:66", lambda: twire.pack_mulaw(audio),
+                lambda: twire.pack_mulaw_plain(audio), 0,
+                bnd=bound(nbytes(audio) + n, 4 * n, int_ops=14 * n))
+    e["cold_ms"], e["cold_device_ms"] = cold_times(twire.pack_mulaw, audio)
+    e["base_mod_16"] = audio.data_ptr() % 16
+    phase("kernels", f"K4mu mu-law pack ({label}): cold {e['cold_ms']!r} ms a call, "
+          f"{e['cold_device_ms']!r} ms on the device (inputs rotated through "
+          f"{COLD_BYTES} bytes); warm {e['device_ms']!r} ms on the device; bound "
+          f"{e['bound_ms']!r} ms; base address mod 16: {e['base_mod_16']}")
+    return e
+
+
+def k4mu_checks(dev):
+    """K4mu at config 4's launch chunk [2, 524288], its last chunk [2,
+    385024] (47 steps), a ragged [2, 380931] (the cut end of a render
+    call), mono [1, 524288], three channels [3, 524288] and the launch
+    chunk one float past a 16-byte boundary (a contiguous view into a
+    larger buffer), each ``k4mu_case``. Returns the entries, the launch
+    chunk's first, which carries the others as ``cases``."""
+    import torch
+
+    rng = np.random.default_rng(15)
+
+    def noise(C, T, offset=0):
+        buf = torch.from_numpy((rng.standard_normal(offset + C * T) * 0.3).astype(np.float32))
+        return buf.to(dev)[offset:offset + C * T].view(C, T)
+
+    cases = [k4mu_case(label, noise(*shape)) for label, shape in (
+        ("config 4 launch chunk: [2, 524288]", (2, 524288)),
+        ("config 4 last chunk: [2, 385024]", (2, 385024)),
+        ("ragged: [2, 380931]", (2, 380931)),
+        ("mono: [1, 524288]", (1, 524288)),
+        ("three channels: [3, 524288]", (3, 524288)),
+        ("misaligned base, one float off: [2, 524288]", (2, 524288, 1)))]
+    keys = ("name", "max_abs_err", "ms", "device_ms", "cold_ms", "cold_device_ms", "plain_ms",
+            "bound_ms", "bound_by", "base_mod_16")
+    return [dict(cases[0], name="K4mu mu-law pack",
+                 cases=[{k: c[k] for k in keys} for c in cases])]
 
 
 def k4a_long_block(dev, spb=32769):
@@ -1603,7 +1690,8 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5,
     """``runs`` 30 s renders each through ``render_mulaw`` and
     ``render_adpcm`` of config 4 from fresh contexts: each packed render
     equal to the host encoders of ``f32`` (a 30 s f32 render from the same
-    tree) bit for bit, K4mu and K4a launched once a launch chunk; the xRT
+    tree) bit for bit (every run, each run's sha256 kept), K4mu and K4a
+    launched once a launch chunk; the xRT
     spread, the wire bytes, and each format's SNR against ``f32``. Then one
     render of each 4321 frames shorter, which ends inside a superblock
     (its kept frames packed on the device, the rest carried as f32), timed and
@@ -1635,10 +1723,16 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5,
         cudabuild.launches.clear()
         got, wall, bd = timed_render(build, frames, method)
         launches = cudabuild.launches[wrapper]
-        walls = [wall] + [timed_render(build, frames, method)[1] for _ in range(runs - 1)]
-        data = got if method == "render_mulaw" else got.blocks
-        if not np.array_equal(data, want[method]):
-            raise AssertionError(f"{method} differs from the host encoder of the f32 render")
+        walls, shas = [], []
+        for run in range(runs):
+            if run:
+                got, wall, _ = timed_render(build, frames, method)
+            data = got if method == "render_mulaw" else got.blocks
+            if not np.array_equal(data, want[method]):
+                raise AssertionError(f"{method} (run {run}) differs from the host encoder of "
+                                     "the f32 render")
+            walls.append(wall)
+            shas.append(hashlib.sha256(np.ascontiguousarray(data).tobytes()).hexdigest())
         if launches != bd["n_launches"]:
             raise AssertionError(f"{method}: {launches} {wrapper} launches for "
                                  f"{bd['n_launches']} launch chunks")
@@ -1649,9 +1743,9 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5,
                               want_ragged[method]):
             raise AssertionError(f"{method} of {ragged} frames differs from the host encoder "
                                  "of the f32 render's first frames")
-        sha = hashlib.sha256(np.ascontiguousarray(data).tobytes()).hexdigest()
+        sha = shas[0]
         out[method] = {"wire_bytes": int(data.nbytes), "f32_bytes": int(f32.nbytes),
-                       "sha256": sha,
+                       "sha256": sha, "sha256_runs": shas,
                        "snr_db_vs_f32": snr_db(decoded), "launches": launches,
                        "launch_chunks": bd["n_launches"], **spread(frames, walls),
                        "breakdown": bd, "ragged": {"frames": ragged, "wall_s": wall_r,
@@ -1661,7 +1755,8 @@ def wire_runs(dev, build, step_frames, frames, f32, runs=5,
               f"SNR {out[method]['snr_db_vs_f32']!r} dB against it; {runs} runs {walls!r} s, "
               f"median {out[method]['xrt_median']!r} xRT; {launches} launches for "
               f"{bd['n_launches']} launch chunks; first run breakdown {json.dumps(bd)}; "
-              f"{ragged} frames (ragged end) {wall_r!r} s, bit for bit; sha256 {sha}")
+              f"{ragged} frames (ragged end) {wall_r!r} s, bit for bit; sha256 of each run "
+              f"{shas}")
         if profile:
             out[method]["profile"] = profile_render(build, frames, method, WIRE_GROUPS)
             phase("profile", f"config 4 {method}, one 30 s render under torch.profiler: "
@@ -1854,6 +1949,12 @@ def main(device="cuda", only=None):
                 e["launches"] = runs["config6"]["modulated"]["launches"][label]
             entries[1]["constant_mode"]["launches"] = \
                 runs["config6"]["modulated"]["launches"]["K11 constant"]
+        elif only == "k4mu":
+            entries = k4mu_checks(dev)
+            f32, _, _ = timed_render(b4, frames)
+            runs = {"config4_mulaw": wire_runs(dev, b4, T, frames, f32, runs=3,
+                                               methods=("render_mulaw",), profile=True)}
+            entries[0]["launches"] = runs["config4_mulaw"]["render_mulaw"]["launches"]
         elif only == "k9":
             entries = [k9_checks(dev)]
             golden_err = goldens(dev)
@@ -2171,6 +2272,9 @@ if __name__ == "__main__":
                   "and 128) and K6m checks, the goldens, three 30 s render_adpcm of "
                   "config 4 (one more profiled) and three 30 s renders each of config 6 "
                   "modulated and not",
+        "k4mu": "the K4mu checks (config 4's launch chunk and last chunk, a ragged T, "
+                "mono, three channels and a misaligned base, each warm and cold) and three "
+                "30 s render_mulaw of config 4 (one more profiled)",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

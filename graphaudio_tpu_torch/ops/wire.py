@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,16 +78,68 @@ def pack_mulaw_plain(outs):
     return byte.to(torch.uint8).T.reshape(-1)
 
 
+#: Frames of every channel one thread of K4mu encodes (csrc/pack.cu's
+#: kV; 8 timed faster than 16 on the H100).
+MULAW_FRAMES = 8
+#: K4mu's threads a block.
+MULAW_THREADS = 256
+#: Shared memory K4mu's any-C instantiation may take (the 48 KB default):
+#: a block stages threads x MULAW_FRAMES x C bytes.
+_MULAW_MAX_SMEM = 48 * 1024
+#: The most channels K4mu packs: 32 threads' stages within _MULAW_MAX_SMEM.
+MULAW_MAX_CHANNELS = _MULAW_MAX_SMEM // (32 * MULAW_FRAMES)
+
+
+class MulawPlan(NamedTuple):
+    """K4mu's geometry, in the order ``ga_pack_mulaw`` takes it."""
+
+    variant: int  # C for 1 and 2 (bytes interleaved in registers), 0 for any C (shared memory)
+    vec: bool  # 16-byte loads: every row base is 16-byte aligned
+    frames: int  # V, frames of every channel a thread
+    tail: int  # first frame of the tail, T - T % V: one thread writes [tail, T)
+    threads: int
+    blocks: int
+    smem: int  # dynamic shared bytes (the any-C instantiation)
+
+
+def mulaw_pack_plan(C: int, T: int, offset: int) -> MulawPlan:
+    """K4mu's geometry for f32 [C, T] whose base address is ``offset``
+    bytes past a 16-byte boundary. Thread g of the grid encodes frames
+    [g V, g V + V) of every channel, the thread g = T // V the frames
+    [tail, T); the grid covers them in one pass (a grid-stride grid of a
+    multiple of 132 blocks timed no faster). Vector loads need every
+    row base (x + c T) 16-byte aligned: ``offset`` 0, and T % 4 == 0 when
+    there is more than one row. Raises above ``MULAW_MAX_CHANNELS``."""
+    if not 1 <= C <= MULAW_MAX_CHANNELS:
+        raise ValueError(f"the card's mu-law pack takes 1 to {MULAW_MAX_CHANNELS} channels "
+                         f"(its stage of {MULAW_FRAMES} frames of every channel for 32 "
+                         f"threads must fit in {_MULAW_MAX_SMEM} bytes); got {C}")
+    V = MULAW_FRAMES
+    variant = C if C <= 2 else 0
+    threads = MULAW_THREADS
+    smem = 0
+    if variant == 0:
+        threads = min(threads, _MULAW_MAX_SMEM // (V * C) // 32 * 32)
+        smem = threads * V * C
+    vec = offset % 16 == 0 and (C == 1 or T % 4 == 0)
+    groups = -(-T // V)
+    return MulawPlan(variant, vec, V, T - T % V, threads, max(1, -(-groups // threads)), smem)
+
+
 def pack_mulaw(outs):
     """K4mu: f32 [C, T] -> flat interleaved G.711 mu-law bytes uint8[T*C],
     bit for bit ``mulaw_encode_np``. CPU tensors take the plain version;
-    CUDA tensors launch csrc/pack.cu."""
+    CUDA tensors launch csrc/pack.cu with ``mulaw_pack_plan``'s geometry
+    (an empty tensor launches nothing)."""
     if outs.device.type == "cpu":
         return pack_mulaw_plain(outs)
     cudabuild.require(outs, "outs", torch.float32, ndim=2)
     C, T = outs.shape
     out = torch.empty((T * C,), dtype=torch.uint8, device=outs.device)
-    status = cudabuild.launcher("ga_pack_mulaw")(outs.data_ptr(), out.data_ptr(), C, T,
+    if out.numel() == 0:
+        return out
+    plan = mulaw_pack_plan(C, T, outs.data_ptr() % 16)
+    status = cudabuild.launcher("ga_pack_mulaw")(outs.data_ptr(), out.data_ptr(), C, T, *plan,
                                                  cudabuild.stream_of(outs))
     cudabuild.check(status, "ga_pack_mulaw")
     cudabuild.launches["pack_mulaw"] += 1

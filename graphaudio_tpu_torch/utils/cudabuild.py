@@ -47,7 +47,9 @@ _SIGNATURES = {
     "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
     "ga_pack_int16": [_P, _P, _I, _I64, _P],
-    "ga_pack_mulaw": [_P, _P, _I, _I64, _P],
+    # x, out, C, T, then ops/wire.MulawPlan: variant, vec, V, tail, threads,
+    # blocks, shared bytes; stream
+    "ga_pack_mulaw": [_P, _P, _I, _I64, _I, _I, _I, _I64, _I, _I, _I, _P],
     # audio, carry, C, F, spb, carry_len, ncap, blocks a thread block, thread
     # blocks a channel, stage bytes, blocks, new carry, stream
     "ga_ima_chunk_encode": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -667,13 +667,35 @@ def test_config5_golden_on_card(dev):
 # ---- K4mu, K4a: the wire formats -------------------------------------------------------
 
 
-def test_k4mu_pack_mulaw(dev):
-    g = torch.Generator().manual_seed(13)
-    x = torch.randn(2, 10000, generator=g) * 0.6
-    x[0, :6] = torch.tensor([0.5 / 32767, -0.5 / 32767, 1.5 / 32767, 1.5, -7.0, 0.0])
-    got = wire.pack_mulaw(x.to(dev))
-    assert torch.equal(got, wire.pack_mulaw_plain(x.to(dev)))
-    np.testing.assert_array_equal(got.cpu().numpy(), wire.mulaw_encode_np(x.numpy()))
+def _mulaw_pool():
+    """The mu-law cases' samples: the quantizer's rounding ties, clipping,
+    0 and +-inf first, then every int16 level q / 32767 shuffled, then
+    noise."""
+    rng = np.random.default_rng(13)
+    edges = np.array([0.5 / 32767, -0.5 / 32767, 1.5 / 32767, 1.5, -7.0, 0.0, np.inf, -np.inf],
+                     np.float32)
+    levels = np.arange(-32767, 32768, dtype=np.float32) / np.float32(32767)
+    noise = (rng.standard_normal(200000) * 0.6).astype(np.float32)
+    return np.concatenate([edges, rng.permutation(levels), noise])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("T", [1, 3, 7, 8, 127, 10000, 10003, 32772])
+@pytest.mark.parametrize("C", [1, 2, 3, 6])
+def test_k4mu_pack_mulaw(dev, C, T, offset):
+    """Every instantiation of K4mu (C = 1, 2 and any C; vector loads, and
+    scalar ones for a base ``offset`` floats off or T % 4 != 0), every tail
+    length T mod V: bit for bit the plain version and the host encoder,
+    one launch. T = 32772 at C >= 2 holds every int16 level."""
+    buf = torch.from_numpy(_mulaw_pool()[:offset + C * T]).to(dev)
+    x = buf[offset:offset + C * T].view(C, T)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = cudabuild.launches["pack_mulaw"]
+    got = wire.pack_mulaw(x)
+    torch.cuda.synchronize()
+    assert cudabuild.launches["pack_mulaw"] == before + 1
+    assert torch.equal(got, wire.pack_mulaw_plain(x))
+    np.testing.assert_array_equal(got.cpu().numpy(), wire.mulaw_encode_np(x.cpu().numpy()))
 
 
 @pytest.mark.parametrize("spb", [9, 89, 505])
