@@ -12,8 +12,10 @@ frequency and Q ramp every 3 s -> destination) and BASELINE config 5 (Kit
 engine: 128 looped mono voices -> gain -> HRTF spatial panner -> sfx bus
 -> reverb send with a 1 s mono IR -> master -> destination), config 5's
 scene with every voice occluded (the panner's 3-band split), config 4
-delivered as G.711 mu-law and IMA ADPCM, and BASELINE config 6 (64 looped
-voices, each gain modulated by its own oscillator). Phases, one line
+delivered as G.711 mu-law and IMA ADPCM, BASELINE config 6 (64 looped
+voices, each gain modulated by its own oscillator), and the paths of a
+time-varying rate: config 4 with ramped playbackRates, config 6 with swept
+LFO frequencies and a vibrato on config 2's voices. Phases, one line
 each; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -52,7 +54,14 @@ each; any failure raises and the script exits non-zero:
      inputs rotated through more than the card's L2; K4a with carry_len 0,
      1 and 504), K11 (four waveforms, base values and rows, within 1e-6; its
      constant-source mode bit for bit) and K6m (a-rate, k-rate, stereo
-     CHAIN, explicit rows; bit for bit) at config 6's shapes. Each entry
+     CHAIN, explicit rows; bit for bit) at config 6's shapes; K7 (the
+     time-varying resampler's group step) at config4_pitched's step and at
+     one voice (S = 1, 4, 64, a loop seam inside the step), stereo and the
+     edge-case group, audio within 1e-6 and the new states bit for bit;
+     K6's exact rows in config4_pitched's and config6_swept's step tables
+     bit for bit and in a table of every curve type within one f32 ulp;
+     K4a's streamed path at spb 65521 stereo and 131057 mono bit for bit
+     the host encoder, timed by CUDA events over bursts. Each entry
      carries the bound (the larger of bytes over HBM rate and operations
      over peak rate) and, where one PyTorch call computes the same
      function, that call's time; K3's host time a call beside torch.sum's;
@@ -93,7 +102,18 @@ each; any failure raises and the script exits non-zero:
      not, five fresh runs each (``render_runs``): the modulated one's
      first 8192 frames within 1e-5 of the golden, the other's within 1e-5
      of its CPU render, K11 once a step in both and K6m once a step in the
-     modulated one.
+     modulated one;
+ 11. config4_pitched (config 4, each playbackRate ramped between 0.84 and
+     1.19 every 2 s: one K7 and one K6 launch a step) and config6_swept
+     (config 6, each LFO frequency ramped between f_v and 2 f_v every 3 s:
+     K6's exact a-rate rows feeding K11) at full size, and the vibrato
+     (config 2's 8 voices, a sine LFO on each playbackRate, one voice
+     pushed past its window's bound by a constant: 8 ungrouped K7
+     launches a step) at 64 superblocks,
+     three runs each (``render_runs``), the first run within 1e-5 of the
+     same graph's CPU render (config4_pitched and config6_swept over their
+     first 8 superblocks, the vibrato over all 64); xRT, device us and
+     launches a step and the sha256 of each.
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -109,7 +129,9 @@ full-size occluded scene and configs 4 and 5. ``--wire6`` runs phases 1
 and 2, the K4mu, K4a, K11 and K6m checks, the goldens and phases 9 and 10
 (after one 30 s f32 render of config 4). ``--k11k4a`` runs the K4a, K11
 and K6m checks, the goldens, three 30 s ``render_adpcm`` of config 4 and
-three 30 s renders each of config 6 modulated and not. ``--k4mu`` runs
+three 30 s renders each of config 6 modulated and not. ``--k7`` runs the
+K7, K6 exact-row and K4a streamed-path checks, the goldens and phase 11.
+``--k4mu`` runs
 K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
 loads), mono, three channels (through shared memory) and a base one float
 off a 16-byte boundary, each bit for bit, warm and cold, and three 30 s
@@ -1821,6 +1843,278 @@ def config6_runs(dev, runs=5):
     return out
 
 
+#: This slice's kernels by a substring of their names: K7 and K6 (whose
+#: exact rows run in the same kernel), and K11 and K6m beside them.
+K7_GROUPS = {"K7": "resample_step", "K6": "param_eval", "K11": "oscillator_kernel",
+             "K6m": "apply_modulation"}
+
+
+def resample_mid_render(ctx, dev, step=9):
+    """ctx's time-varying source group at step ``step``: (functions
+    ``fused(st, rc, rate)`` and ``plain(st, rc, rate)`` of the public K7
+    names, the states advanced by the plain step through the steps before,
+    the step's rc and playbackRate rows f32[V, S] from the step's K6 arena,
+    the window w)."""
+    import torch
+
+    import graphaudio_tpu_torch as gat
+    from graphaudio_tpu_torch.core import graph as tgraph
+    from graphaudio_tpu_torch.ops import param_eval as tpe
+
+    node = gat.AudioBufferSourceNode
+    ctx._ensure_compiled()
+    ctx._ensure_params_encoded()
+    si = min(ctx._compiled._bufsrc_cfg)
+    w, variant, _ = ctx._compiled._bufsrc_cfg[si]
+    assert variant[0] == "resample", variant
+    c = ctx._consts
+    arena, geom, gtab = c[f"st{si}/arena"], c[f"st{si}/geom"], c[f"st{si}/gtab"]
+    table = ctx._encs[tgraph.PARAM_TABLE]
+    slot = table["slots"][f"st{si}/playbackRate"]
+
+    def fused(st, rc, rate):
+        return node.process_resample_group(st, arena, geom, gtab, rate, rc, w)
+
+    def plain(st, rc, rate):
+        return node.resample_group_step_plain(st, arena, geom, rate, rc, w)
+
+    S, T = ctx.superblock, ctx.superblock * 128
+    clock = ctx._block_clock((step + 1) * S)
+    st = ctx._states[f"st{si}"]
+    for k in range(step + 1):
+        rc = tgraph.RenderContext(ctx._compiled.info, k * T,
+                                  torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev))
+        rows = tpe.eval_intrinsic_batch(table, rc.block_times, rc.dt)
+        rate = rows.narrow(0, slot.off, slot.lanes * slot.per_lane).view(slot.lanes, S)
+        if k < step:
+            st, _ = plain(st, rc, rate)
+    return fused, plain, st, rc, rate, si
+
+
+def k7_case(label, ctx, dev, step=9):
+    """K7 against its plain version at ``step`` of ctx's time-varying group:
+    the audio within 1e-6, the new x, primed and stop_time bit for bit.
+    The bound is the step's bytes: states read and written, the geometry,
+    the clocks, the rates, the audio written and the arena samples the
+    valid outputs read (each once: a voice's advance, 128 x its clamped
+    rate over its active quanta, plus its 3 extra taps), beside ~20 f32
+    operations an output (the split, the weights, 4 taps)."""
+    import torch
+
+    import graphaudio_tpu_torch as gat
+    from graphaudio_tpu_torch.ops import voice_group
+
+    fused, plain, st, rc, rate, si = resample_mid_render(ctx, dev, step)
+    new_f, out = fused(st, rc, rate)
+    new_p, want = plain(st, rc, rate)
+    torch.cuda.synchronize()
+    as_int = lambda t: t.view(torch.int64 if t.element_size() == 8 else torch.int32) \
+        if t.is_floating_point() else t  # noqa: E731
+    differ = [f for f in ("x", "primed", "stop_time")
+              if not torch.equal(as_int(new_f[f]), as_int(new_p[f]))]
+    if differ:
+        raise AssertionError(f"K7 ({label}): states {differ} differ from the plain version")
+    V, C, T = out.shape
+    # the advance from the rates, not from the new x, which a loop wrap moves back
+    node = gat.AudioBufferSourceNode
+    geom = ctx._consts[f"st{si}/geom"]
+    cap = voice_group.resample_geometry(T // 128, ctx._compiled._bufsrc_cfg[si][0])[0]
+    rate_b = torch.clamp((geom["rate"] / float(rc.sample_rate))[:, None] * rate.double(),
+                         max=float(cap))
+    adv = torch.where(node._active_mask(st, rc), 128.0 * rate_b, 0.0).sum(dim=1)
+    read = int(torch.where(adv > 0, torch.ceil(adv) + 3, 0.0).sum()) * C * 4
+    gtab = ctx._consts[f"st{si}/gtab"]
+    moved = (nbytes(*st.values()) + nbytes(new_f["x"], new_f["primed"], new_f["stop_time"])
+             + nbytes(gtab, rate, out) + 2 * nbytes(rc.block_times) + read)
+    e = compare(f"K7 time-varying resample group step ({label}: V={V} C={C} S={T // 128}, "
+                f"mid-render step {step})", "cuda", "graphaudio_tpu_torch/csrc/resample.cu",
+                "graphaudio_tpu/nodes/sources.py:783",
+                lambda: fused(st, rc, rate)[1], lambda: plain(st, rc, rate)[1], 1e-6,
+                bnd=bound(moved, 20 * out.numel()))
+    e["states_bit_exact"] = ["x", "primed", "stop_time"]
+    return e
+
+
+def k7_checks(dev):
+    """K7 at config4_pitched's step (64 voices, superblock 64), and at one
+    voice with a loop shorter than a superblock (S = 1, 4, 64), stereo
+    (S = 32) and the edge-case group (S = 4) under "shapes"
+    (graphaudio_tpu_torch/testing/groups.py, rates at ``step_rates``)."""
+    from graphaudio_tpu_torch.testing import groups
+    from graphaudio_tpu_torch.testing.configs import config4_pitched
+
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    e = k7_case("config4_pitched", config4_pitched(superblock=64, voices=64, device=dev), dev)
+    shapes = []
+    for label, ctx in (
+            (f"one voice S={S}", groups.resample_group(S, dev, specs=groups.POLY_VOICES[1:2]))
+            for S in (1, 4, 64)):
+        shapes.append(k7_case(label, _with_rates(ctx, dev), dev, step=4))
+    shapes.append(k7_case("stereo", _with_rates(groups.resample_group(32, dev, channels=2), dev),
+                          dev, step=4))
+    shapes.append(k7_case("edge cases", _with_rates(groups.resample_group(4, dev), dev), dev,
+                          step=4))
+    e["shapes"] = [{k: x[k] for k in keys} for x in shapes]
+    e["name"] = "K7 time-varying resample group step"
+    e["library_ms"] = None
+    return e
+
+
+def _with_rates(ctx, dev):
+    """ctx with a playbackRate ramp on every voice (events, so the K6 table
+    holds the group's k-rate exact rows)."""
+    for n in ctx._compiled.stages[0][1]:
+        n.playback_rate.set_value_at_time(0.7, 0.0)
+        n.playback_rate.linear_ramp_to_value_at_time(1.9, 0.05)
+    ctx._ensure_compiled()
+    return ctx
+
+
+def k6x_case(label, table, bt, ulp_only=False):
+    """K6 over ``table`` (rows of the exact kind among them) against its
+    plain version: bit for bit, or (``ulp_only``: exponential and setTarget
+    curves in f64) within one f32 ulp of each value."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import param_eval as tpe
+
+    dt = 1.0 / SR
+    got = tpe.eval_intrinsic_batch(table, bt, dt)
+    want = tpe.eval_intrinsic_batch_plain(table, bt, dt)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy().astype(np.float64), want.cpu().numpy()
+    ulps = float((np.abs(g - w) / np.spacing(np.abs(w).astype(np.float32))).max()) \
+        if w.size else 0.0
+    if ulps > (1.0 if ulp_only else 0.0):
+        raise AssertionError(f"K6 exact rows ({label}): {ulps} ulps from the plain version")
+    fields = [table[k] for k in ("times", "tcs", "values", "types", "boundary", "n", "base",
+                                 "rows")]
+    e = compare(f"K6 exact rows ({label})", "cuda", "graphaudio_tpu_torch/csrc/param_eval.cu",
+                "graphaudio_tpu/ops/param_eval.py:213",
+                lambda: tpe.eval_intrinsic_batch(table, bt, dt),
+                lambda: tpe.eval_intrinsic_batch_plain(table, bt, dt),
+                float(np.spacing(np.float32(max(1.0, np.abs(w).max())))) if ulp_only else 0.0,
+                # the table and clock read once, the arena written once;
+                # about ten operations a value (f64 at k-rate)
+                bnd=bound(nbytes(*fields, bt, got), 10 * got.numel(), F64_FLOPS))
+    e["max_ulps"] = ulps
+    return e
+
+
+def k6x_checks(dev):
+    """K6's exact rows as the step launches them, mid-render at step 9:
+    config4_pitched's table (64 k-rate exact rows, the f64 curve at the
+    block times) and config6_swept's (64 exact a-rate rows of linear
+    ramps), bit for bit; a seeded table of every curve type in exact rows
+    beside ordinary ones within one f32 ulp (CUDA's f64 pow/exp)."""
+    from graphaudio_tpu_torch.core import graph as tgraph
+    from graphaudio_tpu_torch.core.graph import to_device
+    from graphaudio_tpu_torch.ops import param_eval as tpe
+    from graphaudio_tpu_torch.testing import tables as ttab
+    from graphaudio_tpu_torch.testing.configs import config4_pitched, config6_swept
+
+    keys = ("name", "max_abs_err", "max_ulps", "ms", "plain_ms", "bound_ms", "bound_by",
+            "device_ms")
+    out = []
+    for label, ctx, S in (
+            ("config4_pitched: 64 k-rate rows", config4_pitched(superblock=64, device=dev), 64),
+            ("config6_swept: 64 a-rate rows", config6_swept(superblock=32, device=dev), 32)):
+        ctx._ensure_compiled()
+        ctx._ensure_params_encoded()
+        table = ctx._encs[tgraph.PARAM_TABLE]
+        assert int(table["rows"][:, 2].sum()) == 64, label
+        out.append(k6x_case(label, table, torch_clock(dev, 10 * S, 9, S)))
+    S = 32
+    entries = ttab.mixed_param_entries(0, 12 * S * ttab.BLOCK)
+    table = to_device(tpe.pack_param_table(
+        entries + [(f"x{k}", e[1], e[2], True) for k, e in enumerate(entries)], S), dev)
+    out.append(k6x_case("every curve type, 21 exact rows beside 21 ordinary",
+                        table, torch_clock(dev, 12 * S, 9, S), ulp_only=True))
+    e = dict(out[0], name="K6 exact rows", library_ms=None)
+    e["shapes"] = [{k: x[k] for k in keys} for x in out[1:]]
+    return e
+
+
+def k4a_streamed(dev):
+    """K4a's streamed path at WAV's longest stereo (65521) and mono
+    (131057) blocks: each chunk of two blocks and a part, bit for bit the
+    host encoder (``ima_encode_np``) of its stream buffer; timed by CUDA
+    events over bursts (``burst_ms``; a launch takes milliseconds). Bound:
+    one block's chain, 20 + 11 (spb - 1) dependent operations at one a
+    clock."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import wire as twire
+
+    out = []
+    for spb, C in ((65521, 2), (131057, 1)):
+        rng = np.random.default_rng(spb)
+        F, carry_len = 2 * spb + 1000, 7
+        x = (rng.standard_normal((C, F)) * 0.5).astype(np.float32)
+        carry = rng.integers(-32768, 32768, (C, spb - 1)).astype(np.int16)
+        audio, carry_t = torch.from_numpy(x).to(dev), torch.from_numpy(carry).to(dev)
+        blocks, _ = twire.ima_chunk_encode(audio, carry_t, carry_len)
+        torch.cuda.synchronize()
+        ncap = twire.ima_chunk_slots(F, spb)
+        buf = np.zeros((C, ncap * spb), np.int16)
+        buf[:, :spb - 1] = carry
+        buf[:, carry_len:carry_len + F] = twire.quantize_i16(x)
+        if not np.array_equal(blocks.cpu().numpy(), twire.ima_encode_np(buf, spb)):
+            raise AssertionError(f"K4a streamed (spb {spb}, C {C}) differs from the host encoder")
+        reads = burst_ms(lambda: twire.ima_chunk_encode(audio, carry_t, carry_len), 3)
+        bound_ms = (20 + 11 * (spb - 1)) / CHAIN_OPS * 1e3
+        name = f"K4a IMA ADPCM streamed path (spb {spb}, [{C}, {F}], carry_len {carry_len})"
+        phase("kernels", f"{name}: bit for bit the host encoder; {statistics.median(reads)!r} "
+              f"ms a launch on the device (CUDA events over bursts of 3: {reads}); bound "
+              f"{bound_ms!r} ms (operations: one block's chain)")
+        out.append({"name": name, "max_abs_err": 0, "device_ms": statistics.median(reads),
+                    "device_bursts_ms": reads, "bound_ms": bound_ms, "bound_by": "operations"})
+    return out
+
+
+def slice16_runs(dev, runs=3):
+    """The paths of the time-varying rate, each against its own CPU render
+    within 1e-5: config4_pitched at full size (64 voices, superblock 64,
+    175 superblocks), K7 and K6 once a step, and config6_swept at full size
+    (superblock 32, 351 superblocks), K6, K11 and K6m once a step, over
+    their first 8 superblocks; the vibrato (config 2's 8 voices,
+    superblock 32, 64 superblocks), K7 and K6m 8 times a step (8 ungrouped
+    stages), over all 64 (a sine LFO's ulps would grow through the
+    integrated playhead). Each ``runs`` renders with a profile window
+    (``render_runs``)."""
+    from graphaudio_tpu_torch.testing.configs import (config2_vibrato, config4_pitched,
+                                                      config6_swept)
+
+    T4, T6 = 64 * 128, 32 * 128
+    frames4, frames6 = 175 * T4, (30 * SR // T6) * T6
+    counts = {"K7": ("resample_group_step",), "K6": ("eval_intrinsic_batch",),
+              "K11": ("oscillator_group_step",), "K6m": ("apply_modulation",),
+              "K2a": ("spectral_mac",), "K2b": ("overlap_add",), "K3": ("fan_in_lanes",),
+              "K5": ("unity_group_step",)}
+    out = {}
+    for key, build, T, frames, head, want in (
+            ("config4_pitched", lambda d: config4_pitched(superblock=64, device=d), T4, frames4,
+             8, {"K7": 1, "K6": 1, "K2b": 1}),
+            ("config6_swept", lambda d: config6_swept(superblock=32, device=d), T6, frames6,
+             8, {"K6": 1, "K11": 1, "K6m": 1}),
+            ("vibrato", lambda d: config2_vibrato(superblock=32, device=d), T6, 64 * T6,
+             64, {"K7": 8, "K6m": 8, "K11": 1})):
+        ref = build("cpu").render(head * T)
+        r = render_runs(key, lambda: build(dev), T, frames, counts, K7_GROUPS, runs=runs,
+                        ref=ref)
+        steps = frames // T
+        for label, n in want.items():
+            if r["launches"][label] != n * steps:
+                raise AssertionError(f"{key}: {label} launched {r['launches'][label]} times in "
+                                     f"{steps} steps, not {n} a step")
+        phase("render", f"{key}: xRT median {r['f32']['xrt_median']!r}, device us a step "
+              f"{r['profile']['device_us_per_step']!r}, launches a step "
+              f"{r['profile']['launches_per_step']!r}, sha256 {r['sha256']}, first {head} "
+              f"superblocks vs the CPU render {r['head_vs_golden']!r}")
+        out[key] = r
+    return out
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -1949,6 +2243,16 @@ def main(device="cuda", only=None):
                 e["launches"] = runs["config6"]["modulated"]["launches"][label]
             entries[1]["constant_mode"]["launches"] = \
                 runs["config6"]["modulated"]["launches"]["K11 constant"]
+        elif only == "k7":
+            entries = [k7_checks(dev), k6x_checks(dev)]
+            entries.append({"name": "K4a IMA ADPCM chunk encoder", "route": "cuda",
+                            "source": "graphaudio_tpu_torch/csrc/adpcm.cu",
+                            "replaces": "graphaudio_tpu/ops/wire.py:338",
+                            "streamed_blocks": k4a_streamed(dev)})
+            golden_err = goldens(dev)
+            runs = slice16_runs(dev)
+            entries[0]["launches"] = runs["config4_pitched"]["launches"]["K7"]
+            entries[1]["launches"] = runs["config4_pitched"]["launches"]["K6"]
         elif only == "k4mu":
             entries = k4mu_checks(dev)
             f32, _, _ = timed_render(b4, frames)
@@ -2028,6 +2332,10 @@ def main(device="cuda", only=None):
     # -- 3b. the config-3, config-5 and config-6 paths' kernels ---------------------
     entries += config3_kernel_checks(dev)
     entries += k11k6m_checks(dev)
+    entries += [k7_checks(dev), k6x_checks(dev)]
+    for e in entries:
+        if e["name"] == "K4a IMA ADPCM chunk encoder":
+            e["streamed_blocks"] = k4a_streamed(dev)
     c5, k3_c5 = config5_kernel_checks(dev)
     entries += c5
     k3["config5_shape"] = {k: k3_c5[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
@@ -2216,6 +2524,14 @@ def main(device="cuda", only=None):
 
     # -- 10. config 6 at full size -----------------------------------------------------
     runs6 = config6_runs(dev)
+
+    # -- 11. the time-varying rate: config4_pitched, config6_swept, vibrato -----------
+    runs16 = slice16_runs(dev)
+    for e in entries:
+        if e["name"] == "K7 time-varying resample group step":
+            e["launches"] = runs16["config4_pitched"]["launches"]["K7"]
+        elif e["name"] == "K6 exact rows":
+            e["launches"] = runs16["config4_pitched"]["launches"]["K6"]
     for e in entries:
         if e["name"] == "K4mu mu-law pack":
             e["launches"] = wire4["render_mulaw"]["launches"]
@@ -2242,6 +2558,7 @@ def main(device="cuda", only=None):
         "occluded_full": full_occ,
         "config4_wire": wire4,
         "config6": dict(runs6, golden_max_abs_err=golden_err[6]),
+        **runs16,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2275,6 +2592,9 @@ if __name__ == "__main__":
         "k4mu": "the K4mu checks (config 4's launch chunk and last chunk, a ragged T, "
                 "mono, three channels and a misaligned base, each warm and cold) and three "
                 "30 s render_mulaw of config 4 (one more profiled)",
+        "k7": "the K7, K6 exact-row and K4a streamed-path checks, the goldens and three "
+              "renders each of config4_pitched and config6_swept (30 s) and of the "
+              "vibrato (64 superblocks)",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

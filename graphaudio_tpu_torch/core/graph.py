@@ -24,8 +24,8 @@ per-lane audio inputs, the 1:1 per-voice LFO -> param chain as CHAIN.
 
 Left out so far (see ROADMAP.md): chain fusion into pipelined stages
 (``_fuse_chains``), mesh sharding (``_compute_sharding`` / ``shard_map``),
-modulated params that a stage's prologue reads (the biquad's and the
-spatial panner's), and the time-varying-rate buffer-source variant.
+and modulated params that a stage's prologue reads (the biquad's and the
+spatial panner's).
 """
 
 from __future__ import annotations
@@ -124,9 +124,10 @@ PROLOGUE = "__prologue__"
 
 
 def _evaluates_params(sp) -> bool:
-    """Stages whose params the step evaluates (buffer-source groups bake
-    theirs into the kernel variant; the destination has none)."""
-    return sp["kind"] != "dest" and sp["bufsrc"] is None
+    """Stages whose params the step evaluates (the unity and polyphase
+    buffer-source groups bake theirs into the kernel variant; the
+    time-varying one reads its playbackRate; the destination has none)."""
+    return sp["kind"] != "dest" and (sp["bufsrc"] is None or sp["bufsrc"][1][0] == "resample")
 
 
 def _is_buffer_source(node) -> bool:
@@ -307,11 +308,13 @@ class CompiledGraph:
                 continue
             rep = nodes[0]
             variant = rep.kernel_variant()  # shared: it's in the group key
-            rep.require_ported(variant)
             if variant[0] == "poly":
                 w, front = type(rep).poly_window(self.info.superblock, *variant[1:])
-            else:  # unity
+            elif variant[0] == "unity":
                 w, front = type(rep).unity_window(self.info.superblock), 0
+            else:  # resample: the window of the group's largest rate bound
+                bound = max(n.rate_bound() for n in nodes)
+                w, front = type(rep).resample_window(self.info.superblock, bound), 0
             built = [n.build_region(w, front) for n in nodes]
             regions = [b[0] for b in built]
             geoms = [b[1] for b in built]
@@ -341,7 +344,8 @@ class CompiledGraph:
             self.consts[f"st{si}/arena"] = arena
             self.consts[f"st{si}/geom"] = stacked
             # The same geometry packed for the card's one-launch group step.
-            self.consts[f"st{si}/gtab"] = pack_group_table(stacked, w, variant)
+            self.consts[f"st{si}/gtab"] = pack_group_table(
+                stacked, w, variant, self.info.superblock, self.info.sample_rate)
             if variant[0] == "poly":
                 wtab, btab = poly_taps(*variant[1:])
                 self.consts[f"st{si}/poly_w"] = wtab
@@ -623,8 +627,8 @@ class CompiledGraph:
                 continue
             for name, a_rate, exact, _ in sp["params"]:
                 key = f"{sp['key']}/{name}"
-                if encs[key]["times"].shape[-1] and not exact:
-                    entries.append((key, encs[key], FRAMES_PER_BLOCK if a_rate else 1))
+                if encs[key]["times"].shape[-1]:
+                    entries.append((key, encs[key], FRAMES_PER_BLOCK if a_rate else 1, exact))
         table = pack_param_table(entries, S)
         batches = {}
         for sp in self.plan:
@@ -786,11 +790,17 @@ class CompiledGraph:
                 si, key, rep = sp["si"], sp["key"], sp["rep"]
                 if sp["bufsrc"] is not None:
                     # The unity and polyphase source groups consume no
-                    # params (playbackRate is baked into the variant).
+                    # params (playbackRate is baked into the variant); the
+                    # time-varying one takes its k-rate playbackRate rows
+                    # from the K6 arena, or the lanes' base values.
                     w, variant, _ = sp["bufsrc"]
                     arena, geom = consts[f"{key}/arena"], consts[f"{key}/geom"]
                     gtab = consts[f"{key}/gtab"]
-                    if variant[0] == "poly":
+                    if variant[0] == "resample":
+                        rate = eval_params(sp, key)["playbackRate"].per_block()
+                        sts, out = type(rep).process_resample_group(
+                            states[key], arena, geom, gtab, rate, rc, w)
+                    elif variant[0] == "poly":
                         sts, out = type(rep).process_poly_group(
                             states[key], arena, geom, gtab, rc, w, variant[1], variant[2],
                             (consts[f"{key}/poly_w"], consts[f"{key}/poly_b"]),

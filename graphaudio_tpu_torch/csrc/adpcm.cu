@@ -40,8 +40,16 @@
 //   chain from one step to the next. What bounds a step is then issue:
 //   about 60 integer instructions, at two clocks each on a sub-partition's
 //   16 integer lanes, near 120 clocks a step.
-// Blocks too long for shared memory raise in the wrapper (the limit is
-// ops/wire.IMA_MAX_SPB).
+// A block too long for the stage (spb over ops/wire.IMA_MAX_SPB, up to
+// WAV's 16-bit block align and past it) takes the streamed path, which
+// ops/wire.ima_chunk_plan picks: a thread block of one warp a block slot
+// (ncap + 1 thread blocks a channel, so the slots' chains run on as many
+// SMs); the warp sums the header's |diff|s over the whole block reading
+// the samples straight from the chunk (quantized on the fly), then walks
+// the block in tiles of kLongTile samples: the warp quantizes a tile into
+// shared memory, lane 0 runs its steps with the same step code. The chain
+// still bounds it: a tile's loads (one device-memory latency) add about
+// 1 % to its kLongTile steps.
 #include "common.cuh"
 
 namespace {
@@ -50,6 +58,7 @@ constexpr int kThreads = 512;
 constexpr int kHeaderLanes = 32;                  // a warp a block's header
 constexpr int kMaxBlocks = kThreads / kHeaderLanes;  // 16 blocks a thread block
 constexpr int kCopyBytes = 32 * 1024;  // bytes a bulk copy
+constexpr int kLongTile = 2048;  // samples a streamed tile (a multiple of 8)
 // The step table padded and packed: entry i holds (step[j] << 8) | j for
 // j = clamp(i - 1, 0, 88), so tab[index + 1 + k] gives the step size and the
 // index clamp(index + k) for k in [-1, 8] in one word.
@@ -80,6 +89,80 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The padded, packed step table in shared memory (every thread calls it).
+__device__ __forceinline__ void fill_tab(int* tab) {
+  for (int k = threadIdx.x; k < kPadTab; k += blockDim.x) {
+    const int j = min(max(k - 1, 0), 88);
+    tab[k] = (kImaStep[j] << 8) | j;
+  }
+}
+
+// The new carry row of channel c: the buffer from the first block the
+// caller does not keep (the last thread block of the channel).
+__device__ __forceinline__ void write_carry(const float* __restrict__ audio,
+                                            const int16_t* __restrict__ carry, int c, int64_t F,
+                                            int spb, int carry_len,
+                                            int16_t* __restrict__ new_carry) {
+  const int64_t start = static_cast<int64_t>((carry_len + F) / spb) * spb;
+  for (int k = threadIdx.x; k < spb - 1; k += blockDim.x) {
+    const int64_t j = start + k, a = j - carry_len;
+    new_carry[static_cast<int64_t>(c) * (spb - 1) + k] = static_cast<int16_t>(
+        a >= 0 && a < F ? quantize(audio[c * F + a]) : edge_sample(carry, c, spb, j));
+  }
+}
+
+// The header index of a block from a warp's partial |diff| sums: the sum
+// over the warp, then `sum > step * (spb - 1)` counted over the 89 steps
+// (a share a lane), reduced over the warp and clamped. 64-bit, as the
+// host encoder (ima_encode_np) and the plain version compare: a long
+// block's sum and thresholds pass 2^31.
+__device__ __forceinline__ int header_index(unsigned long long sad, int part, int nm1,
+                                            const int* tab) {
+#pragma unroll
+  for (int o = 1; o < kHeaderLanes; o <<= 1) sad += __shfl_xor_sync(0xffffffffu, sad, o);
+  const long long s = static_cast<long long>(sad);
+  int count = 0;
+  for (int k = part; k < 89; k += kHeaderLanes)
+    count += s > static_cast<long long>(tab[k + 1] >> 8) * nm1 ? 1 : 0;
+#pragma unroll
+  for (int o = 1; o < kHeaderLanes; o <<= 1) count += __shfl_xor_sync(0xffffffffu, count, o);
+  return min(count, 88);
+}
+
+// Eight IMA steps of one block from samples x[0..7]: the magnitude's code
+// delta is the number of its 7 increasing thresholds (s1, s2, s2+s1, step,
+// step+s1, step+s2, step+s2+s1) that |diff| reaches, the greedy compares
+// of the reference in one level; vp is step/8 plus the largest threshold
+// reached. Returns the eight nibbles packed low first.
+__device__ __forceinline__ uint32_t ima_word(const int* __restrict__ x, int& pred, int& index,
+                                             int& step, const int* __restrict__ tab) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int xt = x[k];
+    const int* tp = tab + index;  // tp[1 + k]: clamp(index + k) and its step
+    const int cm1 = tp[0], c2 = tp[3], c4 = tp[5], c6 = tp[7], c8 = tp[9];
+    const int s1 = step >> 2, s2 = step >> 1;
+    const int t3 = s2 + s1, t5 = step + s1, t6 = step + s2, t7 = t6 + s1;
+    const int diff = xt - pred;
+    const bool neg = diff < 0;
+    const int ad = abs(diff);
+    const bool p1 = ad >= s1, p2 = ad >= s2, p3 = ad >= t3, p4 = ad >= step;
+    const bool p5 = ad >= t5, p6 = ad >= t6, p7 = ad >= t7;
+    const bool b2 = p4 ? p6 : p2, b1 = p4 ? (p6 ? p7 : p5) : (p2 ? p3 : p1);
+    const int top = p4 ? (p6 ? (p7 ? t7 : t6) : (p5 ? t5 : step))
+                       : (p2 ? (p3 ? t3 : s2) : (p1 ? s1 : 0));
+    const int vp = (step >> 3) + top;
+    pred = min(max(neg ? pred - vp : pred + vp, -32768), 32767);
+    const int next = p4 ? (b2 ? (b1 ? c8 : c6) : (b1 ? c4 : c2)) : cm1;
+    step = next >> 8;
+    index = next & 0xFF;
+    word |= static_cast<uint32_t>((p4 ? 4 : 0) | (b2 ? 2 : 0) | (b1 ? 1 : 0) | (neg ? 8 : 0))
+            << (4 * k);
+  }
+  return word;
+}
+
 __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
     const float* __restrict__ audio, const int16_t* __restrict__ carry, int C, int64_t F,
     int spb, int carry_len, int ncap, int sb, uint8_t* __restrict__ blocks,
@@ -87,12 +170,7 @@ __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   if (blockIdx.x == gridDim.x - 1) {  // the new carry row of channel c
-    const int64_t start = static_cast<int64_t>((carry_len + F) / spb) * spb;
-    for (int k = tid; k < spb - 1; k += kThreads) {
-      const int64_t j = start + k, a = j - carry_len;
-      new_carry[static_cast<int64_t>(c) * (spb - 1) + k] = static_cast<int16_t>(
-          a >= 0 && a < F ? quantize(audio[c * F + a]) : edge_sample(carry, c, spb, j));
-    }
+    write_carry(audio, carry, c, F, spb, carry_len, new_carry);
     return;
   }
   __shared__ int tab[kPadTab];
@@ -150,10 +228,7 @@ __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
       }
     }
   }
-  for (int k = tid; k < kPadTab; k += kThreads) {
-    const int j = min(max(k - 1, 0), 88);
-    tab[k] = (kImaStep[j] << 8) | j;
-  }
+  fill_tab(tab);
   __syncthreads();  // the barrier's init before any thread waits on it
   if (bytes) {
     const uint32_t b = smem_addr(&bar);
@@ -195,25 +270,13 @@ __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
       for (int t = 1 + part; t < spb; t += kHeaderLanes)
         sad += static_cast<uint32_t>(abs(__float_as_int(xs[t]) - __float_as_int(xs[t - 1])));
     }
-#pragma unroll
-    for (int o = 1; o < kHeaderLanes; o <<= 1) sad += __shfl_xor_sync(0xffffffffu, sad, o);
-    // sum |diff| > step * (spb - 1), as the plain version's int32 compare
-    const long long s = static_cast<int>(sad);
-    int count = 0;
-    for (int k = part; k < 89; k += kHeaderLanes)
-      count += s > static_cast<long long>(tab[k + 1] >> 8) * nm1 ? 1 : 0;
-#pragma unroll
-    for (int o = 1; o < kHeaderLanes; o <<= 1) count += __shfl_xor_sync(0xffffffffu, count, o);
-    if (b < n && part == 0) hdr_index[b] = min(count, 88);
+    const int index = header_index(sad, part, nm1, tab);
+    if (b < n && part == 0) hdr_index[b] = index;
   }
   __syncthreads();
   if (tid >= n) return;
 
-  // 2. one thread a block: the spb-1 steps. The magnitude's code delta is
-  //    the number of its 7 increasing thresholds (s1, s2, s2+s1, step,
-  //    step+s1, step+s2, step+s2+s1) that |diff| reaches, the greedy
-  //    compares of the reference in one level; vp is step/8 plus the
-  //    largest threshold reached.
+  // 2. one thread a block: the spb-1 steps, eight a word (ima_word)
   const float* xs = xw + tid * spb;
   int index = hdr_index[tid];
   int pred = __float_as_int(xs[0]);
@@ -223,32 +286,55 @@ __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
   reinterpret_cast<uint32_t*>(out_row)[c] =
       (static_cast<uint32_t>(pred) & 0xFFFFu) | (static_cast<uint32_t>(index) << 16);
   uint32_t* words = reinterpret_cast<uint32_t*>(out_row + 4 * C);
-  for (int w = 0; w < nm1 / 8; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int xt = __float_as_int(xs[8 * w + k + 1]);
-      const int* tp = tab + index;  // tp[1 + k]: clamp(index + k) and its step
-      const int cm1 = tp[0], c2 = tp[3], c4 = tp[5], c6 = tp[7], c8 = tp[9];
-      const int s1 = step >> 2, s2 = step >> 1;
-      const int t3 = s2 + s1, t5 = step + s1, t6 = step + s2, t7 = t6 + s1;
-      const int diff = xt - pred;
-      const bool neg = diff < 0;
-      const int ad = abs(diff);
-      const bool p1 = ad >= s1, p2 = ad >= s2, p3 = ad >= t3, p4 = ad >= step;
-      const bool p5 = ad >= t5, p6 = ad >= t6, p7 = ad >= t7;
-      const bool b2 = p4 ? p6 : p2, b1 = p4 ? (p6 ? p7 : p5) : (p2 ? p3 : p1);
-      const int top = p4 ? (p6 ? (p7 ? t7 : t6) : (p5 ? t5 : step))
-                         : (p2 ? (p3 ? t3 : s2) : (p1 ? s1 : 0));
-      const int vp = (step >> 3) + top;
-      pred = min(max(neg ? pred - vp : pred + vp, -32768), 32767);
-      const int next = p4 ? (b2 ? (b1 ? c8 : c6) : (b1 ? c4 : c2)) : cm1;
-      step = next >> 8;
-      index = next & 0xFF;
-      word |= static_cast<uint32_t>((p4 ? 4 : 0) | (b2 ? 2 : 0) | (b1 ? 1 : 0) | (neg ? 8 : 0))
-              << (4 * k);
-    }
-    words[w * C + c] = word;
+  const int* xi = reinterpret_cast<const int*>(xs) + 1;  // the int bits of the words
+  for (int w = 0; w < nm1 / 8; ++w)
+    words[w * C + c] = ima_word(xi + 8 * w, pred, index, step, tab);
+}
+
+// The streamed path: a warp a block slot, the block read straight from the
+// chunk (no stage), its steps tile by tile through shared memory.
+__global__ void __launch_bounds__(kHeaderLanes) ima_encode_streamed_kernel(
+    const float* __restrict__ audio, const int16_t* __restrict__ carry, int64_t F, int spb,
+    int carry_len, uint8_t* __restrict__ blocks, int16_t* __restrict__ new_carry) {
+  const int c = blockIdx.y, C = gridDim.y;
+  if (blockIdx.x == gridDim.x - 1) {
+    write_carry(audio, carry, c, F, spb, carry_len, new_carry);
+    return;
+  }
+  __shared__ int tab[kPadTab];
+  __shared__ int xs[kLongTile];
+  fill_tab(tab);
+  __syncwarp();
+  const int lane = threadIdx.x;
+  const int slot = blockIdx.x;
+  const int64_t j0 = static_cast<int64_t>(slot) * spb;  // stream index of sample 0
+  const int64_t a_lo = j0 - carry_len;
+  const float* row = audio + c * F;
+  auto sample = [&](int64_t i) {  // sample i of the block, as an int16 value
+    const int64_t a = a_lo + i;
+    return a >= 0 && a < F ? quantize(row[a]) : edge_sample(carry, c, spb, j0 + i);
+  };
+  const int nm1 = spb - 1;
+  unsigned long long sad = 0;
+  for (int64_t t = 1 + lane; t < spb; t += kHeaderLanes)
+    sad += static_cast<unsigned long long>(abs(sample(t) - sample(t - 1)));
+  int index = header_index(sad, lane, nm1, tab);
+  int pred = sample(0);
+  int step = tab[index + 1] >> 8;
+  const int block_align = C * (4 + nm1 / 2);
+  uint8_t* out_row = blocks + static_cast<int64_t>(slot) * block_align;
+  if (lane == 0)
+    reinterpret_cast<uint32_t*>(out_row)[c] =
+        (static_cast<uint32_t>(pred) & 0xFFFFu) | (static_cast<uint32_t>(index) << 16);
+  uint32_t* words = reinterpret_cast<uint32_t*>(out_row + 4 * C);
+  for (int t0 = 1; t0 < spb; t0 += kLongTile) {
+    const int n = min(kLongTile, spb - t0);  // a multiple of 8
+    __syncwarp();  // lane 0 is done with the last tile
+    for (int i = lane; i < n; i += kHeaderLanes) xs[i] = sample(t0 + i);
+    __syncwarp();
+    if (lane == 0)
+      for (int w = 0; w < n / 8; ++w)
+        words[((t0 - 1) / 8 + w) * C + c] = ima_word(xs + 8 * w, pred, index, step, tab);
   }
 }
 
@@ -257,13 +343,20 @@ __global__ void __launch_bounds__(kThreads) ima_encode_kernel(
 // The geometry is ops/wire.ima_chunk_plan's: sb blocks a thread block
 // (1..16), `tiles` thread blocks a channel (the last writes the new carry
 // row), `smem` bytes of stage (sb * spb samples and the copy's lead and
-// tail words).
+// tail words); `streamed` takes the streamed path (sb 1, no stage).
 GA_EXPORT int ga_ima_chunk_encode(const float* audio, const int16_t* carry, int C, int64_t F,
                                   int spb, int carry_len, int ncap, int sb, int tiles, int smem,
-                                  uint8_t* blocks, int16_t* new_carry, void* stream) {
+                                  int streamed, uint8_t* blocks, int16_t* new_carry,
+                                  void* stream) {
   if (sb < 1 || sb > kMaxBlocks || static_cast<int64_t>(tiles - 1) * sb < ncap || spb < 9 ||
-      (spb - 1) % 8 || carry_len < 0 || carry_len >= spb)
+      (spb - 1) % 8 || carry_len < 0 || carry_len >= spb || (streamed && (sb != 1 || smem)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (streamed) {
+    ima_encode_streamed_kernel<<<dim3(tiles, C), kHeaderLanes, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        audio, carry, F, spb, carry_len, blocks, new_carry);
+    return ga_launch_status();
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ima_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

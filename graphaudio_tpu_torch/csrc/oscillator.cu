@@ -13,15 +13,16 @@
 //   the quantum's f64 sum of the gated f (runs of 16, then the 8 runs) times
 //   2 pi/sr; the anchors phase + the sequential sum of the quanta before,
 //   mod 2 pi, to f32;
-//   mod(anchor32 + local, fl32(2 pi)) in f32, the waveform (sinf, not the
-//   fast __sinf), gated; the new phase mod(phase + sum, 2 pi) in f64.
+//   mod(anchor32 + local, fl32(2 pi)) in f32, the waveform (the sine in f64,
+//   rounded once to f32: the correctly rounded sine, so the card's bits are
+//   the CPU's), gated; the new phase mod(phase + sum, 2 pi) in f64.
 // mod is jnp.mod: exact fmod, moved into the divisor's sign.
 //
 // Bound on the H100: neither bytes nor flops at config 6's size (64 lanes
 // x 4096 samples: 1 MB written, about 30 operations a sample) but latency:
 // the 16 sequential adds of a run, then the anchors' chain of dependent
 // f64 adds over a lane's quanta, then the waveform (an exact fmodf and
-// sinf a sample, issue-bound once every SM has work). The design fills the
+// an f64 sin a sample, issue-bound once every SM has work). The design fills the
 // card and keeps the anchor chain the only serial part:
 // - a block writes a tile of 8 quanta of one lane (256 threads), so config
 //   6's step is 4 x 64 = 256 blocks;
@@ -92,7 +93,7 @@ __device__ __forceinline__ int2 gate_of(bool started, double start, double stop,
 template <int kWave>
 __device__ __forceinline__ float waveform(float p) {
   const float two_pi_f = 6.28318548202514648f;  // fl32(2 pi)
-  if (kWave == 0) return sinf(p);
+  if (kWave == 0) return static_cast<float>(sin(static_cast<double>(p)));
   if (kWave == 1) return p < 3.14159274101257324f ? 1.0f : -1.0f;  // fl32(pi)
   if (kWave == 2) return __fsub_rn(__fmul_rn(2.0f, __fdiv_rn(p, two_pi_f)), 1.0f);
   const float u = __fdiv_rn(p, two_pi_f);

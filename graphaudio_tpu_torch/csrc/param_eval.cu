@@ -2,11 +2,13 @@
 // of a render step in one launch.
 //
 // Replaces graphaudio_tpu/ops/param_eval.py eval_intrinsic_blocked
-// (:175-336, the non-exact branch). The TPU version locates each sample's
+// (:175-336) with its exact branches (:213-222, :287-306) and
+// eval_intrinsic (:85-172). The TPU version locates each sample's
 // surrounding events with [S, n, cap] one-hot reductions and XLA fuses the
 // step's params into one program; here the step's table (ops/param_eval.py
 // pack_param_table: one row per (param, lane), its events padded to the
-// batch's capacity) is evaluated by one launch. A block owns one row and a
+// batch's capacity, its third word the row's kind) is evaluated by one
+// launch. A block owns one row and a
 // tile of 256 consecutive samples: it stages the row's event fields in
 // shared memory with one coalesced load (when the capacity is at most
 // kStageCap; larger tables are read from global memory), and each thread
@@ -17,7 +19,13 @@
 // operation: f64 absolute times for the event index, f32 relative times for
 // the curve, fma/fmaf where XLA contracts a multiply-add (ops/xla_rounding.py),
 // __f*_rn elsewhere so nvcc does not contract on its own, and exp/pow in
-// f64 rounded once to f32. Padding a row to a larger capacity changes no
+// f64 rounded once to f32. A row of the exact kind (a param that a consumer
+// integrates: playbackRate, oscillator frequency) evaluates at k-rate the
+// whole curve in f64 at the block time (eval_intrinsic), at a-rate
+// its linear ramps in f64 on the uncontracted sample time bt + i*dt (where
+// XLA leaves it so); either is rounded once to f32. CUDA's f64 pow/exp may
+// differ from the CPU's by an ulp, which the f32 rounding almost always
+// hides. Padding a row to a larger capacity changes no
 // output: +inf times are never counted, the index never passes the row's n,
 // and the next event is read only while idx < n.
 //
@@ -49,7 +57,8 @@ __global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
   // The row's words, count and base load while its events are staged:
   // nothing below waits on them until the barrier.
   const int r = blockIdx.x;
-  const int npb = rows[2 * r], off = rows[2 * r + 1];
+  const int npb = rows[3 * r], off = rows[3 * r + 1];
+  const bool exact = rows[3 * r + 2] != 0;
   const int n = nev[r];
   const float base_r = base[r];
   const int64_t row = static_cast<int64_t>(r) * cap;
@@ -99,6 +108,34 @@ __global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
     d = fmin(fmax(d, -3.0e38), 3.0e38);
     return static_cast<float>(d);
   };
+  if (exact && npb == 1) {  // the whole curve in f64 (eval_intrinsic)
+    const double t0 = tl[prev], t1 = tl[nxt];
+    const double v0 = vl[prev], v1 = vl[nxt];
+    const double t0s = isfinite(t0) ? t0 : 0.0;
+    const double t1s = isfinite(t1) ? t1 : __dadd_rn(t0s, 1.0);
+    const double denom = __dsub_rn(t1s, t0s);
+    double u = __ddiv_rn(__dsub_rn(t, t0s), denom == 0.0 ? 1.0 : denom);
+    u = u < 0.0 ? 0.0 : (u > 1.0 ? 1.0 : u);
+    const double lin = fma(__dsub_rn(v1, v0), u, v0);
+    double val;
+    if (has_next && yl[nxt] == 1) {
+      val = lin;
+    } else if (has_next && yl[nxt] == 2) {
+      val = (v0 > 0.0 && v1 > 0.0) ? __dmul_rn(v0, pow(__ddiv_rn(v1, v0), u)) : lin;
+    } else if (yl[prev] == 3) {
+      const double b = bl[idx];
+      const double elapsed = __dsub_rn(t, t0s);
+      const double tc = fmax(cl[prev], 0.001);
+      val = elapsed <= 0.0
+                ? b
+                : fma(__dsub_rn(b, v0), exp(__ddiv_rn(-fmax(elapsed, 0.0), tc)), v0);
+    } else {
+      val = v0;
+    }
+    out[off + j] = (has_prev && n > 0) ? static_cast<float>(val) : base_r;
+    return;
+  }
+
   const float io = static_cast<float>(off_t);
   const float t0r = rel(prev), t1r = rel(nxt);
   const float v0 = vl[prev], v1 = vl[nxt];
@@ -106,7 +143,16 @@ __global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
   const float denom = __fsub_rn(t1r, t0r);
   const float safe_denom = denom == 0.0f ? 1.0f : denom;
   const float u = fminf(fmaxf(__fdiv_rn(__fsub_rn(io, t0r), safe_denom), 0.0f), 1.0f);
-  const float lin = fmaf(__fsub_rn(v1, v0), u, v0);
+  float lin = fmaf(__fsub_rn(v1, v0), u, v0);
+  if (exact) {  // the linear ramp in f64 absolute time, rounded once
+    const double t0a = isfinite(tl[prev]) ? tl[prev] : 0.0;
+    const double t1a = isfinite(tl[nxt]) ? tl[nxt] : 0.0;
+    const double den = __dsub_rn(t1a, t0a);
+    double u64 = __ddiv_rn(__dsub_rn(__dadd_rn(bt, off_t), t0a), den == 0.0 ? 1.0 : den);
+    u64 = u64 < 0.0 ? 0.0 : (u64 > 1.0 ? 1.0 : u64);
+    const double v0a = v0;
+    lin = static_cast<float>(fma(__dsub_rn(static_cast<double>(v1), v0a), u64, v0a));
+  }
 
   float val;
   if (has_next && yl[nxt] == 1) {  // EVT_LINEAR_RAMP
@@ -138,7 +184,8 @@ __global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
 
 }  // namespace
 
-// R rows of `cap` events; `max_len` is the longest row's S * npb. Grid: one
+// R rows of `cap` events, each (npb, arena offset, kind); `max_len` is the
+// longest row's S * npb. Grid: one
 // block column per row, one block row per tile of kThreads samples.
 GA_EXPORT int ga_param_eval_batch(const double* times, const float* values, const double* tcs,
                                   const int32_t* types, const float* boundary,

@@ -12,17 +12,19 @@ start/stop is a state update, not a rebuild. Playback positions are
 float64, matching the reference's double accumulators
 (AudioBufferSourceNode.cs:23); f64 is native on the GPU.
 
-The port renders two kernel variants of AudioBufferSourceNode, each over a
-whole voice group: the unity-rate copy (``kernel_variant() ==
+The port renders the three kernel variants of AudioBufferSourceNode, each
+over a whole voice group: the unity-rate copy (``kernel_variant() ==
 ("unity", aligned)``: an asset at the context rate, playbackRate untouched),
-``process_unity_group``, and the static polyphase resampler (``("poly", p,
+``process_unity_group``; the static polyphase resampler (``("poly", p,
 q)``: a constant rational rate such as 44.1 kHz assets in a 48 kHz
-context), ``process_poly_group``. On the card each group step is one
-kernel launch, K5 (ops/unity.py) and K1 (ops/resample.py), bookkeeping and
-audio together; on the CPU the plan functions below and the plain gathers
-compute the same step.
-The time-varying resampler raises NotImplementedError naming its ROADMAP
-item.
+context), ``process_poly_group``; and the time-varying resampler
+(``("resample", bound)``: an automated, modulated or irrational
+playbackRate), ``process_resample_group``, which takes the per-quantum
+playbackRate values. On the card each group step is one kernel launch, K5
+(ops/unity.py), K1 and K7 (ops/resample.py), bookkeeping and audio
+together; on the CPU the plan functions below and the plain gathers
+compute the same step. A voice whose playbackRate is modulated is not
+grouped: its ``process`` runs the K7 step over one lane.
 
 The constant source and the oscillator run as group stages too: each
 step of a stage is one K11 launch on the card (ops/oscillator.py), the
@@ -48,15 +50,19 @@ from graphaudio_tpu_torch.ops.oscillator import (
     oscillator_group_step,
     sample_gate,
 )
-from graphaudio_tpu_torch.ops.resample import poly_group_step, poly_resample_plain
+from graphaudio_tpu_torch.ops.resample import (
+    cr_weights_fma,
+    poly_group_step,
+    poly_resample_plain,
+    resample_group_step,
+    split_positions,
+    xla_cumsum,
+    xla_sum,
+)
+from graphaudio_tpu_torch.ops import voice_group, xla_rounding
 from graphaudio_tpu_torch.ops.unity import unity_group_step, unity_gather_plain
 
 _INF = float("inf")
-
-_UNPORTED_VARIANTS = {
-    "resample": "time-varying-rate resampling is not ported yet "
-                "(ROADMAP.md module item 7, kernel K7)",
-}
 
 
 class ScheduledSourceNode(AudioNode):
@@ -243,7 +249,7 @@ class OscillatorNode(ScheduledSourceNode):
             automation_rate=AutomationRate.A_RATE,
         )
         # The phase INTEGRATES frequency values: automated curves evaluate
-        # in f64 (the exact branch, ROADMAP.md module item 7).
+        # in f64 (K6's exact rows).
         self.frequency.exact_eval = True
 
     @property
@@ -424,13 +430,6 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         return ("resample", self.rate_bound())
 
     @staticmethod
-    def require_ported(variant) -> None:
-        """Raise for the kernel variants this slice does not port."""
-        msg = _UNPORTED_VARIANTS.get(variant[0])
-        if msg is not None:
-            raise NotImplementedError(msg)
-
-    @staticmethod
     def _poly_geometry(superblock: int, p: int, q: int):
         """Static shapes of the polyphase kernel: T outputs need ncan
         canonical chunks of p input samples (+ nb extra chunks), read from a
@@ -526,12 +525,36 @@ class AudioBufferSourceNode(ScheduledSourceNode):
     # -- kernels ------------------------------------------------------------------
 
     def process(self, state, inputs, params, rc):
-        """Ungrouped path: only a buffer-less source is ungrouped in this
-        slice (a modulated playbackRate selects the unported resampler)."""
+        """Ungrouped path: a buffer-less source (silence) or a voice whose
+        playbackRate is modulated (``group_key`` None, so always the
+        time-varying variant): the K7 step over one lane, its region and
+        geometry built once per window (as the JAX package's ``process``
+        caches them), its per-quantum rate the modulated k-rate values."""
+        dev = rc.block_times.device
         if self._buffer is None:
-            return state, [torch.zeros((1, rc.frames), dtype=torch.float32,
-                                       device=rc.block_times.device)]
-        self.require_ported(("resample",))
+            return state, [torch.zeros((1, rc.frames), dtype=torch.float32, device=dev)]
+        variant = self.kernel_variant()
+        w = self.resample_window(rc.superblock, variant[1])
+        cache_key = (w, self._loop, self._loop_start, self._loop_end, self._buffer.uid,
+                     str(dev))
+        if getattr(self, "_region_key", None) != cache_key:
+            region, geom = self.build_region(w, 0)
+            geom = dict(geom, off=np.int32(0))
+            stacked = {k: np.asarray(v)[None] for k, v in geom.items()}
+            self._region_cache = (
+                torch.from_numpy(region).to(dev),
+                {k: torch.from_numpy(v).to(dev) for k, v in stacked.items()},
+                torch.from_numpy(voice_group.pack_group_table(
+                    stacked, w, variant, rc.superblock, rc.sample_rate)).to(dev),
+            )
+            self._region_key = cache_key
+        arena, geom, gtab = self._region_cache
+        lead, st = _lanes_of(state)
+        sts, out = self.process_resample_group(
+            st, arena, geom, gtab, params["playbackRate"].per_block().reshape(1, -1), rc, w)
+        new_state = {k: v.reshape(lead) if isinstance(v, torch.Tensor) else v
+                     for k, v in sts.items()}
+        return new_state, [out[0]]
 
     @staticmethod
     def _duration_end(state, buffer_rate, length):
@@ -802,3 +825,144 @@ class AudioBufferSourceNode(ScheduledSourceNode):
             "looping": looping.contiguous(),
         }
         return new_states, args
+
+    # -- the time-varying resampler (K7) ----------------------------------------
+    #
+    # The JAX package interpolates a window through overlapping 64-sample
+    # tiles and a 4-banded matmul; the port reads the taps straight from the
+    # arena. What the tiles decide is kept: the window's size and start,
+    # and which taps of a quantum lie in its tile (those outside it get
+    # weight 0 in the reference, as they do here).
+
+    @staticmethod
+    def resample_window(superblock: int, bound: int) -> int:
+        """Window of the time-varying resampler for a pow2 rate bound (the
+        JAX package's ``_window_w(S, bound, False)``)."""
+        hop = voice_group.RESAMPLE_HOP
+        n_tiles = (superblock * FRAMES_PER_BLOCK * bound) // hop + 3
+        return (n_tiles - 1) * hop + voice_group.resample_tile_len(bound)
+
+    @staticmethod
+    def _map_ext(p, geom):
+        """Map an original-coordinate position into the region's periodic
+        extension once per superblock; reads proceed linearly from there."""
+        lsf, llen = geom["lsf"], geom["llen"]
+        q = torch.remainder(p - lsf, torch.clamp(llen, min=1.0))
+        return torch.where(geom["looping"] & (p >= lsf), lsf + llen + q, p)
+
+    @classmethod
+    def resample_window_starts(cls, states, geom, w: int):
+        """[V] absolute arena offsets of each voice's resample window (the
+        JAX package's ``resample_window_starts``, nodes/sources.py:768)."""
+        x0 = torch.where(states["primed"] > 0, states["x"], states["pos"] + 1.0)
+        e0 = cls._map_ext(x0, geom)
+        start = torch.minimum(torch.clamp(torch.floor(e0).to(torch.int64) - 1, min=0),
+                              geom["region_len"].to(torch.int64) - w)
+        return geom["off"].to(torch.int64) + geom["front"].to(torch.int64) + start
+
+    @classmethod
+    def process_resample_group(cls, states, arena, geom, gtab, rate_pb, rc, w: int):
+        """Time-varying resampling of a whole voice group: K7.
+
+        states: dict of stacked [V] tensors; arena f32[C, W]; geom: stacked
+        [V] geometry incl. ``off``; gtab: the same packed
+        (ops/voice_group.pack_group_table; the card reads it, the CPU path
+        reads geom); rate_pb: the playbackRate f32[V, S] a quantum, rows
+        or one base value a voice (stride 0 along S). Returns (new_states,
+        out f32[V, C, T]). On the card one launch computes the whole step
+        (ops.resample.resample_group_step); on the CPU
+        ``resample_group_step_plain`` does.
+        """
+        if arena.is_cpu:
+            return cls.resample_group_step_plain(states, arena, geom, rate_pb, rc, w)
+        x, primed, stop_time, out = resample_group_step(
+            states, arena, gtab, rate_pb, rc.block_times, rc.block_end_times)
+        new_states = dict(states)
+        new_states["x"] = x
+        new_states["primed"] = primed
+        new_states["stop_time"] = stop_time
+        return new_states, out
+
+    @classmethod
+    def resample_group_step_plain(cls, states, arena, geom, rate_pb, rc, w: int):
+        """K7's plain version: the JAX package's ``_process_resample``
+        (graphaudio_tpu/nodes/sources.py:783-900) over the group's stacked
+        [V] states, op for op in f64 with XLA's roundings (its cumsum and sum
+        orders, the fmas it contracts), so the new ``x``, ``primed`` and
+        ``stop_time`` match it exactly. The audio reads the four taps of
+        each output straight from the arena, with the weight of a tap
+        outside its quantum's tile 0 as in the reference's banded matrix;
+        each output sums its taps as ((w0*a0 + w1*a1) + w2*a2) + w3*a3."""
+        S = rc.superblock
+        f64, i64 = torch.float64, torch.int64
+        C = arena.shape[0]
+        V = states["x"].shape[0]
+        dev = arena.device
+        active = cls._active_mask(states, rc)  # [V, S]
+        de = cls._duration_end(states, geom["rate"], geom["length"])  # [V]
+        lef, lsf, llen = geom["lef"], geom["lsf"], geom["llen"]
+        looping = geom["looping"]
+        cap, tile, n_tiles = voice_group.resample_geometry(S, w)
+
+        ratio = geom["rate"] / float(rc.sample_rate)
+        rate_b = torch.clamp(ratio[:, None] * rate_pb.to(f64), max=float(cap))  # [V, S]
+        # The first output of a fresh voice lies at pos + 1 (the 4-sample
+        # warmup of CubicResampler.cs:31-38, :52).
+        x0 = torch.where(states["primed"] > 0, states["x"], states["pos"] + 1.0)
+        e0 = cls._map_ext(x0, geom)
+        win0 = cls.resample_window_starts(states, geom, w)  # [V]
+        start = win0 - geom["off"].to(i64) - geom["front"].to(i64)
+        zero = torch.zeros((), dtype=f64, device=dev)
+        adv = torch.where(active, FRAMES_PER_BLOCK * rate_b, zero)
+        du_b = xla_cumsum(adv) - adv  # [V, S] offsets from x0
+        ub = (e0 - start.to(f64))[:, None] + du_b  # block anchors in the window
+        base_l, frac = split_positions(ub, rate_b)  # [V, S, 128]
+
+        # The taps, each in its quantum's tile or weight 0.
+        hop = voice_group.RESAMPLE_HOP
+        m_b = torch.clamp(torch.div(torch.floor(ub).to(i64) - 1, hop, rounding_mode="floor"),
+                          0, n_tiles - 1)
+        base_row = base_l.to(i64) - (m_b * hop)[..., None]
+        at = win0[:, None, None] + base_l.to(i64)
+        y = None
+        for k, wk in zip((-1, 0, 1, 2), cr_weights_fma(frac)):
+            inb = (base_row + k >= 0) & (base_row + k < tile)
+            idx = torch.where(inb, at + k, torch.zeros((), dtype=i64, device=dev))
+            a = arena[:, idx.reshape(-1)].reshape(C, V, S, FRAMES_PER_BLOCK)
+            term = torch.where(inb, wk * a, torch.zeros((), dtype=torch.float32, device=dev))
+            y = term if y is None else y + term  # [C, V, S, 128]
+
+        # Validity in ORIGINAL coordinates.
+        shift = torch.round(x0 - e0).to(i64) + start
+        base_orig = base_l.to(i64) + shift[:, None, None]
+        de_i = de.to(i64)
+        end_bound = torch.where(geom["loop_flag"], torch.minimum(lef.to(i64), de_i), de_i)
+        valid = looping[:, None, None] | (base_orig + 2 <= (end_bound - 1)[:, None, None])
+        # Consumed-position block gate (AudioBufferSourceNode.cs:270-272).
+        p0 = states["pos"][:, None]
+        xd = x0[:, None] + du_b
+        consumed_b = (p0 + 4.0) + torch.floor((xd - p0) - 1.0)
+        valid = valid & (looping[:, None] | (consumed_b < de[:, None]))[..., None]
+        # Whole-block clear when consumption crosses durationEnd in the
+        # block (AudioBufferSourceNode.cs:360-368).
+        c127 = torch.full_like(rate_b, 127.0)
+        consumed_after = (p0 + 4.0) + torch.floor(
+            (xla_rounding.fma64(c127, rate_b, xd) - p0) - 1.0)
+        cleared = active & ~looping[:, None] & (consumed_after >= de[:, None])
+        gate = (active & ~cleared)[..., None] & valid
+        out = torch.where(gate[None], y, torch.zeros((), dtype=torch.float32, device=dev))
+
+        # Auto-stop on starvation or duration-end clear.
+        starved = active & (~valid.any(dim=2) | cleared)
+        bet = rc.block_end_times[None, :]
+        first_stop = torch.amin(torch.where(starved, bet, torch.full_like(bet, _INF)), dim=1)
+        new_x = x0 + xla_sum(adv)
+        new_x = torch.where(looping & (new_x >= lef),
+                            lsf + torch.remainder(new_x - lef, torch.clamp(llen, min=1.0)),
+                            new_x)
+        new_states = dict(states)
+        new_states["x"] = new_x
+        new_states["primed"] = torch.where(active.any(dim=1),
+                                           torch.ones_like(states["primed"]), states["primed"])
+        new_states["stop_time"] = torch.minimum(states["stop_time"], first_stop)
+        return new_states, out.permute(1, 0, 2, 3).reshape(V, C, S * FRAMES_PER_BLOCK)

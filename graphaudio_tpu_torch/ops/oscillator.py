@@ -15,6 +15,11 @@
   exclusive sum of the 8 run totals added to each run), so the port's
   phase is the JAX package's on the CPU;
 - ``mod(anchor32 + local, fl32(2 pi))`` in f32, then the waveform, gated;
+  the sine correctly rounded (f64, rounded once to f32, as
+  ``xla_rounding.sin``), so that the CPU and the card give the same bits
+  (their f32 sines differ by an ulp or more, which a resampler that
+  integrates a sine-modulated rate turns into drift) and XLA's f32 sine
+  agrees with it on 99.9 % of inputs;
 - the new phase ``mod(phase + sum(bsum), 2 pi)`` in f64.
 
 ``mod`` is ``jnp.mod``: an exact ``fmod`` moved into the divisor's sign.
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.ops import xla_rounding
 from graphaudio_tpu_torch.utils import cudabuild
 
 TWO_PI = 2.0 * math.pi
@@ -127,7 +133,7 @@ def oscillator_group_step_plain(f, started, start_time, stop_time, phase, block_
     two_pi_f = torch.tensor(_TWO_PI_F, device=f.device)
     ph = jmod(anch32[..., None] + local, two_pi_f)
     if wave == "sine":
-        w = torch.sin(ph)
+        w = xla_rounding.sin(ph)
     elif wave == "square":
         w = torch.where(ph < _PI_F, 1.0, -1.0).to(torch.float32)
     elif wave == "sawtooth":

@@ -8,12 +8,15 @@ param of a graph's encoding into one table, once per encoding, and
 f32 arena; it is K6: one launch of csrc/param_eval.cu on CUDA tensors,
 ``eval_intrinsic_batch_plain`` on CPU tensors. ``eval_intrinsic_blocked``
 evaluates one encoding (a one-entry batch on the card). All follow the
-JAX function (graphaudio_tpu/ops/param_eval.py:175-336, its non-exact
-branch): the event index from an f64 ABSOLUTE-time ``>=`` compare, the curve
-math in f32 on event times relative to each block start, all four curve
-types. The ``exact=True`` branches (f64 k-rate curves and f64 a-rate linear
-ramps, used only by playbackRate, delay time and oscillator frequency)
-raise and name the ROADMAP items that port them.
+JAX function (graphaudio_tpu/ops/param_eval.py:175-336): the event index
+from an f64 ABSOLUTE-time ``>=`` compare, the curve math in f32 on event
+times relative to each block start, all four curve types. A param flagged
+``exact_eval`` (playbackRate, delay time, oscillator frequency: values
+that a consumer integrates) takes the exact branches, as rows of their
+own kind in the same table: at k-rate the whole curve in f64 at the block
+start times (``eval_intrinsic``, rounded once to f32), at a-rate its
+linear ramps in f64 (the exponential ramps and setTarget keep the f32
+path, as in the reference).
 
 Times are float64 (the reference uses doubles for its clock); values float32.
 """
@@ -38,12 +41,6 @@ EVT_EXPONENTIAL_RAMP = 2
 EVT_SET_TARGET = 3
 
 _INF = np.float64(np.inf)
-
-_EXACT_TODO = (
-    "exact (f64) automation curves are not ported yet: they serve "
-    "playbackRate, delay time and an automated oscillator frequency "
-    "(ROADMAP.md module item 7)"
-)
 
 
 def encode_events(base_value, events, capacity):
@@ -106,8 +103,75 @@ def _lanes(enc):
     )
 
 
-def eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt):
-    """Plain torch K6 (events present). Returns f32[..., S * n_per_block]."""
+def eval_intrinsic(enc, t):
+    """The intrinsic param curve at arbitrary f64 times, all in f64 and
+    rounded once to f32: the JAX package's ``eval_intrinsic``
+    (graphaudio_tpu/ops/param_eval.py:85-172), with the multiply-adds
+    XLA contracts (the linear ramp, the setTarget decay) as single fmas.
+    ``enc`` holds tensors, any leading lane dims; t f64[T]. Returns
+    f32[..., T]. The step's k-rate exact rows are this curve at the block
+    start times (K6 evaluates them on the card)."""
+    times, values, tcs, types, boundary, n, base = _lanes(enc)
+    L, cap = times.shape
+    T = t.shape[0]
+    lead = enc["base"].shape
+    f64 = torch.float64
+    if cap == 0:
+        return base[:, None].expand(L, T).reshape(*lead, T)
+    # idx = number of events with event.time <= t (AudioParam.cs:181)
+    idx = torch.minimum((t[None, :, None] >= times[:, None, :]).sum(-1), n[:, None].long())
+    prev = torch.clamp(idx - 1, min=0)
+    nxt = torch.clamp(idx, max=cap - 1)
+    has_prev = idx > 0
+    has_next = idx < n[:, None]
+    next_type = torch.where(has_next, torch.gather(types, 1, nxt), -1)
+    prev_type = torch.gather(types, 1, prev)
+    t0 = torch.gather(times, 1, prev)
+    t1 = torch.gather(times, 1, nxt)
+    v0 = torch.gather(values, 1, prev).to(f64)
+    v1 = torch.gather(values, 1, nxt).to(f64)
+    one = torch.ones((), dtype=f64, device=t.device)
+    zero = torch.zeros((), dtype=f64, device=t.device)
+    # Linear interpolation (AudioParam.cs:219-225): u clamped to [0, 1];
+    # the +inf padding sanitized as the reference does.
+    t0s = torch.where(torch.isfinite(t0), t0, zero)
+    t1s = torch.where(torch.isfinite(t1), t1, t0s + 1.0)
+    denom = t1s - t0s
+    safe_denom = torch.where(denom == 0.0, one, denom)
+    u = torch.clamp((t - t0s) / safe_denom, 0.0, 1.0)
+    lin = xla_rounding.fma64(v1 - v0, u, v0)
+    # Exponential interpolation (AudioParam.cs:227-237); linear when either
+    # endpoint is <= 0.
+    exp_ok = (v0 > 0.0) & (v1 > 0.0)
+    safe_v0 = torch.where(exp_ok, v0, one)
+    safe_v1 = torch.where(exp_ok, v1, one)
+    exp_val = torch.where(exp_ok, safe_v0 * torch.pow(safe_v1 / safe_v0, u), lin)
+    # SetTarget decay from the boundary value (AudioParam.cs:239-247).
+    bl = torch.gather(boundary, 1, idx).to(f64)
+    elapsed = t - t0s
+    tc = torch.clamp(torch.gather(tcs, 1, prev), min=0.001)
+    decay = xla_rounding.fma64(bl - v0, torch.exp(-torch.clamp(elapsed, min=0.0) / tc), v0)
+    settarget_val = torch.where(elapsed <= 0.0, bl, decay)
+    val = torch.where(
+        has_next & (next_type == EVT_LINEAR_RAMP),
+        lin,
+        torch.where(
+            has_next & (next_type == EVT_EXPONENTIAL_RAMP),
+            exp_val,
+            torch.where(prev_type == EVT_SET_TARGET, settarget_val, v0),
+        ),
+    )
+    val = torch.where(has_prev & (n[:, None] > 0), val, base[:, None].to(f64))
+    return val.float().reshape(*lead, T)
+
+
+def eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt, exact=False):
+    """Plain torch K6 (events present). Returns f32[..., S * n_per_block].
+    ``exact``: the reference's exact branches (graphaudio_tpu/ops/
+    param_eval.py:213-222, :287-306), at k-rate ``eval_intrinsic`` at the
+    block times, at a-rate the linear ramps in f64."""
+    if exact and n_per_block == 1:
+        return eval_intrinsic(enc, block_times)
     times, values, tcs, types, boundary, n, base = _lanes(enc)
     L, cap = times.shape
     S = block_times.shape[0]
@@ -146,6 +210,21 @@ def eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt):
     safe_denom = torch.where(denom == 0.0, one, denom)
     u = torch.clamp((io - t0r) / safe_denom, 0.0, 1.0)
     lin = xla_rounding.fma(v1 - v0, u, v0)
+    if exact:
+        # The ramp in f64 absolute time, rounded once (AudioParam.cs:219-225
+        # does all of it in doubles); the exponential fallback below takes
+        # this value too, as in the reference.
+        times_f = torch.where(torch.isfinite(times), times, torch.zeros((), dtype=f64,
+                                                                        device=dev))
+        t0a, t1a = pick(times_f, prev), pick(times_f, nxt)
+        v0a, v1a = v0.to(f64), v1.to(f64)
+        den = t1a - t0a
+        den = torch.where(den == 0.0, torch.ones((), dtype=f64, device=dev), den)
+        # Here XLA leaves blockTime + i*deltaTime uncontracted: a rounded
+        # product, then a rounded sum.
+        ts_u = block_times[:, None] + i[None, :] * sample_dt
+        u64 = torch.clamp((ts_u[None] - t0a) / den, 0.0, 1.0)
+        lin = xla_rounding.fma64(v1a - v0a, u64, v0a).float()
     # Exponential interpolation (AudioParam.cs:227-237); linear when either
     # endpoint is <= 0.
     exp_ok = (v0 > 0.0) & (v1 > 0.0)
@@ -173,9 +252,11 @@ def eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt):
     return val.reshape(*enc["base"].shape, S * n_per_block)
 
 
-
-
 # ---- K6: the batched step table ---------------------------------------------
+
+
+#: Words of a K6 table row: npb, arena offset, kind (1 = exact).
+ROW_WORDS = 3
 
 
 @dataclass(frozen=True, eq=False)
@@ -197,8 +278,9 @@ class ParamSlot:
 
 
 def pack_param_table(entries, superblock: int):
-    """The K6 table of one encoding: every (key, enc, npb) in ``entries``
-    (numpy encodings with capacity > 0) becomes one row per lane, its event
+    """The K6 table of one encoding: every (key, enc, npb) or (key, enc,
+    npb, exact) in ``entries`` (numpy encodings with capacity > 0; exact
+    False when left out) becomes one row per lane, its event
     fields padded to the batch's largest capacity as ``encode_events`` pads
     them (times +inf, values 0, tcs 1, types 0, ``boundary`` repeating its
     last value), which changes no output: padded times are never counted and
@@ -206,16 +288,18 @@ def pack_param_table(entries, superblock: int):
 
     Returns a dict of numpy arrays, ``times`` f64[R, cap], ``tcs`` f64,
     ``values`` f32, ``types`` i32, ``boundary`` f32[R, cap+1], ``n`` i32[R],
-    ``base`` f32[R], ``rows`` i32[R, 2] (``npb``, arena offset), and two
+    ``base`` f32[R], ``rows`` i32[R, 3] (``npb``, arena offset, the kind:
+    1 for the exact branch, else 0), and two
     host fields: ``size``, the arena's length in floats, and ``slots``, the
     ``ParamSlot`` of each key.
     """
-    cap = max((e["times"].shape[-1] for _, e, _ in entries), default=0)
+    cap = max((e[1]["times"].shape[-1] for e in entries), default=0)
     fields = {"times": [], "tcs": [], "values": [], "types": [], "boundary": [],
               "n": [], "base": [], "rows": []}
     slots = {}
     off = 0
-    for key, enc, npb in entries:
+    for key, enc, npb, *exact in entries:
+        exact = bool(exact and exact[0])
         times, values, tcs, types, boundary, n, base = _lanes(enc)
         L, c = times.shape
         pad = ((0, 0), (0, cap - c))
@@ -228,7 +312,7 @@ def pack_param_table(entries, superblock: int):
         fields["base"].append(base)
         per_lane = superblock * npb
         fields["rows"].append(np.stack(
-            [np.full(L, npb), off + per_lane * np.arange(L)], axis=1))
+            [np.full(L, npb), off + per_lane * np.arange(L), np.full(L, int(exact))], axis=1))
         slots[key] = ParamSlot(off, npb, per_lane, tuple(np.shape(enc["base"])),
                                np.asarray(base, np.float32))
         off += L * per_lane
@@ -237,7 +321,7 @@ def pack_param_table(entries, superblock: int):
     dtypes = {"times": np.float64, "tcs": np.float64, "values": np.float32,
               "types": np.int32, "boundary": np.float32, "n": np.int32,
               "base": np.float32, "rows": np.int32}
-    widths = {"n": (), "base": (), "rows": (2,), "boundary": (cap + 1,)}
+    widths = {"n": (), "base": (), "rows": (ROW_WORDS,), "boundary": (cap + 1,)}
     table = {
         k: (np.concatenate(v).astype(dtypes[k]) if v
             else np.zeros((0, *widths.get(k, (cap,))), dtypes[k]))
@@ -281,16 +365,16 @@ def _table_fields(table):
 def eval_intrinsic_batch_plain(table, block_times, sample_dt):
     """Plain torch K6 over a ``pack_param_table`` table (tensors): each
     row's curve, ``eval_intrinsic_blocked_plain`` over the rows of each
-    ``npb``, written at the row's arena offset. Returns f32[size]."""
+    (``npb``, kind), written at the row's arena offset. Returns f32[size]."""
     times, values, tcs, types, boundary, n, base, rows = _table_fields(table)
     S = block_times.shape[0]
     out = torch.empty(table["size"], dtype=torch.float32, device=block_times.device)
     rows_h = rows.cpu()
-    for npb in torch.unique(rows_h[:, 0]).tolist():
-        sel = torch.nonzero(rows_h[:, 0] == npb).flatten()
+    for npb, kind in torch.unique(rows_h[:, ::2], dim=0).tolist():
+        sel = torch.nonzero((rows_h[:, 0] == npb) & (rows_h[:, 2] == kind)).flatten()
         sub = {"times": times[sel], "values": values[sel], "tcs": tcs[sel],
                "types": types[sel], "boundary": boundary[sel], "n": n[sel], "base": base[sel]}
-        vals = eval_intrinsic_blocked_plain(sub, block_times, npb, sample_dt)
+        vals = eval_intrinsic_blocked_plain(sub, block_times, npb, sample_dt, exact=bool(kind))
         at = rows_h[sel, 1].long()[:, None] + torch.arange(S * npb)
         out[at.flatten().to(out.device)] = vals.flatten()
     return out
@@ -321,7 +405,7 @@ def _require_table(times, values, tcs, types, boundary, n, base, rows, block_tim
     req(boundary, "boundary", torch.float32, shape=(R, cap + 1))
     req(n, "n", torch.int32, shape=(R,))
     req(base, "base", torch.float32, shape=(R,))
-    req(rows, "rows", torch.int32, shape=(R, 2))
+    req(rows, "rows", torch.int32, shape=(R, ROW_WORDS))
 
 
 def eval_intrinsic_batch(table, block_times, sample_dt):
@@ -341,11 +425,11 @@ def eval_intrinsic_batch(table, block_times, sample_dt):
 
 
 @functools.lru_cache(maxsize=64)
-def _uniform_rows(L: int, npb: int, S: int, device: torch.device):
-    """The ``rows`` of L lanes of one param: (npb, l * S * npb), on the card
-    once per shape."""
-    return torch.tensor([[npb, lane * S * npb] for lane in range(L)], dtype=torch.int32,
-                        device=device)
+def _uniform_rows(L: int, npb: int, S: int, exact: bool, device: torch.device):
+    """The ``rows`` of L lanes of one param: (npb, l * S * npb, kind), on
+    the card once per shape."""
+    return torch.tensor([[npb, lane * S * npb, int(exact)] for lane in range(L)],
+                        dtype=torch.int32, device=device)
 
 
 def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
@@ -355,7 +439,7 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
     ``enc`` holds tensors; leading lane dims of ``enc["base"]`` (a group's
     stacked lanes) carry through. ``block_times`` is f64[S].
     Returns f32[..., S * n_per_block]. On CUDA tensors a one-entry K6 batch
-    on the encoding's own fields.
+    on the encoding's own fields (rows of the exact kind with ``exact``).
     """
     base = enc["base"]
     S = block_times.shape[0]
@@ -364,12 +448,10 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
         # Statically event-free (capacity 0): the base value everywhere —
         # one broadcast view, no per-sample work.
         return base.unsqueeze(-1).expand(*base.shape, S * n_per_block)
-    if exact:
-        raise NotImplementedError(_EXACT_TODO)
     if block_times.device.type == "cpu":
-        return eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt)
+        return eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt, exact)
     times, values, tcs, types, boundary, n, base_l = _lanes(enc)
-    rows = _uniform_rows(times.shape[0], n_per_block, S, block_times.device)
+    rows = _uniform_rows(times.shape[0], n_per_block, S, bool(exact), block_times.device)
     _require_table(times, values, tcs, types, boundary, n, base_l, rows, block_times)
     out = torch.empty((times.shape[0], S * n_per_block), dtype=torch.float32,
                       device=block_times.device)

@@ -23,14 +23,38 @@ from graphaudio_tpu_torch.utils import cudabuild
 GEOM_FIELDS = ("length", "rate", "lsf", "lef", "llen", "looping", "loop_flag",
                "region_len", "front", "off")
 GEOM_COLS = len(GEOM_FIELDS)
+#: Hop of the time-varying resampler's interpolation tiles
+#: (the JAX package's AudioBufferSourceNode._HOP).
+RESAMPLE_HOP = 64
 
 
-def pack_group_table(geom, w: int, variant) -> np.ndarray:
+def resample_tile_len(bound: int) -> int:
+    """Length of the time-varying resampler's tiles for a rate bound (the
+    JAX package's ``AudioBufferSourceNode._tile_len``)."""
+    need = FRAMES_PER_BLOCK * bound + RESAMPLE_HOP + 8
+    return -(-need // RESAMPLE_HOP) * RESAMPLE_HOP
+
+
+def resample_geometry(superblock: int, w: int):
+    """(cap, tile, n_tiles) of the time-varying resampler's window ``w``:
+    the rate clamp the window admits (audio-rate modulation has no static
+    bound, so rates above it clamp to it, as in the JAX package's
+    ``_process_resample``), and the tiles of the reference's banded
+    interpolation, whose bands decide which taps count."""
+    cap = max(1, (w - 16) // (superblock * FRAMES_PER_BLOCK))
+    tile = resample_tile_len(cap)
+    return cap, tile, (w - tile) // RESAMPLE_HOP + 1
+
+
+def pack_group_table(geom, w: int, variant, superblock: int = 0,
+                     sample_rate: float = 0.0) -> np.ndarray:
     """f64[V + 1, GEOM_COLS]: the stacked geometry ``geom`` (dict of [V]
     arrays, ``off`` included) and, in the last row, the constants of the
     kernel variant: for ("poly", p, q) p, q, p^-1 mod q, w, 1/q, 128p/q,
     127p/q and 1/p (the plan's own expressions); for ("unity", aligned) w
-    and the aligned flag."""
+    and the aligned flag; for ("resample", bound) w, the rate clamp, the
+    tile length, the tile count (``resample_geometry``) and the context's
+    sample rate (``superblock`` and ``sample_rate`` required there)."""
     V = len(geom["off"])
     table = np.zeros((V + 1, GEOM_COLS), np.float64)
     for i, name in enumerate(GEOM_FIELDS):
@@ -39,6 +63,8 @@ def pack_group_table(geom, w: int, variant) -> np.ndarray:
         p, q = variant[1:]
         pinv = pow(p, -1, q) if q > 1 else 0
         consts = [p, q, pinv, w, 1.0 / q, FRAMES_PER_BLOCK * p / q, 127.0 * p / q, 1.0 / p]
+    elif variant[0] == "resample":
+        consts = [w, *resample_geometry(superblock, w), float(sample_rate)]
     else:
         consts = [w, 1.0 if variant[1] else 0.0]
     table[V, :len(consts)] = consts

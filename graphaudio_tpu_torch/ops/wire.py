@@ -391,29 +391,28 @@ IMA_STAGE_SLACK = 8
 #: Dynamic shared memory K4a's stage may take: the 227 KB a block can use
 #: on the H100, less 1 KB for the kernel's static arrays.
 IMA_MAX_STAGE_BYTES = 227 * 1024 - 1024
-#: The longest WAV-IMA block K4a encodes on the card: its f32 stage must
-#: fit in shared memory.
+#: The longest WAV-IMA block K4a stages: its f32 samples fit in shared
+#: memory. Longer blocks take the streamed path.
 IMA_MAX_SPB = ((IMA_MAX_STAGE_BYTES // 4 - IMA_STAGE_SLACK - 1) // 8) * 8 + 1
 _IMA_DEFAULT_SMEM = 48 * 1024
 
 
 def ima_chunk_plan(frames: int, samples_per_block: int):
     """K4a's geometry for a chunk of ``frames`` frames: (sb, thread blocks
-    a channel, dynamic shared-memory bytes). A thread block stages ``sb``
-    consecutive block slots of one channel, as many as fit in the 48 KB
-    default (at most ``IMA_MAX_BLOCKS_PER_TB``, at least one); the last
-    thread block of each channel writes the new carry row. A block longer
-    than ``IMA_MAX_SPB`` samples raises."""
+    a channel, dynamic shared-memory bytes, streamed). A thread block
+    stages ``sb`` consecutive block slots of one channel, as many as fit in
+    the 48 KB default (at most ``IMA_MAX_BLOCKS_PER_TB``, at least one);
+    the last thread block of each channel writes the new carry row. A block
+    longer than ``IMA_MAX_SPB`` samples does not fit the stage: it takes the
+    streamed path (``streamed`` True), one warp a block slot reading the
+    chunk directly, so sb is 1 and no dynamic shared memory is used."""
     spb = samples_per_block
+    ncap = ima_chunk_slots(frames, spb)
     if spb > IMA_MAX_SPB:
-        raise ValueError(
-            f"samples_per_block {spb} is over {IMA_MAX_SPB}, the longest block the "
-            f"card's ADPCM encoder stages: one block's f32 samples must fit in "
-            f"{IMA_MAX_STAGE_BYTES} bytes of shared memory")
+        return 1, ncap + 1, 0, True
     sb = max(1, min(IMA_MAX_BLOCKS_PER_TB,
                     (_IMA_DEFAULT_SMEM // 4 - IMA_STAGE_SLACK) // spb))
-    ncap = ima_chunk_slots(frames, spb)
-    return sb, -(-ncap // sb) + 1, (sb * spb + IMA_STAGE_SLACK) * 4
+    return sb, -(-ncap // sb) + 1, (sb * spb + IMA_STAGE_SLACK) * 4, False
 
 
 def ima_chunk_encode_plain(audio, carry, carry_len: int):
@@ -442,8 +441,9 @@ def ima_chunk_encode_plain(audio, carry, carry_len: int):
     pred0 = blocks[:, :, 0]
     step_t = torch.from_numpy(IMA_STEP_TABLE).to(dev)
     idx_t = torch.from_numpy(IMA_INDEX_TABLE).to(dev)
-    sad = torch.abs(torch.diff(blocks, dim=2)).sum(dim=2, dtype=torch.int32)
-    index0 = (sad[..., None] > step_t * (spb - 1)).sum(dim=-1, dtype=torch.int32)
+    # 64-bit, as the host encoder: a long block's sum and thresholds pass 2^31
+    sad = torch.abs(torch.diff(blocks, dim=2)).sum(dim=2, dtype=torch.int64)
+    index0 = (sad[..., None] > step_t.long() * (spb - 1)).sum(dim=-1, dtype=torch.int32)
     index0 = torch.clamp(index0, 0, 88)
     pred, index = pred0, index0
     nibs = torch.empty((C, ncap, spb - 1), dtype=torch.int32, device=dev)
@@ -482,8 +482,8 @@ def ima_chunk_encode(audio, carry, carry_len: int):
     ``ima_chunk_encode_plain``, bit for bit. CPU tensors take the plain
     version; CUDA tensors launch csrc/adpcm.cu (one thread per (channel,
     block slot) for the sequential in-block recurrence, plus the new
-    carry, in one launch; ``ima_chunk_plan`` gives its geometry and raises
-    for a block too long to stage)."""
+    carry, in one launch; ``ima_chunk_plan`` gives its geometry and its
+    path: staged, or streamed for a block too long to stage)."""
     if audio.device.type == "cpu":
         return ima_chunk_encode_plain(audio, carry, carry_len)
     cudabuild.require(audio, "audio", torch.float32, ndim=2)
@@ -494,12 +494,12 @@ def ima_chunk_encode(audio, carry, carry_len: int):
         raise ValueError(f"carry must be int16[{C}, spb-1] with 0 <= carry_len < spb, got "
                          f"{tuple(carry.shape)} and carry_len={carry_len}")
     ncap = ima_chunk_slots(F, spb)
-    sb, tiles, smem = ima_chunk_plan(F, spb)
+    sb, tiles, smem, streamed = ima_chunk_plan(F, spb)
     blocks = torch.empty((ncap, ima_block_align(C, spb)), dtype=torch.uint8, device=audio.device)
     new_carry = torch.empty_like(carry)
     status = cudabuild.launcher("ga_ima_chunk_encode")(
         audio.data_ptr(), carry.data_ptr(), C, F, spb, int(carry_len), ncap, sb, tiles, smem,
-        blocks.data_ptr(), new_carry.data_ptr(), cudabuild.stream_of(audio))
+        int(streamed), blocks.data_ptr(), new_carry.data_ptr(), cudabuild.stream_of(audio))
     cudabuild.check(status, "ga_ima_chunk_encode")
     cudabuild.launches["ima_chunk_encode"] += 1
     return blocks, new_carry

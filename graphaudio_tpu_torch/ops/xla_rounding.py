@@ -44,17 +44,29 @@ def _split(x):
     return hi, x - hi
 
 
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
 def fma64(a, b, c):
-    """fl64(a*b + c) for f64 tensors, rounded once (Dekker's exact product
-    and Knuth's exact sum; exact for finite operands without overflow)."""
+    """fl64(a*b + c) for f64 tensors, rounded once, as the card's ``fma``.
+    a*b + c is split exactly into s + u + v (Dekker's product, Knuth's
+    sums), and s + u into its rounded sum r and error w; r is then the
+    result unless s + u fell on a tie that v breaks, which ``nextafter``
+    moves w off before the last rounding. Exact for finite operands
+    without overflow or underflow."""
     p = a * b
     ah, al = _split(a)
     bh, bl = _split(b)
     e = ((ah * bh - p) + ah * bl + al * bh) + al * bl  # a*b == p + e exactly
-    s = p + c
-    bb = s - p
-    t = (p - (s - bb)) + (c - bb)  # p + c == s + t exactly
-    return s + (t + e)
+    s, t = _two_sum(p, c)  # p + c == s + t exactly
+    u, v = _two_sum(t, e)
+    r, w = _two_sum(s, u)
+    inf = torch.full_like(v, float("inf"))
+    w = torch.where(v != 0, torch.nextafter(w, torch.copysign(inf, v)), w)
+    return r + w
 
 
 def cos(x):

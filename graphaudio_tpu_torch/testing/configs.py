@@ -4,6 +4,14 @@ Each builds the BASELINE configuration of the same name with the same
 signature, the same RNG draws and the same wiring as benchmarks/configs.py,
 so the two packages render the same graph from the same seed; ``device`` is
 the port's explicit render device.
+
+Three more paths automate a rate that a consumer integrates (the exact
+f64 curves and the time-varying resampler): ``config4_pitched`` and
+``config6_swept`` add playbackRate and LFO-frequency ramps to configs 4
+and 6, ``config2_vibrato`` an LFO on each voice's playbackRate. Their
+``api`` argument names the package whose classes build the graph (the
+port by default; a test passes the JAX package to build the same graph
+there), so one definition serves both.
 """
 
 from __future__ import annotations
@@ -177,5 +185,125 @@ def config6_lfo_tremolo(superblock=32, voices=64, modulated=True, device="cuda")
         depth.connect(g.gain if modulated else sink)
         lfo.start(0)
         src.connect(g).connect(master)
+        src.start(0)
+    return ctx
+
+
+def _context(api, superblock, device):
+    """An OfflineAudioContext of ``api`` (the port unless given)."""
+    if api is None or api is ga:
+        return ga, ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
+    return api, api.OfflineAudioContext(sample_rate=SR, superblock=superblock)
+
+
+def config4_pitched(superblock=64, voices=64, device="cuda", api=None):
+    """Config 4 (the same draws and graph) with each voice's playbackRate
+    alternating between linear ramps to 0.84 and to 1.19 (-3 and +3
+    semitones), one ending every 2 s from a per-voice offset phi_v in [0,
+    2) s drawn after the voices' samples: 16 ramps a voice, the pitch
+    variation of a game engine's voice or a doppler shift. The effective
+    rate stays under 0.91875 x 1.19 < 2, so every voice has rate bound 2
+    and the voices form one time-varying resample stage."""
+    api, ctx = _context(api, superblock, device)
+    rng = np.random.default_rng(4)
+    master = api.GainNode(ctx)
+    master.gain.value = 0.5
+    conv = api.ConvolverNode(ctx)
+    ir_len = 2 * SR
+    decay = np.exp(-np.arange(ir_len) / (0.4 * SR))
+    conv.buffer = api.PlayableAudioBuffer.from_stereo_arrays(
+        (rng.standard_normal(ir_len) * decay).astype(np.float32),
+        (rng.standard_normal(ir_len) * decay).astype(np.float32),
+        SR,
+    )
+    conv.connect(master).connect(ctx.destination)
+    sources = []
+    for _ in range(voices):
+        sig = (rng.standard_normal(2 * 44100) * 0.05).astype(np.float32)
+        src = api.AudioBufferSourceNode(ctx)
+        src.buffer = api.PlayableAudioBuffer.from_mono_array(sig, 44100)
+        src.loop = True
+        src.playback_rate.value = 1.0
+        src.connect(conv)
+        src.start(0)
+        sources.append(src)
+    phi = rng.uniform(0.0, 2.0, voices)
+    for src, p in zip(sources, phi):
+        for k in range(16):
+            src.playback_rate.linear_ramp_to_value_at_time(0.84 if k % 2 == 0 else 1.19,
+                                                           float(p) + 2.0 * k)
+    return ctx
+
+
+def config6_swept(superblock=32, voices=64, device="cuda", api=None):
+    """Config 6 (the same draws and graph, modulated) with each LFO's
+    frequency swept from its own f_v = 1 + 0.25 v Hz to 2 f_v and back in
+    linear ramps every 3 s (a tremolo-rate sweep): a set value at 0, then
+    ten ramps, so the frequency takes the exact a-rate rows."""
+    api, ctx = _context(api, superblock, device)
+    rng = np.random.default_rng(6)
+    master = api.GainNode(ctx)
+    master.gain.value = 1.0 / voices
+    master.connect(ctx.destination)
+    for v in range(voices):
+        sig = (rng.standard_normal(SR) * 0.2).astype(np.float32)
+        src = api.AudioBufferSourceNode(ctx)
+        src.buffer = api.PlayableAudioBuffer.from_mono_array(sig, SR)
+        src.loop = True
+        g = api.GainNode(ctx)
+        g.gain.value = 0.6
+        lfo = api.OscillatorNode(ctx)
+        f_v = 1.0 + 0.25 * v
+        lfo.frequency.value = f_v
+        lfo.frequency.set_value_at_time(f_v, 0.0)
+        for k in range(1, 11):
+            lfo.frequency.linear_ramp_to_value_at_time(2.0 * f_v if k % 2 else f_v, 3.0 * k)
+        depth = api.GainNode(ctx)
+        depth.gain.value = 0.35
+        lfo.connect(depth)
+        depth.connect(g.gain)
+        lfo.start(0)
+        src.connect(g).connect(master)
+        src.start(0)
+    return ctx
+
+
+def config2_vibrato(superblock=32, voices=8, device="cuda", api=None):
+    """Config 2's voices (the same draws and gain ramps) with a vibrato:
+    each voice's playbackRate modulated by a sine LFO at 5 + v Hz through a
+    0.02 depth gain, so every voice is its own ungrouped stage (a
+    modulated playbackRate). The resampler integrates the rate into the
+    playhead, so an ulp of the sine grows over a render: K11's sine is
+    correctly rounded on both devices for that reason. The last voice's
+    rate also takes a constant 1.5 (a ConstantSourceNode, as
+    tests/test_resample.py:278-302 pushes one): 2.5 +- 0.02, past its
+    window's bound of 2, where it clamps."""
+    api, ctx = _context(api, superblock, device)
+    rng = np.random.default_rng(2)
+    for v in range(voices):
+        sig = (rng.standard_normal(2 * SR) * 0.1).astype(np.float32)
+        src = api.AudioBufferSourceNode(ctx)
+        src.buffer = api.PlayableAudioBuffer.from_mono_array(sig, SR)
+        src.loop = True
+        g = api.GainNode(ctx)
+        for t in range(0, 30, 2):
+            g.gain.set_value_at_time(0.05, float(t))
+            if v % 2 == 0:
+                g.gain.linear_ramp_to_value_at_time(0.8, t + 1.0)
+            else:
+                g.gain.exponential_ramp_to_value_at_time(0.8, t + 1.0)
+        lfo = api.OscillatorNode(ctx)
+        lfo.frequency.value = 5.0 + v
+        depth = api.GainNode(ctx)
+        depth.gain.value = 0.02
+        lfo.connect(depth)
+        depth.connect(src.playback_rate)
+        lfo.start(0)
+        if v == voices - 1:
+            push = api.ConstantSourceNode(ctx)
+            push.offset.value = 1.5
+            push.connect(src.playback_rate)
+            push.start(0)
+        src.connect(g).connect(ctx.destination)
         src.start(0)
     return ctx

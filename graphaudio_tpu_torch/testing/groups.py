@@ -1,5 +1,5 @@
 """Buffer-source voice groups with every edge case of the group steps (K1,
-K5), for the CPU emulation test and the card tests.
+K5, K7), for the CPU emulation test and the card tests.
 
 Each builder returns a context whose stage 0 is one source group: looping
 and one-shot voices, a loop shorter than a superblock (it wraps inside
@@ -10,7 +10,8 @@ lanes (the voice count is not a power of two). Buffer lengths and times
 are in superblocks of the context's own length, so every superblock size
 sees each case within five steps.
 ``group_inputs`` walks a group step by step along the plain composition
-and yields each step's inputs.
+and yields each step's inputs; a time-varying group takes its per-quantum
+playbackRate from ``step_rates``.
 """
 
 from __future__ import annotations
@@ -56,8 +57,10 @@ UNITY_UNALIGNED = [
 ]
 
 
-def voice_group(specs, superblock, buffer_rate, channels=1, device="cpu", seed=41):
-    """A context whose stage 0 is one group of the voices ``specs``."""
+def voice_group(specs, superblock, buffer_rate, channels=1, device="cpu", seed=41,
+                playback_rate=None):
+    """A context whose stage 0 is one group of the voices ``specs``; with
+    ``playback_rate`` every voice's playbackRate is set to it."""
     rng = np.random.default_rng(seed)
     step_s = superblock * BLOCK / SR
     ctx = ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
@@ -70,6 +73,8 @@ def voice_group(specs, superblock, buffer_rate, channels=1, device="cpu", seed=4
                       ga.PlayableAudioBuffer.from_stereo_arrays(*chans, buffer_rate))
         src.loop = loop
         src.loop_start, src.loop_end = ls, le
+        if playback_rate is not None:
+            src.playback_rate.value = playback_rate
         src.connect(ctx.destination)
         src.start(when * step_s, off, float("inf") if dur is None else dur * step_s)
         if stop is not None:
@@ -92,10 +97,27 @@ def unity_group(superblock, aligned, device="cpu"):
                        device)
 
 
+def resample_group(superblock, device="cpu", channels=1, specs=POLY_VOICES):
+    """Voices at 44.1 kHz in a 48 kHz context with playbackRate 1.1: the
+    ("resample", 2) variant (the rates of a step come from
+    ``step_rates``)."""
+    return voice_group(specs, superblock, 44100, channels, device, playback_rate=1.1)
+
+
+def step_rates(ctx, k):
+    """The playbackRate f32[V, S] of step ``k`` of ctx's stage-0 group, a
+    seeded draw in [0.5, 2.1): past the window's rate bound of 2 now and
+    then, so the kernel's clamp is exercised too."""
+    V = ctx._compiled.stage_pad[0][1]
+    rng = np.random.default_rng(1000 + k)
+    return torch.from_numpy(rng.uniform(0.5, 2.1, (V, ctx.superblock)).astype(np.float32)).to(
+        ctx.device)
+
+
 def group_inputs(ctx, steps):
     """(states, rc) of each of the first ``steps`` steps of ctx's stage-0
     source group, the states advanced by the plain composition on ctx's
-    device."""
+    device (a time-varying group at ``step_rates``)."""
     S = ctx.superblock
     cfg = ctx._compiled._bufsrc_cfg[0]
     w, variant, _ = cfg
@@ -106,7 +128,10 @@ def group_inputs(ctx, steps):
         rc = RenderContext(ctx._compiled.info, k * S * BLOCK,
                            torch.from_numpy(clock[k * S:(k + 1) * S]).to(ctx.device))
         yield st, rc
-        if variant[0] == "poly":
+        if variant[0] == "resample":
+            st, _ = type(node).resample_group_step_plain(
+                st, consts["st0/arena"], consts["st0/geom"], step_rates(ctx, k), rc, w)
+        elif variant[0] == "poly":
             st, _ = type(node).poly_group_step_plain(
                 st, consts["st0/arena"], consts["st0/geom"], rc, w, variant[1], variant[2],
                 (consts["st0/poly_w"], consts["st0/poly_b"]))

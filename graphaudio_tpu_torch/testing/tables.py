@@ -29,9 +29,10 @@ def block_clock(n_blocks):
     return np.add.accumulate(np.full(n_blocks, BLOCK) * (np.arange(n_blocks) > 0))
 
 
-def _events(rng, n, t_end, lo, hi):
-    """n sorted events cycling through the four types; a third on block
-    starts, a third on sample instants, the rest anywhere."""
+def _events(rng, n, t_end, lo, hi, types=4):
+    """n sorted events cycling through the first ``types`` of the four
+    types; a third on block starts, a third on sample instants, the rest
+    anywhere."""
     out = []
     for k in range(n):
         where = k % 3
@@ -42,13 +43,13 @@ def _events(rng, n, t_end, lo, hi):
         else:
             t = float(rng.uniform(0.0, t_end))
         value = float(rng.uniform(lo, hi)) * (1 if rng.random() > 0.1 else -1)
-        out.append(((k + int(rng.integers(0, 4))) % 4, t, value,
+        out.append(((k + int(rng.integers(0, 4))) % types, t, value,
                     float(rng.uniform(0.0005, 0.02))))
     out.sort(key=lambda e: e[1])
     return out
 
 
-def param_encoding(rng, real, padded, cap, t_end, lo=0.05, hi=2.0):
+def param_encoding(rng, real, padded, cap, t_end, lo=0.05, hi=2.0, types=4):
     """A param's numpy encoding: one lane (``real`` None, no lane dims) or
     ``real`` lanes padded to ``padded`` with copies of lane 0 (phantom pad
     lanes, as ``CompiledGraph.encode_params`` stacks a group)."""
@@ -57,7 +58,7 @@ def param_encoding(rng, real, padded, cap, t_end, lo=0.05, hi=2.0):
     for lane in range(lanes):
         n = [cap, max(cap - 3, 1), 1, cap // 2][lane % 4]
         base = float(rng.uniform(lo, hi))
-        per.append(tpe.encode_events(base, _events(rng, n, t_end, lo, hi), cap))
+        per.append(tpe.encode_events(base, _events(rng, n, t_end, lo, hi, types), cap))
     if real is None:
         return per[0]
     per += [per[0]] * (padded - real)
@@ -74,6 +75,17 @@ def mixed_param_entries(seed, t_end):
             ("st5/group32", 5, 8, 32, 128), ("st6/a4", None, 1, 4, 128),
             ("st7/k32", 4, 4, 32, 1)]
     return [(key, param_encoding(rng, real, padded, cap, t_end), npb)
+            for key, real, padded, cap, npb in spec]
+
+
+def linear_param_entries(seed, t_end):
+    """(key, enc, npb) of set values and linear ramps alone (the curves an
+    exact row evaluates in f64 at a-rate), a-rate and k-rate, a single
+    param and a padded group."""
+    rng = np.random.default_rng(seed)
+    spec = [("lin/a16", None, 1, 16, 128), ("lin/group_a8", 3, 4, 8, 128),
+            ("lin/group_k8", 3, 4, 8, 1)]
+    return [(key, param_encoding(rng, real, padded, cap, t_end, types=2), npb)
             for key, real, padded, cap, npb in spec]
 
 

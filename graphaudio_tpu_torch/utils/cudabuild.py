@@ -41,6 +41,10 @@ _SIGNATURES = {
     # arena, W, C, V, S, gtab, 8 states, clocks, wtab, btab, outputs, stream
     "ga_poly_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 8, _P, _P, _P, _P,
                            _P, _P, _P, _P],
+    # arena, W, C, V, S, gtab, 8 states, rates, rates a row?, clocks,
+    # outputs, stream
+    "ga_resample_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 8, _P, _I, _P, _P, _P, _P,
+                               _P, _P],
     "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P],
     # yfull, overlap, y, K, C, L, B, host combine map, stream
@@ -51,8 +55,8 @@ _SIGNATURES = {
     # blocks, shared bytes; stream
     "ga_pack_mulaw": [_P, _P, _I, _I64, _I, _I, _I, _I64, _I, _I, _I, _P],
     # audio, carry, C, F, spb, carry_len, ncap, blocks a thread block, thread
-    # blocks a channel, stage bytes, blocks, new carry, stream
-    "ga_ima_chunk_encode": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # blocks a channel, stage bytes, streamed?, blocks, new carry, stream
+    "ga_ima_chunk_encode": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # arena, W, C, V, S, gtab, 6 states, clocks, outputs, stream
     "ga_unity_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 6, _P, _P, _P, _P, _P],
     "ga_param_eval_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

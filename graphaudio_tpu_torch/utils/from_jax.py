@@ -81,7 +81,8 @@ def consts_from_jax(ctx, jax_consts: dict) -> dict:
             if f"{key}/gtab" in out:
                 w, variant, _ = ctx._compiled._bufsrc_cfg[int(key[2:])]
                 out[f"{key}/gtab"] = torch.from_numpy(
-                    pack_group_table(geom, w, variant)).to(ctx.device)
+                    pack_group_table(geom, w, variant, ctx.superblock,
+                                     ctx.sample_rate)).to(ctx.device)
         else:
             out[name] = torch.from_numpy(np.asarray(v).copy()).to(ctx.device)
     return out

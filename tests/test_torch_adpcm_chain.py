@@ -29,17 +29,18 @@ PACKED = (STEP[_J] << 8) | _J
 
 def header_walk(x):
     """int [B, spb] -> initial index [B]: lane ``part`` of 32 sums the
-    |diff|s at t = 1 + part + 32 i in uint32 (exact in any order), then the
-    thresholds k = part mod 32 are counted per lane."""
+    |diff|s at t = 1 + part + 32 i (exact in any order), the lanes' sums
+    add up in 64 bits, then the thresholds k = part mod 32 are counted per
+    lane against the 64-bit step * (spb - 1)."""
     B, spb = x.shape
     nm1 = spb - 1
-    sad = np.zeros(B, np.uint32)
+    sad = np.zeros(B, np.uint64)
     for part in range(LANES):
         t = np.arange(1 + part, spb, LANES)
         if t.size:
-            d = np.abs(x[:, t] - x[:, t - 1]).astype(np.uint32)
-            sad += d.sum(axis=1, dtype=np.uint32)
-    s = sad.astype(np.int32).astype(np.int64)
+            d = np.abs(x[:, t] - x[:, t - 1]).astype(np.uint64)
+            sad += d.sum(axis=1, dtype=np.uint64)
+    s = sad.astype(np.int64)
     count = np.zeros(B, np.int64)
     for part in range(LANES):
         for k in range(part, 89, LANES):
@@ -139,7 +140,8 @@ def kernel_walk(audio, carry, carry_len, offset):
     C, F = audio.shape
     spb = carry.shape[1] + 1
     ncap = wire.ima_chunk_slots(F, spb)
-    sb, tiles, smem = wire.ima_chunk_plan(F, spb)
+    sb, tiles, smem, streamed = wire.ima_chunk_plan(F, spb)
+    assert not streamed
     assert 1 <= sb <= wire.IMA_MAX_BLOCKS_PER_TB and smem <= wire.IMA_MAX_STAGE_BYTES
     assert tiles == -(-ncap // sb) + 1
     bits = np.full(offset + C * F + 16, 0xDEADBEEF, np.uint32)  # word i at byte 4 i
@@ -229,7 +231,8 @@ def test_geometry(spb, F):
     stage within shared memory, config 4's chunk over the card's 132 SMs,
     and the block align within WAV's 16 bits."""
     ncap = wire.ima_chunk_slots(F, spb)
-    sb, tiles, smem = wire.ima_chunk_plan(F, spb)
+    sb, tiles, smem, streamed = wire.ima_chunk_plan(F, spb)
+    assert not streamed
     assert ncap % sb != 0 or sb == 1
     slots = [min(sb, ncap - t * sb) for t in range(tiles - 1)]
     assert sum(slots) == ncap and min(slots) >= 1
@@ -240,7 +243,61 @@ def test_geometry(spb, F):
     assert wire.ima_block_align(2, spb) <= 0xFFFF
 
 
-def test_too_long_blocks_raise():
-    wire._validate_spb(wire.IMA_MAX_SPB + 8)
-    with pytest.raises(ValueError, match=str(wire.IMA_MAX_SPB)):
-        wire.ima_chunk_plan(70000, wire.IMA_MAX_SPB + 8)
+#: Samples a tile of the streamed path (csrc/adpcm.cu kLongTile).
+LONG_TILE = 2048
+
+
+@pytest.mark.parametrize("spb, C", [(65521, 2), (131057, 1), (131065, 1),
+                                    (wire.IMA_MAX_SPB + 8, 2)])
+def test_long_blocks_stream(spb, C):
+    """A block past the stage takes the streamed path: a thread block (one
+    warp) a slot, ncap + 1 thread blocks a channel, the last writing the
+    carry; every slot owned once, its tiles covering the block's spb - 1
+    steps once, whole words each; no spb of the form 8k + 1 raises."""
+    wire._validate_spb(spb)
+    for F in (5, spb - 1, 3 * spb + 17, 524288):
+        ncap = wire.ima_chunk_slots(F, spb)
+        sb, tiles, smem, streamed = wire.ima_chunk_plan(F, spb)
+        assert streamed and sb == 1 and smem == 0 and tiles == ncap + 1
+        owned = np.zeros(ncap, np.int64)
+        for tb in range(tiles - 1):
+            owned[tb * sb:tb * sb + sb] += 1
+        assert (owned == 1).all()
+        steps = [min(LONG_TILE, spb - t0) for t0 in range(1, spb, LONG_TILE)]
+        assert sum(steps) == spb - 1 and all(n % 8 == 0 for n in steps)
+
+
+def streamed_walk(audio, carry, carry_len):
+    """numpy walk of ima_encode_streamed_kernel: each slot's samples read
+    straight from the chunk (quantized) or the carry or 0, the 64-bit
+    header, the steps. Returns the block bytes [ncap, block_align]."""
+    C, F = audio.shape
+    spb = carry.shape[1] + 1
+    ncap = wire.ima_chunk_slots(F, spb)
+    i = np.arange(ncap * spb)
+    a = i - carry_len
+    inside = (a >= 0) & (a < F)
+    edge = np.where(i < spb - 1, carry[:, np.minimum(i, spb - 2)], 0)
+    xs = np.where(inside, _quantize(audio[:, np.clip(a, 0, F - 1)]), edge)
+    flat = xs.reshape(C * ncap, spb)
+    index0 = header_walk(flat)
+    nibs = chain_walk(flat, index0)
+    return wire._ima_blocks_to_bytes_np(flat[:, 0].reshape(C, ncap), index0.reshape(C, ncap),
+                                        nibs.reshape(C, ncap, spb - 1), C)
+
+
+def test_streamed_walk_matches_host_encoder():
+    """The first streamed block length, stereo, two slots and a part (the
+    carry before, zeros after), loud enough that the 64-bit header matters
+    at long blocks: the walk equals the host encoder of the same stream
+    buffer bit for bit."""
+    spb = wire.IMA_MAX_SPB + 8
+    rng = np.random.default_rng(spb)
+    C, F, carry_len = 2, 2 * spb - 100, 3
+    audio = (rng.standard_normal((C, F)) * 0.9).astype(np.float32)
+    carry = rng.integers(-32768, 32768, (C, spb - 1)).astype(np.int16)
+    got = streamed_walk(audio, carry, carry_len)
+    buf = np.zeros((C, wire.ima_chunk_slots(F, spb) * spb), np.int16)
+    buf[:, :spb - 1] = carry
+    buf[:, carry_len:carry_len + F] = _quantize(audio)
+    np.testing.assert_array_equal(got, wire.ima_encode_np(buf, spb))

@@ -29,6 +29,7 @@ from graphaudio_tpu_torch.testing.configs import (
     config2_mix_bus,
     config3_eq_chain,
     config4_conv_reverb,
+    config4_pitched,
     config5_spatial_scene,
     config6_lfo_tremolo,
 )
@@ -880,3 +881,112 @@ def test_config6_on_card(dev, modulated):
     assert np.abs(out.astype(np.float64) - ref).max() < 1e-5
     assert cudabuild.launches["oscillator_group_step"] == steps
     assert cudabuild.launches["apply_modulation"] == (steps if modulated else 0)
+
+
+# ---- K7, K6's exact rows, K4a's streamed path ---------------------------------
+
+
+def _check_resample_steps(ctx, steps):
+    """K7 (one launch) against resample_group_step_plain on the card over
+    ``steps`` steps of ctx's stage-0 group (groups.step_rates): audio
+    within 1e-6, the new x, primed and stop_time bit for bit; the rates
+    also as one base value a voice (a stride-0 view). Returns the audio's
+    abs sum."""
+    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
+    assert variant[0] == "resample"
+    node = ctx._compiled.stages[0][1][0]
+    c = ctx._consts
+    heard = 0.0
+    for k, (st, rc) in enumerate(groups.group_inputs(ctx, steps)):
+        rates = groups.step_rates(ctx, k)
+        for r in (rates, rates[:, 0].contiguous()[:, None].expand_as(rates)):
+            before = cudabuild.launches["resample_group_step"]
+            got = type(node).process_resample_group(st, c["st0/arena"], c["st0/geom"],
+                                                    c["st0/gtab"], r, rc, w)
+            assert cudabuild.launches["resample_group_step"] == before + 1
+            want = type(node).resample_group_step_plain(st, c["st0/arena"], c["st0/geom"], r,
+                                                        rc, w)
+            torch.cuda.synchronize()
+            assert float((got[1] - want[1]).abs().max()) <= 1e-6
+            for f in ("x", "primed", "stop_time"):
+                assert torch.equal(_int_view(got[0][f]), _int_view(want[0][f])), f
+            heard += float(want[1].abs().sum())
+    return heard
+
+
+@pytest.mark.parametrize("case", ["pitched S=64 V=64", "V=1 S=1", "V=1 S=4", "V=1 S=64",
+                                  "stereo S=32", "edges S=4", "edges S=32"])
+def test_k7_resample(dev, case):
+    """config4_pitched's step shapes, one voice at S = 1, 4 and 64 (a loop
+    shorter than a superblock: the seam inside a step), stereo, and the
+    edge-case group (one-shots ending mid-superblock, late starts, a
+    finite duration)."""
+    if case.startswith("pitched"):
+        ctx = config4_pitched(superblock=64, voices=64, device=dev)
+        ctx._ensure_compiled()
+        steps = 3
+    else:
+        S = int(case.split("S=")[1])
+        specs = groups.POLY_VOICES[1:2] if case.startswith("V=1") else groups.POLY_VOICES
+        ctx = groups.resample_group(S, dev, channels=2 if case.startswith("stereo") else 1,
+                                    specs=specs)
+        steps = 6
+    assert _check_resample_steps(ctx, steps) > 0
+
+
+def _ulps(got, want):
+    """|got - want| in units of want's last place (f32)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    return np.abs(g.astype(np.float64) - w) / np.spacing(np.abs(w))
+
+
+@pytest.mark.parametrize("step", [0, 9])
+def test_k6_exact_rows(dev, step):
+    """K6's rows of the exact kind beside ordinary rows, one launch: linear
+    ramps bit for bit; the f64 exponential and setTarget curves within one
+    f32 ulp (CUDA's f64 pow/exp against the CPU's)."""
+    S = 32
+    entries = ttab.mixed_param_entries(0, 12 * S * ttab.BLOCK)
+    exact = [(f"x{k}", e[1], e[2], True) for k, e in enumerate(entries)]
+    linear = ttab.linear_param_entries(1, 12 * S * ttab.BLOCK)
+    lin_exact = [(f"l{k}", e[1], e[2], True) for k, e in enumerate(linear)]
+    table = tpe.pack_param_table(entries + exact + lin_exact, S)
+    dt = to_device(table, dev)
+    bt = torch.from_numpy(ttab.block_clock(12 * S)[step * S:(step + 1) * S]).to(dev)
+    got = tpe.eval_intrinsic_batch(dt, bt, 1.0 / 48000)
+    want = tpe.eval_intrinsic_batch_plain(dt, bt, 1.0 / 48000)
+    torch.cuda.synchronize()
+    for key, *_ in entries + exact + lin_exact:
+        slot = table["slots"][key]
+        g = got[slot.off:slot.off + slot.lanes * slot.per_lane]
+        w = want[slot.off:slot.off + slot.lanes * slot.per_lane]
+        if key.startswith("x"):
+            assert float(_ulps(g, w).max()) <= 1.0, key
+        else:
+            assert torch.equal(g, w), key
+
+
+@pytest.mark.parametrize("spb, C", [(65521, 2), (131057, 1)])
+def test_k4a_streamed_blocks(dev, spb, C):
+    """Blocks past the stage (the streamed path) at WAV's longest stereo
+    and mono block lengths: bit for bit the host encoder of the stream
+    buffer (carry, then the quantized chunk, then zeros); the new carry
+    too."""
+    rng = np.random.default_rng(spb)
+    F, carry_len = 2 * spb + 1000, 7
+    x = (rng.standard_normal((C, F)) * 0.5).astype(np.float32)
+    carry = rng.integers(-32768, 32768, (C, spb - 1)).astype(np.int16)
+    before = cudabuild.launches["ima_chunk_encode"]
+    blocks, new_carry = wire.ima_chunk_encode(torch.from_numpy(x).to(dev),
+                                              torch.from_numpy(carry).to(dev), carry_len)
+    torch.cuda.synchronize()
+    assert cudabuild.launches["ima_chunk_encode"] == before + 1
+    ncap = wire.ima_chunk_slots(F, spb)
+    buf = np.zeros((C, ncap * spb + spb), np.int16)
+    buf[:, :spb - 1] = carry
+    buf[:, carry_len:carry_len + F] = wire.quantize_i16(x)
+    np.testing.assert_array_equal(blocks.cpu().numpy(),
+                                  wire.ima_encode_np(buf[:, :ncap * spb], spb))
+    nblk = (carry_len + F) // spb
+    np.testing.assert_array_equal(new_carry.cpu().numpy(),
+                                  buf[:, nblk * spb:nblk * spb + spb - 1])

@@ -117,7 +117,7 @@ def k11_walk(f, started, start, stop, phase, bt, wave):
     local = (pre + before[..., None]) - inc
     ph = _jmod(anchor32[..., None, None] + local, TWO_PI_F).astype(np.float32)
     if wave == "sine":
-        w = torch.sin(torch.from_numpy(np.ascontiguousarray(ph.reshape(L, S, Q)))).numpy()
+        w = np.sin(ph.astype(np.float64)).astype(np.float32).reshape(L, S, Q)  # rounded once
     elif wave == "square":
         w = np.where(ph < PI_F, np.float32(1), np.float32(-1)).reshape(L, S, Q)
     elif wave == "sawtooth":

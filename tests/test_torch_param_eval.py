@@ -103,9 +103,30 @@ def test_capacity_zero_is_the_base_value():
     assert out.shape == (1, 512) and bool((out == 0.25).all())
 
 
-def test_exact_branches_raise():
-    encs = _encodings(seed=4, lanes=1, cap=8, t_end=10 * BLOCK)
-    enc = {k: torch.from_numpy(np.asarray(v))[None] for k, v in encs[0].items()}
-    for npb in (1, 128):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpe.eval_intrinsic_blocked(enc, torch.from_numpy(_clock(4)), npb, DT, exact=True)
+_jax_eval_exact = jax.jit(jpe.eval_intrinsic_blocked, static_argnums=(2, 3, 4))
+
+
+@pytest.mark.parametrize("npb", [128, 1], ids=["a-rate", "k-rate"])
+def test_exact_branches_match_jax(npb):
+    """The exact branches (k-rate: the f64 curve at the block times;
+    a-rate: linear ramps in f64) on lanes of every curve type, within the
+    tolerance above; a k-rate row, and an a-rate lane of set values and
+    linear ramps alone, bit for bit."""
+    S = 8
+    encs = _encodings(seed=40 + npb, lanes=4, cap=16, t_end=40 * BLOCK)
+    rng = np.random.default_rng(npb)
+    lin = sorted(((int(rng.integers(0, 2)), float(rng.uniform(0, 40 * BLOCK)),
+                   float(rng.uniform(0.05, 2.0)), 0.01) for _ in range(12)), key=lambda e: e[1])
+    encs.append(tpe.encode_events(0.5, lin, 16))
+    stacked = {k: torch.from_numpy(np.stack([np.asarray(e[k]) for e in encs])) for k in encs[0]}
+    clock = _clock(6 * S)
+    for step in range(6):
+        bt = clock[step * S:(step + 1) * S]
+        got = tpe.eval_intrinsic_blocked(stacked, torch.from_numpy(bt), npb, DT, exact=True)
+        got = got.numpy()
+        for lane, e in enumerate(encs):
+            want = np.asarray(_jax_eval_exact(e, bt, npb, DT, True))
+            if npb == 1 or lane == len(encs) - 1:
+                np.testing.assert_array_equal(got[lane], want)
+            else:
+                np.testing.assert_allclose(got[lane], want, rtol=REL, atol=REL)
