@@ -55,9 +55,11 @@ each; any failure raises and the script exits non-zero:
      1 and 504), K11 (four waveforms, base values and rows, within 1e-6; its
      constant-source mode bit for bit) and K6m (a-rate, k-rate, stereo
      CHAIN, explicit rows; bit for bit) at config 6's shapes; K7 (the
-     time-varying resampler's group step) at config4_pitched's step and at
-     one voice (S = 1, 4, 64, a loop seam inside the step), stereo and the
-     edge-case group, audio within 1e-6 and the new states bit for bit;
+     time-varying resampler's group step) at config4_pitched's step, at
+     one voice (S = 1, 4, 16, 64, a loop seam inside the step), stereo,
+     the edge-case group and the vibrato's ungrouped launch (V = 1, S =
+     32, its modulated rate row), the audio and the new states bit for
+     bit, timed warm and cold (the arena out of the L2);
      K6's exact rows in config4_pitched's and config6_swept's step tables
      bit for bit and in a table of every curve type within one f32 ulp;
      K4a's streamed path at spb 65521 stereo and 131057 mono bit for bit
@@ -209,9 +211,10 @@ def median_ms(fn, repeats=REPEATS):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20, windows=5):
+def device_ms(fn, calls=20, windows=5, only=None):
     """Device time of one call of ``fn``: the CUDA kernels' self time
-    under torch.profiler over ``calls`` calls. Now and then a window loses
+    under torch.profiler over ``calls`` calls (with ``only``, of the
+    kernels whose names hold it). Now and then a window loses
     some of its kernels' events (seen on the chip machine, for kernels
     launched through the ctypes library): of ``windows`` windows, the
     median of those that recorded the most kernel events."""
@@ -231,7 +234,8 @@ def device_ms(fn, calls=20, windows=5):
             t_us = getattr(e, "self_device_time_total", None)
             if t_us is None:
                 t_us = getattr(e, "self_cuda_time_total", 0.0)
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and (only is None
+                                                                       or only in e.key):
                 total_us += t_us
                 events += e.count
         reads.append((events, total_us / calls / 1e3))
@@ -1850,11 +1854,10 @@ K7_GROUPS = {"K7": "resample_step", "K6": "param_eval", "K11": "oscillator_kerne
 
 
 def resample_mid_render(ctx, dev, step=9):
-    """ctx's time-varying source group at step ``step``: (functions
-    ``fused(st, rc, rate)`` and ``plain(st, rc, rate)`` of the public K7
-    names, the states advanced by the plain step through the steps before,
-    the step's rc and playbackRate rows f32[V, S] from the step's K6 arena,
-    the window w)."""
+    """K7's arguments at step ``step`` of ctx's time-varying source group:
+    (states, arena, geom, gtab, playbackRate rows f32[V, S] from the
+    step's K6 arena, rc, w), the states advanced by the plain step through
+    the steps before."""
     import torch
 
     import graphaudio_tpu_torch as gat
@@ -1871,13 +1874,6 @@ def resample_mid_render(ctx, dev, step=9):
     arena, geom, gtab = c[f"st{si}/arena"], c[f"st{si}/geom"], c[f"st{si}/gtab"]
     table = ctx._encs[tgraph.PARAM_TABLE]
     slot = table["slots"][f"st{si}/playbackRate"]
-
-    def fused(st, rc, rate):
-        return node.process_resample_group(st, arena, geom, gtab, rate, rc, w)
-
-    def plain(st, rc, rate):
-        return node.resample_group_step_plain(st, arena, geom, rate, rc, w)
-
     S, T = ctx.superblock, ctx.superblock * 128
     clock = ctx._block_clock((step + 1) * S)
     st = ctx._states[f"st{si}"]
@@ -1887,73 +1883,96 @@ def resample_mid_render(ctx, dev, step=9):
         rows = tpe.eval_intrinsic_batch(table, rc.block_times, rc.dt)
         rate = rows.narrow(0, slot.off, slot.lanes * slot.per_lane).view(slot.lanes, S)
         if k < step:
-            st, _ = plain(st, rc, rate)
-    return fused, plain, st, rc, rate, si
+            st, _ = node.resample_group_step_plain(st, arena, geom, rate, rc, w)
+    return st, arena, geom, gtab, rate, rc, w
 
 
-def k7_case(label, ctx, dev, step=9):
-    """K7 against its plain version at ``step`` of ctx's time-varying group:
-    the audio within 1e-6, the new x, primed and stop_time bit for bit.
-    The bound is the step's bytes: states read and written, the geometry,
-    the clocks, the rates, the audio written and the arena samples the
-    valid outputs read (each once: a voice's advance, 128 x its clamped
-    rate over its active quanta, plus its 3 extra taps), beside ~20 f32
-    operations an output (the split, the weights, 4 taps)."""
+def vibrato_launch(dev, step=9):
+    """K7's arguments as the vibrato's first ungrouped stage (V = 1, S = 32,
+    its rate through K6m) passes them at step ``step`` of a render on the
+    card (``groups.vibrato_launches``)."""
+    from graphaudio_tpu_torch.testing import groups
+
+    seen = groups.vibrato_launches(dev, step + 1)
+    assert len(seen) == 8 * (step + 1), len(seen)
+    return seen[8 * step]
+
+
+def k7_case(label, args, step):
+    """K7 against its plain version on ``args`` (``resample_mid_render``'s),
+    taken at ``step``: the audio, the new x, primed and stop_time bit for
+    bit. Timed warm (``compare``) and cold: each call after a write of
+    ``COLD_BYTES`` x 2, more than the L2 holds, K7's own device time
+    (``cold_device_ms``). The bound is the step's bytes: states read and
+    written, the geometry, the clocks, the rates, the audio written and the
+    arena samples the valid outputs read (each once: a voice's advance, 128
+    x its clamped rate over its active quanta, plus its 3 extra taps),
+    beside ~20 f32 operations an output (the split, the weights, 4 taps)."""
     import torch
 
     import graphaudio_tpu_torch as gat
     from graphaudio_tpu_torch.ops import voice_group
 
-    fused, plain, st, rc, rate, si = resample_mid_render(ctx, dev, step)
-    new_f, out = fused(st, rc, rate)
-    new_p, want = plain(st, rc, rate)
+    node = gat.AudioBufferSourceNode
+    st, arena, geom, gtab, rate, rc, w = args
+
+    def fused():
+        return node.process_resample_group(st, arena, geom, gtab, rate, rc, w)
+
+    def plain():
+        return node.resample_group_step_plain(st, arena, geom, rate, rc, w)
+
+    new_f, out = fused()
+    new_p, want = plain()
     torch.cuda.synchronize()
     as_int = lambda t: t.view(torch.int64 if t.element_size() == 8 else torch.int32) \
         if t.is_floating_point() else t  # noqa: E731
     differ = [f for f in ("x", "primed", "stop_time")
               if not torch.equal(as_int(new_f[f]), as_int(new_p[f]))]
+    if not torch.equal(as_int(out), as_int(want)):
+        differ.insert(0, "audio")
     if differ:
-        raise AssertionError(f"K7 ({label}): states {differ} differ from the plain version")
+        raise AssertionError(f"K7 ({label}): {differ} differ from the plain version")
     V, C, T = out.shape
     # the advance from the rates, not from the new x, which a loop wrap moves back
-    node = gat.AudioBufferSourceNode
-    geom = ctx._consts[f"st{si}/geom"]
-    cap = voice_group.resample_geometry(T // 128, ctx._compiled._bufsrc_cfg[si][0])[0]
+    cap = voice_group.resample_geometry(T // 128, w)[0]
     rate_b = torch.clamp((geom["rate"] / float(rc.sample_rate))[:, None] * rate.double(),
                          max=float(cap))
     adv = torch.where(node._active_mask(st, rc), 128.0 * rate_b, 0.0).sum(dim=1)
     read = int(torch.where(adv > 0, torch.ceil(adv) + 3, 0.0).sum()) * C * 4
-    gtab = ctx._consts[f"st{si}/gtab"]
     moved = (nbytes(*st.values()) + nbytes(new_f["x"], new_f["primed"], new_f["stop_time"])
              + nbytes(gtab, rate, out) + 2 * nbytes(rc.block_times) + read)
     e = compare(f"K7 time-varying resample group step ({label}: V={V} C={C} S={T // 128}, "
                 f"mid-render step {step})", "cuda", "graphaudio_tpu_torch/csrc/resample.cu",
-                "graphaudio_tpu/nodes/sources.py:783",
-                lambda: fused(st, rc, rate)[1], lambda: plain(st, rc, rate)[1], 1e-6,
-                bnd=bound(moved, 20 * out.numel()))
-    e["states_bit_exact"] = ["x", "primed", "stop_time"]
+                "graphaudio_tpu/nodes/sources.py:783", lambda: fused()[1], lambda: plain()[1],
+                0.0, bnd=bound(moved, 20 * out.numel()))
+    e["bit_exact"] = ["audio", "x", "primed", "stop_time"]
+    flush = torch.empty(2 * COLD_BYTES // 4, device=out.device)
+    e["cold_device_ms"] = device_ms(lambda: (flush.zero_(), fused()), only="resample_step")
+    phase("kernels", f"K7 ({label}): bit for bit; cold {e['cold_device_ms']!r} ms on the device")
     return e
 
 
 def k7_checks(dev):
     """K7 at config4_pitched's step (64 voices, superblock 64), and at one
-    voice with a loop shorter than a superblock (S = 1, 4, 64), stereo
-    (S = 32) and the edge-case group (S = 4) under "shapes"
-    (graphaudio_tpu_torch/testing/groups.py, rates at ``step_rates``)."""
+    voice with a loop shorter than a superblock (S = 1, 4, 16, 64), stereo
+    (S = 32), the edge-case group (S = 4) and the vibrato's ungrouped launch
+    (V = 1, S = 32) under "shapes" (graphaudio_tpu_torch/testing/groups.py,
+    rates at ``step_rates``)."""
     from graphaudio_tpu_torch.testing import groups
     from graphaudio_tpu_torch.testing.configs import config4_pitched
 
-    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
-    e = k7_case("config4_pitched", config4_pitched(superblock=64, voices=64, device=dev), dev)
-    shapes = []
-    for label, ctx in (
-            (f"one voice S={S}", groups.resample_group(S, dev, specs=groups.POLY_VOICES[1:2]))
-            for S in (1, 4, 64)):
-        shapes.append(k7_case(label, _with_rates(ctx, dev), dev, step=4))
-    shapes.append(k7_case("stereo", _with_rates(groups.resample_group(32, dev, channels=2), dev),
-                          dev, step=4))
-    shapes.append(k7_case("edge cases", _with_rates(groups.resample_group(4, dev), dev), dev,
-                          step=4))
+    keys = ("name", "max_abs_err", "bit_exact", "ms", "plain_ms", "bound_ms", "bound_by",
+            "device_ms", "cold_device_ms")
+    e = k7_case("config4_pitched", resample_mid_render(
+        config4_pitched(superblock=64, voices=64, device=dev), dev), 9)
+    cases = [(f"one voice S={S}", groups.resample_group(S, dev, specs=groups.POLY_VOICES[1:2]))
+             for S in (1, 4, 16, 64)]
+    cases += [("stereo", groups.resample_group(32, dev, channels=2)),
+              ("edge cases", groups.resample_group(4, dev))]
+    shapes = [k7_case(label, resample_mid_render(_with_rates(ctx, dev), dev, 4), 4)
+              for label, ctx in cases]
+    shapes.append(k7_case("the vibrato's ungrouped voice", vibrato_launch(dev), 9))
     e["shapes"] = [{k: x[k] for k in keys} for x in shapes]
     e["name"] = "K7 time-varying resample group step"
     e["library_ms"] = None

@@ -278,14 +278,16 @@ def resample_group_step(states, arena, gtab, rate_pb, block_times, block_end_tim
     S*128]); x and stop_time are two rows of one f64[2, V]. CUDA tensors
     only: AudioBufferSourceNode.resample_group_step_plain is the CPU path.
 
-    gtab: the group's packed geometry (ops/voice_group.pack_group_table,
-    the last row the constants w, cap, tile, n_tiles and the context's
-    sample rate); rate_pb: the playbackRate f32[V, S] a quantum, rows, or
-    one base value a voice as a stride-0 view along S (the kernel then
-    reads the base values, nothing is copied).
+    gtab: the group's packed geometry (ops/voice_group.pack_group_table:
+    f64[V + 1, RESAMPLE_COLS], each voice's rate / sample_rate in the last
+    column, the last row the constants w, cap, tile, n_tiles and the
+    context's sample rate); rate_pb: the playbackRate f32[V, S] a quantum,
+    rows, or one base value a voice as a stride-0 view along S (the kernel
+    then reads the base values, nothing is copied).
     """
     V, S = voice_group.check_group_inputs(states, POLY_STATE_FIELDS, arena, gtab,
-                                          block_times, block_end_times)
+                                          block_times, block_end_times,
+                                          voice_group.RESAMPLE_COLS)
     C, W = arena.shape
     if tuple(rate_pb.shape) != (V, S):
         raise ValueError(f"rate_pb must be [{V}, {S}], got {tuple(rate_pb.shape)}")

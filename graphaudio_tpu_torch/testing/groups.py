@@ -138,3 +138,31 @@ def group_inputs(ctx, steps):
         else:
             st, _ = type(node).unity_group_step_plain(
                 st, consts["st0/arena"], consts["st0/geom"], rc, w, variant[1])
+
+
+def vibrato_launches(device, steps):
+    """The K7 arguments of the vibrato's ungrouped voices (V = 1, S = 32, a
+    modulated playbackRate row through K6m; testing/configs.py
+    config2_vibrato), as ``process_resample_group`` receives them at each of
+    the first ``steps`` steps of a render on ``device``: a list of (states,
+    arena, geom, gtab, rate f32[1, S], rc, w), eight a step, the states and
+    rates copied."""
+    from graphaudio_tpu_torch.testing.configs import config2_vibrato
+
+    node = ga.AudioBufferSourceNode
+    process = node.__dict__["process_resample_group"]
+    seen = []
+
+    def spy(cls, states, arena, geom, gtab, rate_pb, rc, w):
+        seen.append(({k: v.clone() for k, v in states.items()}, arena, geom, gtab,
+                     rate_pb.clone(), rc, w))
+        return process.__func__(cls, states, arena, geom, gtab, rate_pb, rc, w)
+
+    node.process_resample_group = classmethod(spy)
+    try:
+        config2_vibrato(superblock=32, device=device).render(steps * 32 * BLOCK)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        node.process_resample_group = process
+    return seen

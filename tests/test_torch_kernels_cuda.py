@@ -934,6 +934,103 @@ def test_k7_resample(dev, case):
     assert _check_resample_steps(ctx, steps) > 0
 
 
+@pytest.mark.parametrize("S", [16, 17, 128, 513])
+def test_k7_resample_superblocks(dev, S):
+    """K7 at more superblocks: S = 16 and 17 (one run of 16 and a second
+    run of one quantum), 128 (eight runs, 16 spans) and 513 (33 runs: two
+    passes of the plan warp's run loop), over the edge-case group: one
+    launch a step, the audio, x, primed and stop_time bit for bit the plain
+    version, the rates as rows and as one base value a voice."""
+    ctx = groups.resample_group(S, dev)
+    w = ctx._compiled._bufsrc_cfg[0][0]
+    node = type(ctx._compiled.stages[0][1][0])
+    c = ctx._consts
+    heard = 0.0
+    for k, (st, rc) in enumerate(groups.group_inputs(ctx, 3 if S > 128 else 5)):
+        rates = groups.step_rates(ctx, k)
+        for r in (rates, rates[:, 0].contiguous()[:, None].expand_as(rates)):
+            before = cudabuild.launches["resample_group_step"]
+            got = node.process_resample_group(st, c["st0/arena"], c["st0/geom"], c["st0/gtab"],
+                                              r, rc, w)
+            assert cudabuild.launches["resample_group_step"] == before + 1
+            want = node.resample_group_step_plain(st, c["st0/arena"], c["st0/geom"], r, rc, w)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), k
+            for f in ("x", "primed", "stop_time"):
+                assert torch.equal(_int_view(got[0][f]), _int_view(want[0][f])), (k, f)
+            heard += float(want[1].abs().sum())
+    assert heard > 0
+
+
+def test_k7_modulated_row(dev):
+    """K7 on the vibrato's modulated V = 1 rows, as its ungrouped stages
+    launch it (the last voice past its window's rate bound): audio, x,
+    primed and stop_time bit for bit the plain version."""
+    node = gat.AudioBufferSourceNode
+    seen = groups.vibrato_launches(dev, 3)
+    assert len(seen) == 24
+    for st, arena, geom, gtab, rate, rc, w in seen:
+        assert tuple(rate.shape) == (1, 32)
+        got = node.process_resample_group(st, arena, geom, gtab, rate, rc, w)
+        want = node.resample_group_step_plain(st, arena, geom, rate, rc, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        for f in ("x", "primed", "stop_time"):
+            assert torch.equal(_int_view(got[0][f]), _int_view(want[0][f])), f
+
+
+def test_k7_audio_bit_for_bit_at_config4_pitched(dev):
+    """config4_pitched's K7 launches (V = 64, S = 64, the rates from the
+    step's K6 rows) over 10 steps: the audio bit for bit the plain
+    version's, and the new states."""
+    from graphaudio_tpu_torch.core import graph as tgraph
+
+    ctx = config4_pitched(superblock=64, voices=64, device=dev)
+    ctx._ensure_compiled()
+    ctx._ensure_params_encoded()
+    w, variant, _ = ctx._compiled._bufsrc_cfg[0]
+    assert variant[0] == "resample"
+    node = gat.AudioBufferSourceNode
+    c = ctx._consts
+    arena, geom, gtab = c["st0/arena"], c["st0/geom"], c["st0/gtab"]
+    table = ctx._encs[PARAM_TABLE]
+    slot = table["slots"]["st0/playbackRate"]
+    S = 64
+    clock = ctx._block_clock(10 * S)
+    st = ctx._states["st0"]
+    for k in range(10):
+        rc = tgraph.RenderContext(ctx._compiled.info, k * S * 128,
+                                  torch.from_numpy(clock[k * S:(k + 1) * S]).to(dev))
+        rows = tpe.eval_intrinsic_batch(table, rc.block_times, rc.dt)
+        rate = rows.narrow(0, slot.off, slot.lanes * slot.per_lane).view(slot.lanes, S)
+        got = node.process_resample_group(st, arena, geom, gtab, rate, rc, w)
+        new, want = node.resample_group_step_plain(st, arena, geom, rate, rc, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want), k
+        for f in ("x", "primed", "stop_time"):
+            assert torch.equal(_int_view(got[0][f]), _int_view(new[f])), (k, f)
+        st = new
+
+
+def test_k7_checks_the_table(dev):
+    """K7 raises (and launches nothing) unless its table is a contiguous
+    f64[V + 1, RESAMPLE_COLS] on the card: the shared layout without the
+    voices' rate / sample_rate column is refused."""
+    from graphaudio_tpu_torch.ops.resample import resample_group_step
+
+    ctx = groups.resample_group(4, dev)
+    c = ctx._consts
+    st, rc = next(groups.group_inputs(ctx, 1))
+    rates = groups.step_rates(ctx, 0)
+    gtab = c["st0/gtab"]
+    before = cudabuild.launches["resample_group_step"]
+    for bad in (gtab[:, :-1].contiguous(), gtab.cpu(), gtab.float(), gtab[1:]):
+        with pytest.raises(ValueError):
+            resample_group_step(st, c["st0/arena"], bad, rates, rc.block_times,
+                                rc.block_end_times)
+    assert cudabuild.launches["resample_group_step"] == before
+
+
 def _ulps(got, want):
     """|got - want| in units of want's last place (f32)."""
     g, w = got.cpu().numpy(), want.cpu().numpy()
