@@ -15,7 +15,9 @@ scene with every voice occluded (the panner's 3-band split), config 4
 delivered as G.711 mu-law and IMA ADPCM, BASELINE config 6 (64 looped
 voices, each gain modulated by its own oscillator), and the paths of a
 time-varying rate: config 4 with ramped playbackRates, config 6 with swept
-LFO frequencies and a vibrato on config 2's voices. Phases, one line
+LFO frequencies and a vibrato on config 2's voices, and the paths of
+phase 12 (a modulated biquad frequency and panner position, the Kit's
+step-linear mode, a ping-pong delay send). Phases, one line
 each; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -115,7 +117,20 @@ each; any failure raises and the script exits non-zero:
      three runs each (``render_runs``), the first run within 1e-5 of the
      same graph's CPU render (config4_pitched and config6_swept over their
      first 8 superblocks, the vibrato over all 64); xRT, device us and
-     launches a step and the sha256 of each.
+     launches a step and the sha256 of each;
+ 12. a modulated param that a stage's prologue reads, and item 10: K8 and
+     K10b launched the new way (a one-item table at the stage's turn,
+     reading K6m's reserved K6 arena rows) at config3_wah's four biquad
+     stages and config5_orbit's panner group, bit for bit; K12 (the delay)
+     at config4_pingpong's two delays and at d < T, d > T, d = L, d = 0, T
+     >= L, mono and stereo, bit for bit; K13 (the stereo panner) at
+     config5_steplinear's and config4_pingpong's steps and both laws at pan
+     -1, 0, 1 and across the range, within one ulp; then config3_wah (an
+     LFO on each biquad's frequency), config5_orbit (an LFO on each
+     panner's positionX), config5_steplinear (the Kit's step-linear mode)
+     and config4_pingpong (a ping-pong delay send) at full size, five 30 s
+     runs each (``render_runs``), their first 8 superblocks within 1e-5 of
+     their CPU renders, the kernels' launches a step checked.
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -133,6 +148,9 @@ and 2, the K4mu, K4a, K11 and K6m checks, the goldens and phases 9 and 10
 and K6m checks, the goldens, three 30 s ``render_adpcm`` of config 4 and
 three 30 s renders each of config 6 modulated and not. ``--k7`` runs the
 K7, K6 exact-row and K4a streamed-path checks, the goldens and phase 11.
+``--mod8b`` runs the deferred K8 and K10b checks, the goldens and phase
+12's config3_wah and config5_orbit; ``--item10`` the K12 and K13 checks,
+the goldens and phase 12's config5_steplinear and config4_pingpong.
 ``--k4mu`` runs
 K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
 loads), mono, three channels (through shared memory) and a base one float
@@ -2134,6 +2152,317 @@ def slice16_runs(dev, runs=3):
     return out
 
 
+#: The kernel groups of the modulated-prologue and item-10 paths.
+PROLOGUE_ITEM10_GROUPS = {"K8": "biquad_coeffs", "P2": "biquad_cascade", "K10b": "spatial_gains",
+                  "P1": "hrtf_fir", "K6m": "apply_modulation", "K12": "delay_kernel",
+                  "K13": "stereo_pan", "K6": "param_eval"}
+
+
+def same_bits(label, got, want):
+    """Raise unless each pair of tensors is equal bit for bit."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    torch.cuda.synchronize()
+    differ = [i for i, (g, w) in enumerate(zip(got, want)) if not torch.equal(bits(g), bits(w))]
+    if differ or len(got) != len(want):
+        raise AssertionError(f"{label}: outputs {differ} differ from the plain version")
+
+
+def deferred_checks(dev, step=9):
+    """K8 and K10b launched the new way: the one-item table of a stage
+    whose prologue param is modulated, at its turn, reading K6m's reserved
+    rows. config3_wah's four biquad stages and config5_orbit's panner group
+    (128 lanes, positionX k-rate) at step ``step`` of a render on the card,
+    every output bit for bit against its plain version on the same arena;
+    timed alone (``compare`` on the first output, no concatenation). Bounds:
+    K8 reads each source once (a-rate T floats, k-rate S, a constant 1) and
+    writes b f32[3, V, T] and p c64[2, V, T], ~40 f32 operations a sample;
+    K10b reads positionX's k-rate rows and the constants and writes f32[6,
+    V, S], ~100 operations a (voice, quantum)."""
+    from graphaudio_tpu_torch.nodes import spatial as tsp
+    from graphaudio_tpu_torch.ops import biquad as tbq
+    from graphaudio_tpu_torch.testing import groups
+    from graphaudio_tpu_torch.testing.configs import config3_wah, config5_orbit
+
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    seen = groups.deferred_launches(config3_wah(superblock=32, device=dev), step + 1)
+    assert len(seen) == 4 * (step + 1), len(seen)
+    per = {tbq.SRC_ARATE: 0, tbq.SRC_KRATE: 0, tbq.SRC_CONST: 1}
+    k8 = []
+    for key, table, arena, rc in seen[-4:]:
+        label = f"K8 RBJ coefficients, deferred (config3_wah {key}, step {step})"
+        (got,), (want,) = (f(table, arena, rc.sample_rate) for f in (
+            tbq.biquad_coefficients_batch, tbq.biquad_coefficients_batch_plain))
+        same_bits(label, got, want)
+        rows = table["rows"].cpu().long()
+        V, T = rows.shape[0], table["frames"]
+        per[tbq.SRC_ARATE], per[tbq.SRC_KRATE] = T, T // 128
+        src_bytes = 4 * sum(per[int(w) & 3] for w in rows[:, 1:4].flatten())
+        e = compare(f"{label[:-1]}: V={V} T={T})", "cuda", "graphaudio_tpu_torch/csrc/biquad.cu",
+                    "graphaudio_tpu/ops/biquad.py:43",
+                    lambda: tbq.biquad_coefficients_batch(table, arena, rc.sample_rate)[0][0],
+                    lambda: tbq.biquad_coefficients_batch_plain(table, arena,
+                                                                rc.sample_rate)[0][0],
+                    0.0, bnd=bound(src_bytes + nbytes(table["rows"], *got), 40 * V * T))
+        e["bit_exact"] = ["b0", "b1", "b2", "p1", "p2"]
+        k8.append(e)
+    e8 = dict(k8[0], name="K8 RBJ coefficients, deferred", library_ms=None)
+    e8["shapes"] = [{k: x[k] for k in keys} for x in k8[1:]]
+    seen = groups.deferred_launches(config5_orbit(superblock=32, voices=128, device=dev),
+                                    step + 1)
+    assert len(seen) == step + 1, len(seen)
+    key, table, arena, rc = seen[-1]
+    (_, V, _, words), = table["stages"]
+    S = table["superblock"]
+    label = f"K10b spatial gains, deferred (config5_orbit {key}, step {step}: V={V} S={S})"
+    same_bits(label, tsp.spatial_gains_batch(table, arena, rc.globals),
+              tsp.spatial_gains_batch_plain(table, arena, rc.globals))
+    rows = sum(1 for w in words if w & 3 != tbq.SRC_CONST)  # params read from arena rows
+    e10 = compare(
+        label, "cuda", "graphaudio_tpu_torch/csrc/spatial_gains.cu",
+        "graphaudio_tpu/nodes/spatial.py:270",
+        lambda: tsp.spatial_gains_batch(table, arena, rc.globals)[0],
+        lambda: tsp.spatial_gains_batch_plain(table, arena, rc.globals)[0], 0.0,
+        bnd=bound(4 * rows * V * S + nbytes(table["consts"]) + 24 * V * S, 100 * V * S))
+    e10.update(name="K10b spatial gains, deferred", library_ms=None, bit_exact=["gains"])
+    return [e8, e10]
+
+
+def delay_expression(x, dt, ring, wpos, sr):
+    """The delay step as one would write it in PyTorch (a yardstick for K12,
+    not used by the port): the ring unrolled oldest first before the input,
+    each output one gather from that history, the new ring its last L
+    samples rolled to the new cursor."""
+    import torch
+
+    C, T = x.shape
+    L = ring.shape[1]
+    k = torch.arange(L, device=x.device)
+    hist = torch.cat([ring[:, (k + wpos) % L], x], dim=1)
+    d = torch.clamp(dt * torch.tensor(np.float32(sr), device=x.device), 0.0, float(L)).long()
+    out = torch.where(d > 0, hist[:, L + torch.arange(T, device=x.device) - d], 0.0)
+    return out, hist[:, T:][:, (k - wpos - T) % L]
+
+
+def pan_expression(x, pan):
+    """The stereo panner as one would write it in PyTorch (a yardstick for
+    K13, not used by the port): f32 trig, no fma."""
+    import torch
+
+    p = torch.clamp(pan, -1.0, 1.0)
+    if x.shape[1] == 1:
+        a = (p + 1.0) * (np.pi / 4)
+        return torch.stack([x[:, 0] * torch.cos(a), x[:, 0] * torch.sin(a)], dim=1)
+    left = p <= 0.0
+    a = torch.where(left, p + 1.0, p) * (np.pi / 2)
+    gl, gr = torch.cos(a), torch.sin(a)
+    l, r = x[:, 0], x[:, 1]
+    return torch.stack([torch.where(left, l + r * gl, l * gl),
+                        torch.where(left, r * gr, r + l * gr)], dim=1)
+
+
+def delay_ring_reads(dt, wpos, T, L, sr):
+    """The ring slots one delay step reads a channel, counted from this
+    step's delay times and cursor: the distinct (w + i - d_i) mod L over
+    the frames i with 0 < d_i and i < d_i."""
+    import torch
+
+    d = torch.clamp(dt * torch.tensor(np.float32(sr), device=dt.device), 0.0, float(L)).long()
+    i = torch.arange(T, device=dt.device)
+    hit = (d > 0) & (i < d)
+    return int(torch.unique(torch.remainder(int(wpos) + i - d, L)[hit]).numel())
+
+
+def k12_case(label, args, library=False):
+    """K12 against its plain version on ``args`` (x, delay times, ring,
+    cursor, sample rate): the output, the new ring and the new cursor bit
+    for bit, the launch timed alone. Bound: the bytes the function must
+    move, x and the output (4 C T each), the delay times (4 T, or 4 for one
+    base value), the ring slots this step's data reads (``delay_ring_reads``)
+    and the min(T, L) it writes (4 C each) and the cursors; the f32 multiply
+    a frame and ~8 integer operations an element are far under it. The
+    design's copy of the rest of the ring is not in it: its bytes, the old
+    ring read and the new one written whole (C L 8), are ``ring_copy_bytes``
+    beside it. With ``library`` the PyTorch expression
+    (``delay_expression``) is checked against the kernel and timed beside
+    it."""
+    from graphaudio_tpu_torch.nodes import delay as td
+
+    x, dt, ring, wpos, sr = args
+    C, T = x.shape
+    L = ring.shape[1]
+    name = f"K12 delay ({label}: C={C} T={T} L={L})"
+    same_bits(name, td.delay_step(x, dt, ring, wpos, sr),
+              td.delay_step_plain(x, dt, ring, wpos, sr))
+    if library:
+        same_bits(f"{name}, the PyTorch expression", td.delay_step(x, dt, ring, wpos, sr)[:2],
+                  delay_expression(x, dt, ring, wpos, sr))
+    reads, writes = delay_ring_reads(dt, wpos, T, L, sr), min(T, L)
+    moved = 8 * C * T + (4 * T if dt.stride(0) else 4) + 4 * C * (reads + writes) + 8
+    e = compare(name, "cuda", "graphaudio_tpu_torch/csrc/delay.cu",
+                "graphaudio_tpu/nodes/delay.py:54",
+                lambda: td.delay_step(x, dt, ring, wpos, sr)[0],
+                lambda: td.delay_step_plain(x, dt, ring, wpos, sr)[0], 0.0,
+                bnd=bound(moved, T, int_ops=8 * C * (T + writes)),
+                library=(lambda: delay_expression(x, dt, ring, wpos, sr)[0]) if library else None,
+                device_times=library)
+    e.update(bit_exact=["out", "ring", "wpos"], bound_bytes=moved, ring_slots_read=reads,
+             ring_copy_bytes=8 * C * L)
+    return e
+
+
+def _seeded_delay(dev, C, T, L, delays, w, seed):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((C, T)).astype(np.float32)).to(dev)
+    ring = torch.from_numpy(rng.standard_normal((C, L)).astype(np.float32)).to(dev)
+    max_s = np.float32(L / SR)
+    if delays == "L":
+        dt = torch.full((T,), float(max_s), device=dev)
+    elif delays == "zero":
+        dt = torch.zeros((), device=dev).expand(T)
+    elif delays == "short":  # one base value, d < T
+        dt = torch.full((), float(np.float32(0.1 * T / SR)), device=dev).expand(T)
+    else:
+        dt = torch.from_numpy(np.minimum(np.linspace(0.0, 1.2 * max_s, T), max_s)
+                              .astype(np.float32)).to(dev)
+    return x, dt, ring, torch.tensor(w, dtype=torch.int32, device=dev), SR
+
+
+def k12_checks(dev, step=9):
+    """K12 at config4_pingpong's two delays at step ``step`` of a render on
+    the card (C = 2 after the splitter's up-mix at the delay's input, T =
+    8192, L = 48000: the right one's exact a-rate rows, d > T, ring reads;
+    the left one's base value, d = 4800 < T), and seeded: d = L with T <
+    L (every read the slot this step writes) and with T >= L, T = L, a ramp
+    through d = 0 to past T, d = 0 throughout, mono and stereo; each bit
+    for bit, timed (``compare``)."""
+    from graphaudio_tpu_torch.nodes import delay as td
+    from graphaudio_tpu_torch.testing import groups
+    from graphaudio_tpu_torch.testing.configs import config4_pingpong
+
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+            "bound_bytes", "ring_slots_read", "ring_copy_bytes")
+    seen = groups.calls_of(td, "delay_step",
+                           lambda: config4_pingpong(superblock=64, voices=64, device=dev),
+                           step + 1)
+    assert len(seen) == 2 * (step + 1), len(seen)
+    at = seen[-2:]
+    right, left = (at[0], at[1]) if at[0][1].stride(0) else (at[1], at[0])
+    out = [k12_case(f"config4_pingpong right, step {step}", right, library=True),
+           k12_case(f"config4_pingpong left, step {step}", left)]
+    for label, shape in (("d = L, T < L", (2, 4096, 6000, "L", 5999)),
+                         ("d = L, T >= L", (1, 8192, 4800, "L", 17)),
+                         ("T = L", (2, 4096, 4096, "ramp", 4095)),
+                         ("ramp through d = 0 past T", (1, 8192, 48000, "ramp", 31000)),
+                         ("d < T, one base value", (2, 8192, 48000, "short", 123)),
+                         ("d = 0", (2, 4096, 960, "zero", 3))):
+        out.append(k12_case(label, _seeded_delay(dev, *shape, seed=len(out))))
+    e = dict(out[0], name="K12 delay")
+    e["shapes"] = [{k: x[k] for k in keys} for x in out[1:]]
+    return e
+
+
+def k13_checks(dev, step=9):
+    """K13 at config5_steplinear's step ``step`` (128 lanes of the Kit's
+    up-mixed mono, the stereo law, one base pan a lane) and
+    config4_pingpong's (one lane, the stereo law, a row of ramped pans), and
+    seeded: both laws with pan rows through -1.5 to 1.5 (clipped; -1, 0
+    and 1 exactly among them) and with base values -1, 0 and 1. Tolerance:
+    one f32 ulp of the output's largest value (the plain version's fma is an
+    f64 sum rounded to f32). Bound: bytes, x, the pans and the output read
+    or written once; the two f64 transcendentals a frame (~40 f64
+    operations) under it. The first case also times the PyTorch expression
+    (``pan_expression``: f32 trig, no fma)."""
+    import torch
+
+    from graphaudio_tpu_torch.nodes import panner as tp
+    from graphaudio_tpu_torch.testing import groups
+    from graphaudio_tpu_torch.testing.configs import config4_pingpong, config5_steplinear
+
+    keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    cases = []
+    for label, build in (
+            ("config5_steplinear", lambda: config5_steplinear(superblock=32, device=dev)),
+            ("config4_pingpong", lambda: config4_pingpong(superblock=64, device=dev))):
+        seen = groups.calls_of(tp, "stereo_pan", build, step + 1)
+        assert len(seen) == step + 1, len(seen)
+        cases.append((f"{label}, step {step}", seen[-1]))
+    rng = np.random.default_rng(13)
+    for C in (1, 2):
+        x = torch.from_numpy(rng.standard_normal((8, C, 4096)).astype(np.float32)).to(dev)
+        pan = np.linspace(-1.5, 1.5, 8 * 4096).astype(np.float32).reshape(8, 4096)
+        pan[:, :3] = (-1.0, 0.0, 1.0)
+        cases.append((f"{'mono' if C == 1 else 'stereo'} law, pan rows",
+                      (x, torch.from_numpy(pan).to(dev))))
+        base = torch.tensor([-1.0, 0.0, 1.0], device=dev)
+        cases.append((f"{'mono' if C == 1 else 'stereo'} law, pan -1, 0, 1",
+                      (x[:3].contiguous(), base[:, None].expand(3, 4096))))
+    out = []
+    for label, (x, pan) in cases:
+        V, C, T = x.shape
+        moved = nbytes(x) + (4 * V * T if pan.stride(-1) else 4 * V) + 8 * V * T
+        first = not out
+        out.append(compare(f"K13 stereo pan ({label}: V={V} C={C} T={T})", "cuda",
+                           "graphaudio_tpu_torch/csrc/stereo_pan.cu",
+                           "graphaudio_tpu/nodes/panner.py:44", lambda: tp.stereo_pan(x, pan),
+                           lambda: tp.stereo_pan_plain(x, pan), 2.0 ** -23, rel=True,
+                           bnd=bound(moved, 40 * V * T, F64_FLOPS),
+                           library=(lambda: pan_expression(x, pan)) if first else None,
+                           device_times=first))
+    e = dict(out[0], name="K13 stereo pan")
+    e["shapes"] = [{k: x[k] for k in keys} for x in out[1:]]
+    return e
+
+
+def prologue_item10_runs(dev, which=("config3_wah", "config5_orbit", "config5_steplinear",
+                             "config4_pingpong"), runs=5):
+    """The paths of a modulated prologue param and of item 10 at full size,
+    30 s rounded down to whole superblocks, each ``runs`` renders with a
+    profile window (``render_runs``), its first 8 superblocks within 1e-5 of
+    the same graph's CPU render: config3_wah (superblock 32: four deferred
+    K8 launches, four K6m and four P2 a step), config5_orbit (128 voices,
+    superblock 32: one deferred K10b and one K6m a step), config5_steplinear
+    (128 voices: one K13 a step) and config4_pingpong (64 voices, superblock
+    64: two K12 and one K13 a step)."""
+    from graphaudio_tpu_torch.testing import configs
+
+    counts = {"K8": ("biquad_coefficients_batch",), "P2": ("biquad_apply",),
+              "K10b": ("spatial_gains_batch",), "P1": ("hrtf_fir",),
+              "K6m": ("apply_modulation",), "K6": ("eval_intrinsic_batch",),
+              "K12": ("delay_step",), "K13": ("stereo_pan",), "K7": ("resample_group_step",),
+              "K5": ("unity_group_step",), "K1": ("poly_group_step",),
+              "K11": ("oscillator_group_step",), "K2b": ("overlap_add",)}
+    paths = {"config3_wah": (32, {"K8": 4, "P2": 4, "K6m": 4, "K6": 1, "K11": 1}),
+             "config5_orbit": (32, {"K10b": 1, "K6m": 1, "P1": 1, "K11": 1}),
+             "config5_steplinear": (32, {"K13": 1, "K2b": 1}),
+             "config4_pingpong": (64, {"K12": 2, "K13": 1, "K6": 1, "K1": 1, "K2b": 1})}
+    out = {}
+    for key in which:
+        S, want = paths[key]
+        T = S * 128
+        frames = (30 * SR // T) * T
+        build = getattr(configs, key)
+        ref = build(superblock=S, device="cpu").render(8 * T)
+        r = render_runs(key, lambda: build(superblock=S, device=dev), T, frames, counts,
+                        PROLOGUE_ITEM10_GROUPS, runs=runs, ref=ref)
+        steps = frames // T
+        for label, n in want.items():
+            if r["launches"][label] != n * steps:
+                raise AssertionError(f"{key}: {label} launched {r['launches'][label]} times in "
+                                     f"{steps} steps, not {n} a step")
+        phase("render", f"{key}: xRT median {r['f32']['xrt_median']!r}, device us a step "
+              f"{r['profile']['device_us_per_step']!r}, launches a step "
+              f"{r['profile']['launches_per_step']!r}, sha256 {r['sha256']}, first 8 "
+              f"superblocks vs the CPU render {r['head_vs_golden']!r}")
+        out[key] = r
+    return out
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -2278,6 +2607,19 @@ def main(device="cuda", only=None):
             runs = {"config4_mulaw": wire_runs(dev, b4, T, frames, f32, runs=3,
                                                methods=("render_mulaw",), profile=True)}
             entries[0]["launches"] = runs["config4_mulaw"]["render_mulaw"]["launches"]
+        elif only == "mod8b":
+            entries = deferred_checks(dev)
+            golden_err = goldens(dev)
+            runs = prologue_item10_runs(dev, ("config3_wah", "config5_orbit"))
+            entries[0]["launches"] = runs["config3_wah"]["launches"]["K8"]
+            entries[1]["launches"] = runs["config5_orbit"]["launches"]["K10b"]
+        elif only == "item10":
+            entries = [k12_checks(dev), k13_checks(dev)]
+            golden_err = goldens(dev)
+            runs = prologue_item10_runs(dev, ("config5_steplinear", "config4_pingpong"))
+            entries[0]["launches"] = runs["config4_pingpong"]["launches"]["K12"]
+            entries[1]["launches"] = runs["config5_steplinear"]["launches"]["K13"]
+            entries[1]["launches_pingpong"] = runs["config4_pingpong"]["launches"]["K13"]
         elif only == "k9":
             entries = [k9_checks(dev)]
             golden_err = goldens(dev)
@@ -2562,6 +2904,20 @@ def main(device="cuda", only=None):
         elif e["name"] == "K6m param modulation":
             e["launches"] = runs6["modulated"]["launches"]["K6m"]
 
+    # -- 12. modulated prologue params and item 10 ----------------------------------
+    entries += deferred_checks(dev) + [k12_checks(dev), k13_checks(dev)]
+    runs_p10 = prologue_item10_runs(dev)
+    for e in entries:
+        if e["name"] == "K8 RBJ coefficients, deferred":
+            e["launches"] = runs_p10["config3_wah"]["launches"]["K8"]
+        elif e["name"] == "K10b spatial gains, deferred":
+            e["launches"] = runs_p10["config5_orbit"]["launches"]["K10b"]
+        elif e["name"] == "K12 delay":
+            e["launches"] = runs_p10["config4_pingpong"]["launches"]["K12"]
+        elif e["name"] == "K13 stereo pan":
+            e["launches"] = runs_p10["config5_steplinear"]["launches"]["K13"]
+            e["launches_pingpong"] = runs_p10["config4_pingpong"]["launches"]["K13"]
+
     print(json.dumps({"kernels": entries, "render": {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
@@ -2578,6 +2934,7 @@ def main(device="cuda", only=None):
         "config4_wire": wire4,
         "config6": dict(runs6, golden_max_abs_err=golden_err[6]),
         **runs16,
+        **runs_p10,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2614,6 +2971,10 @@ if __name__ == "__main__":
         "k7": "the K7, K6 exact-row and K4a streamed-path checks, the goldens and three "
               "renders each of config4_pitched and config6_swept (30 s) and of the "
               "vibrato (64 superblocks)",
+        "mod8b": "the deferred K8 and K10b checks, the goldens and five 30 s renders each "
+                 "of config3_wah and config5_orbit",
+        "item10": "the K12 and K13 checks, the goldens and five 30 s renders each of "
+                  "config5_steplinear and config4_pingpong",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

@@ -41,14 +41,18 @@ from graphaudio_tpu_torch.nodes import (  # noqa: E402
     AudioBufferSourceNode,
     AudioDestinationNode,
     BiQuadFilterNode,
+    ChannelMergerNode,
+    ChannelSplitterNode,
     ConstantSourceNode,
     ConvolverNode,
+    DelayNode,
     DistanceModelType,
     FilterType,
     GainNode,
     OscillatorNode,
     OscillatorType,
     SpatialPannerNode,
+    StereoPannerNode,
 )
 from graphaudio_tpu_torch import kit  # noqa: E402
 
@@ -77,6 +81,10 @@ __all__ = [
     "ConvolverNode",
     "BiQuadFilterNode",
     "FilterType",
+    "DelayNode",
+    "StereoPannerNode",
+    "ChannelSplitterNode",
+    "ChannelMergerNode",
     "SpatialPannerNode",
     "DistanceModelType",
     "kit",

@@ -21,11 +21,15 @@ A modulated param (an AudioNode output connected to it) gets its
 modulation added and clamped by K6m (``apply_modulation``) once a step,
 after its intrinsic values; a group routes its lanes' modulators like
 per-lane audio inputs, the 1:1 per-voice LFO -> param chain as CHAIN.
+A stage whose prologue request reads a modulated param cannot join the
+batch at the top of the step, which runs before its modulators: K6m
+writes that param into rows of the K6 arena reserved for it (K6 never
+writes them), and the stage's own one-item batch (``DEFERRED``) runs at
+its turn, reading them as it reads any arena row.
 
 Left out so far (see ROADMAP.md): chain fusion into pipelined stages
-(``_fuse_chains``), mesh sharding (``_compute_sharding`` / ``shard_map``),
-and modulated params that a stage's prologue reads (the biquad's and the
-spatial panner's).
+(``_fuse_chains``) and mesh sharding (``_compute_sharding`` /
+``shard_map``).
 """
 
 from __future__ import annotations
@@ -121,6 +125,7 @@ def _next_pow2(n: int) -> int:
 #: keys of the step's batched tables in an encoding (``encode_params``)
 PARAM_TABLE = "__param_table__"
 PROLOGUE = "__prologue__"
+DEFERRED = "__deferred__"
 
 
 def _evaluates_params(sp) -> bool:
@@ -128,6 +133,37 @@ def _evaluates_params(sp) -> bool:
     buffer-source groups bake theirs into the kernel variant; the
     time-varying one reads its playbackRate; the destination has none)."""
     return sp["kind"] != "dest" and (sp["bufsrc"] is None or sp["bufsrc"][1][0] == "resample")
+
+
+def _deferred_params(sp) -> List[str]:
+    """The params of a stage that its prologue request reads and that are
+    modulated: they hold the stage's request back from the prologue."""
+    return [name for name, _, _, modspec in sp["params"]
+            if modspec is not None and name in sp["rep"].prologue_params]
+
+
+def one_gather_routes(plan):
+    """The per-lane routes of a plan's group stages (inputs and modulation)
+    of two lanes or more in which every lane reads exactly one lane of one
+    group output, as when a group is fed by part of a larger one (so no
+    CHAIN): id(routing) -> (stage, port, channels, lanes). The step serves
+    each with one gather instead of a mix a lane and a stack. A one-lane
+    route keeps the mix: there the gather is one launch more (on an H100,
+    2.5 us a step more for config3_wah's four one-lane biquad stages)."""
+    gathers = {}
+    for sp in plan:
+        if sp["kind"] != "group":
+            continue
+        routes = [r for _, r in sp["inputs"]] + [m[2] for *_, m in sp["params"] if m]
+        for routing in routes:
+            if not routing or routing[0] == "CHAIN" or len(routing) < 2:
+                continue
+            firsts = [pl[0] if len(pl) == 1 else None for pl in routing]
+            if (all(p is not None and p[0] != "ALL" and p[2] is not None for p in firsts)
+                    and len({p[:2] for p in firsts}) == 1):
+                p0 = firsts[0]
+                gathers[id(routing)] = (p0[0], p0[1], p0[3], [p[2] for p in firsts])
+    return gathers
 
 
 def _is_buffer_source(node) -> bool:
@@ -453,14 +489,6 @@ class CompiledGraph:
                     )
                     for inp in rep.inputs
                 )
-            for n in nodes:
-                for name in n.prologue_params:
-                    if n.params[name]._mod_outputs:
-                        raise NotImplementedError(
-                            f"a modulated {type(n).__name__} {name!r} is read by the "
-                            "step's prologue, which runs before any node: not ported "
-                            "yet (ROADMAP.md module item 8b)"
-                        )
             # (name, a_rate, exact, modspec): modspec is None without
             # modulation, else (min, max, routing). A group's lanes agree on
             # WHICH params are modulated (the mod signature is in the group
@@ -619,30 +647,41 @@ class CompiledGraph:
         """Add the step's batched tables to ``encs``: the K6 table of every
         evaluated param with events (``PARAM_TABLE``), and per batch
         function of the stages' prologue requests its table, the stage keys
-        it serves and the function (``PROLOGUE``)."""
+        it serves and the function (``PROLOGUE``). A stage with a modulated
+        prologue param gets reserved K6 arena rows for each such param and
+        a one-item table of its own, run at its turn (``DEFERRED``: stage
+        key -> function and table)."""
         S = self.info.superblock
-        entries = []
+        entries, reserved = [], []
         for sp in self.plan:
             if not _evaluates_params(sp):
                 continue
+            deferred = _deferred_params(sp)
             for name, a_rate, exact, _ in sp["params"]:
                 key = f"{sp['key']}/{name}"
+                npb = FRAMES_PER_BLOCK if a_rate else 1
                 if encs[key]["times"].shape[-1]:
-                    entries.append((key, encs[key], FRAMES_PER_BLOCK if a_rate else 1, exact))
-        table = pack_param_table(entries, S)
-        batches = {}
+                    entries.append((key, encs[key], npb, exact))
+                if name in deferred:
+                    reserved.append((key, npb, np.shape(encs[key]["base"])))
+        table = pack_param_table(entries, S, reserved)
+        batches, deferred_tables = {}, {}
         for sp in self.plan:
             if not _evaluates_params(sp):
                 continue
             slots = {}
             for name, a_rate, exact, _ in sp["params"]:
                 key = f"{sp['key']}/{name}"
-                slot = table["slots"].get(key)
+                slot = table["reserved"].get(key, table["slots"].get(key))
                 if slot is None and not encs[key]["times"].shape[-1]:
                     slot = constant_slot(encs[key], FRAMES_PER_BLOCK if a_rate else 1, S)
                 slots[name] = slot
             req = sp["rep"].prologue_request(slots)
-            if req is not None:
+            if req is None:
+                continue
+            if _deferred_params(sp):
+                deferred_tables[sp["key"]] = {"run": req.run, "table": req.pack([req.item], S)}
+            else:
                 batch = batches.setdefault(req.run, (req.pack, [], []))
                 batch[1].append(sp["key"])
                 batch[2].append(req.item)
@@ -651,6 +690,7 @@ class CompiledGraph:
             str(i): {"run": run, "keys": tuple(keys), "table": pack(items, S)}
             for i, (run, (pack, keys, items)) in enumerate(batches.items())
         }
+        encs[DEFERRED] = deferred_tables
 
     # -- the step function ---------------------------------------------------
 
@@ -663,13 +703,17 @@ class CompiledGraph:
         dest_channels = self.input_channels[(self.destination.node_id, 0)]
 
         # (name, a-rate, exact, modspec, encoding key) of each stage's
-        # params, but those that only its prologue request reads
+        # params, but the unmodulated ones that only its prologue request
+        # reads
         stage_params = {
             sp["key"]: [(name, a_rate, exact, modspec, f"{sp['key']}/{name}")
                         for name, a_rate, exact, modspec in sp["params"]
-                        if name not in sp["rep"].prologue_params]
+                        if modspec is not None or name not in sp["rep"].prologue_params]
             for sp in plan
         }
+
+        gathers = one_gather_routes(plan)
+        lane_index = {}
 
         def step(states, encs, consts, block_times, frame0):
             rc = RenderContext(info, frame0, block_times)
@@ -680,9 +724,11 @@ class CompiledGraph:
 
             # Prologue: one K6 launch evaluates every automated param of the
             # step into one arena, then each batch function of the stages'
-            # requests (K8 for the biquads, K10b for the panners) runs once.
+            # requests (K8 for the biquads, K10b for the panners) runs once;
+            # a deferred request runs at its stage's turn (run_process).
             table = encs[PARAM_TABLE]
-            slots = table["slots"]
+            slots, reserved = table["slots"], table["reserved"]
+            deferred = encs[DEFERRED]
             arena = eval_intrinsic_batch(table, block_times, rc.dt) if table["size"] else None
             prologue = {}
             for batch in encs[PROLOGUE].values():
@@ -718,6 +764,25 @@ class CompiledGraph:
                     acc = acc + p
                 return acc
 
+            def gathered(routing, dst_c):
+                """A one-lane-each route's lanes, f32[V, dst_c, T], by one
+                gather and one re-channelling of all lanes (each element
+                mixed as ``mixed_signal`` mixes it), or None for another
+                route or a down-mix of more than two channels."""
+                g = gathers.get(id(routing))
+                if g is None:
+                    return None
+                psi, pport, src_c, lanes = g
+                if not (src_c in (1, dst_c) or (src_c, dst_c) == (2, 1)):
+                    return None
+                t = out_table[(psi, pport)]
+                idx = lane_index.get((id(routing), t.device))
+                if idx is None:
+                    idx = lane_index[(id(routing), t.device)] = torch.tensor(lanes,
+                                                                             device=t.device)
+                t = t.index_select(0, idx)
+                return adapt_channels(t.transpose(0, 1), dst_c).transpose(0, 1)
+
             def modulation(sp, routing):
                 """A modulated param's modulation input, f32[V, Cm, T]: a
                 CHAIN route's producer group output as it is, else each
@@ -726,13 +791,17 @@ class CompiledGraph:
                     return mixed_signal(routing, 1)[None]
                 if routing and routing[0] == "CHAIN":
                     return out_table[(routing[1], routing[2])]
+                g = gathered(routing, 1)
+                if g is not None:
+                    return g
                 return torch.stack([mixed_signal(pl, 1) for pl in routing])
 
             def eval_params(sp, key):
                 """Each param's values: its rows of the arena, or (no
                 events) its base value as a broadcast view; a modulated
                 param then goes through K6m (apply_modulation), once a
-                step."""
+                step, into its reserved arena rows where the stage's
+                prologue request reads it."""
                 params = {}
                 for name, a_rate, exact, modspec, pkey in stage_params[key]:
                     slot = slots.get(pkey)
@@ -747,8 +816,11 @@ class CompiledGraph:
                     if modspec is not None:
                         lo, hi, routing = modspec
                         mod = modulation(sp, routing)
+                        held = reserved.get(pkey)
+                        dst = None if held is None else arena.narrow(
+                            0, held.off, held.lanes * held.per_lane).view(mod.shape[0], -1)
                         vals = apply_modulation(vals.reshape(mod.shape[0], -1), mod, lo, hi,
-                                                a_rate).reshape(vals.shape)
+                                                a_rate, out=dst).reshape(vals.shape)
                     params[name] = ParamSignal(vals, a_rate)
                 return params
 
@@ -757,7 +829,10 @@ class CompiledGraph:
                 rc.stage_consts = {
                     n[len(prefix):]: v for n, v in consts.items() if n.startswith(prefix)
                 }
-                rc.prologue_result = prologue.get(key)
+                # A deferred request runs now: K6m has written its rows.
+                d = deferred.get(key)
+                rc.prologue_result = (d["run"](d["table"], arena, rc)[0] if d is not None
+                                      else prologue.get(key))
                 result = sp["rep"].process(states[key], inputs, params, rc)
                 rc.stage_consts = {}
                 rc.prologue_result = None
@@ -774,8 +849,9 @@ class CompiledGraph:
 
             def stacked_inputs(sp, inp_idx):
                 """Contiguous [V, C, T] inputs for a group (the kernels take
-                no strides): CHAIN is the identity fast path; otherwise
-                per-lane mixing, phantom pad lanes silent."""
+                no strides): CHAIN is the identity fast path; one lane of
+                one group a lane is one gather; otherwise per-lane mixing,
+                phantom pad lanes silent."""
                 dst_c, routing = sp["inputs"][inp_idx]
                 if routing and routing[0] == "CHAIN":
                     t = out_table[(routing[1], routing[2])]
@@ -784,6 +860,9 @@ class CompiledGraph:
                         # whose mono up-mix is a stride-0 view
                         t = adapt_channels(t.transpose(0, 1), dst_c).transpose(0, 1).contiguous()
                     return t
+                g = gathered(routing, dst_c)
+                if g is not None:
+                    return g.contiguous()
                 return torch.stack([mixed_signal(pl, dst_c) for pl in routing])
 
             def run_group(sp):

@@ -7,8 +7,7 @@ distance-driven spatial blend, step-linear updates, fades) and
 BufferedSound.cs (recreates the one-shot source node on Play/Seek).
 
 Not ported yet (ROADMAP.md): ``StreamingSound`` (needs ``io``, module item
-12) and ``SoundMixState.STEP_LINEAR_SPATIALIZED`` (needs StereoPannerNode,
-K13, module item 10), which raises NotImplementedError.
+12).
 """
 
 from __future__ import annotations
@@ -22,8 +21,10 @@ from graphaudio_tpu_torch.kit.anchors import (
     DEFAULT_STEP_LINEAR,
     DefaultSpatialBlendController,
     StepLinearConfig,
+    step_linear_calculate,
 )
 from graphaudio_tpu_torch.nodes.gain import GainNode
+from graphaudio_tpu_torch.nodes.panner import StereoPannerNode
 from graphaudio_tpu_torch.nodes.sources import AudioBufferSourceNode
 from graphaudio_tpu_torch.nodes.spatial import DistanceModelType, SpatialPannerNode
 
@@ -45,11 +46,6 @@ class Sound:
     def __init__(self, engine, mix_state: SoundMixState, bus=None):
         from graphaudio_tpu_torch.kit.effects import EffectChain
 
-        if mix_state == SoundMixState.STEP_LINEAR_SPATIALIZED:
-            raise NotImplementedError(
-                "SoundMixState.STEP_LINEAR_SPATIALIZED needs StereoPannerNode, "
-                "which is not ported yet (ROADMAP.md module item 10, kernel K13)"
-            )
         self.engine = engine
         self.mix_state = mix_state
         self.bus = bus or engine.master_bus
@@ -66,6 +62,7 @@ class Sound:
         ctx = engine.context
         self._gain_node = GainNode(ctx)
         self._spatial_panner: Optional[SpatialPannerNode] = None
+        self._stereo_panner: Optional[StereoPannerNode] = None
 
         # Per-sound subgraph (parity: Sound.cs:375-421).
         if mix_state == SoundMixState.DIRECT:
@@ -73,6 +70,9 @@ class Sound:
         elif mix_state == SoundMixState.BINAURAL_SPATIALIZED:
             self._spatial_panner = SpatialPannerNode(ctx)
             self._output = self._spatial_panner
+        elif mix_state == SoundMixState.STEP_LINEAR_SPATIALIZED:
+            self._stereo_panner = StereoPannerNode(ctx)
+            self._output = self._stereo_panner
         else:
             raise ValueError(f"Unsupported mix state: {mix_state}")
 
@@ -283,7 +283,10 @@ class Sound:
             if v != self._last_anchor_version:
                 self._last_anchor_version = v
                 self._update_spatial_position()
-        self._update_spatial_blend()
+        if self.mix_state == SoundMixState.STEP_LINEAR_SPATIALIZED:
+            self._update_step_linear()
+        else:
+            self._update_spatial_blend()
         self._do_update()
 
     def _do_update(self) -> None:
@@ -293,6 +296,21 @@ class Sound:
         if self._anchor is not None:
             return self._anchor.position + self._position
         return self._position
+
+    def _update_step_linear(self) -> None:
+        if self._stereo_panner is None:
+            return
+        result = step_linear_calculate(
+            self.engine.listener_position,
+            self._final_position(),
+            self.step_linear_config,
+            0.0,
+            self._gain,
+            self.playback_rate,
+        )
+        self._stereo_panner.pan.value = result.pan
+        self._gain_node.gain.value = result.gain
+        self._apply_effective_playback_rate(result.pitch)
 
     def _update_spatial_position(self) -> None:
         sp = self._spatial_panner
@@ -358,6 +376,8 @@ class Sound:
         self._output.disconnect()
         if self._spatial_panner is not None:
             self._spatial_panner.dispose()
+        if self._stereo_panner is not None:
+            self._stereo_panner.dispose()
         self._gain_node.dispose()
         self._on_dispose()
 

@@ -1,9 +1,9 @@
-"""Node library of the port (so far: the paths of configs 1-6).
+"""Node library of the port: every node of graphaudio_tpu.nodes.
 
-AudioDestinationNode, GainNode, AudioBufferSourceNode (unity-rate and static
-polyphase variants), ConstantSourceNode, OscillatorNode, ConvolverNode,
-BiQuadFilterNode and SpatialPannerNode.
-The other nodes of graphaudio_tpu.nodes are listed in ROADMAP.md.
+AudioDestinationNode, GainNode, AudioBufferSourceNode (unity-rate, static
+polyphase and time-varying variants), ConstantSourceNode, OscillatorNode,
+ConvolverNode, BiQuadFilterNode, SpatialPannerNode, DelayNode,
+StereoPannerNode, ChannelSplitterNode and ChannelMergerNode.
 """
 
 from graphaudio_tpu_torch.nodes.destination import AudioDestinationNode
@@ -18,6 +18,9 @@ from graphaudio_tpu_torch.nodes.sources import (
 from graphaudio_tpu_torch.nodes.convolver import ConvolverNode
 from graphaudio_tpu_torch.nodes.biquad import BiQuadFilterNode, FilterType
 from graphaudio_tpu_torch.nodes.spatial import DistanceModelType, SpatialPannerNode
+from graphaudio_tpu_torch.nodes.delay import DelayNode
+from graphaudio_tpu_torch.nodes.panner import StereoPannerNode
+from graphaudio_tpu_torch.nodes.channel import ChannelMergerNode, ChannelSplitterNode
 
 __all__ = [
     "AudioDestinationNode",
@@ -32,4 +35,8 @@ __all__ = [
     "FilterType",
     "SpatialPannerNode",
     "DistanceModelType",
+    "DelayNode",
+    "StereoPannerNode",
+    "ChannelSplitterNode",
+    "ChannelMergerNode",
 ]

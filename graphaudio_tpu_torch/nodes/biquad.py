@@ -2,10 +2,11 @@
 
 The port of graphaudio_tpu/nodes/biquad.py. Eight RBJ-cookbook filter
 types; a-rate ``frequency``/``Q`` params, k-rate ``gain`` (dB,
-shelving/peaking). A group's coefficients and poles come from the step's
+shelving/peaking). A stage's coefficients and poles come from the step's
 prologue, one K8 launch over every biquad stage of the step
-(``prologue_request``); ``process`` runs the group's stacked lanes through
-P2 (the pole-split cascade), see ops/biquad.py.
+(``prologue_request``), or, when one of the three params is modulated,
+from a one-stage K8 launch at the stage's turn; ``process`` runs the
+stage's lanes through P2 (the pole-split cascade), see ops/biquad.py.
 
 Documented deviation (as in the JAX package): the reference recomputes
 coefficients lazily when the frequency moved by >0.001 Hz / Q by >0.0001
@@ -147,13 +148,17 @@ class BiQuadFilterNode(AudioNode):
                                (self._type.value, {n: slots[n] for n in ("frequency", "Q", "gain")}))
 
     def process(self, state, inputs, params, rc):
-        """A group of V lanes: x f32[V, C, T], state w1/w2 f32[V, C]; the
-        coefficients (b0, b1, b2, p1, p2) from the prologue."""
-        x = inputs[0]
-        coeffs = rc.prologue_result
+        """A group of V lanes: x f32[V, C, T], state w1/w2 f32[V, C]; an
+        ungrouped stage: x f32[C, T], w1/w2 f32[C]. The coefficients (b0,
+        b1, b2, p1, p2 [V or 1, T]) come from the step's K8 (the prologue's
+        batch, or the stage's own launch when a param is modulated)."""
+        if inputs[0].dim() == 2:
+            st, (y,) = self.process({k: v[None] for k, v in state.items()},
+                                    [inputs[0][None]], params, rc)
+            return {k: v[0] for k, v in st.items()}, [y[0]]
         # The correction pass only runs when the poles can actually vary
         # (first event/modulation on frequency/Q — or on gain for
         # peaking/shelving types — rebuilds the graph).
-        y, w1, w2 = biquad_apply(x, *coeffs, state["w1"], state["w2"],
+        y, w1, w2 = biquad_apply(inputs[0], *rc.prologue_result, state["w1"], state["w2"],
                                  time_varying=self._time_varying())
         return {"w1": w1, "w2": w2, "__type_sel__": state["__type_sel__"]}, [y]

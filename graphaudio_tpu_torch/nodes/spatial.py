@@ -14,7 +14,8 @@ state run as one group stage; ``process`` takes the stacked lanes:
 * K10b ``spatial_gains_batch`` (csrc/spatial_gains.cu): the direct path
   per (voice, quantum): direction, gains, blend; one launch in the step's
   prologue for every panner stage, its params read where they lie
-  (``prologue_request``);
+  (``prologue_request``); a stage with a modulated param launches its own
+  at its turn, reading that param's reserved K6 arena rows;
 * K9 ``band_split`` (ops/onepole.py, csrc/onepole.cu), only once occlusion
   or transmission was touched: both crossovers and the 3-band combine in
   one launch;
@@ -447,7 +448,13 @@ class SpatialPannerNode(AudioNode):
     def process(self, state, inputs, params, rc):
         """A group of V lanes: x f32[V, C, T]; state ola f32[V, 2, W],
         xlow / xhigh f32[V, C]; the direct path f32[6, V, S] from the
-        prologue's K10b. Returns [f32[V, 2, T]]."""
+        step's K10b (the prologue's batch, or the stage's own launch when a
+        param is modulated). Returns [f32[V, 2, T]]. An ungrouped stage
+        has no lane dim in x, its state or its output."""
+        if inputs[0].dim() == 2:
+            st, (out,) = self.process({k: v[None] for k, v in state.items()},
+                                      [inputs[0][None]], params, rc)
+            return {k: v[0] for k, v in st.items()}, [out[0]]
         x = inputs[0]
         az, el, gl, gm, gh, blend = rc.prologue_result
         grid = rc.stage_consts["hrtf_grid"]

@@ -277,21 +277,26 @@ class ParamSlot:
         return int(np.prod(self.shape, dtype=np.int64))
 
 
-def pack_param_table(entries, superblock: int):
+def pack_param_table(entries, superblock: int, reserved=()):
     """The K6 table of one encoding: every (key, enc, npb) or (key, enc,
     npb, exact) in ``entries`` (numpy encodings with capacity > 0; exact
     False when left out) becomes one row per lane, its event
     fields padded to the batch's largest capacity as ``encode_events`` pads
     them (times +inf, values 0, tcs 1, types 0, ``boundary`` repeating its
     last value), which changes no output: padded times are never counted and
-    the index never passes a row's own ``n``.
+    the index never passes a row's own ``n``. Each (key, npb, lane shape)
+    in ``reserved`` gets arena rows after all of those and no table row:
+    K6 never writes them. They hold a modulated param that a prologue
+    batch reads (K8's or K10b's), which K6m writes at its stage's turn in
+    the step (``apply_modulation(..., out=)``).
 
     Returns a dict of numpy arrays, ``times`` f64[R, cap], ``tcs`` f64,
     ``values`` f32, ``types`` i32, ``boundary`` f32[R, cap+1], ``n`` i32[R],
     ``base`` f32[R], ``rows`` i32[R, 3] (``npb``, arena offset, the kind:
-    1 for the exact branch, else 0), and two
-    host fields: ``size``, the arena's length in floats, and ``slots``, the
-    ``ParamSlot`` of each key.
+    1 for the exact branch, else 0), and three
+    host fields: ``size``, the arena's length in floats, ``slots``, the
+    ``ParamSlot`` of each key, and ``reserved``, the ``ParamSlot`` of each
+    reserved key.
     """
     cap = max((e[1]["times"].shape[-1] for e in entries), default=0)
     fields = {"times": [], "tcs": [], "values": [], "types": [], "boundary": [],
@@ -316,6 +321,12 @@ def pack_param_table(entries, superblock: int):
         slots[key] = ParamSlot(off, npb, per_lane, tuple(np.shape(enc["base"])),
                                np.asarray(base, np.float32))
         off += L * per_lane
+    held = {}
+    for key, npb, shape in reserved:
+        lanes = int(np.prod(shape, dtype=np.int64))
+        held[key] = ParamSlot(off, npb, superblock * npb, tuple(shape),
+                              np.zeros(lanes, np.float32))
+        off += lanes * superblock * npb
     if off >= 2 ** 31:
         raise ValueError(f"the K6 arena of {off} floats needs 64-bit offsets")
     dtypes = {"times": np.float64, "tcs": np.float64, "values": np.float32,
@@ -329,6 +340,7 @@ def pack_param_table(entries, superblock: int):
     }
     table["size"] = off
     table["slots"] = slots
+    table["reserved"] = held
     return table
 
 
@@ -486,14 +498,17 @@ def apply_modulation_plain(intr, mod, min_value, max_value, a_rate: bool):
     return torch.clamp(x, float(np.float32(min_value)), float(np.float32(max_value)))
 
 
-def apply_modulation(intr, mod, min_value, max_value, a_rate: bool):
+def apply_modulation(intr, mod, min_value, max_value, a_rate: bool, out=None):
     """K6m: a param's values with its modulation added and clamped; the
     contract of ``apply_modulation_plain``, bit for bit. ``intr`` may be
     the broadcast view of one base value per lane (stride 0 along time):
-    the kernel reads the base values, nothing is copied. CPU tensors take
-    the plain version; CUDA tensors launch csrc/param_eval.cu."""
+    the kernel reads the base values, nothing is copied. ``out``, a
+    contiguous f32[V, L] (a param's reserved rows of the step's K6 arena),
+    takes the result in place of a new tensor and is returned. CPU tensors
+    take the plain version; CUDA tensors launch csrc/param_eval.cu."""
     if mod.device.type == "cpu":
-        return apply_modulation_plain(intr, mod, min_value, max_value, a_rate)
+        res = apply_modulation_plain(intr, mod, min_value, max_value, a_rate)
+        return res if out is None else out.copy_(res)
     cudabuild.require(mod, "mod", torch.float32, ndim=3)
     V, Cm, T = mod.shape
     L = T if a_rate else T // FRAMES_PER_BLOCK
@@ -504,7 +519,9 @@ def apply_modulation(intr, mod, min_value, max_value, a_rate: bool):
     else:
         src, rows = intr, 1
     cudabuild.require(src, "intr", torch.float32)
-    out = torch.empty((V, L), dtype=torch.float32, device=mod.device)
+    if out is None:
+        out = torch.empty((V, L), dtype=torch.float32, device=mod.device)
+    cudabuild.require(out, "out", torch.float32, shape=(V, L))
     scale = float(np.float32(1.0 / np.sqrt(Cm)))
     status = cudabuild.launcher("ga_apply_modulation")(
         src.data_ptr(), rows, mod.data_ptr(), V, Cm, T, L,

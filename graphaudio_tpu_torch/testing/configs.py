@@ -8,13 +8,20 @@ the port's explicit render device.
 Three more paths automate a rate that a consumer integrates (the exact
 f64 curves and the time-varying resampler): ``config4_pitched`` and
 ``config6_swept`` add playbackRate and LFO-frequency ramps to configs 4
-and 6, ``config2_vibrato`` an LFO on each voice's playbackRate. Their
+and 6, ``config2_vibrato`` an LFO on each voice's playbackRate. Four
+modulate a param that a stage's prologue reads or run the delay and the
+stereo panner: ``config3_wah`` (an LFO on each biquad's frequency),
+``config5_orbit`` (an LFO on each panner's positionX),
+``config5_steplinear`` (config 5's sounds in the Kit's step-linear mode)
+and ``config4_pingpong`` (config 4 with a ping-pong delay send). Their
 ``api`` argument names the package whose classes build the graph (the
 port by default; a test passes the JAX package to build the same graph
 there), so one definition serves both.
 """
 
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 
@@ -306,4 +313,156 @@ def config2_vibrato(superblock=32, voices=8, device="cuda", api=None):
             push.start(0)
         src.connect(g).connect(ctx.destination)
         src.start(0)
+    return ctx
+
+
+def config3_wah(superblock=32, device="cuda", api=None):
+    """Config 3 (the same draws and graph) with each biquad's frequency
+    modulated by its own sine LFO at 4 + i Hz through a 150 Hz depth gain,
+    on top of its ramps: an auto-wah or filter sweep on a bus. Each biquad
+    stage takes its K8 at its turn in the step (four a step) and P2 its
+    time-varying path."""
+    api, ctx = _context(api, superblock, device)
+    rng = np.random.default_rng(3)
+    sig = (rng.standard_normal(2 * SR) * 0.2).astype(np.float32)
+    src = api.AudioBufferSourceNode(ctx)
+    src.buffer = api.PlayableAudioBuffer.from_stereo_arrays(sig, sig[::-1].copy(), SR)
+    src.loop = True
+    node = src
+    types = [api.FilterType.LOWPASS, api.FilterType.PEAKING, api.FilterType.PEAKING,
+             api.FilterType.HIGHPASS]
+    for i, t in enumerate(types):
+        flt = api.BiQuadFilterNode(ctx, type=t)
+        flt.gain.value = 3.0 if t == api.FilterType.PEAKING else 0.0
+        for sec in range(0, 30, 3):
+            flt.frequency.set_value_at_time(200.0 * (i + 1), float(sec))
+            flt.frequency.linear_ramp_to_value_at_time(2000.0 * (i + 1), sec + 2.5)
+            flt.q.set_value_at_time(0.5, float(sec))
+            flt.q.linear_ramp_to_value_at_time(4.0, sec + 2.5)
+        lfo = api.OscillatorNode(ctx)
+        lfo.frequency.value = 4.0 + i
+        depth = api.GainNode(ctx)
+        depth.gain.value = 150.0
+        lfo.connect(depth).connect(flt.frequency)
+        lfo.start(0)
+        node = node.connect(flt)
+    node.connect(ctx.destination)
+    src.start(0)
+    return ctx
+
+
+def _kit_scene(api, superblock, voices, device, mix_state):
+    """Config 5's Kit scene (the same draws and graph: a reverb send on the
+    sfx bus, ``voices`` looped mono sounds on a circle of 5 m) with every
+    sound in the ``SoundMixState`` named ``mix_state``. Returns (api, ctx,
+    engine, sounds)."""
+    api, ctx = _context(api, superblock, device)
+    kit = importlib.import_module(f"{api.__name__}.kit")
+    mix_state = getattr(kit.SoundMixState, mix_state)
+    rng = np.random.default_rng(5)
+    engine = kit.AudioEngine(ctx)
+    engine.set_listener([0, 0, 0], [0, 0, -1], [0, 1, 0])
+    sfx = engine.get_bus("sfx")
+    rev = kit.ReverbEffect(engine)
+    ir = (rng.standard_normal(SR) * np.exp(-np.arange(SR) / (0.25 * SR))).astype(np.float32)
+    rev.set_impulse_response(api.PlayableAudioBuffer.from_mono_array(ir, SR))
+    rev.wet.value = 0.3
+    sfx.effects.add(rev)
+    sounds = []
+    for v in range(voices):
+        sig = (rng.standard_normal(SR) * 0.03).astype(np.float32)
+        s = engine.create_sound_from_buffer(
+            api.PlayableAudioBuffer.from_mono_array(sig, SR), mix_state=mix_state, bus=sfx)
+        s.is_looping = True
+        angle = 2 * np.pi * v / voices
+        s.position = (5 * np.cos(angle), 0.0, 5 * np.sin(angle))
+        s.play()
+        sounds.append(s)
+    ctx._engine = engine  # keep alive; callers may move sounds via engine
+    ctx._sounds = sounds
+    return api, ctx, engine, sounds
+
+
+def config5_orbit(superblock=32, voices=128, device="cuda", api=None):
+    """Config 5 (the same draws and graph) with each sound's panner
+    positionX modulated by its own sine LFO at 0.1 + 0.003 v Hz through a 2 m
+    depth gain: 128 sources swaying past the listener. The depth gains
+    share the voices' gain stage (one key, one wave), so the panners' input
+    and positionX read one lane each of that stage: both are one-gather
+    routes (``core.graph.one_gather_routes``), positionX k-rate, and the
+    panner stage takes its K10b at its turn in the step."""
+    api, ctx, engine, sounds = _kit_scene(
+        api, superblock, voices, device, "BINAURAL_SPATIALIZED")
+    for v, s in enumerate(sounds):
+        lfo = api.OscillatorNode(ctx)
+        lfo.frequency.value = 0.1 + 0.003 * v
+        depth = api.GainNode(ctx)
+        depth.gain.value = 2.0
+        lfo.connect(depth).connect(s._spatial_panner.position_x)
+        lfo.start(0)
+    return ctx
+
+
+def config5_steplinear(superblock=32, voices=128, device="cuda", api=None):
+    """Config 5 (the same draws and graph) with every sound in the Kit's
+    step-linear mode (a StereoPannerNode, K13 over the mono lanes, in place
+    of the HRTF panner), updated once after placing the sounds, as a game
+    does each frame: pan, gain and pitch from the listener-relative
+    position. The sounds behind the listener play at a pitch below 1 (the
+    time-varying resampler's route)."""
+    api, ctx, engine, sounds = _kit_scene(
+        api, superblock, voices, device, "STEP_LINEAR_SPATIALIZED")
+    engine.update()
+    return ctx
+
+
+def config4_pingpong(superblock=64, voices=64, device="cuda", api=None):
+    """Config 4 (the same draws and graph) plus a ping-pong send from the
+    master gain: a 2-way channel splitter, a 0.1 s delay on the left (4800
+    samples, under a superblock: input and ring reads) and on the right a
+    delay ramped linearly between 0.25 and 0.5 s every 2 s (exact a-rate
+    rows, ring reads), a channel merger, a stereo panner whose pan ramps
+    between -0.5 and 0.5 every 2 s, and a 0.3 wet gain into the
+    destination: the echo send of a music or dialogue bus. Two K12 and one
+    K13 a step."""
+    api, ctx = _context(api, superblock, device)
+    rng = np.random.default_rng(4)
+    master = api.GainNode(ctx)
+    master.gain.value = 0.5
+    conv = api.ConvolverNode(ctx)
+    ir_len = 2 * SR
+    decay = np.exp(-np.arange(ir_len) / (0.4 * SR))
+    conv.buffer = api.PlayableAudioBuffer.from_stereo_arrays(
+        (rng.standard_normal(ir_len) * decay).astype(np.float32),
+        (rng.standard_normal(ir_len) * decay).astype(np.float32),
+        SR,
+    )
+    conv.connect(master).connect(ctx.destination)
+    for _ in range(voices):
+        sig = (rng.standard_normal(2 * 44100) * 0.05).astype(np.float32)
+        src = api.AudioBufferSourceNode(ctx)
+        src.buffer = api.PlayableAudioBuffer.from_mono_array(sig, 44100)
+        src.loop = True
+        src.playback_rate.value = 1.0
+        src.connect(conv)
+        src.start(0)
+    split = api.ChannelSplitterNode(ctx, 2)
+    merge = api.ChannelMergerNode(ctx, 2)
+    left = api.DelayNode(ctx, max_delay_time=1.0)
+    right = api.DelayNode(ctx, max_delay_time=1.0)
+    left.delay_time.value = 0.1
+    right.delay_time.set_value_at_time(0.25, 0.0)
+    pan = api.StereoPannerNode(ctx)
+    pan.pan.set_value_at_time(-0.5, 0.0)
+    for k in range(1, 16):
+        right.delay_time.linear_ramp_to_value_at_time(0.5 if k % 2 else 0.25, 2.0 * k)
+        pan.pan.linear_ramp_to_value_at_time(0.5 if k % 2 else -0.5, 2.0 * k)
+    wet = api.GainNode(ctx)
+    wet.gain.value = 0.3
+    master.connect(split)
+    split.connect(left, output=0)
+    split.connect(right, output=1)
+    left.connect(merge, input=0)
+    right.connect(merge, input=1)
+    merge.connect(pan).connect(wet).connect(ctx.destination)
     return ctx

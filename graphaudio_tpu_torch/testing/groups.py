@@ -57,7 +57,7 @@ UNITY_UNALIGNED = [
 ]
 
 
-def voice_group(specs, superblock, buffer_rate, channels=1, device="cpu", seed=41,
+def voice_group(specs, superblock, buffer_rate, channels=1, device="cuda", seed=41,
                 playback_rate=None):
     """A context whose stage 0 is one group of the voices ``specs``; with
     ``playback_rate`` every voice's playbackRate is set to it."""
@@ -83,21 +83,21 @@ def voice_group(specs, superblock, buffer_rate, channels=1, device="cpu", seed=4
     return ctx
 
 
-def poly_group(superblock, device="cpu", buffer_rate=44100):
+def poly_group(superblock, device="cuda", buffer_rate=44100):
     """Mono voices at ``buffer_rate`` in a 48 kHz context: the ("poly", 147,
     160) variant at 44.1 kHz; at 10 Hz ("poly", 1, 4800), whose phase table
     is too large for K1 to stage in shared memory."""
     return voice_group(POLY_VOICES, superblock, buffer_rate, 1, device)
 
 
-def unity_group(superblock, aligned, device="cpu"):
+def unity_group(superblock, aligned, device="cuda"):
     """48 kHz stereo voices at the context's rate: the ("unity", aligned)
     variant."""
     return voice_group(UNITY_ALIGNED if aligned else UNITY_UNALIGNED, superblock, SR, 2,
                        device)
 
 
-def resample_group(superblock, device="cpu", channels=1, specs=POLY_VOICES):
+def resample_group(superblock, device="cuda", channels=1, specs=POLY_VOICES):
     """Voices at 44.1 kHz in a 48 kHz context with playbackRate 1.1: the
     ("resample", 2) variant (the rates of a step come from
     ``step_rates``)."""
@@ -165,4 +165,50 @@ def vibrato_launches(device, steps):
             torch.cuda.synchronize()
     finally:
         node.process_resample_group = process
+    return seen
+
+
+def deferred_launches(ctx, steps):
+    """The arguments of every deferred prologue launch (a stage whose K8 or
+    K10b reads a modulated param, run at its turn) in the first ``steps``
+    steps of a render of ``ctx``: a list of (stage key, table, arena, rc),
+    the arena copied as the launch reads it (K6m's rows written)."""
+    from graphaudio_tpu_torch.core.graph import DEFERRED
+
+    ctx._ensure_compiled()
+    ctx._ensure_params_encoded()
+    seen = []
+    for key, d in ctx._encs[DEFERRED].items():
+        def spy(table, arena, rc, key=key, run=d["run"]):
+            seen.append((key, table, arena.clone(), rc))
+            return run(table, arena, rc)
+
+        d["run"] = spy
+    ctx.render(steps * ctx.superblock * BLOCK)
+    return seen
+
+
+def calls_of(module, name, build, steps):
+    """The arguments of every call of ``module.name`` (a kernel wrapper a
+    node looks up at call time) in the first ``steps`` steps of a render of
+    ``build()``: a list of argument tuples, tensors copied (a broadcast
+    view, stride 0 somewhere, is kept as it is: its base values stay)."""
+    fn = getattr(module, name)
+    seen = []
+
+    def keep(a):
+        if not isinstance(a, torch.Tensor) or 0 in a.stride():
+            return a
+        return a.clone()
+
+    def spy(*args):
+        seen.append(tuple(keep(a) for a in args))
+        return fn(*args)
+
+    setattr(module, name, spy)
+    try:
+        ctx = build()
+        ctx.render(steps * ctx.superblock * BLOCK)
+    finally:
+        setattr(module, name, fn)
     return seen

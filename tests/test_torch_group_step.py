@@ -249,7 +249,7 @@ def _walk(ctx, steps=STEPS):
 
 @pytest.mark.parametrize("superblock", [4, 32, 64])
 def test_k1_emulation_matches_plain(superblock):
-    ctx = groups.poly_group(superblock)
+    ctx = groups.poly_group(superblock, "cpu")
     assert ctx._compiled._bufsrc_cfg[0][1] == ("poly", 147, 160)
     assert ctx._compiled.stage_pad[0] == (len(groups.POLY_VOICES), 8)  # one phantom lane
     c = ctx._consts
@@ -275,7 +275,7 @@ def test_k1_emulation_matches_plain(superblock):
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("superblock", [4, 32, 64])
 def test_k5_emulation_matches_plain(superblock, aligned):
-    ctx = groups.unity_group(superblock, aligned)
+    ctx = groups.unity_group(superblock, aligned, "cpu")
     specs = groups.UNITY_ALIGNED if aligned else groups.UNITY_UNALIGNED
     assert ctx._compiled._bufsrc_cfg[0][1] == ("unity", aligned)
     assert ctx._compiled.stage_pad[0] == (len(specs), 8)
@@ -294,7 +294,7 @@ def test_k5_emulation_matches_plain(superblock, aligned):
 
 
 def test_group_table_packs_the_geometry():
-    ctx = groups.poly_group(4)
+    ctx = groups.poly_group(4, "cpu")
     geom, gtab = ctx._consts["st0/geom"], ctx._consts["st0/gtab"].numpy()
     V = gtab.shape[0] - 1
     for name in GEOM_FIELDS:
@@ -306,7 +306,7 @@ def test_group_table_packs_the_geometry():
 
 
 def test_cpu_group_step_is_the_plain_composition():
-    ctx = groups.unity_group(4, True)
+    ctx = groups.unity_group(4, True, "cpu")
     st, rc = next(groups.group_inputs(ctx, 1))
     node = ctx._compiled.stages[0][1][0]
     w = ctx._compiled._bufsrc_cfg[0][0]

@@ -1087,3 +1087,104 @@ def test_k4a_streamed_blocks(dev, spb, C):
     nblk = (carry_len + F) // spb
     np.testing.assert_array_equal(new_carry.cpu().numpy(),
                                   buf[:, nblk * spb:nblk * spb + spb - 1])
+
+
+# ---- K12, K13 and the deferred K8 / K10b -------------------------------------------------
+
+
+def _delay_case(dev, C, T, L, delays, w, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((C, T)).astype(np.float32)).to(dev)
+    ring = torch.from_numpy(rng.standard_normal((C, L)).astype(np.float32)).to(dev)
+    max_s = float(np.float32(L / 48000))
+    if delays == "L":
+        dt = torch.full((T,), max_s, device=dev)
+    elif delays == "zero":
+        dt = torch.zeros((), device=dev).expand(T)
+    elif delays == "short":
+        dt = torch.full((), float(np.float32(0.1 * T / 48000)), device=dev).expand(T)
+    else:
+        dt = torch.from_numpy(np.minimum(np.linspace(0.0, 1.2 * max_s, T), max_s)
+                              .astype(np.float32)).to(dev)
+    return x, dt, ring, torch.tensor(w, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("C,T,L,delays,w", [
+    (2, 128, 200, "L", 150), (1, 256, 96, "L", 40), (2, 4096, 4096, "ramp", 4095),
+    (1, 8192, 48000, "ramp", 31000), (2, 8192, 48000, "short", 123), (2, 4096, 960, "zero", 3),
+    (1, 128, 5, "ramp", 4),
+], ids=["d=L T<L", "d=L T>L", "T=L", "ramp d>T", "d<T base value", "d=0", "T>>L"])
+def test_k12_delay(dev, C, T, L, delays, w):
+    from graphaudio_tpu_torch.nodes import delay as td
+
+    x, dt, ring, wpos = _delay_case(dev, C, T, L, delays, w, seed=T + L)
+    cudabuild.launches.clear()
+    out, new_ring, new_wpos = td.delay_step(x, dt, ring, wpos, 48000)
+    want = td.delay_step_plain(x, dt, ring, wpos, 48000)
+    torch.cuda.synchronize()
+    assert cudabuild.launches["delay_step"] == 1
+    assert torch.equal(out, want[0]) and torch.equal(new_ring, want[1])
+    assert new_wpos.dtype == torch.int32 and int(new_wpos) == int(want[2]) == (w + T) % L
+    assert torch.equal(ring, _delay_case(dev, C, T, L, delays, w, seed=T + L)[2])  # old ring kept
+
+
+@pytest.mark.parametrize("base_view", [False, True], ids=["pan rows", "base values"])
+@pytest.mark.parametrize("C", [1, 2], ids=["mono law", "stereo law"])
+def test_k13_stereo_pan(dev, C, base_view):
+    from graphaudio_tpu_torch.nodes import panner as tp
+
+    rng = np.random.default_rng(C)
+    V, T = 5, 4096
+    x = torch.from_numpy(rng.standard_normal((V, C, T)).astype(np.float32)).to(dev)
+    if base_view:
+        pan = torch.tensor([-1.0, -0.3, 0.0, 0.6, 1.0], device=dev)[:, None].expand(V, T)
+    else:
+        p = np.linspace(-1.5, 1.5, V * T).astype(np.float32).reshape(V, T)
+        p[:, :3] = (-1.0, 0.0, 1.0)
+        pan = torch.from_numpy(p).to(dev)
+    cudabuild.launches.clear()
+    got = tp.stereo_pan(x, pan)
+    want = tp.stereo_pan_plain(x, pan)
+    torch.cuda.synchronize()
+    assert cudabuild.launches["stereo_pan"] == 1
+    # one f32 ulp at the output's scale: the plain fma rounds an f64 sum
+    assert float((got - want).abs().max()) <= 2.0 ** -23 * max(1.0, float(want.abs().max()))
+
+
+def test_deferred_k8_and_k10b(dev):
+    """The one-item K8 and K10b tables of modulated stages, at their turn
+    mid-render, bit for bit their plain versions on the same arena."""
+    from graphaudio_tpu_torch.testing.configs import config3_wah, config5_orbit
+
+    for key, table, arena, rc in groups.deferred_launches(config3_wah(superblock=8, device=dev),
+                                                          3)[-4:]:
+        got = tbq.biquad_coefficients_batch(table, arena, rc.sample_rate)
+        want = tbq.biquad_coefficients_batch_plain(table, arena, rc.sample_rate)
+        for g, w in zip(got[0], want[0]):
+            assert torch.equal(g, w), key
+    key, table, arena, rc = groups.deferred_launches(
+        config5_orbit(superblock=8, voices=16, device=dev), 3)[-1]
+    for g, w in zip(tsp.spatial_gains_batch(table, arena, rc.globals),
+                    tsp.spatial_gains_batch_plain(table, arena, rc.globals)):
+        assert torch.equal(g, w), key
+
+
+@pytest.mark.parametrize("builder, kw, launches", [
+    ("config3_wah", dict(superblock=8), {"biquad_coefficients_batch": 4, "apply_modulation": 4}),
+    ("config5_orbit", dict(superblock=8, voices=16), {"spatial_gains_batch": 1}),
+    ("config5_steplinear", dict(superblock=8, voices=16), {"stereo_pan": 1}),
+    ("config4_pingpong", dict(superblock=16, voices=8), {"delay_step": 2, "stereo_pan": 1}),
+])
+def test_prologue_and_item10_paths_on_card(dev, builder, kw, launches):
+    """8 superblocks of each path on the card against the CPU render."""
+    from graphaudio_tpu_torch.testing import configs
+
+    build = getattr(configs, builder)
+    frames = 8 * kw["superblock"] * 128
+    want = build(device="cpu", **kw).render(frames)
+    cudabuild.launches.clear()
+    got = build(device=dev, **kw).render(frames)
+    assert np.abs(want).max() > 1e-3
+    assert float(np.abs(got - want).max()) < 1e-5
+    for name, n in launches.items():
+        assert cudabuild.launches[name] == 8 * n, name

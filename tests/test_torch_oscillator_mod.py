@@ -15,8 +15,8 @@
   voices, superblock 32, 4 steps, within 1e-5 (the npz is the modulated
   render: the unmodulated variant has no golden);
 * a ``from_jax`` hand-off of config 6 in the middle of a render;
-* a modulated biquad frequency and a modulated panner param raise,
-  naming ROADMAP item 8b (the step's prologue reads them).
+* a modulated biquad frequency and a modulated panner param (read by the
+  step's prologue; ROADMAP item 8b) against the JAX package.
 """
 
 import jax
@@ -444,29 +444,39 @@ def test_config6_mid_render_handoff_from_jax():
 # ---- modulated params the prologue reads -----------------------------------------
 
 
-def test_modulated_biquad_frequency_raises():
-    ctx = _ctx(2)
-    src = gat.ConstantSourceNode(ctx)
-    f = gat.BiQuadFilterNode(ctx)
-    lfo = gat.OscillatorNode(ctx)
-    lfo.connect(f.frequency)
-    src.connect(f).connect(ctx.destination)
+def _modulated_prologue_scene(pkg, ctx, panner):
+    """A constant source through a biquad whose frequency, or a spatial
+    panner whose spatialBlend, an oscillator modulates; the step's prologue
+    reads either param, so the stage's K8 or K10b runs at its turn."""
+    src = pkg.ConstantSourceNode(ctx)
+    lfo = pkg.OscillatorNode(ctx)
+    if panner:
+        ctx.set_listener([0, 0, 0], [0, 0, -1], [0, 1, 0])
+        node = pkg.SpatialPannerNode(ctx)
+        node.position_z.value = -2.0
+        lfo.connect(node.spatial_blend)
+    else:
+        node = pkg.BiQuadFilterNode(ctx)
+        lfo.connect(node.frequency)
+    src.connect(node).connect(ctx.destination)
     src.start(0)
     lfo.start(0)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ctx.render(256)
+    return ctx
+
+
+def test_modulated_biquad_frequency_raises():
+    """Once a raise naming ROADMAP item 8b; now a render against JAX."""
+    want = np.asarray(_modulated_prologue_scene(
+        ga, ga.OfflineAudioContext(sample_rate=SR, superblock=2), False).render(1024))
+    got = _modulated_prologue_scene(gat, _ctx(2), False).render(1024)
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
 def test_modulated_panner_param_raises():
-    ctx = _ctx(2)
-    ctx.set_listener([0, 0, 0], [0, 0, -1], [0, 1, 0])
-    src = gat.ConstantSourceNode(ctx)
-    pan = gat.SpatialPannerNode(ctx)
-    pan.position_z.value = -2.0
-    lfo = gat.OscillatorNode(ctx)
-    lfo.connect(pan.spatial_blend)
-    src.connect(pan).connect(ctx.destination)
-    src.start(0)
-    lfo.start(0)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ctx.render(256)
+    """Once a raise naming ROADMAP item 8b; now a render against JAX."""
+    want = np.asarray(_modulated_prologue_scene(
+        ga, ga.OfflineAudioContext(sample_rate=SR, superblock=2), True).render(1024))
+    got = _modulated_prologue_scene(gat, _ctx(2), True).render(1024)
+    assert np.abs(want).max() > 0.05
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -275,7 +275,7 @@ STEPS = {1: 6, 4: 6, 16: 3, 17: 3, 32: 3, 33: 3, 64: 3, 513: 1}
 
 @pytest.mark.parametrize("superblock", list(STEPS))
 def test_k7_walk_matches_plain(superblock):
-    ctx = groups.resample_group(superblock)
+    ctx = groups.resample_group(superblock, "cpu")
     w, variant, _ = ctx._compiled._bufsrc_cfg[0]
     assert variant == ("resample", 2)
     node = type(ctx._compiled.stages[0][1][0])

@@ -278,9 +278,20 @@ def test_kit_cache_and_unported_modes(engine):
     assert cache.try_get("a") == 1
     cache.add("c", 3)  # evicts b, the least recently used
     assert cache.contains("a") and cache.contains("c") and not cache.contains("b")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.create_sound_from_buffer(
-            _mono(np.ones(64)), mix_state=tkit.SoundMixState.STEP_LINEAR_SPATIALIZED)
+    # The step-linear mode (once a raise naming item 10) renders as the
+    # JAX package's: a sound to the right, panned by update().
+    jengine = jkit.AudioEngine(ga.OfflineAudioContext(sample_rate=SR, superblock=2))
+    for eng, pkg, kit in ((engine, gat, tkit), (jengine, ga, jkit)):
+        s = eng.create_sound_from_buffer(
+            pkg.PlayableAudioBuffer.from_mono_array(np.ones(4096, np.float32), SR),
+            mix_state=kit.SoundMixState.STEP_LINEAR_SPATIALIZED)
+        s.position = (3.0, 0.0, 0.0)
+        s.play()
+        eng.update()
+    want = np.asarray(jengine.context.render(1024))
+    got = engine.context.render(1024)
+    assert want[1].max() > want[0].max() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="item 12"):
         engine.create_streaming_sound("x.wav")
 
