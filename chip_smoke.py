@@ -121,9 +121,11 @@ each; any failure raises and the script exits non-zero:
  12. a modulated param that a stage's prologue reads, and item 10: K8 and
      K10b launched the new way (a one-item table at the stage's turn,
      reading K6m's reserved K6 arena rows) at config3_wah's four biquad
-     stages and config5_orbit's panner group, bit for bit; K12 (the delay)
-     at config4_pingpong's two delays and at d < T, d > T, d = L, d = 0, T
-     >= L, mono and stereo, bit for bit; K13 (the stereo panner) at
+     stages and config5_orbit's panner group, bit for bit; K12 (the delay,
+     in place) at config4_pingpong's two delays and at d < T, d > T, d =
+     L, d = 0, T >= L, a stride-0 input, mono and stereo, bit for bit (the
+     output, the ring and its JAX view, both cursors), its bound counted
+     from the bytes each case's data needs; K13 (the stereo panner) at
      config5_steplinear's and config4_pingpong's steps and both laws at pan
      -1, 0, 1 and across the range, within one ulp; then config3_wah (an
      LFO on each biquad's frequency), config5_orbit (an LFO on each
@@ -2264,62 +2266,104 @@ def pan_expression(x, pan):
                         torch.where(left, r * gr, r + l * gr)], dim=1)
 
 
-def delay_ring_reads(dt, wpos, T, L, sr):
-    """The ring slots one delay step reads a channel, counted from this
-    step's delay times and cursor: the distinct (w + i - d_i) mod L over
-    the frames i with 0 < d_i and i < d_i."""
+def delay_reads(dt, T, L, sr):
+    """What one delay step's data makes it read, a channel: (the ring
+    slots, the distinct samples i - d_i before the step over the frames i
+    with 0 < d_i and i < d_i; the input samples, the distinct x[i - d_i]
+    over the frames with 0 < d_i <= i and the min(T, L) trailing ones that
+    go to the ring)."""
     import torch
 
     d = torch.clamp(dt * torch.tensor(np.float32(sr), device=dt.device), 0.0, float(L)).long()
     i = torch.arange(T, device=dt.device)
-    hit = (d > 0) & (i < d)
-    return int(torch.unique(torch.remainder(int(wpos) + i - d, L)[hit]).numel())
+    s = i - d
+    ring = (d > 0) & (s < 0)
+    from_x = torch.cat([s[(d > 0) & (s >= 0)], i[T - min(T, L):]])
+    return int(torch.unique(s[ring]).numel()), int(torch.unique(from_x).numel())
 
 
 def k12_case(label, args, library=False):
-    """K12 against its plain version on ``args`` (x, delay times, ring,
-    cursor, sample rate): the output, the new ring and the new cursor bit
-    for bit, the launch timed alone. Bound: the bytes the function must
-    move, x and the output (4 C T each), the delay times (4 T, or 4 for one
-    base value), the ring slots this step's data reads (``delay_ring_reads``)
-    and the min(T, L) it writes (4 C each) and the cursors; the f32 multiply
-    a frame and ~8 integer operations an element are far under it. The
-    design's copy of the rest of the ring is not in it: its bytes, the old
-    ring read and the new one written whole (C L 8), are ``ring_copy_bytes``
-    beside it. With ``library`` the PyTorch expression
-    (``delay_expression``) is checked against the kernel and timed beside
-    it."""
+    """K12 against its plain version on ``args`` (x, delay times, a delay
+    state, sample rate, max delay L), each on its own copy of the state,
+    which both update in place: the output, the ring (whole and its JAX
+    view), the slot cursor (a copy for each block) and ``wpos`` bit for
+    bit; the launch timed alone on a copy of the state that it moves along.
+    Bound: the bytes the function must move, counted from this run's data
+    (``delay_reads``): the distinct input samples it reads (4 each, one row
+    for a stride-0 x, else C), the output (4 C T), the delay times (4 T, or
+    4 for one base value), the ring slots it reads and the min(T, L) it
+    writes (4 C each) and the cursor (8, read and written); the f32
+    multiply a frame and ~8 integer operations an element are far under
+    it. ``ring_copy_bytes`` is 0 (no copy). Also the device time of the
+    delay kernel alone and, for an x that is a view, of the copy that a
+    wrapper making x contiguous would add. With ``library`` the PyTorch
+    expression (``delay_expression``, on the JAX view) is checked against
+    the kernel and timed beside it."""
     from graphaudio_tpu_torch.nodes import delay as td
 
-    x, dt, ring, wpos, sr = args
+    x, dt, st, sr, L = args
     C, T = x.shape
-    L = ring.shape[1]
-    name = f"K12 delay ({label}: C={C} T={T} L={L})"
-    same_bits(name, td.delay_step(x, dt, ring, wpos, sr),
-              td.delay_step_plain(x, dt, ring, wpos, sr))
+    R, W = st["ring"].shape[1], min(T, L)
+    view = ", x a stride-0 view" if x.stride(0) == 0 else ""
+    name = f"K12 delay ({label}: C={C} T={T} L={L}{view})"
+
+    def copy():
+        return {k: v.clone() for k, v in st.items()}
+
+    got_st, want_st = copy(), copy()
+    got = td.delay_step(x, dt, got_st, sr, L)
+    want = td.delay_step_plain(x, dt, want_st, sr, L)
+    got_view, want_view = td.delay_jax_view(got_st, L), td.delay_jax_view(want_st, L)
+    keys = ("ring", "slot", "wpos")
+    same_bits(name, [got, got_view["ring"], *(got_st[k] for k in keys)],
+              [want, want_view["ring"], *(want_st[k] for k in keys)])
+    moved_to = (got_st["slot"].tolist(), int(got_st["wpos"]))
+    if moved_to != ([(int(st["slot"][0]) + W) % R] * st["slot"].numel(),
+                    (int(st["wpos"]) + T) % L):
+        raise AssertionError(f"{name}: cursors moved to {moved_to}")
+    jax_in = td.delay_jax_view(st, L)
     if library:
-        same_bits(f"{name}, the PyTorch expression", td.delay_step(x, dt, ring, wpos, sr)[:2],
-                  delay_expression(x, dt, ring, wpos, sr))
-    reads, writes = delay_ring_reads(dt, wpos, T, L, sr), min(T, L)
-    moved = 8 * C * T + (4 * T if dt.stride(0) else 4) + 4 * C * (reads + writes) + 8
+        same_bits(f"{name}, the PyTorch expression", [got, got_view["ring"]],
+                  delay_expression(x, dt, jax_in["ring"], jax_in["wpos"], sr))
+    reads, x_reads = delay_reads(dt, T, L, sr)
+    x_rows = C if x.stride(0) else 1
+    moved = (4 * x_rows * x_reads + 4 * C * T + (4 * T if dt.stride(0) else 4)
+             + 4 * C * (reads + W) + 8)
+    timed_st, plain_st = copy(), copy()
+
+    def kernel():
+        return td.delay_step(x, dt, timed_st, sr, L)
+
     e = compare(name, "cuda", "graphaudio_tpu_torch/csrc/delay.cu",
-                "graphaudio_tpu/nodes/delay.py:54",
-                lambda: td.delay_step(x, dt, ring, wpos, sr)[0],
-                lambda: td.delay_step_plain(x, dt, ring, wpos, sr)[0], 0.0,
-                bnd=bound(moved, T, int_ops=8 * C * (T + writes)),
-                library=(lambda: delay_expression(x, dt, ring, wpos, sr)[0]) if library else None,
+                "graphaudio_tpu/nodes/delay.py:54", kernel,
+                lambda: td.delay_step_plain(x, dt, plain_st, sr, L), 0.0,
+                bnd=bound(moved, T, int_ops=8 * C * (T + W)),
+                library=((lambda: delay_expression(x, dt, jax_in["ring"], jax_in["wpos"], sr)[0])
+                         if library else None),
                 device_times=library)
-    e.update(bit_exact=["out", "ring", "wpos"], bound_bytes=moved, ring_slots_read=reads,
-             ring_copy_bytes=8 * C * L)
+    e.update(bit_exact=["out", "ring", "jax view", "slot", "wpos"],
+             bound_bytes=moved, ring_slots_read=reads, input_samples_read=x_reads,
+             ring_copy_bytes=0, kernel_device_ms=device_ms(kernel, only="delay_kernel"))
+    if not x.is_contiguous():
+        e["input_copy_device_ms"] = device_ms(lambda: x.contiguous())
+    phase("kernels", f"{name}: the function moves {moved} bytes ({x_rows} x {x_reads} input "
+          f"samples, {reads} ring slots read, {W} written); the delay kernel alone "
+          f"{e['kernel_device_ms']!r} ms on the device"
+          + (f", x made contiguous {e['input_copy_device_ms']!r} ms" if view else ""))
     return e
 
 
-def _seeded_delay(dev, C, T, L, delays, w, seed):
+def _seeded_delay(dev, C, T, L, delays, w, seed, broadcast=False):
     import torch
+
+    from graphaudio_tpu_torch.nodes import delay as td
 
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((C, T)).astype(np.float32)).to(dev)
-    ring = torch.from_numpy(rng.standard_normal((C, L)).astype(np.float32)).to(dev)
+    if broadcast:  # a mono row up-mixed to C channels, as the splitter feeds a delay
+        x = x[:1].expand(C, T)
+    ring = rng.standard_normal((C, L)).astype(np.float32)
+    st = td.delay_state_from_jax({"ring": ring, "wpos": w}, T, dev, slot=3 * w + 1)
     max_s = np.float32(L / SR)
     if delays == "L":
         dt = torch.full((T,), float(max_s), device=dev)
@@ -2330,23 +2374,24 @@ def _seeded_delay(dev, C, T, L, delays, w, seed):
     else:
         dt = torch.from_numpy(np.minimum(np.linspace(0.0, 1.2 * max_s, T), max_s)
                               .astype(np.float32)).to(dev)
-    return x, dt, ring, torch.tensor(w, dtype=torch.int32, device=dev), SR
+    return x, dt, st, SR, L
 
 
 def k12_checks(dev, step=9):
     """K12 at config4_pingpong's two delays at step ``step`` of a render on
-    the card (C = 2 after the splitter's up-mix at the delay's input, T =
-    8192, L = 48000: the right one's exact a-rate rows, d > T, ring reads;
-    the left one's base value, d = 4800 < T), and seeded: d = L with T <
-    L (every read the slot this step writes) and with T >= L, T = L, a ramp
-    through d = 0 to past T, d = 0 throughout, mono and stereo; each bit
-    for bit, timed (``compare``)."""
+    the card (C = 2, the splitter's mono row up-mixed as a stride-0 view, T
+    = 8192, L = 48000: the right one's exact a-rate rows, d > T, ring
+    reads; the left one's base value, d = 4800 < T), and seeded: d = L with
+    T < L (every read the sample L back) and with T >= L, T = L, a ramp
+    through d = 0 to past T, d = 0 throughout, a stride-0 input, mono and
+    stereo; each bit for bit, timed (``k12_case``)."""
     from graphaudio_tpu_torch.nodes import delay as td
     from graphaudio_tpu_torch.testing import groups
     from graphaudio_tpu_torch.testing.configs import config4_pingpong
 
     keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-            "bound_bytes", "ring_slots_read", "ring_copy_bytes")
+            "kernel_device_ms", "input_copy_device_ms", "bound_bytes", "ring_slots_read",
+            "input_samples_read", "ring_copy_bytes")
     seen = groups.calls_of(td, "delay_step",
                            lambda: config4_pingpong(superblock=64, voices=64, device=dev),
                            step + 1)
@@ -2355,15 +2400,18 @@ def k12_checks(dev, step=9):
     right, left = (at[0], at[1]) if at[0][1].stride(0) else (at[1], at[0])
     out = [k12_case(f"config4_pingpong right, step {step}", right, library=True),
            k12_case(f"config4_pingpong left, step {step}", left)]
-    for label, shape in (("d = L, T < L", (2, 4096, 6000, "L", 5999)),
-                         ("d = L, T >= L", (1, 8192, 4800, "L", 17)),
-                         ("T = L", (2, 4096, 4096, "ramp", 4095)),
-                         ("ramp through d = 0 past T", (1, 8192, 48000, "ramp", 31000)),
-                         ("d < T, one base value", (2, 8192, 48000, "short", 123)),
-                         ("d = 0", (2, 4096, 960, "zero", 3))):
-        out.append(k12_case(label, _seeded_delay(dev, *shape, seed=len(out))))
+    for label, shape, broadcast in (
+            ("d = L, T < L", (2, 4096, 6000, "L", 5999), False),
+            ("d = L, T >= L", (1, 8192, 4800, "L", 17), False),
+            ("T = L", (2, 4096, 4096, "ramp", 4095), False),
+            ("ramp through d = 0 past T", (1, 8192, 48000, "ramp", 31000), False),
+            ("d < T, one base value", (2, 8192, 48000, "short", 123), False),
+            ("d = 0", (2, 4096, 960, "zero", 3), False),
+            ("d = L, T < L", (2, 8192, 48000, "L", 47999), True)):
+        out.append(k12_case(label, _seeded_delay(dev, *shape, seed=len(out),
+                                                 broadcast=broadcast)))
     e = dict(out[0], name="K12 delay")
-    e["shapes"] = [{k: x[k] for k in keys} for x in out[1:]]
+    e["shapes"] = [{k: x.get(k) for k in keys} for x in out[1:]]
     return e
 
 

@@ -191,12 +191,15 @@ def deferred_launches(ctx, steps):
 def calls_of(module, name, build, steps):
     """The arguments of every call of ``module.name`` (a kernel wrapper a
     node looks up at call time) in the first ``steps`` steps of a render of
-    ``build()``: a list of argument tuples, tensors copied (a broadcast
+    ``build()``: a list of argument tuples, tensors copied, also those of a
+    dict argument such as a state the call updates in place (a broadcast
     view, stride 0 somewhere, is kept as it is: its base values stay)."""
     fn = getattr(module, name)
     seen = []
 
     def keep(a):
+        if isinstance(a, dict):
+            return {k: keep(v) for k, v in a.items()}
         if not isinstance(a, torch.Tensor) or 0 in a.stride():
             return a
         return a.clone()

@@ -80,9 +80,11 @@ _SIGNATURES = {
     "ga_hrtf_fir_rows": [_P, _P, _I, _I, _I, _P, _P],
     # src, consts, S, listener pos/right/up/ahead, out, host plan words, stream
     "ga_spatial_gains_batch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
-    # x, delay times, a row?, ring, cursor, C, T, L, sr, out, new ring, new
-    # cursor, stream
-    "ga_delay_step": [_P, _P, _I, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P],
+    # x, its channel and frame strides, delay times, a row?, ring, R, slot
+    # cursor copies and their count (one a block: the grid), write cursor,
+    # C, T, L, sr, out, stream
+    "ga_delay_step": [_P, _I64, _I64, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, ctypes.c_float,
+                      _P, _P],
     # x, V, C, pan, a row a lane?, T, out, stream
     "ga_stereo_pan": [_P, _I, _I, _P, _I, _I, _P, _P],
     # x, y0 low/high, a low, a^16 low, a high, a^16 high, gl, gm, gh, rows,

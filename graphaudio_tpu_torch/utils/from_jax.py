@@ -12,9 +12,12 @@ sources (the buffer sources' positions; the oscillator's f64 ``phase`` and
 every scheduled source's ``started`` / ``start_time`` / ``stop_time``),
 the biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), and
 the ``__globals__`` entry (the listener transform, f32[3] each). What
-differs is the convolver's delay line: the JAX package keeps the P-1 past
-spectra oldest first (``hist_r`` / ``hist_i`` [K, P-1, bins]); the port
-keeps a ring of P-1+L slots with a head (``conv_state_from_jax``).
+differs are two rings: the convolver's delay line (the JAX package keeps
+the P-1 past spectra oldest first, ``hist_r`` / ``hist_i`` [K, P-1,
+bins]; the port keeps a ring of P-1+L slots with a head,
+``conv_state_from_jax``) and the delay's (the JAX package keeps L slots
+and a write cursor; the port keeps L + min(T, L) slots and a slot cursor
+beside it, ``nodes.delay.delay_state_from_jax``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.core.graph import to_device
+from graphaudio_tpu_torch.nodes.delay import DelayNode, delay_state_from_jax
 from graphaudio_tpu_torch.ops.voice_group import pack_group_table
 
 
@@ -59,6 +64,8 @@ def states_from_jax(ctx, jax_states: dict) -> dict:
         st = jax_states[key]
         if "hist_r" in st:
             out[key] = conv_state_from_jax(st, sp["rep"].sub_blocks(), ctx.device)
+        elif isinstance(sp["rep"], DelayNode):
+            out[key] = delay_state_from_jax(st, ctx.superblock * FRAMES_PER_BLOCK, ctx.device)
         else:
             out[key] = to_device({k: np.asarray(v) for k, v in st.items()}, ctx.device)
     return out

@@ -7,8 +7,8 @@ ChannelMergerNode, on the CPU.
   time) and of the delay/splitter/merger scene against the numpy oracle
   (tests/test_oracle.py:332-352);
 * the plain K12 (``delay_step_plain``) against the JAX ``DelayNode.process``
-  bit for bit (tolerance 0: the output, the new ring and cursor) at d = L,
-  d = 0, d > T, T >= L, mono and stereo;
+  bit for bit (tolerance 0: the output, and the new ring and cursor through
+  ``delay_jax_view``) at d = L, d = 0, d > T, T >= L, mono and stereo;
 * the plain K13 (``stereo_pan_plain``) against the jitted JAX node, both
   laws, within 3e-7: its gains are the correctly rounded f32 cos and sin,
   XLA's f32 trig is an ulp off now and then, and an ulp of a gain below 1
@@ -35,7 +35,11 @@ from graphaudio_tpu import kit as jkit
 from graphaudio_tpu.nodes.delay import DelayNode as JaxDelay
 from graphaudio_tpu.nodes.panner import StereoPannerNode as JaxPanner
 from graphaudio_tpu_torch import kit as tkit
-from graphaudio_tpu_torch.nodes.delay import delay_step_plain
+from graphaudio_tpu_torch.nodes.delay import (
+    delay_jax_view,
+    delay_state_from_jax,
+    delay_step_plain,
+)
 from graphaudio_tpu_torch.nodes.panner import stereo_pan_plain
 from graphaudio_tpu_torch.testing import configs as tconfigs
 from graphaudio_tpu_torch.testing import groups
@@ -254,12 +258,13 @@ def test_plain_k12_against_jax_process(C, T, max_s, delays, w):
     dt = np.minimum(dt, np.float32(max_s))  # the param's clamp
     jst, (jout,) = jnode.process({"ring": jnp.asarray(ring), "wpos": jnp.int32(w)},
                                  [jnp.asarray(x)], {"delayTime": _Signal(jnp.asarray(dt))}, rc)
-    out, new_ring, new_wpos = delay_step_plain(
-        torch.from_numpy(x), torch.from_numpy(dt),
-        torch.from_numpy(ring), torch.tensor(w, dtype=torch.int32), SR)
+    # the port's ring of the same history, its slot cursor away from w
+    st = delay_state_from_jax({"ring": ring, "wpos": w}, T, "cpu", slot=3 * w + 1)
+    out = delay_step_plain(torch.from_numpy(x), torch.from_numpy(dt), st, SR, L)
+    view = delay_jax_view(st, L)
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
-    np.testing.assert_array_equal(new_ring.numpy(), np.asarray(jst["ring"]))
-    assert new_wpos.dtype == torch.int32 and int(new_wpos) == int(jst["wpos"])
+    np.testing.assert_array_equal(view["ring"].numpy(), np.asarray(jst["ring"]))
+    assert view["wpos"].dtype == torch.int32 and int(view["wpos"]) == int(jst["wpos"])
     if delays == "L":  # outputs before sample L read the old ring, not this step's write
         n = min(T, L)
         np.testing.assert_array_equal(out.numpy()[:, :n], ring[:, (w + np.arange(n) - L) % L])

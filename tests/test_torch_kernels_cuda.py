@@ -1092,10 +1092,17 @@ def test_k4a_streamed_blocks(dev, spb, C):
 # ---- K12, K13 and the deferred K8 / K10b -------------------------------------------------
 
 
-def _delay_case(dev, C, T, L, delays, w, seed):
+def _delay_case(dev, C, T, L, delays, w, seed, broadcast=False):
+    """x, delay times and a port delay state whose JAX view is a seeded ring
+    with its cursor at ``w`` (the slot cursor elsewhere)."""
+    from graphaudio_tpu_torch.nodes import delay as td
+
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((C, T)).astype(np.float32)).to(dev)
-    ring = torch.from_numpy(rng.standard_normal((C, L)).astype(np.float32)).to(dev)
+    if broadcast:  # a mono row up-mixed to C channels as a stride-0 view
+        x = x[:1].expand(C, T)
+    ring = rng.standard_normal((C, L)).astype(np.float32)
+    st = td.delay_state_from_jax({"ring": ring, "wpos": w}, T, dev, slot=3 * w + 1)
     max_s = float(np.float32(L / 48000))
     if delays == "L":
         dt = torch.full((T,), max_s, device=dev)
@@ -1106,26 +1113,38 @@ def _delay_case(dev, C, T, L, delays, w, seed):
     else:
         dt = torch.from_numpy(np.minimum(np.linspace(0.0, 1.2 * max_s, T), max_s)
                               .astype(np.float32)).to(dev)
-    return x, dt, ring, torch.tensor(w, dtype=torch.int32, device=dev)
+    return x, dt, st
 
 
-@pytest.mark.parametrize("C,T,L,delays,w", [
-    (2, 128, 200, "L", 150), (1, 256, 96, "L", 40), (2, 4096, 4096, "ramp", 4095),
-    (1, 8192, 48000, "ramp", 31000), (2, 8192, 48000, "short", 123), (2, 4096, 960, "zero", 3),
-    (1, 128, 5, "ramp", 4),
-], ids=["d=L T<L", "d=L T>L", "T=L", "ramp d>T", "d<T base value", "d=0", "T>>L"])
-def test_k12_delay(dev, C, T, L, delays, w):
+@pytest.mark.parametrize("C,T,L,delays,w,broadcast", [
+    (2, 128, 200, "L", 150, False), (1, 256, 96, "L", 40, False),
+    (2, 4096, 4096, "ramp", 4095, False), (1, 8192, 48000, "ramp", 31000, False),
+    (2, 8192, 48000, "short", 123, False), (2, 4096, 960, "zero", 3, False),
+    (1, 128, 5, "ramp", 4, False), (2, 8192, 48000, "ramp", 47999, True),
+], ids=["d=L T<L", "d=L T>L", "T=L", "ramp d>T", "d<T base value", "d=0", "T>>L",
+        "broadcast input"])
+def test_k12_delay(dev, C, T, L, delays, w, broadcast):
     from graphaudio_tpu_torch.nodes import delay as td
 
-    x, dt, ring, wpos = _delay_case(dev, C, T, L, delays, w, seed=T + L)
-    cudabuild.launches.clear()
-    out, new_ring, new_wpos = td.delay_step(x, dt, ring, wpos, 48000)
-    want = td.delay_step_plain(x, dt, ring, wpos, 48000)
-    torch.cuda.synchronize()
-    assert cudabuild.launches["delay_step"] == 1
-    assert torch.equal(out, want[0]) and torch.equal(new_ring, want[1])
-    assert new_wpos.dtype == torch.int32 and int(new_wpos) == int(want[2]) == (w + T) % L
-    assert torch.equal(ring, _delay_case(dev, C, T, L, delays, w, seed=T + L)[2])  # old ring kept
+    x, dt, st = _delay_case(dev, C, T, L, delays, w, seed=T + L, broadcast=broadcast)
+    assert x.is_contiguous() != broadcast
+    ref = {k: v.clone() for k, v in st.items()}
+    R, W = L + min(T, L), min(T, L)
+    slot0 = int(st["slot"][0])
+    assert st["slot"].numel() == td.slot_copies(C, T)  # one block a copy
+    for step in range(3):  # chained: the cursors K12 moved on the card are read back
+        cudabuild.launches.clear()
+        out = td.delay_step(x, dt, st, 48000, L)
+        want = td.delay_step_plain(x, dt, ref, 48000, L)
+        torch.cuda.synchronize()
+        assert cudabuild.launches["delay_step"] == 1
+        assert torch.equal(out, want)
+        assert all(torch.equal(st[k], ref[k]) for k in ("ring", "slot", "wpos"))  # in place
+        view, want_view = td.delay_jax_view(st, L), td.delay_jax_view(ref, L)
+        assert torch.equal(view["ring"], want_view["ring"])
+        assert st["wpos"].dtype == torch.int32 and int(st["wpos"]) == (w + (step + 1) * T) % L
+        # every block's copy of the slot cursor moved by W
+        assert st["slot"].tolist() == [(slot0 + (step + 1) * W) % R] * st["slot"].numel()
 
 
 @pytest.mark.parametrize("base_view", [False, True], ids=["pan rows", "base values"])
