@@ -39,12 +39,14 @@ each; any failure raises and the script exits non-zero:
      step gives it; K6, K8
      and P2 at config-3 shapes; K6 and K8 batched
      as the step launches them, bit for bit: K6 on config 3's step table
-     (8 rows, capacity 32) and config 2's (8 lanes of linear and
-     exponential gain ramps), K8 on config 3's four stages and on eight
-     stages of all eight filter types as data, and both through their
-     one-entry names (one param, one stage); P2
-     also with constant poles, on eight lanes, and in the Pallas probe's
-     own 128x128 constant-pole form; P1 and K10b at config-5 shapes taken
+     (8 rows, capacity 32, the four biquads one pipe: each lane's rows at
+     its own clock of a [4, S] clock matrix) and config 2's (8 lanes of
+     linear and exponential gain ramps), K8 on config 3's pipe (four rows,
+     a type each) and on eight stages of all eight filter types as data,
+     and both through their one-entry names (one param, one stage of the
+     unfused graph); P2 over the pipe's four lanes, and at one lane,
+     with constant poles, on eight lanes, and in the Pallas probe's own
+     128x128 constant-pole form; P1 and K10b at config-5 shapes taken
      mid-render with moving sources, P1 also in the probe's row form beside
      torch's grouped conv1d, K10b as the step's one batched launch (also
      over two panner groups under two distance models) and bit for bit
@@ -81,7 +83,9 @@ each; any failure raises and the script exits non-zero:
   6. config 3 at full size (superblock 32, 30 s rounded down to whole
      superblocks, 351 steps) through ``render``, five fresh runs: finite,
      non-silent, the first 8192 frames within 1e-5 of the golden, every
-     config-3 kernel launched by the first run, K5, K6 and K8 once a step; a
+     config-3 kernel launched by the first run, K5 once a step, K6, K8 and
+     P2 once a row (the four biquads are one pipe of delay 3: 351 steps
+     and 3 drain rows), the same render unfused bit for bit the same; a
      torch.profiler window of 20 steps for the device time per step, per
      kernel and per group (K6, K8), over the unprofiled host time per step
      for the device busy share; the step's PyTorch ops by source line;
@@ -153,6 +157,9 @@ K7, K6 exact-row and K4a streamed-path checks, the goldens and phase 11.
 ``--mod8b`` runs the deferred K8 and K10b checks, the goldens and phase
 12's config3_wah and config5_orbit; ``--item10`` the K12 and K13 checks,
 the goldens and phase 12's config5_steplinear and config4_pingpong.
+``--pipe`` runs the goldens and config 3 fused and unfused, five 30 s
+renders each, alternated, every hash the unfused trees' config-3 hash,
+with P2's launches, host and device time a step (``pipe_runs``).
 ``--k4mu`` runs
 K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
 loads), mono, three channels (through shared memory) and a base one float
@@ -325,6 +332,8 @@ def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
         ctx.render(steps * step_frames)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+    # a graph with pipes runs its pipe delay's rows more than it delivers
+    rows = ctx.stats.last_breakdown.get("rows", steps)
     per_kernel = {}
     for e in prof.key_averages():
         t_us = getattr(e, "self_device_time_total", None)
@@ -334,7 +343,7 @@ def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
             per_kernel[e.key] = (t_us / steps, e.count / steps)
     device_us = sum(t for t, _ in per_kernel.values())
     top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    out = {"profiled_host_us_per_step": window_s / steps * 1e6,
+    out = {"profiled_host_us_per_step": window_s / steps * 1e6, "rows_per_step": rows / steps,
            "device_us_per_step": device_us, "device_busy": device_us / host_us,
            "launches_per_step": sum(c for _, c in per_kernel.values()),
            "top_kernels_us_per_step": {k: round(t, 3) for k, (t, _) in top_kernels}}
@@ -707,7 +716,8 @@ def k6k8_checks(dev):
     from graphaudio_tpu_torch.testing.configs import config2_mix_bus, config3_eq_chain
 
     dt = 1.0 / SR
-    ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
+    ctx3, ctx2 = unfused(config3_eq_chain(superblock=32, device=dev)), \
+        config2_mix_bus(superblock=32, device=dev)
     bt3, bt2 = (mid_render(c, dev)[1].block_times for c in (ctx3, ctx2))
     enc3, enc2 = ctx3._encs["st2/frequency"], ctx2._encs["st1/gain"]
 
@@ -745,13 +755,34 @@ def k6k8_checks(dev):
     return k6, k8
 
 
+def unfused(ctx):
+    """``ctx`` with chain fusion off (as every tree before the fusion
+    rendered), before its graph is built."""
+    ctx.pipeline_chains = False
+    return ctx
+
+
+def step_clocks(dev, ctx, step):
+    """The clock matrix ``ctx``'s step ``step`` hands K6: the block clocks
+    of steps step - D .. step, f64[D + 1, S] (D its pipe delay; the one row
+    f64[S] where it has none)."""
+    import torch
+
+    ctx._ensure_compiled()
+    S, D = ctx.superblock, getattr(ctx._compiled, "pipe_delay", 0)
+    clock = ctx._block_clock((step + 1) * S).reshape(step + 1, S)
+    rows = torch.from_numpy(clock[step - D:step + 1]).to(dev)
+    return rows if D else rows[0]
+
+
 def k6k8_batch_checks(dev):
     """The batched K6 and K8 as the step's prologue launches them, bit for
-    bit (tolerance 0): K6 on config 3's step table (8 rows, capacity 32,
-    a-rate, S=32) and config 2's (8 lanes of linear and exponential gain
-    ramps), mid-render at step 9; K8 on config 3's four stages over that
-    step's K6 arena and on eight stages of all eight types as data
-    (graphaudio_tpu_torch/testing/tables.py). Returns the K6 and K8
+    bit (tolerance 0): K6 on config 3's pipe table (8 rows, capacity 32,
+    a-rate, S=32, lane i's rows at the clock of i steps back: a [4, S]
+    clock matrix) and config 2's (8 lanes of linear and exponential gain
+    ramps), mid-render at step 9; K8 on config 3's pipe (four typed rows)
+    over that step's K6 arena and on eight stages of all eight types as
+    data (graphaudio_tpu_torch/testing/tables.py). Returns the K6 and K8
     entries, the other shapes under "shapes"."""
     from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.core.graph import to_device
@@ -794,10 +825,15 @@ def k6k8_batch_checks(dev):
                        bnd=bound(moved, 40 * rows.shape[0] * T))
 
     ctx3, ctx2 = (b(superblock=32, device=dev) for b in (config3_eq_chain, config2_mix_bus))
-    bt3, bt2 = (mid_render(c, dev)[1].block_times for c in (ctx3, ctx2))
+    ctx3._ensure_compiled()
+    bt3 = step_clocks(dev, ctx3, 9)
+    bt2 = mid_render(ctx2, dev)[1].block_times
+    mid_render(ctx3, dev)  # encodes the params
     t3, t2 = ctx3._encs[tgraph.PARAM_TABLE], ctx2._encs[tgraph.PARAM_TABLE]
     R3, cap3 = t3["times"].shape
-    k6 = k6_check(f"config 3 step table: {R3} rows, cap {cap3}, a-rate S=32", t3, bt3)
+    clocks = sorted(set(t3["rows"][:, 3].tolist())) if t3["rows"].shape[1] > 3 else [0]
+    k6 = k6_check(f"config 3 step table: {R3} rows, cap {cap3}, a-rate S=32, at clocks "
+                  f"{clocks} of {tuple(bt3.shape)}", t3, bt3)
     R2, cap2 = t2["times"].shape
     k6_2 = k6_check(f"config 2 step table: {R2} lanes of gain ramps, cap {cap2}", t2, bt2)
     k6["shapes"] = [{k: k6_2[k] for k in keys}]
@@ -805,7 +841,8 @@ def k6k8_batch_checks(dev):
     arena3 = tpe.eval_intrinsic_batch(t3, bt3, dt)
     kt3 = ctx3._encs[tgraph.PROLOGUE]["0"]["table"]
     types3 = "/".join(tbq.FILTER_TYPES[int(c)] for c in kt3["rows"][:, 0].cpu())
-    k8 = k8_check(f"config 3's {len(kt3['stages'])} stages, {types3}, T=4096", kt3, arena3)
+    k8 = k8_check(f"config 3's {len(kt3['stages'])} stage(s) of {kt3['rows'].shape[0]} rows, "
+                  f"{types3}, T=4096", kt3, arena3)
     t8, stages = ttab.eight_type_stages(3, 32, 8 * 32 * ttab.BLOCK)
     t8 = to_device(t8, dev)
     bt8 = torch_clock(dev, 8 * 32, 5, 32)
@@ -831,16 +868,19 @@ def config3_kernel_checks(dev):
     shapes config 3 gives them mid-render (superblock 32, step 9: the
     frequency and Q ramps are moving): K6 and K8 batched as the step
     launches them (``k6k8_batch_checks``) and through their one-entry names
-    (``k6k8_checks``), P2 also with constant poles, on eight lanes and in
-    the Pallas probe's form. Returns the three JSON entries."""
+    (``k6k8_checks``); P2 over the pipe's four lanes (lowpass, peaking,
+    peaking, highpass, their coefficients from that step's K8), and at one
+    lane, with constant poles, on eight lanes and in the Pallas probe's
+    form. Returns the three JSON entries."""
     import torch
 
+    from graphaudio_tpu_torch.core import graph as tgraph
     from graphaudio_tpu_torch.ops import biquad as tbq
     from graphaudio_tpu_torch.ops import param_eval as tpe
     from graphaudio_tpu_torch.testing.configs import config3_eq_chain
 
     dt = 1.0 / SR
-    ctx3 = config3_eq_chain(superblock=32, device=dev)
+    ctx3 = unfused(config3_eq_chain(superblock=32, device=dev))
     st3, rc3 = mid_render(ctx3, dev)
     bt3 = rc3.block_times
 
@@ -868,7 +908,22 @@ def config3_kernel_checks(dev):
                                  + nbytes(*tbq.biquad_apply(x, *coeffs, w1, w2, time_varying=tv)),
                                  40 * x.numel(), F64_FLOPS))
 
-    p2 = p2_check("time-varying (config 3: V=1 C=2 T=4096)", x, coeffs, w1, w2, True)
+    # The pipe's launch: its four lanes' coefficients from the fused
+    # graph's K6 and K8 at step 9; lane 0 the source's audio, lanes 1-3
+    # stand-ins for the register bank (the source's audio, scaled).
+    pipe = config3_eq_chain(superblock=32, device=dev)
+    mid_render(pipe, dev)
+    arena = tpe.eval_intrinsic_batch(pipe._encs[tgraph.PARAM_TABLE], step_clocks(dev, pipe, 9),
+                                     dt)
+    batch = pipe._encs[tgraph.PROLOGUE]["0"]
+    (coeffs4,) = tbq.biquad_coefficients_batch(batch["table"], arena, SR)
+    K = coeffs4[0].shape[0]
+    x4 = (x * torch.tensor([1.0, 0.8, 0.6, 0.4][:K], device=dev)[:, None, None]).contiguous()
+    w4 = [w.expand(K, -1).contiguous() for w in (w1, w2)]
+    types = "/".join(tbq.FILTER_TYPES[int(c)] for c in batch["table"]["rows"][:, 0].cpu())
+    p2 = p2_check(f"time-varying, config 3's pipe: V={K} C=2 T=4096, {types}", x4, coeffs4,
+                  *w4, True)
+    one = p2_check("time-varying (config 3 unfused: V=1 C=2 T=4096)", x, coeffs, w1, w2, True)
     # Constant poles (the node's kernel until a pole param gets an event),
     # and eight lanes of peaking filters on the same ramps, their centre
     # frequencies spread over three octaves.
@@ -882,7 +937,7 @@ def config3_kernel_checks(dev):
     p2["shapes"] = [
         {k: e[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                            "device_ms")}
-        for e in (p2_check("constant poles (V=1 C=2 T=4096)", x, const, w1, w2, False),
+        for e in (one, p2_check("constant poles (V=1 C=2 T=4096)", x, const, w1, w2, False),
                   p2_check("time-varying (V=8 C=2 T=4096)", x8, coeffs8, *w8, True),
                   p2_check("constant poles (V=8 C=2 T=4096)", x8, const8, *w8, False))]
     rng = np.random.default_rng(9)
@@ -2511,6 +2566,68 @@ def prologue_item10_runs(dev, which=("config3_wah", "config5_orbit", "config5_st
     return out
 
 
+#: The sha256 of config 3's 30 s render (superblock 32, 351 steps) on the
+#: H100 as the trees before chain fusion rendered it, four biquad stages.
+CONFIG3_UNFUSED_SHA256 = "8f976460eb322f3e69c908dc7125ecd20cc0fb18a818a9129e6f0b93e0cd9655"
+
+
+def pipe_runs(dev, runs=5):
+    """Config 3 at full size fused (its four biquads one pipe, the default)
+    and unfused (``pipeline_chains=False``), ``runs`` fresh 30 s renders
+    each, alternated (fused, unfused, unfused, fused, ...): every render's
+    sha256, which must all be equal and equal to ``CONFIG3_UNFUSED_SHA256``;
+    the first 8192 frames against the golden; launches and host us a step;
+    and for each a profile window of 100 steps (the fused one runs 103
+    rows) for the device time a step, P2's, K6's and K8's."""
+    from graphaudio_tpu_torch.testing.configs import config3_eq_chain
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    T = 32 * 128
+    frames = (30 * SR // T) * T
+    steps = frames // T
+    golden = np.load(GOLDENS[3])["out"]
+    builds = {"fused": lambda: config3_eq_chain(superblock=32, device=dev),
+              "unfused": lambda: unfused(config3_eq_chain(superblock=32, device=dev))}
+    names = {"P2": "biquad_apply", "K6": "eval_intrinsic_batch",
+             "K8": "biquad_coefficients_batch", "K5": "unity_group_step"}
+    for b in builds.values():
+        b().render(T)
+    res = {k: {"wall_s": [], "sha256": [], "rows": None, "launches": None} for k in builds}
+    order = [("fused", "unfused", "unfused", "fused")[i % 4] for i in range(2 * runs)]
+    for key in order:
+        cudabuild.launches.clear()
+        out, wall, bd = timed_render(builds[key], frames)
+        r = res[key]
+        r["wall_s"].append(wall)
+        r["sha256"].append(hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest())
+        r["rows"] = bd["rows"]
+        r["launches"] = {k: cudabuild.launches[w] for k, w in names.items()}
+        r["golden_max_abs_err"] = float(np.abs(out[:, :golden.shape[1]].astype(np.float64)
+                                               - golden).max())
+    groups = {"P2": "biquad_cascade", **K6K8_GROUPS}
+    for key, r in res.items():
+        host = [w / steps * 1e6 for w in r["wall_s"]]
+        r.update(host_us_per_step=host, host_us_per_step_median=statistics.median(host),
+                 f32=spread(frames, r["wall_s"]),
+                 launches_per_step={k: v / steps for k, v in r["launches"].items()},
+                 profile=profile_steps(builds[key](), T, statistics.median(host), steps=100,
+                                       groups=groups))
+        phase("pipe", f"config 3 {key}: rows {r['rows']} for {steps} steps; host us a step "
+              f"{host!r}; launches a step {r['launches_per_step']}; sha256 {set(r['sha256'])}; "
+              f"golden max_abs_err {r['golden_max_abs_err']!r}; profile "
+              f"{json.dumps(r['profile'])}")
+    hashes = {h for r in res.values() for h in r["sha256"]}
+    if hashes != {CONFIG3_UNFUSED_SHA256}:
+        raise AssertionError(f"config 3's hashes {hashes} are not the unfused trees' "
+                             f"{CONFIG3_UNFUSED_SHA256}")
+    if res["fused"]["launches"]["P2"] != steps + 3 or res["unfused"]["launches"]["P2"] != 4 * steps:
+        raise AssertionError(f"P2 launches {res['fused']['launches']['P2']} fused, "
+                             f"{res['unfused']['launches']['P2']} unfused in {steps} steps")
+    if max(r["golden_max_abs_err"] for r in res.values()) >= 1e-5:
+        raise AssertionError("config 3 is not within 1e-5 of its golden")
+    return res
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -2668,6 +2785,10 @@ def main(device="cuda", only=None):
             entries[0]["launches"] = runs["config4_pingpong"]["launches"]["K12"]
             entries[1]["launches"] = runs["config5_steplinear"]["launches"]["K13"]
             entries[1]["launches_pingpong"] = runs["config4_pingpong"]["launches"]["K13"]
+        elif only == "pipe":
+            entries = []
+            golden_err = goldens(dev)
+            runs = {"config3_pipe": pipe_runs(dev)}
         elif only == "k9":
             entries = [k9_checks(dev)]
             golden_err = goldens(dev)
@@ -2837,10 +2958,23 @@ def main(device="cuda", only=None):
             e["launches"] = launches3[e["name"]]
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was not launched by the config-3 path")
-    for name in ("K5 unity group step", "K6 param curve", "K8 RBJ coefficients"):
-        if launches3[name] != frames3 // T3:
-            raise AssertionError(f"{name}: {launches3[name]} launches in {frames3 // T3} steps, "
-                                 "not one a step")
+    # The four biquads are one pipe of delay 3: the call runs its 351 steps
+    # and 3 drain rows; the source runs in the steps alone, K6, K8 and P2
+    # once a row.
+    rows3 = bd3["rows"]
+    if rows3 != frames3 // T3 + 3:
+        raise AssertionError(f"config 3 ran {rows3} rows for {frames3 // T3} steps, not 3 more")
+    for name, n in (("K5 unity group step", frames3 // T3), ("K6 param curve", rows3),
+                    ("K8 RBJ coefficients", rows3), ("P2 biquad cascade", rows3)):
+        if launches3[name] != n:
+            raise AssertionError(f"{name}: {launches3[name]} launches in {frames3 // T3} steps "
+                                 f"({rows3} rows), not {n}")
+    # Fused and unfused render alike, bit for bit.
+    plain3, _, bd3u = timed_render(lambda: unfused(b3()), frames3)
+    sha3u = hashlib.sha256(np.ascontiguousarray(plain3).tobytes()).hexdigest()
+    phase("render", f"config 3 unfused: sha256 {sha3u}; rows {bd3u['rows']}")
+    if sha3u != sha3 or bd3u["rows"] != frames3 // T3:
+        raise AssertionError("config 3 fused and unfused differ")
     host_us3 = statistics.median(walls3) / (frames3 // T3) * 1e6
     profile3 = profile_steps(b3(), T3, host_us3, groups=K6K8_GROUPS)
     phase("profile", f"config 3, 20 steps under torch.profiler: {json.dumps(profile3)}")
@@ -2970,7 +3104,7 @@ def main(device="cuda", only=None):
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
         "config3": {"frames": frames3, "f32": render3, "host_us_per_step_median": host_us3,
-                    "sha256": sha3,
+                    "sha256": sha3, "sha256_unfused": sha3u, "rows": rows3,
                     "golden_max_abs_err": golden_err[3], "head_vs_golden": head_err,
                     "launches": launches3, "profile": profile3, "torch_ops": ops3},
         "config5": {"frames": frames5, "f32": render5, "host_us_per_step_median": host_us5,
@@ -3023,6 +3157,8 @@ if __name__ == "__main__":
                  "of config3_wah and config5_orbit",
         "item10": "the K12 and K13 checks, the goldens and five 30 s renders each of "
                   "config5_steplinear and config4_pingpong",
+        "pipe": "the goldens and config 3 fused and unfused, five 30 s renders each, "
+                "alternated, with a 100-step profile each",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

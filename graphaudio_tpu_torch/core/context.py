@@ -139,11 +139,11 @@ class AudioContextBase:
         pipeline_chains: bool = False,
         device="cuda",
     ):
-        """``pipeline_chains`` is the reference's flag to fuse head-to-tail
-        chains of same-type nodes into one pipelined stage. The port has no
-        chain fusion yet, so it keeps the flag and renders unfused whatever
-        it says; the reference's audio is bit-identical per render call
-        either way, and so is the port's."""
+        """``pipeline_chains`` fuses head-to-tail chains of same-type nodes
+        into one pipelined stage (core/graph.py ``_fuse_chains``), as the
+        reference does: a render call then runs the pipe delay's D steps
+        more than it delivers, and its audio equals the unfused render's,
+        bit for bit."""
         if sample_rate <= 0:
             raise ValueError("sample_rate must be positive")
         if superblock <= 0:
@@ -423,13 +423,20 @@ class AudioContextBase:
                 if key == "__globals__":
                     continue
                 old = old_states.get(key)
-                if (
+                if isinstance(st, torch.Tensor):
+                    # The pipes' clock ring: kept whole or started afresh.
+                    if (isinstance(old, torch.Tensor) and old_comp.get(key) == new_comp.get(key)
+                            and old.shape == st.shape):
+                        new_states[key] = old
+                elif (
                     old is not None
                     and old_comp.get(key) == new_comp.get(key)
                     and _same_structure(old, st)
                 ):
                     new_states[key] = old
                 else:
+                    # A pipe's register bank has no members: it restarts
+                    # silent (nothing a later call delivers reads it).
                     self._migrate_members(key, st, old_states, old_ref)
         self._states = new_states
         # Config-derived leaves (the biquad's type selector) must reflect the
@@ -550,9 +557,13 @@ class AudioContextBase:
             self.chunk_schedule = ",".join(map(str, sched))  # materialize iterables
 
         frames_per_step = self.superblock * FRAMES_PER_BLOCK
-        bt_host = self._block_clock(n_steps * self.superblock).reshape(
-            n_steps, self.superblock
-        )
+        # A graph with pipes runs D rows more than it delivers (the first D
+        # refill the pipes, the last D drain them); the clock continues
+        # past the call's end for the drain rows, which go with the last
+        # launch.
+        D = self._compiled.pipe_delay
+        rows = n_steps + D
+        bt_host = self._block_clock(rows * self.superblock).reshape(rows, self.superblock)
         block_times = torch.from_numpy(bt_host).to(self.device)
         t_enq = time.perf_counter()
         prep_s = t_enq - t0
@@ -561,27 +572,32 @@ class AudioContextBase:
         pending = []
         tail = None
         launched = 0
+        delivered = 0  # frames of audio the launches so far returned
         chunk_i = 0
         while launched < n_steps:
             this = min(sched[min(chunk_i, len(sched) - 1)], n_steps - launched)
             chunk_i += 1
-            frame0s = [self._current_frame + frames_per_step * (launched + j)
-                       for j in range(this)]
+            last = launched + this == n_steps
+            end = rows if last else launched + this
+            frame0s = [self._current_frame + frames_per_step * r for r in range(launched, end)]
             self._states, out = self._render_fn(
                 self._states, self._encs, self._consts,
-                block_times[launched:launched + this], frame0s,
+                block_times[launched:end], frame0s, launched, n_steps,
             )
-            if keep is not None and launched + this == n_steps:
-                cut = keep - launched * frames_per_step
+            launched += this
+            if keep is not None and last:
+                cut = keep - delivered
                 tail = out[:, cut:].contiguous()
                 tail = tail.to("cpu", non_blocking=True) if cuda else tail
                 out = out[:, :cut].contiguous()
+            delivered += out.shape[1]
+            if out.shape[1] == 0:  # a launch of refill rows only
+                continue
             if pack is not None:
                 out = pack(out)
             # Async device-to-host copy (into pinned memory) so the device
             # keeps working while the host enqueues the next launch.
             pending.append(out.to("cpu", non_blocking=True) if cuda else out)
-            launched += this
         t_sync = time.perf_counter()
         if cuda:
             torch.cuda.current_stream(self.device).synchronize()
@@ -608,6 +624,7 @@ class AudioContextBase:
                 "sync_s": t_notify - t_sync,
                 "notify_s": t_end - t_notify,
                 "n_launches": chunk_i,
+                "rows": rows,  # steps run: n_steps and the pipes' D
             },
         )
         return out_np if pack is None else (out_np, tail)
@@ -899,8 +916,8 @@ class OfflineAudioContext(AudioContextBase):
 
     ``render(frame_count)`` pulls exactly ``frame_count`` frames through the
     graph. ``device`` defaults to "cuda" and raises where CUDA is absent.
-    ``pipeline_chains`` defaults on, as in the reference, and changes nothing
-    in the port yet (see ``AudioContextBase``)."""
+    ``pipeline_chains`` defaults on, as in the reference (see
+    ``AudioContextBase``)."""
 
     def __init__(
         self,

@@ -5,7 +5,7 @@ sorted once, channel counts are resolved statically, same-key nodes are
 batched into group stages (lanes padded to a power of two), and the routing
 is snapshotted into a plan. ``make_step_fn`` turns the plan into
 
-    step(states, encs, consts, block_times, frame0) -> (new_states, out f32[C, T])
+    step(states, encs, consts, clocks, frame0) -> (new_states, out f32[C, T])
 
 that evaluates every stage for one superblock of S render quanta
 (T = S*128 frames), and ``make_render_fn`` runs it as a plain Python loop
@@ -27,8 +27,19 @@ writes that param into rows of the K6 arena reserved for it (K6 never
 writes them), and the stage's own one-item batch (``DEFERRED``) runs at
 its turn, reading them as it reads any arena row.
 
-Left out so far (see ROADMAP.md): chain fusion into pipelined stages
-(``_fuse_chains``) and mesh sharding (``_compute_sharding`` /
+With ``pipeline_chains`` on (the offline context's default), a head-to-tail
+run of same-key one-lane group stages becomes one "pipe" stage
+(``_fuse_chains``): lane i processes the superblock of i steps ago, fed by
+lane i-1's output of the previous step from a carried register bank, so
+the K stages run as one batched launch a step (config 3's four biquads: one
+P2 launch). Every stage runs at a LEVEL, the steps between the live clock
+and the audio it processes; its param rows in the K6 table carry the clock
+of that step (a row of the step's clock matrix), and the destination lags
+by the pipe delay D. A render call runs D rows more than it delivers and a
+stage at level L commits its state only in rows L <= r < n + L, so the
+audio equals the unfused graph's, bit for bit.
+
+Left out so far (see ROADMAP.md): mesh sharding (``_compute_sharding`` /
 ``shard_map``).
 """
 
@@ -88,13 +99,22 @@ class RenderContext:
         # fl(1/sr): the reference's per-sample deltaTime (AudioParam.cs:116).
         self.dt = 1.0 / float(info.sample_rate)
         self.block_times = block_times
-        self.block_end_times = block_times + float(FRAMES_PER_BLOCK) / float(info.sample_rate)
+        self._block_end_times = None
         # Per-stage constants (e.g. convolver IR spectra), set by the step.
         self.stage_consts = {}
         # Context-level globals (the listener transform), f32[3] tensors.
         self.globals = None
         # The running stage's result from the step's prologue, if it asked.
         self.prologue_result = None
+
+    @property
+    def block_end_times(self):
+        """fl(block time + fl(128/sr)), f64[S], computed at the first use
+        (a stage at a pipe's level seldom needs it)."""
+        if self._block_end_times is None:
+            self._block_end_times = self.block_times + float(FRAMES_PER_BLOCK) / float(
+                self.sample_rate)
+        return self._block_end_times
 
 
 class ParamSignal:
@@ -140,6 +160,21 @@ def _deferred_params(sp) -> List[str]:
     modulated: they hold the stage's request back from the prologue."""
     return [name for name, _, _, modspec in sp["params"]
             if modspec is not None and name in sp["rep"].prologue_params]
+
+
+def level_span(sp) -> Tuple[int, int]:
+    """The lowest and highest level a stage's lanes run at: a pipe's lane i
+    runs at its level + i, any other stage's lanes at its level."""
+    lo = sp["level"]
+    return lo, lo + (sp["n_lanes"] - 1 if sp["kind"] == "pipe" else 0)
+
+
+def active(span, row, n_main) -> bool:
+    """Whether some lane of levels ``span`` is active in call row ``row``
+    of a call delivering ``n_main`` steps: a lane at level l processes the
+    superblock of ``row - l``, one of the call's iff 0 <= row - l < n_main.
+    ``row`` None: every stage (a graph without pipes)."""
+    return row is None or span[0] <= row < n_main + span[1]
 
 
 def one_gather_routes(plan):
@@ -266,6 +301,7 @@ class CompiledGraph:
             node_in_counts[node.node_id] = tuple(in_counts)
             for i, c in enumerate(node.output_channel_counts(in_counts)):
                 self.output_channels[(node.node_id, i)] = c
+        self._in_counts = node_in_counts
 
         # ---- stage scheduling with voice batching --------------------------
         # Ready nodes sharing a group_key run as one batched stage.
@@ -299,6 +335,7 @@ class CompiledGraph:
             remaining = [n for n in remaining if n.node_id not in emitted]
         stages.append(("dest", [dest], None))
         self.stages = stages
+        self._fuse_chains()
 
         # Static buffer-source kernel variants; a change forces a rebuild.
         self.bufsrc_variants = {
@@ -316,12 +353,22 @@ class CompiledGraph:
         for si, (kind, nodes, _) in enumerate(self.stages):
             key = f"st{si}"
             self.state_composition[key] = tuple(n.node_id for n in nodes)
-            if kind == "group":
-                self.stage_pad[si] = (len(nodes), _next_pow2(len(nodes)))
+            if kind in ("group", "pipe"):
+                # Pipe lanes are pipeline stages, not voices: no phantom
+                # padding (a phantom lane would change the delay).
+                self.stage_pad[si] = (len(nodes), _next_pow2(len(nodes)) if kind == "group"
+                                      else len(nodes))
                 for lane, n in enumerate(nodes):
                     self.state_ref[n.node_id] = (key, lane)
             else:
                 self.state_ref[nodes[0].node_id] = (key, None)
+            if kind == "pipe":
+                # The register bank migrates by composition like a group.
+                self.state_composition[key + ".pipe"] = ("pipe",) + tuple(
+                    n.node_id for n in nodes)
+        if self.pipe_delay:
+            self.state_composition["__pipe_bt__"] = ("bt", self.pipe_delay,
+                                                     self.info.superblock)
 
         # Param encoding capacities: pow2 high-water marks, 0 for params that
         # never had events (the constant fast path).
@@ -330,7 +377,7 @@ class CompiledGraph:
                 c = p.event_count()
                 self.param_capacity[(node.node_id, name)] = _next_pow2(c) if c else 0
         for kind, nodes, _ in self.stages:
-            if kind == "group":
+            if kind in ("group", "pipe"):
                 self._share_group_capacity(nodes)
 
         # ---- buffer-source arenas ------------------------------------------
@@ -400,6 +447,114 @@ class CompiledGraph:
 
         self._build_plan()
 
+    # -- chain fusion -----------------------------------------------------------
+
+    def _fuse_chains(self) -> None:
+        """Fuse head-to-tail runs of same-key one-lane group stages into
+        pipelined "pipe" stages (the JAX package's ``_fuse_chains``,
+        graphaudio_tpu/core/graph.py:408-567): lane i of a K-lane pipe
+        processes the superblock of i steps ago, lane 0 the live input and
+        lane i lane i-1's output of the previous step from a carried
+        register bank [K-1, C, T]. Every stage then runs at a LEVEL, the
+        steps between the live clock and the audio it processes; the
+        destination's level is the pipe delay D. Fusion is refused where a
+        stage's inputs come from more than one level (a direct source tap
+        beside a chained path), and where D would be 0 or above 64."""
+        self.pipe_delay = 0
+        self.stage_level = {}
+        if not self.context.pipeline_chains:
+            return
+        stages = self.stages
+
+        def fusable(entry):
+            kind, nodes, key = entry
+            if kind != "group" or len(nodes) != 1 or key is None:
+                return False
+            n = nodes[0]
+            # A modulated param would need its modulator's output at the
+            # lane's level, which the register bank does not carry.
+            return (len(n.inputs) == 1 and len(n.outputs) == 1
+                    and not _is_buffer_source(n) and not n._params_modulated())
+
+        def links_to(a, b):
+            """True when a's one output feeds exactly b's one input."""
+            out = a.outputs[0]
+            return (
+                len(out.connections) == 1
+                and not out.param_connections
+                and out.connections[0] is b.inputs[0]
+                and len(b.inputs[0].connected_outputs) == 1
+                and self.output_channels[(a.node_id, 0)] == self.output_channels[(b.node_id, 0)]
+                and self.input_channels[(b.node_id, 0)] == self.output_channels[(a.node_id, 0)]
+            )
+
+        stage_idx_of = {n.node_id: si for si, (_, nodes, _) in enumerate(stages) for n in nodes}
+
+        def chain_key_of(si):
+            """A node's ``chain_key`` where it has one (the biquad's leaves
+            its type out), else its group key."""
+            n = stages[si][1][0]
+            fn = getattr(n, "chain_key", None)
+            return stages[si][2] if fn is None else fn([self.input_channels[(n.node_id, 0)]])
+
+        used, chains = set(), []
+        for si, entry in enumerate(stages):
+            if si in used or not fusable(entry):
+                continue
+            run, cur = [si], entry[1][0]
+            while True:
+                out = cur.outputs[0]
+                if len(out.connections) != 1 or out.param_connections:
+                    break
+                nxt = out.connections[0].owner
+                nsi = stage_idx_of.get(nxt.node_id)
+                if (nsi is None or nsi in used or not fusable(stages[nsi])
+                        or chain_key_of(nsi) != chain_key_of(run[0])
+                        or not links_to(cur, nxt)):
+                    break
+                run.append(nsi)
+                cur = nxt
+            if len(run) >= 2:
+                chains.append(run)
+                used.update(run)
+        if not chains:
+            return
+
+        head_of = {run[0]: run for run in chains}
+        member = {si for run in chains for si in run[1:]}
+        new_stages = []
+        for si, entry in enumerate(stages):
+            if si in member:
+                continue
+            if si in head_of:
+                new_stages.append(("pipe", [stages[j][1][0] for j in head_of[si]], entry[2]))
+            else:
+                new_stages.append(entry)
+
+        # Levels: a stage runs at the level of its producers' outputs (a
+        # pipe's output leaves at its last lane's level); mixed levels refuse.
+        out_level, level = {}, {}
+        for si, (kind, nodes, _) in enumerate(new_stages):
+            prods = set()
+            for n in ([nodes[0]] if kind == "pipe" else nodes):
+                for inp in n.inputs:
+                    prods.update(o.owner.node_id for o in inp.connected_outputs)
+                for p in n.params.values():
+                    prods.update(o.owner.node_id for o in p._mod_outputs)
+            in_levels = {out_level[nid] for nid in prods}
+            if len(in_levels) > 1:
+                return
+            lvl = in_levels.pop() if in_levels else 0
+            level[si] = lvl
+            for n in nodes:
+                out_level[n.node_id] = lvl + (len(nodes) - 1 if kind == "pipe" else 0)
+        delay = level[len(new_stages) - 1]  # the destination's
+        if delay <= 0 or delay > 64:
+            return
+        self.stages = new_stages
+        self.stage_level = level
+        self.pipe_delay = delay
+
     # -- execution plan ---------------------------------------------------------
     #
     # The step never reads live node objects' connection lists: routing is
@@ -411,11 +566,11 @@ class CompiledGraph:
         lane_of = {}
         stage_real = {}
         for si, (kind, nodes, _) in enumerate(self.stages):
-            if kind == "group":
+            if kind in ("group", "pipe"):
                 stage_real[si] = len(nodes)
             for lane, n in enumerate(nodes):
                 stage_of[n.node_id] = si
-                lane_of[n.node_id] = lane if kind == "group" else None
+                lane_of[n.node_id] = lane if kind in ("group", "pipe") else None
 
         def producer(o):
             return (
@@ -520,8 +675,13 @@ class CompiledGraph:
                     "si": si,
                     "key": f"st{si}",
                     "rep": rep,
-                    "n_lanes": self.stage_pad[si][1] if kind == "group" else 1,
+                    "n_lanes": self.stage_pad[si][1] if kind in ("group", "pipe") else 1,
+                    "level": self.stage_level.get(si, 0),
                     "group_key": gkey,
+                    # A pipe's members may differ where the chain key leaves
+                    # them out (the biquad's type): each lane's own key.
+                    "lane_keys": (tuple(n.group_key(self._in_counts[n.node_id]) for n in nodes)
+                                  if kind == "pipe" else None),
                     "inputs": inputs,
                     "params": params,
                     "out_counts": out_counts,
@@ -538,10 +698,14 @@ class CompiledGraph:
         program cache on it; PyTorch runs eagerly, so the port rebuilds its
         step function on every graph build and keeps this as the graph's
         identity for callers and tests.)"""
-        sig = [("hdr", self.info.sample_rate, self.info.superblock)]
+        sig = [("hdr", self.info.sample_rate, self.info.superblock, self.pipe_delay)]
         for sp in self.plan:
             if sp["kind"] == "group":
                 ident = ("G", sp["group_key"], sp["n_lanes"], sp["bufsrc"])
+            elif sp["kind"] == "pipe":
+                # each lane's key: two pipes with one head but different
+                # member types compute different functions
+                ident = ("P", sp["lane_keys"], sp["n_lanes"], sp["level"])
             elif sp["kind"] == "dest":
                 ident = ("D",)
             else:
@@ -575,7 +739,7 @@ class CompiledGraph:
         device): groups stack their lanes [V, ...]."""
         states = {}
         for si, (kind, nodes, _) in enumerate(self.stages):
-            if kind == "group":
+            if kind in ("group", "pipe"):
                 members = [self._init_node_state(n) for n in nodes]
                 real, padded = self.stage_pad[si]
                 members += [nodes[0].init_state(self.info) for _ in range(padded - real)]
@@ -585,6 +749,16 @@ class CompiledGraph:
                 }
             else:
                 states[f"st{si}"] = self._init_node_state(nodes[0])
+            if kind == "pipe":
+                # The audio in flight between lanes, silent at the start.
+                c = self.output_channels[(nodes[0].node_id, 0)]
+                states[f"st{si}.pipe"] = {
+                    "reg": np.zeros((len(nodes) - 1, c, self.info.frames), np.float32)}
+        if self.pipe_delay:
+            # The block clocks of the last D steps, the latest first (the
+            # JAX package's ring; a level-l stage runs at row l - 1's).
+            states["__pipe_bt__"] = np.zeros((self.pipe_delay, self.info.superblock),
+                                             np.float64)
         # Context-level globals (listener transform) travel in the state, so
         # they are data, not rebuild triggers.
         states["__globals__"] = self.context.global_state()
@@ -619,11 +793,11 @@ class CompiledGraph:
                 if p.event_count() > self.param_capacity[key]:
                     self.param_capacity[key] = _next_pow2(p.event_count())
         for kind, nodes, _ in self.stages:
-            if kind == "group":
+            if kind in ("group", "pipe"):
                 self._share_group_capacity(nodes)
         encs = {}
         for si, (kind, nodes, _) in enumerate(self.stages):
-            if kind == "group":
+            if kind in ("group", "pipe"):
                 real, padded = self.stage_pad[si]
                 for name in nodes[0].params:
                     per = [
@@ -651,17 +825,20 @@ class CompiledGraph:
         prologue param gets reserved K6 arena rows for each such param and
         a one-item table of its own, run at its turn (``DEFERRED``: stage
         key -> function and table)."""
-        S = self.info.superblock
+        S, D = self.info.superblock, self.pipe_delay
         entries, reserved = [], []
         for sp in self.plan:
             if not _evaluates_params(sp):
                 continue
             deferred = _deferred_params(sp)
+            # Each row's clock: row D - l of the step's clock matrix for a
+            # lane at level l (a pipe's lane i runs at its level + i).
+            clock = D - sp["level"] - (np.arange(sp["n_lanes"]) if sp["kind"] == "pipe" else 0)
             for name, a_rate, exact, _ in sp["params"]:
                 key = f"{sp['key']}/{name}"
                 npb = FRAMES_PER_BLOCK if a_rate else 1
                 if encs[key]["times"].shape[-1]:
-                    entries.append((key, encs[key], npb, exact))
+                    entries.append((key, encs[key], npb, exact, clock))
                 if name in deferred:
                     reserved.append((key, npb, np.shape(encs[key]["base"])))
         table = pack_param_table(entries, S, reserved)
@@ -676,19 +853,25 @@ class CompiledGraph:
                 if slot is None and not encs[key]["times"].shape[-1]:
                     slot = constant_slot(encs[key], FRAMES_PER_BLOCK if a_rate else 1, S)
                 slots[name] = slot
-            req = sp["rep"].prologue_request(slots)
+            lanes = self.stages[sp["si"]][1] if sp["kind"] == "pipe" else None
+            req = sp["rep"].prologue_request(slots, lanes)
             if req is None:
                 continue
             if _deferred_params(sp):
                 deferred_tables[sp["key"]] = {"run": req.run, "table": req.pack([req.item], S)}
             else:
-                batch = batches.setdefault(req.run, (req.pack, [], []))
+                batch = batches.setdefault(req.run, (req.pack, [], [], []))
                 batch[1].append(sp["key"])
                 batch[2].append(req.item)
+                batch[3].append(level_span(sp))
         encs[PARAM_TABLE] = table
+        # "levels": the lowest and highest level of the stages a batch
+        # serves; the step skips it in a row outside the span of rows in
+        # which one of them is active.
         encs[PROLOGUE] = {
-            str(i): {"run": run, "keys": tuple(keys), "table": pack(items, S)}
-            for i, (run, (pack, keys, items)) in enumerate(batches.items())
+            str(i): {"run": run, "keys": tuple(keys), "table": pack(items, S),
+                     "levels": (min(lo for lo, _ in spans), max(hi for _, hi in spans))}
+            for i, (run, (pack, keys, items, spans)) in enumerate(batches.items())
         }
         encs[DEFERRED] = deferred_tables
 
@@ -697,9 +880,22 @@ class CompiledGraph:
     def make_step_fn(self):
         """Build the step function from the snapshotted plan. It captures
         only the plan and each stage representative's kernel methods, never
-        live connection lists. Returns (step, destination channel count)."""
+        live connection lists. Returns (step, destination channel count).
+
+        ``step(states, encs, consts, clocks, frame0, row=None, n_main=None)``:
+        ``clocks`` f64[D+1, S] are the block clocks of the last D+1 steps,
+        the live one last (D = ``pipe_delay``; a stage at level l runs at
+        row D - l, the superblock that began at ``frame0 - l * T``).
+        ``row`` and ``n_main`` place the step in its render call for a
+        graph with pipes: a stage none of whose lanes is active in the row
+        (``active``) is skipped and keeps its state (its output would feed
+        only stages as idle), and a pipe commits only its active lanes'.
+        Returns (new states, destination audio f32[C, T], or None in a
+        row where the destination is idle)."""
         info = self.info
         plan = self.plan
+        D = self.pipe_delay
+        T = info.frames
         dest_channels = self.input_channels[(self.destination.node_id, 0)]
 
         # (name, a-rate, exact, modspec, encoding key) of each stage's
@@ -711,28 +907,43 @@ class CompiledGraph:
                         if modspec is not None or name not in sp["rep"].prologue_params]
             for sp in plan
         }
+        spans = {sp["key"]: level_span(sp) for sp in plan}
 
         gathers = one_gather_routes(plan)
         lane_index = {}
 
-        def step(states, encs, consts, block_times, frame0):
-            rc = RenderContext(info, frame0, block_times)
-            rc.globals = states["__globals__"]
+        def step(states, encs, consts, clocks, frame0, row=None, n_main=None):
+            by_level = {}
+
+            def rc_for(level):
+                """The context of a stage at ``level``: the superblock that
+                began ``level`` steps before the live one."""
+                rc = by_level.get(level)
+                if rc is None:
+                    rc = by_level[level] = RenderContext(info, frame0 - level * T,
+                                                         clocks[D - level])
+                    rc.globals = states["__globals__"]
+                return rc
+
+            live = rc_for(0)
             out_table: Dict[Tuple[int, int], object] = {}
-            new_states = {"__globals__": rc.globals}
+            new_states = {"__globals__": live.globals}
             dest_out = None
 
             # Prologue: one K6 launch evaluates every automated param of the
-            # step into one arena, then each batch function of the stages'
-            # requests (K8 for the biquads, K10b for the panners) runs once;
-            # a deferred request runs at its stage's turn (run_process).
+            # step into one arena, each row at its stage's clock, then each
+            # batch function of the stages' requests (K8 for the biquads,
+            # K10b for the panners) runs once, unless none of the stages it
+            # serves is active in this row; a deferred request runs at its
+            # stage's turn (run_process).
             table = encs[PARAM_TABLE]
             slots, reserved = table["slots"], table["reserved"]
             deferred = encs[DEFERRED]
-            arena = eval_intrinsic_batch(table, block_times, rc.dt) if table["size"] else None
+            arena = eval_intrinsic_batch(table, clocks, live.dt) if table["size"] else None
             prologue = {}
             for batch in encs[PROLOGUE].values():
-                prologue.update(zip(batch["keys"], batch["run"](batch["table"], arena, rc)))
+                if active(batch["levels"], row, n_main):
+                    prologue.update(zip(batch["keys"], batch["run"](batch["table"], arena, live)))
 
             def mixed_signal(prods, dst_c):
                 """Sum producer outputs into one [dst_c, T] block — the
@@ -757,8 +968,7 @@ class CompiledGraph:
                         sel = tensor if len(vs) == tensor.shape[0] else tensor[vs]
                         parts.append(fan_in_lanes(sel.contiguous(), dst_c))
                 if not parts:
-                    return torch.zeros((dst_c, rc.frames), dtype=torch.float32,
-                                       device=block_times.device)
+                    return torch.zeros((dst_c, T), dtype=torch.float32, device=clocks.device)
                 acc = parts[0]
                 for p in parts[1:]:
                     acc = acc + p
@@ -796,7 +1006,7 @@ class CompiledGraph:
                     return g
                 return torch.stack([mixed_signal(pl, 1) for pl in routing])
 
-            def eval_params(sp, key):
+            def eval_params(sp, key, rc):
                 """Each param's values: its rows of the arena, or (no
                 events) its base value as a broadcast view; a modulated
                 param then goes through K6m (apply_modulation), once a
@@ -807,7 +1017,7 @@ class CompiledGraph:
                     slot = slots.get(pkey)
                     if slot is None:
                         vals = eval_intrinsic_blocked(
-                            encs[pkey], block_times, FRAMES_PER_BLOCK if a_rate else 1,
+                            encs[pkey], rc.block_times, FRAMES_PER_BLOCK if a_rate else 1,
                             rc.dt, exact=exact,
                         )
                     else:
@@ -824,7 +1034,7 @@ class CompiledGraph:
                     params[name] = ParamSignal(vals, a_rate)
                 return params
 
-            def run_process(sp, key, inputs, params):
+            def run_process(sp, key, inputs, params, rc):
                 prefix = key + "/"
                 rc.stage_consts = {
                     n[len(prefix):]: v for n, v in consts.items() if n.startswith(prefix)
@@ -840,9 +1050,10 @@ class CompiledGraph:
 
             def run_single(sp):
                 si, key = sp["si"], sp["key"]
-                params = eval_params(sp, key)
+                rc = rc_for(sp["level"])
+                params = eval_params(sp, key, rc)
                 inputs = [mixed_signal(prods, c) for c, prods in sp["inputs"]]
-                st, outs = run_process(sp, key, inputs, params)
+                st, outs = run_process(sp, key, inputs, params, rc)
                 new_states[key] = st
                 for i, o in enumerate(outs):
                     out_table[(si, i)] = o
@@ -867,44 +1078,83 @@ class CompiledGraph:
 
             def run_group(sp):
                 si, key, rep = sp["si"], sp["key"], sp["rep"]
+                rc = rc_for(sp["level"])
                 if sp["bufsrc"] is not None:
                     # The unity and polyphase source groups consume no
                     # params (playbackRate is baked into the variant); the
                     # time-varying one takes its k-rate playbackRate rows
                     # from the K6 arena, or the lanes' base values.
                     w, variant, _ = sp["bufsrc"]
-                    arena, geom = consts[f"{key}/arena"], consts[f"{key}/geom"]
+                    arena_, geom = consts[f"{key}/arena"], consts[f"{key}/geom"]
                     gtab = consts[f"{key}/gtab"]
                     if variant[0] == "resample":
-                        rate = eval_params(sp, key)["playbackRate"].per_block()
+                        rate = eval_params(sp, key, rc)["playbackRate"].per_block()
                         sts, out = type(rep).process_resample_group(
-                            states[key], arena, geom, gtab, rate, rc, w)
+                            states[key], arena_, geom, gtab, rate, rc, w)
                     elif variant[0] == "poly":
                         sts, out = type(rep).process_poly_group(
-                            states[key], arena, geom, gtab, rc, w, variant[1], variant[2],
+                            states[key], arena_, geom, gtab, rc, w, variant[1], variant[2],
                             (consts[f"{key}/poly_w"], consts[f"{key}/poly_b"]),
                         )
                     else:
                         sts, out = type(rep).process_unity_group(
-                            states[key], arena, geom, gtab, rc, w, aligned=variant[1])
+                            states[key], arena_, geom, gtab, rc, w, aligned=variant[1])
                     outs = [out]
                 else:
-                    params = eval_params(sp, key)
+                    params = eval_params(sp, key, rc)
                     inputs = [stacked_inputs(sp, i) for i in range(len(sp["inputs"]))]
-                    sts, outs = run_process(sp, key, inputs, params)
+                    sts, outs = run_process(sp, key, inputs, params, rc)
                 new_states[key] = sts
                 for i, o in enumerate(outs):  # o: [V, C, T]
                     out_table[(si, i)] = o
 
+            def run_pipe(sp):
+                """A fused chain: one launch of the stage's kernel over its K
+                lanes, lane 0 on the live input, lane i on lane i-1's
+                output of the previous step (the register bank), each
+                lane's params from its own clock's arena rows."""
+                si, key = sp["si"], sp["key"]
+                base, K = sp["level"], sp["n_lanes"]
+                rc = rc_for(base)
+                params = eval_params(sp, key, rc)
+                dst_c, routing = sp["inputs"][0]
+                # Lane 0's producers were skipped in a row where it idles.
+                fresh = (mixed_signal(routing, dst_c) if active((base, base), row, n_main)
+                         else torch.zeros((dst_c, T), dtype=torch.float32, device=clocks.device))
+                lane_in = torch.cat([fresh[None], states[key + ".pipe"]["reg"]])
+                sts, outs = run_process(sp, key, [lane_in], params, rc)
+                # Lane i is active in rows base + i <= row < n_main + base + i.
+                lo = 0 if row is None else max(0, row - n_main - base + 1)
+                hi = K if row is None else min(K, row - base + 1)
+                if (lo, hi) != (0, K):
+                    old = states[key]
+                    sts = {k: v if v is old[k] else torch.cat([old[k][:lo], v[lo:hi], old[k][hi:]])
+                           for k, v in sts.items()}
+                new_states[key] = sts
+                # What an idle lane writes to the bank is read only by a lane
+                # idle in the next row.
+                new_states[key + ".pipe"] = {"reg": outs[0][:-1]}
+                for i, o in enumerate(outs):
+                    out_table[(si, i)] = o
+
             for sp in plan:
-                if sp["kind"] == "single":
+                key = sp["key"]
+                if not active(spans[key], row, n_main):
+                    new_states[key] = states[key]
+                    if sp["kind"] == "pipe":
+                        new_states[key + ".pipe"] = states[key + ".pipe"]
+                elif sp["kind"] == "single":
                     run_single(sp)
                 elif sp["kind"] == "group":
                     run_group(sp)
+                elif sp["kind"] == "pipe":
+                    run_pipe(sp)
                 else:  # destination: passthrough sink (AudioDestinationNode.cs:42-64)
                     dst_c, prods = sp["inputs"][0]
                     dest_out = mixed_signal(prods, dst_c)
-                    new_states[sp["key"]] = states[sp["key"]]
+                    new_states[key] = states[key]
+            if D:
+                new_states["__pipe_bt__"] = states["__pipe_bt__"]
             return new_states, dest_out
 
         return step, dest_channels
@@ -912,14 +1162,34 @@ class CompiledGraph:
     def make_render_fn(self):
         """Multi-superblock renderer: the step in a Python loop over
         superblocks. ``render(states, encs, consts, block_times f64[n, S],
-        frame0s)`` returns (states, out f32[C, n*T])."""
+        frame0s, first_row=0, n_main=None)`` runs n rows of a render call
+        from its row ``first_row`` and returns (states, out f32[C, m*T]),
+        the audio of its m rows at or past the pipe delay D (all n without
+        pipes). A call that delivers ``n_main`` steps runs n_main + D rows,
+        its clocks continuing past its end; the rows before D refill the
+        pipes, the last D drain them. Each row's clock matrix is a view of
+        the launch's clocks behind the carried ring of the last D
+        (``__pipe_bt__``), which the launch leaves holding its own last D."""
         step, dest_channels = self.make_step_fn()
+        D = self.pipe_delay
 
-        def render(states, encs, consts, block_times, frame0s):
+        def render(states, encs, consts, block_times, frame0s, first_row=0, n_main=None):
+            if D:
+                clocks = torch.cat([states["__pipe_bt__"].flip(0), block_times])
+            else:
+                clocks = block_times
             outs = []
             for j, frame0 in enumerate(frame0s):
-                states, out = step(states, encs, consts, block_times[j], int(frame0))
-                outs.append(out)
+                row = first_row + j if D else None
+                states, out = step(states, encs, consts, clocks[j:j + D + 1], int(frame0),
+                                   row, n_main)
+                if out is not None:
+                    outs.append(out)
+            if D:
+                states["__pipe_bt__"] = clocks[-D:].flip(0)
+            if not outs:
+                return states, torch.zeros((dest_channels, 0), dtype=torch.float32,
+                                           device=block_times.device)
             return states, torch.cat(outs, dim=1)
 
         return render, dest_channels

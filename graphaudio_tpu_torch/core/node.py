@@ -278,12 +278,15 @@ class AudioNode:
     #: them. A node that names any must always return a request.
     prologue_params: Tuple[str, ...] = ()
 
-    def prologue_request(self, slots) -> Optional[PrologueRequest]:
+    def prologue_request(self, slots, lanes=None) -> Optional[PrologueRequest]:
         """Work of this node's stage that depends on its params alone and can
         join the other stages' in one batched call at the top of the step,
         or None (the default). ``slots`` maps each param name to its
         ``ops.param_eval.ParamSlot`` (None for an exact param with events).
-        Called with the stage's representative, once per param encoding."""
+        Called with the stage's representative, once per param encoding;
+        ``lanes`` lists the members of a fused chain (core/graph.py
+        ``_fuse_chains``), whose configs may differ where the chain key
+        leaves them out, and is None for any other stage."""
         return None
 
     def output_channel_counts(self, input_channels: Sequence[int]) -> List[int]:

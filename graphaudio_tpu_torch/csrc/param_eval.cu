@@ -8,7 +8,10 @@
 // step's params into one program; here the step's table (ops/param_eval.py
 // pack_param_table: one row per (param, lane), its events padded to the
 // batch's capacity, its third word the row's kind) is evaluated by one
-// launch. A block owns one row and a
+// launch. Each row is evaluated at its own clock: its fourth word picks a
+// row of the step's clock matrix f64[C, S] (a chained stage's lanes run
+// superblocks behind the live one, core/graph.py), 0 where nothing is
+// chained. A block owns one row and a
 // tile of 256 consecutive samples: it stages the row's event fields in
 // shared memory with one coalesced load (when the capacity is at most
 // kStageCap; larger tables are read from global memory), and each thread
@@ -52,13 +55,14 @@ __global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
     const double* __restrict__ tcs, const int32_t* __restrict__ types,
     const float* __restrict__ boundary, const int32_t* __restrict__ nev,
     const float* __restrict__ base, const int32_t* __restrict__ rows,
-    const double* __restrict__ block_times, int cap, int S, double dt,
+    const double* __restrict__ clocks, int cap, int S, double dt,
     float* __restrict__ out) {
   // The row's words, count and base load while its events are staged:
   // nothing below waits on them until the barrier.
   const int r = blockIdx.x;
-  const int npb = rows[3 * r], off = rows[3 * r + 1];
-  const bool exact = rows[3 * r + 2] != 0;
+  const int npb = rows[4 * r], off = rows[4 * r + 1];
+  const bool exact = rows[4 * r + 2] != 0;
+  const double* block_times = clocks + static_cast<int64_t>(rows[4 * r + 3]) * S;
   const int n = nev[r];
   const float base_r = base[r];
   const int64_t row = static_cast<int64_t>(r) * cap;
@@ -184,18 +188,18 @@ __global__ void __launch_bounds__(kThreads) param_eval_batch_kernel(
 
 }  // namespace
 
-// R rows of `cap` events, each (npb, arena offset, kind); `max_len` is the
-// longest row's S * npb. Grid: one
+// R rows of `cap` events, each (npb, arena offset, kind, clock row of
+// `clocks` f64[C, S]); `max_len` is the longest row's S * npb. Grid: one
 // block column per row, one block row per tile of kThreads samples.
 GA_EXPORT int ga_param_eval_batch(const double* times, const float* values, const double* tcs,
                                   const int32_t* types, const float* boundary,
                                   const int32_t* nev, const float* base, const int32_t* rows,
-                                  const double* block_times, int R, int cap, int S, int max_len,
+                                  const double* clocks, int R, int cap, int S, int max_len,
                                   double dt, float* out, void* stream) {
   const dim3 grid(R, (max_len + kThreads - 1) / kThreads);
   param_eval_batch_kernel<<<grid, kThreads, stage_bytes(cap),
                             static_cast<cudaStream_t>(stream)>>>(
-      times, values, tcs, types, boundary, nev, base, rows, block_times, cap, S, dt, out);
+      times, values, tcs, types, boundary, nev, base, rows, clocks, cap, S, dt, out);
   return ga_launch_status();
 }
 

@@ -116,8 +116,10 @@ class BiQuadFilterNode(AudioNode):
 
     def chain_key(self, input_channels):
         """Chain-fusion compatibility key (the type excluded), as in the JAX
-        package. The port does not fuse chains yet (ROADMAP module item 9):
-        nothing reads it."""
+        package: biquads of any types chain into one pipelined stage
+        (core/graph.py ``_fuse_chains``), whose K8 rows carry each lane's
+        type. ``_time_varying()`` is in it, so one flag serves every lane of
+        the stage's P2 launch."""
         return ("biquad", input_channels[0], self._time_varying())
 
     def _type_onehot(self) -> np.ndarray:
@@ -142,10 +144,13 @@ class BiQuadFilterNode(AudioNode):
     #: K8 in the step's prologue reads all three params; ``process`` none.
     prologue_params = ("frequency", "Q", "gain")
 
-    def prologue_request(self, slots):
-        """K8's item: the type and where frequency, Q and gain lie."""
+    def prologue_request(self, slots, lanes=None):
+        """K8's item: the type (each lane's, for a fused chain's ``lanes``)
+        and where frequency, Q and gain lie."""
+        ftype = (self._type.value if lanes is None
+                 else tuple(n._type.value for n in lanes))
         return PrologueRequest(_step_coefficients, pack_coefficient_table,
-                               (self._type.value, {n: slots[n] for n in ("frequency", "Q", "gain")}))
+                               (ftype, {n: slots[n] for n in ("frequency", "Q", "gain")}))
 
     def process(self, state, inputs, params, rc):
         """A group of V lanes: x f32[V, C, T], state w1/w2 f32[V, C]; an

@@ -439,8 +439,9 @@ class SpatialPannerNode(AudioNode):
             "xhigh": np.zeros((self._channels,), np.float32),
         }
 
-    def prologue_request(self, slots):
-        """K10b's item: the distance model and where the 17 params lie."""
+    def prologue_request(self, slots, lanes=None):
+        """K10b's item: the distance model (in the group key, so one for
+        all ``lanes``) and where the 17 params lie."""
         return PrologueRequest(_step_gains, pack_gains_table,
                                (_MODEL_CODE[self._distance_model],
                                 {n: slots[n] for n in GAIN_PARAMS}))

@@ -241,16 +241,19 @@ _SRC_NAMES = ("frequency", "Q", "gain")
 
 def pack_coefficient_table(stages, superblock: int):
     """The K8 table of one encoding. ``stages``: (filter type, {"frequency",
-    "Q", "gain": ParamSlot}) per biquad stage, in step order. Returns numpy
-    ``rows`` i32[NR, 8] and ``consts`` f32, and the host fields ``stages``
-    ((b0 row, p1 row, V) each), ``n_b``, ``n_p`` and ``frames`` (T)."""
+    "Q", "gain": ParamSlot}) per biquad stage, in step order; the type is
+    one name for all lanes or a tuple of one a lane (a fused chain's
+    members). Returns numpy ``rows`` i32[NR, 8] and ``consts`` f32, and the
+    host fields ``stages`` ((b0 row, p1 row, V) each), ``n_b``, ``n_p`` and
+    ``frames`` (T)."""
     rows, consts, layout = [], [], []
     n_b = n_p = 0
     for ftype, slots in stages:
         V = slots["frequency"].lanes
         words = [source_words(slots[name], consts) for name in _SRC_NAMES]
-        code = FILTER_TYPES.index(ftype)
-        rows += [[code, *(w[v] for w in words), n_b + v, n_p + v, V, 0] for v in range(V)]
+        codes = [FILTER_TYPES.index(t) for t in
+                 (ftype if isinstance(ftype, tuple) else (ftype,) * V)]
+        rows += [[codes[v], *(w[v] for w in words), n_b + v, n_p + v, V, 0] for v in range(V)]
         layout.append((n_b, n_p, V))
         n_b, n_p = n_b + 3 * V, n_p + 2 * V
     if rows and max(max(r[1:4]) for r in rows) >= 2 ** 31:

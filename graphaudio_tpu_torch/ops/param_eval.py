@@ -255,8 +255,9 @@ def eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt, exact
 # ---- K6: the batched step table ---------------------------------------------
 
 
-#: Words of a K6 table row: npb, arena offset, kind (1 = exact).
-ROW_WORDS = 3
+#: Words of a K6 table row: npb, arena offset, kind (1 = exact), clock (the
+#: row of the step's clock matrix it is evaluated at).
+ROW_WORDS = 4
 
 
 @dataclass(frozen=True, eq=False)
@@ -278,9 +279,11 @@ class ParamSlot:
 
 
 def pack_param_table(entries, superblock: int, reserved=()):
-    """The K6 table of one encoding: every (key, enc, npb) or (key, enc,
-    npb, exact) in ``entries`` (numpy encodings with capacity > 0; exact
-    False when left out) becomes one row per lane, its event
+    """The K6 table of one encoding: every (key, enc, npb), (key, enc,
+    npb, exact) or (key, enc, npb, exact, clock) in ``entries`` (numpy
+    encodings with capacity > 0; exact False and clock 0 when left out;
+    ``clock`` one int for all lanes or one a lane) becomes one row per
+    lane, its event
     fields padded to the batch's largest capacity as ``encode_events`` pads
     them (times +inf, values 0, tcs 1, types 0, ``boundary`` repeating its
     last value), which changes no output: padded times are never counted and
@@ -292,8 +295,9 @@ def pack_param_table(entries, superblock: int, reserved=()):
 
     Returns a dict of numpy arrays, ``times`` f64[R, cap], ``tcs`` f64,
     ``values`` f32, ``types`` i32, ``boundary`` f32[R, cap+1], ``n`` i32[R],
-    ``base`` f32[R], ``rows`` i32[R, 3] (``npb``, arena offset, the kind:
-    1 for the exact branch, else 0), and three
+    ``base`` f32[R], ``rows`` i32[R, 4] (``npb``, arena offset, the kind:
+    1 for the exact branch, else 0, and the clock: the row of the step's
+    clock matrix that the row is evaluated at), and three
     host fields: ``size``, the arena's length in floats, ``slots``, the
     ``ParamSlot`` of each key, and ``reserved``, the ``ParamSlot`` of each
     reserved key.
@@ -303,10 +307,11 @@ def pack_param_table(entries, superblock: int, reserved=()):
               "n": [], "base": [], "rows": []}
     slots = {}
     off = 0
-    for key, enc, npb, *exact in entries:
-        exact = bool(exact and exact[0])
+    for key, enc, npb, *extra in entries:
+        exact = bool(extra and extra[0])
         times, values, tcs, types, boundary, n, base = _lanes(enc)
         L, c = times.shape
+        clock = np.broadcast_to(np.asarray(extra[1] if len(extra) > 1 else 0), (L,))
         pad = ((0, 0), (0, cap - c))
         fields["times"].append(np.pad(times, pad, constant_values=_INF))
         fields["tcs"].append(np.pad(tcs, pad, constant_values=1.0))
@@ -317,7 +322,8 @@ def pack_param_table(entries, superblock: int, reserved=()):
         fields["base"].append(base)
         per_lane = superblock * npb
         fields["rows"].append(np.stack(
-            [np.full(L, npb), off + per_lane * np.arange(L), np.full(L, int(exact))], axis=1))
+            [np.full(L, npb), off + per_lane * np.arange(L), np.full(L, int(exact)), clock],
+            axis=1))
         slots[key] = ParamSlot(off, npb, per_lane, tuple(np.shape(enc["base"])),
                                np.asarray(base, np.float32))
         off += L * per_lane
@@ -374,42 +380,52 @@ def _table_fields(table):
             table["boundary"], table["n"], table["base"], table["rows"])
 
 
-def eval_intrinsic_batch_plain(table, block_times, sample_dt):
+def _clock_matrix(clocks):
+    """A step's clocks as f64[C, S]: one row of block times ([S]) is [1, S]."""
+    return clocks if clocks.dim() == 2 else clocks[None]
+
+
+def eval_intrinsic_batch_plain(table, clocks, sample_dt):
     """Plain torch K6 over a ``pack_param_table`` table (tensors): each
-    row's curve, ``eval_intrinsic_blocked_plain`` over the rows of each
-    (``npb``, kind), written at the row's arena offset. Returns f32[size]."""
+    row's curve at the block times of its clock (row ``clock`` of
+    ``clocks`` f64[C, S]; f64[S] is one clock), ``eval_intrinsic_blocked_plain``
+    over the rows of each (``npb``, kind, clock), written at the row's
+    arena offset. Returns f32[size]."""
     times, values, tcs, types, boundary, n, base, rows = _table_fields(table)
-    S = block_times.shape[0]
-    out = torch.empty(table["size"], dtype=torch.float32, device=block_times.device)
+    clocks = _clock_matrix(clocks)
+    S = clocks.shape[1]
+    out = torch.empty(table["size"], dtype=torch.float32, device=clocks.device)
     rows_h = rows.cpu()
-    for npb, kind in torch.unique(rows_h[:, ::2], dim=0).tolist():
-        sel = torch.nonzero((rows_h[:, 0] == npb) & (rows_h[:, 2] == kind)).flatten()
+    for npb, kind, clock in torch.unique(rows_h[:, [0, 2, 3]], dim=0).tolist():
+        sel = torch.nonzero((rows_h[:, 0] == npb) & (rows_h[:, 2] == kind)
+                            & (rows_h[:, 3] == clock)).flatten()
         sub = {"times": times[sel], "values": values[sel], "tcs": tcs[sel],
                "types": types[sel], "boundary": boundary[sel], "n": n[sel], "base": base[sel]}
-        vals = eval_intrinsic_blocked_plain(sub, block_times, npb, sample_dt, exact=bool(kind))
+        vals = eval_intrinsic_blocked_plain(sub, clocks[clock], npb, sample_dt, exact=bool(kind))
         at = rows_h[sel, 1].long()[:, None] + torch.arange(S * npb)
         out[at.flatten().to(out.device)] = vals.flatten()
     return out
 
 
-def _launch_k6(times, values, tcs, types, boundary, n, base, rows, block_times,
+def _launch_k6(times, values, tcs, types, boundary, n, base, rows, clocks,
                max_len, sample_dt, out):
-    """csrc/param_eval.cu over R rows of ``cap`` events (no checks)."""
+    """csrc/param_eval.cu over R rows of ``cap`` events at the clocks
+    f64[C, S] (no checks)."""
     R, cap = times.shape
     status = cudabuild.launcher("ga_param_eval_batch")(
         times.data_ptr(), values.data_ptr(), tcs.data_ptr(), types.data_ptr(),
         boundary.data_ptr(), n.data_ptr(), base.data_ptr(), rows.data_ptr(),
-        block_times.data_ptr(), R, cap, block_times.shape[0], max_len, float(sample_dt),
-        out.data_ptr(), cudabuild.stream_of(block_times),
+        clocks.data_ptr(), R, cap, clocks.shape[-1], max_len, float(sample_dt),
+        out.data_ptr(), cudabuild.stream_of(clocks),
     )
     cudabuild.check(status, "ga_param_eval_batch")
     cudabuild.launches["eval_intrinsic_batch"] += 1
 
 
-def _require_table(times, values, tcs, types, boundary, n, base, rows, block_times):
+def _require_table(times, values, tcs, types, boundary, n, base, rows, clocks):
     R, cap = times.shape
     req = cudabuild.require
-    req(block_times, "block_times", torch.float64, ndim=1)
+    req(clocks, "clocks", torch.float64, ndim=2)
     req(times, "times", torch.float64, shape=(R, cap))
     req(values, "values", torch.float32, shape=(R, cap))
     req(tcs, "tcs", torch.float64, shape=(R, cap))
@@ -420,27 +436,30 @@ def _require_table(times, values, tcs, types, boundary, n, base, rows, block_tim
     req(rows, "rows", torch.int32, shape=(R, ROW_WORDS))
 
 
-def eval_intrinsic_batch(table, block_times, sample_dt):
+def eval_intrinsic_batch(table, clocks, sample_dt):
     """K6: every row of a ``pack_param_table`` table for one superblock, in
-    one launch; see ``eval_intrinsic_batch_plain``. CPU tensors take the
-    plain version; CUDA tensors launch csrc/param_eval.cu. Returns the
-    arena f32[size]; a param's values are its slot's rows."""
-    if block_times.device.type == "cpu":
-        return eval_intrinsic_batch_plain(table, block_times, sample_dt)
+    one launch, each row at its own clock (a row of ``clocks`` f64[C, S],
+    a contiguous view; f64[S] is one clock); see
+    ``eval_intrinsic_batch_plain``. CPU tensors take the plain version;
+    CUDA tensors launch csrc/param_eval.cu. Returns the arena f32[size]; a
+    param's values are its slot's rows."""
+    if clocks.device.type == "cpu":
+        return eval_intrinsic_batch_plain(table, clocks, sample_dt)
+    clocks = _clock_matrix(clocks)
     fields = _table_fields(table)
-    _require_table(*fields, block_times)
-    out = torch.empty(table["size"], dtype=torch.float32, device=block_times.device)
-    max_len = block_times.shape[0] * max((s.npb for s in table["slots"].values()), default=0)
+    _require_table(*fields, clocks)
+    out = torch.empty(table["size"], dtype=torch.float32, device=clocks.device)
+    max_len = clocks.shape[1] * max((s.npb for s in table["slots"].values()), default=0)
     if max_len:
-        _launch_k6(*fields, block_times, max_len, sample_dt, out)
+        _launch_k6(*fields, clocks, max_len, sample_dt, out)
     return out
 
 
 @functools.lru_cache(maxsize=64)
 def _uniform_rows(L: int, npb: int, S: int, exact: bool, device: torch.device):
-    """The ``rows`` of L lanes of one param: (npb, l * S * npb, kind), on
-    the card once per shape."""
-    return torch.tensor([[npb, lane * S * npb, int(exact)] for lane in range(L)],
+    """The ``rows`` of L lanes of one param: (npb, l * S * npb, kind, clock
+    0), on the card once per shape."""
+    return torch.tensor([[npb, lane * S * npb, int(exact), 0] for lane in range(L)],
                         dtype=torch.int32, device=device)
 
 
@@ -464,10 +483,11 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
         return eval_intrinsic_blocked_plain(enc, block_times, n_per_block, sample_dt, exact)
     times, values, tcs, types, boundary, n, base_l = _lanes(enc)
     rows = _uniform_rows(times.shape[0], n_per_block, S, bool(exact), block_times.device)
-    _require_table(times, values, tcs, types, boundary, n, base_l, rows, block_times)
+    clocks = block_times[None]
+    _require_table(times, values, tcs, types, boundary, n, base_l, rows, clocks)
     out = torch.empty((times.shape[0], S * n_per_block), dtype=torch.float32,
                       device=block_times.device)
-    _launch_k6(times, values, tcs, types, boundary, n, base_l, rows, block_times,
+    _launch_k6(times, values, tcs, types, boundary, n, base_l, rows, clocks,
                S * n_per_block, sample_dt, out)
     return out.reshape(*base.shape, S * n_per_block)
 

@@ -17,7 +17,11 @@ the P-1 past spectra oldest first, ``hist_r`` / ``hist_i`` [K, P-1,
 bins]; the port keeps a ring of P-1+L slots with a head,
 ``conv_state_from_jax``) and the delay's (the JAX package keeps L slots
 and a write cursor; the port keeps L + min(T, L) slots and a slot cursor
-beside it, ``nodes.delay.delay_state_from_jax``).
+beside it, ``nodes.delay.delay_state_from_jax``). A graph with pipes
+(fused chains) carries each pipe's register bank (``st<i>.pipe``) and the
+ring of the last D block clocks (``__pipe_bt__``) in the same layout in
+both, so a fused JAX render hands over to a fused port render; an unfused
+one to an unfused one (``pipeline_chains=False`` on both).
 """
 
 from __future__ import annotations
@@ -68,6 +72,12 @@ def states_from_jax(ctx, jax_states: dict) -> dict:
             out[key] = delay_state_from_jax(st, ctx.superblock * FRAMES_PER_BLOCK, ctx.device)
         else:
             out[key] = to_device({k: np.asarray(v) for k, v in st.items()}, ctx.device)
+        if sp["kind"] == "pipe":  # the register bank, same layout in both
+            out[key + ".pipe"] = to_device(
+                {k: np.asarray(v) for k, v in jax_states[key + ".pipe"].items()}, ctx.device)
+    if ctx._compiled.pipe_delay:  # the clock ring, latest first in both
+        out["__pipe_bt__"] = torch.from_numpy(
+            np.asarray(jax_states["__pipe_bt__"], np.float64).copy()).to(ctx.device)
     return out
 
 

@@ -2,9 +2,9 @@
 
 * ``pipeline_chains``: both packages take it with the same defaults (off on
   the base context, on for ``OfflineAudioContext``), and a render with it on
-  equals one with it off, bit for bit. The port has no chain fusion, so the
-  flag changes nothing there; the reference fuses and says its audio is
-  bit-identical per render call either way.
+  equals one with it off, bit for bit. Both fuse config 3's four biquads
+  into one pipelined stage of delay 3 with it on and none with it off;
+  config 2 here has no chain to fuse.
 * The block wrappers ``process_block``, ``process_block_interleaved``,
   ``process_blocks`` and ``render_interleaved`` match the JAX context's in
   shape, in layout (frame-major interleaving) and in value within 1e-5.
@@ -20,10 +20,12 @@ import inspect
 import numpy as np
 import pytest
 
+import benchmarks.configs as bc
 import graphaudio_tpu as ga
 import graphaudio_tpu_torch as gat
 from graphaudio_tpu.core import context as jcontext
 from graphaudio_tpu_torch.core import context as tcontext
+from graphaudio_tpu_torch.testing import configs as tc
 
 SR = 48000
 TOL = 1e-5
@@ -62,6 +64,14 @@ def test_pipeline_chains_flag():
         renders[flag] = np.concatenate([ctx.render(300), ctx.render(724)], axis=1)
     assert np.abs(renders[True]).max() > 1e-3
     assert np.array_equal(renders[True], renders[False])
+    for flag in (True, False):
+        for ctx in (bc.config3_eq_chain(superblock=4),
+                    tc.config3_eq_chain(superblock=4, device="cpu")):
+            ctx.pipeline_chains = flag
+            ctx._ensure_compiled()
+            kinds = [sp["kind"] for sp in ctx._compiled.plan]
+            assert ctx._compiled.pipe_delay == (3 if flag else 0)
+            assert kinds.count("pipe") == int(flag)
 
 
 # Each wrapper called twice in a row: (name, args, frames per call).

@@ -308,13 +308,6 @@ def test_plain_k13_against_jax_node(C):
 # ---- paths -------------------------------------------------------------------------
 
 
-def _no_fusion(pkg):
-    """``pkg`` with contexts that leave chains unfused, as the port renders."""
-    ns = types.SimpleNamespace(**vars(pkg))
-    ns.OfflineAudioContext = lambda **kw: pkg.OfflineAudioContext(pipeline_chains=False, **kw)
-    return ns
-
-
 @pytest.mark.parametrize("builder, kw", [
     ("config4_pingpong", dict(superblock=16, voices=4)),
     ("config5_steplinear", dict(superblock=8, voices=8)),
@@ -324,9 +317,12 @@ def test_item10_paths_against_jax(builder, kw):
     (12000 samples) reads its ring from frame 12000 of 16384."""
     build = getattr(tconfigs, builder)
     T = kw["superblock"] * 128
-    want = np.asarray(build(api=_no_fusion(ga), **kw).render(8 * T))
+    jctx = build(api=ga, **kw)
+    want = np.asarray(jctx.render(8 * T))
     ctx = build(device="cpu", **kw)
     got = ctx.render(8 * T)
+    # both packages fuse the same chains (the Kit's gain chains: D = 2)
+    assert ctx._compiled.pipe_delay == jctx._compiled.pipe_delay
     assert np.abs(want).max() > 1e-2
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     kinds = [key[0] for kind, nodes, key in ctx._compiled.stages if kind == "group"]

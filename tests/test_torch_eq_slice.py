@@ -3,9 +3,9 @@
 * configs 1, 2 and 3 (superblock 4, 8192 frames) against their goldens,
   tests/goldens/config{1,2,3}_*.npz (JAX CPU renders), within 1e-5;
 * config 3 side by side with a JAX render at superblock 32 over 2 steps,
-  within 1e-5. The JAX OfflineAudioContext fuses the four biquads into
-  one pipelined stage by default (``pipeline_chains=True``), which is how
-  the golden was rendered; the port renders them unfused;
+  within 1e-5. Both OfflineAudioContexts fuse the four biquads into one
+  pipelined stage by default (``pipeline_chains=True``), which is how the
+  golden was rendered;
 * a mid-render hand-off through utils.from_jax (unity source and biquad
   state): a JAX render of config 3's first section runs 2 steps, both
   packages continue 2 steps, within 1e-5;
@@ -15,7 +15,8 @@
 
 Config 3's output peaks at 0.015, so 1e-5 absolute is 7e-4 of its level:
 the golden's own f32 rounding puts it 8.4e-6 from the f64 mirror at 8192
-frames, and the port lands 6.8e-6 from the golden.
+frames, and the port lands 6.8e-6 from the golden, fused or not (its fused
+and unfused renders are equal bit for bit, tests/test_torch_pipeline.py).
 """
 
 import jax
@@ -53,7 +54,8 @@ def test_config3_side_by_side_with_jax():
     want = jctx.render(2 * T)
     tctx = tc.config3_eq_chain(superblock=32, device="cpu")
     got = np.concatenate([tctx.render(3000), tctx.render(2 * T - 3000)], axis=1)
-    assert jctx.pipeline_chains  # the JAX default: the fused chain
+    assert jctx.pipeline_chains  # the default: the fused chain, in both
+    assert tctx._compiled.pipe_delay == jctx._compiled.pipe_delay == 3
     assert np.abs(want).max() > 1e-3
     assert np.abs(got - want).max() < TOL
 

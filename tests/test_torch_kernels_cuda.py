@@ -358,6 +358,27 @@ def test_k6_batch(dev, step):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("step", [0, 5])
+def test_k6_batch_row_clocks(dev, step):
+    """Each row at its own clock (rows 3, 2, 1, 0, ... of a [4, S] clock
+    matrix, a view of a longer clock array as a render passes it), exact
+    rows included, bit for bit the plain version."""
+    S = 32
+    entries = [(key, enc, npb, k % 3 == 2,
+                (3 - k - np.arange(int(np.prod(np.shape(enc["base"]), dtype=np.int64)))) % 4)
+               for k, (key, enc, npb) in enumerate(ttab.mixed_param_entries(
+                   5, 12 * S * ttab.BLOCK) + ttab.linear_param_entries(6, 12 * S * ttab.BLOCK))]
+    table = to_device(tpe.pack_param_table(entries, S), dev)
+    ring = torch.from_numpy(ttab.block_clock(12 * S).reshape(12, S)).to(dev)
+    clocks = ring[step:step + 4]
+    cudabuild.launches.clear()
+    got = tpe.eval_intrinsic_batch(table, clocks, ttab.DT)
+    assert cudabuild.launches["eval_intrinsic_batch"] == 1
+    want = tpe.eval_intrinsic_batch_plain(table, clocks, ttab.DT)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("step", [0, 7])
 def test_k8_batch_eight_types(dev, step):
     """The batched kernel over one stage of each type, sources from a-rate
@@ -379,15 +400,34 @@ def test_k8_batch_eight_types(dev, step):
 
 
 def test_config3_one_k6_and_one_k8_launch_a_step(dev):
+    """A step of a render call (its 10 and the pipe's 3 drain rows) makes
+    one K6 and one K8 launch."""
     ctx = config3_eq_chain(superblock=32, device=dev)
     ctx.render(32 * 128)
     cudabuild.launches.clear()
     out = ctx.render(10 * 32 * 128)
-    assert cudabuild.launches["eval_intrinsic_batch"] == 10
-    assert cudabuild.launches["biquad_coefficients_batch"] == 10
+    assert ctx._compiled.pipe_delay == 3
+    assert cudabuild.launches["eval_intrinsic_batch"] == 10 + 3
+    assert cudabuild.launches["biquad_coefficients_batch"] == 10 + 3
     assert tuple(ctx._encs[PARAM_TABLE]["times"].shape) == (8, 32)
     want = config3_eq_chain(superblock=32, device="cpu").render(11 * 32 * 128)[:, 32 * 128:]
     assert np.abs(out - want).max() < 1e-5
+
+
+def test_config3_fused_is_one_p2_launch_a_step(dev):
+    """Config 3's four biquads as one pipe: one P2 launch a row over the
+    four lanes, the audio bit for bit the unfused render's on the card."""
+    frames = 10 * 32 * 128
+    unfused = config3_eq_chain(superblock=32, device=dev)
+    unfused.pipeline_chains = False
+    want = np.concatenate([unfused.render(3000), unfused.render(frames - 3000)], axis=1)
+    ctx = config3_eq_chain(superblock=32, device=dev)
+    cudabuild.launches.clear()
+    got = np.concatenate([ctx.render(3000), ctx.render(frames - 3000)], axis=1)
+    # 1 + 9 steps in two calls, each with three drain rows
+    assert cudabuild.launches["biquad_apply"] == 10 + 2 * 3
+    assert unfused._compiled.pipe_delay == 0 and ctx._compiled.pipe_delay == 3
+    np.testing.assert_array_equal(got, want)
 
 
 def _biquad_inputs(dev, V, C, T, seed):

@@ -18,7 +18,6 @@ and the stage's own one-item K8 or K10b table runs at its turn:
   their JAX renders within 1e-5.
 """
 
-import types
 from unittest import mock
 
 import numpy as np
@@ -210,13 +209,6 @@ def test_unmodulated_stages_keep_the_batch():
     np.testing.assert_allclose(got, _jax(build), atol=1e-5, rtol=0)
 
 
-def _no_fusion(pkg):
-    """``pkg`` with contexts that leave chains unfused, as the port renders."""
-    ns = types.SimpleNamespace(**vars(pkg))
-    ns.OfflineAudioContext = lambda **kw: pkg.OfflineAudioContext(pipeline_chains=False, **kw)
-    return ns
-
-
 @pytest.mark.parametrize("builder, kw, deferred", [
     ("config3_wah", dict(superblock=4), 4),
     ("config5_orbit", dict(superblock=8, voices=8), 1),
@@ -228,9 +220,12 @@ def test_mod8b_paths_against_jax(builder, kw, deferred):
     positionX lane by lane, not as a CHAIN."""
     build = getattr(tconfigs, builder)
     T = kw["superblock"] * 128
-    want = np.asarray(build(api=_no_fusion(ga), **kw).render(8 * T))
+    jctx = build(api=ga, **kw)
+    want = np.asarray(jctx.render(8 * T))
     ctx = build(device="cpu", **kw)
     got = ctx.render(8 * T)
+    # both packages fuse the same chains (the Kit's gain chains: D = 2)
+    assert ctx._compiled.pipe_delay == jctx._compiled.pipe_delay
     assert np.abs(want).max() > 1e-2
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert len(ctx._encs[tgraph.DEFERRED]) == deferred

@@ -145,20 +145,24 @@ def _fmaf(a, b, c):
     return F32(a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64))
 
 
-def _walk_k6(table, bt, dt, threads=256):
+def _walk_k6(table, clocks, dt, threads=256):
     """csrc/param_eval.cu, block by block: block (r, y) decodes row r's
-    (npb, offset) word pair and n, and its threads j = y*256 + tid < S*npb
-    each count the staged times at or before their f64 absolute time and
-    evaluate the curve with the kernel's f32/f64 operations."""
+    (npb, offset, kind, clock) words and n, and its threads j = y*256 + tid
+    < S*npb each read their block time from row ``clock`` of ``clocks``
+    (f64[C, S]; f64[S] is one clock), count the staged times at or before
+    their f64 absolute time and evaluate the curve with the kernel's f32/f64
+    operations."""
     times, tcs, values, types, boundary = (np.asarray(table[k]) for k in
                                            ("times", "tcs", "values", "types", "boundary"))
     n_all, base, rows = (np.asarray(table[k]) for k in ("n", "base", "rows"))
+    clocks = np.atleast_2d(clocks)
     R, cap = times.shape
-    S_ = bt.shape[0]
+    S_ = clocks.shape[1]
     out = np.full(table["size"], np.nan, F32)
     max_len = S_ * max(int(r[0]) for r in rows)
     for r in range(R):
         npb, off = int(rows[r, 0]), int(rows[r, 1])
+        bt = clocks[int(rows[r, 3])]
         length = S_ * npb
         for y in range(-(-max_len // threads)):
             if y * threads >= length:
@@ -206,6 +210,21 @@ def test_k6_table_walk(step):
     bt = _clock(12 * S)[step * S:(step + 1) * S]
     want = tpe.eval_intrinsic_batch(_tensors(table), torch.from_numpy(bt), DT).numpy()
     got = _walk_k6(table, bt, DT)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("step", [0, 7])
+def test_k6_table_walk_at_row_clocks(step):
+    """A chained graph's table: each entry's lanes at clocks 3, 2, 1, 0, ...
+    of a [4, S] clock matrix (the last D + 1 steps, the live one last)."""
+    entries = [(key, enc, npb, False, (3 - k - np.arange(int(np.prod(np.shape(enc["base"]),
+                                                                     dtype=np.int64)))) % 4)
+               for k, (key, enc, npb) in enumerate(_mixed_entries(seed=6))]
+    table = tpe.pack_param_table(entries, S)
+    assert sorted(set(table["rows"][:, 3].tolist())) == [0, 1, 2, 3]
+    clocks = _clock(12 * S)[step * S:(step + 4) * S].reshape(4, S)
+    want = tpe.eval_intrinsic_batch(_tensors(table), torch.from_numpy(clocks), DT).numpy()
+    got = _walk_k6(table, clocks, DT)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -360,6 +379,10 @@ def test_k8_table_walk():
 
 
 def test_config3_step_makes_one_k6_and_one_k8_call():
+    """A step (a row of the render call: config 3's four biquads are one
+    pipe, so a call runs its steps and three drain rows) makes one K6 and
+    one K8 call, K8's one stage with a type a lane, K6's rows each at its
+    lane's clock."""
     ctx = config3_eq_chain(superblock=S, device="cpu")
     steps = 6
     with mock.patch.object(tgraph, "eval_intrinsic_batch", wraps=tgraph.eval_intrinsic_batch) as k6, \
@@ -368,12 +391,16 @@ def test_config3_step_makes_one_k6_and_one_k8_call():
             mock.patch.object(tnb, "biquad_coefficients_batch",
                               wraps=tnb.biquad_coefficients_batch) as k8:
         out = ctx.render(steps * S * 128)
-    assert k6.call_count == steps and k8.call_count == steps
+    D = ctx._compiled.pipe_delay
+    assert D == 3
+    assert k6.call_count == steps + D and k8.call_count == steps + D
+    assert tuple(k6.call_args.args[1].shape) == (D + 1, S)  # the clock matrix
     # The per-encoding path is left only for params without events.
     assert all(c.args[0]["times"].shape[-1] == 0 for c in single.call_args_list)
     table = ctx._encs[tgraph.PARAM_TABLE]
     assert tuple(table["times"].shape) == (8, 32)  # frequency and Q of four biquads
-    assert len(k8.call_args.args[0]["stages"]) == 4
+    assert table["rows"][:, 3].tolist() == [3, 2, 1, 0] * 2  # lane i at level i
+    assert len(k8.call_args.args[0]["stages"]) == 1
     assert [int(c) for c in k8.call_args.args[0]["rows"][:, 0]] == [0, 5, 5, 1]
     golden = np.load("tests/goldens/config3_biquad_eq_chain.npz")["out"]
     assert np.abs(out - golden[:, :out.shape[1]]).max() < 1e-5

@@ -13,10 +13,10 @@
   1e-5;
 * a mid-render hand-off through utils.from_jax, including ``__globals__``
   (the JAX context's listener differs from the one the port's builder
-  sets): JAX renders 2 steps, both continue 2 steps, within 1e-5. The JAX
-  context fuses gain chains into pipelined stages by default; the hand-off
-  needs its unfused graph (``pipeline_chains=False``), whose stage keys are
-  the port's;
+  sets): JAX renders 2 steps, both continue 2 steps, within 1e-5. Both
+  contexts fuse the Kit's gain chains into pipelined stages (their
+  default), and the hand-off carries the pipes' register banks and clock
+  ring;
 * the Kit layer on the port: bus paths, gain and mute, one-shot reaping,
   restart and seek, fades, effect-chain rebuilds, the reverb effect, the
   buffer cache, anchors, the step-linear calculator and blend controllers
@@ -135,13 +135,14 @@ def test_reduced_config5_occlusion_touched_mid_render():
 
 def test_mid_render_handoff_from_jax():
     T = 8 * 128
-    jctx, jeng, _ = _reduced_config5(ga, jkit, voices=4, pipeline_chains=False)
+    jctx, jeng, _ = _reduced_config5(ga, jkit, voices=4)
     jeng.set_listener([0.0, 0.5, 1.0], [1.0, 0.0, -1.0], [0, 1, 0])  # the port's ctx keeps its own
     jctx.render(2 * T)
     tctx, _, _ = _reduced_config5(gat, tkit, voices=4, device="cpu")
     jstates = jax.device_get(jctx._states)
     from_jax.load_render_state(tctx, jstates, jax.device_get(jctx._consts),
                                jctx._current_frame, jctx._current_time)
+    assert tctx._compiled.pipe_delay == jctx._compiled.pipe_delay == 2
     np.testing.assert_array_equal(tctx._states["__globals__"]["listener_ahead"].numpy(),
                                   jstates["__globals__"]["listener_ahead"])
     want = jctx.render(2 * T)
