@@ -17,13 +17,14 @@ voices, each gain modulated by its own oscillator), and the paths of a
 time-varying rate: config 4 with ramped playbackRates, config 6 with swept
 LFO frequencies and a vibrato on config 2's voices, and the paths of
 phase 12 (a modulated biquad frequency and panner position, the Kit's
-step-linear mode, a ping-pong delay send). Phases, one line
-each; any failure raises and the script exits non-zero:
+step-linear mode, a ping-pong delay send) and, in phase 13, config 5's
+scene with a streamed music track and ambience. Phases, one line each;
+any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from graphaudio_tpu_torch/csrc (one nvcc per
-     source, in parallel); the device time of a one-element fill, the
-     floor under every kernel's;
+     source, in parallel) and the native codec (g++); the device time of a
+     one-element fill, the floor under every kernel's;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it, with the tolerance stated, and the
      median of 50 CUDA-event-timed calls of each (with the wrapper's
@@ -136,7 +137,19 @@ each; any failure raises and the script exits non-zero:
      panner's positionX), config5_steplinear (the Kit's step-linear mode)
      and config4_pingpong (a ping-pong delay send) at full size, five 30 s
      runs each (``render_runs``), their first 8 superblocks within 1e-5 of
-     their CPU renders, the kernels' launches a step checked.
+     their CPU renders, the kernels' launches a step checked;
+ 13. audio IO: K15 (the stream node's feed read) bit for bit against its
+     plain version at config5_streamed's two stream stages mid-render (the
+     44.1 kHz music resampled, the ambience's unity copy) and at S = 1 and
+     64, mono, rates 0.5 and 3.0 and a stream that runs out; then
+     config5_streamed (config 5's Kit scene plus a streamed FLAC music
+     track and a looped WAV ambience, their files written by the port's
+     encoders and read through the Kit's data provider and the native
+     codec, which must load) and config 5 beside it, five 30 s runs each
+     (``stream_runs``), the streamed scene's first 8 superblocks within
+     1e-5 of its CPU render, K15 once a step for each stream stage, and
+     the feeds' staging costs a call (``prepare_feed`` with its decoding,
+     the copy from pinned memory).
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -160,6 +173,7 @@ the goldens and phase 12's config5_steplinear and config4_pingpong.
 ``--pipe`` runs the goldens and config 3 fused and unfused, five 30 s
 renders each, alternated, every hash the unfused trees' config-3 hash,
 with P2's launches, host and device time a step (``pipe_runs``).
+``--stream`` runs phase 13 alone.
 ``--k4mu`` runs
 K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
 loads), mono, three channels (through shared memory) and a base one float
@@ -189,6 +203,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -470,7 +485,7 @@ def render_runs(n, build, step_frames, frames, counts, groups=None, runs=3, ref=
         raise AssertionError(f"config-{n} render is not finite, non-silent and within 1e-5 "
                              "of its reference at its start")
     return {"host_us_per_step_median": statistics.median(host), "host_us_per_step": host,
-            "profile": prof, "f32": spread(frames, walls), "sha256": sha,
+            "profile": prof, "f32": spread(frames, walls), "sha256": sha, "breakdown": bd,
             "head_vs_golden": head_err, "launches": launches, "torch_ops": ops,
             "launches_per_step": {k: v / steps for k, v in launches.items()}}
 
@@ -2570,6 +2585,53 @@ def prologue_item10_runs(dev, which=("config3_wah", "config5_orbit", "config5_st
 #: H100 as the trees before chain fusion rendered it, four biquad stages.
 CONFIG3_UNFUSED_SHA256 = "8f976460eb322f3e69c908dc7125ecd20cc0fb18a818a9129e6f0b93e0cd9655"
 
+#: Every earlier path's sha256 on the H100 as the trees before the audio IO
+#: rendered it, by its place in the main run's ``render`` object (for
+#: config4_wire, of the 30 s ``render_mulaw`` and ``render_adpcm`` bytes).
+EARLIER_SHA256 = {
+    "config4/sha256": "cc19c4b404ddd256d994e9d6cf33fd356eaf1aa4dc87da3e398da3416701bac2",
+    "config3/sha256": CONFIG3_UNFUSED_SHA256,
+    "config3/sha256_unfused": CONFIG3_UNFUSED_SHA256,
+    "config5/sha256": "45734c209b2a8184d7b144f5cb3932a5fc191762e9e10584e3e2ba53f93a3932",
+    "occluded_full/sha256": "d12534ae218f7b533bdd2cca5d245a11647772e95130d25d34e371a288d31de2",
+    "config4_wire/render_mulaw/sha256":
+        "4e58c167c42fec1619ad25f5934191b903b600c0b1b50407dbb10852bf4c324b",
+    "config4_wire/render_adpcm/sha256":
+        "a01b8a984366d8807e5928d99c31c0f1c582b52611cb0bbd21906d86cec41fab",
+    "config6/modulated/sha256": "4a2b56f0ad6e0771f611fa21302e185af69d5e773b57030a84a568047c54dee3",
+    "config6/unmodulated/sha256":
+        "05e94ff0b2d5c3ccc5fad31e92c73527ef03f965b5d038b25eaf3c1fd807ccd2",
+    "config4_pitched/sha256": "47ac125434899eaa387f53e0a6d105283d9ccac5b0389f8f70ab219acc8b23a8",
+    "config6_swept/sha256": "4062606068b8129edcbb535dff02aac7a95e120849264b19941a3e1d44572d53",
+    "vibrato/sha256": "447a969c533c83dd11c41133833c65a530567bb63a79962311850ff4d46e84d9",
+    "config3_wah/sha256": "25875997cae7483aa4cefd7adb22e6c384d411663760fa8f24b04c14600107b3",
+    "config5_orbit/sha256": "7d46cd5da5abe58b4d8b88d87bf51b1c8289293955e29ec583810680fa626e85",
+    "config5_steplinear/sha256":
+        "f524448e0781b08db2d77739dbcbd762aced3dee260d4ef01c652fb20d314b4f",
+    "config4_pingpong/sha256": "0e2ca53785726174d257b8b535ceb40e203fffa92955317daaab34b340018bdd",
+    "config5_beside_streamed/sha256":
+        "45734c209b2a8184d7b144f5cb3932a5fc191762e9e10584e3e2ba53f93a3932",
+}
+
+
+def check_earlier_hashes(render):
+    """Fail unless every path in ``EARLIER_SHA256`` rendered its recorded
+    sha256 in this run (``render``: the main run's ``render`` object), each
+    run of a path with ``sha256_runs`` included."""
+    wrong = {}
+    for where, want in EARLIER_SHA256.items():
+        *keys, field = where.split("/")
+        r = render
+        for k in keys:
+            r = r[k]
+        got = {r[field], *r.get("sha256_runs", ())} if field == "sha256" else {r[field]}
+        if got != {want}:
+            wrong[where] = sorted(got)
+    phase("render", f"{len(EARLIER_SHA256) - len(wrong)} of {len(EARLIER_SHA256)} earlier "
+          f"paths render their recorded sha256{'' if not wrong else f'; not {wrong}'}")
+    if wrong:
+        raise AssertionError(f"earlier paths' hashes changed: {wrong}")
+
 
 def pipe_runs(dev, runs=5):
     """Config 3 at full size fused (its four biquads one pipe, the default)
@@ -2628,6 +2690,123 @@ def pipe_runs(dev, runs=5):
     return res
 
 
+def k15_bound(feed, j0, S, x0, rate):
+    """``bound`` of one K15 call from this call's data: the feed frames its
+    taps touch (the span from the first quantum's first tap to the last's,
+    clamped to the feed; rates up to 4 touch every frame of it) read once,
+    the output written once and the two f64 state scalars; about 20 f32
+    operations an output."""
+    C, n = feed.shape
+    T = S * 128
+    if x0 is None:
+        span = T
+    else:
+        from graphaudio_tpu_torch.ops.stream import block_positions
+
+        xb = block_positions(x0, rate, j0, S)
+        first = int(np.floor(float(xb[0]))) - 1
+        last = int(np.floor(float(xb[-1]) + 127 * float(rate))) + 2
+        span = min(n - 1, last) - max(0, first) + 1
+    return bound(C * span * 4 + C * T * 4 + (16 if x0 is not None else 0), 20 * C * T)
+
+
+def k15_checks(dev, root):
+    """K15 against its plain version on the card, bit for bit, at the
+    shapes of ``testing/streams.feed_cases`` (config5_streamed's two stream
+    stages mid-render, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that
+    runs out), each timed as ``compare`` times with device times. A unity
+    case is also timed against the one PyTorch call that computes it, a
+    ``narrow`` and ``clone`` of the feed; no PyTorch call interpolates at
+    the resample mode's positions. Returns two entries, one a mode (the
+    template flag): the resample mode at config5_streamed's music stage and
+    the unity mode at its ambience stage, each with its mode's cases under
+    ``cases``."""
+    from graphaudio_tpu_torch.ops import stream as tstr
+    from graphaudio_tpu_torch.testing import streams
+
+    fields = ("max_abs_err", "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+              "library_device_ms", "bound_ms", "bound_by")
+    entries = {}
+    for name, args in streams.feed_cases(dev, root).items():
+        feed, j0, S, x0, _ = args
+        library = (lambda f=feed, j=j0, n=S * 128: f.narrow(1, j, n).clone()) \
+            if x0 is None else None
+        e = compare(f"K15 stream feed read, {name}", "cuda", "graphaudio_tpu_torch/csrc/stream.cu",
+                    "graphaudio_tpu/io/stream.py:304",
+                    lambda a=args: tstr.stream_feed(*a), lambda a=args: tstr.stream_feed_plain(*a),
+                    0, bnd=k15_bound(*args), library=library, device_times=True)
+        mode = "unity" if x0 is None else "resample"
+        if mode not in entries:  # the first case of a mode is config5_streamed's stage
+            entries[mode] = dict(e, name=f"K15 stream feed read, {mode}", cases={})
+        entries[mode]["cases"][name] = {f: e[f] for f in fields}
+    return [entries["resample"], entries["unity"]]
+
+
+def feed_costs(dev, build, frames):
+    """A render call's feed staging on a fresh ``build()``: ``prepare_feed``
+    of every stream node for ``frames`` frames (decoding included) on the
+    host's clock, and the copy of those feeds from pinned memory to the
+    card (the median of 10 CUDA-event-timed copies of all of them)."""
+    import torch
+
+    ctx = build()
+    ctx._ensure_compiled()
+    ctx._ensure_params_encoded()
+    nodes = [n for n in ctx._compiled.topo if hasattr(n, "prepare_feed")]
+    t0 = time.perf_counter()
+    host = [n.prepare_feed(frames) for n in nodes]
+    prep_s = time.perf_counter() - t0
+    pinned = [torch.from_numpy(a).pin_memory() for a in host]
+    copy_ms = median_ms(lambda: [p.to(dev, non_blocking=True) for p in pinned], repeats=10)
+    out = {"prepare_feed_s": prep_s, "copy_ms": copy_ms,
+           "bytes": int(sum(a.nbytes for a in host)),
+           "shapes": [list(a.shape) for a in host]}
+    phase("feeds", f"config5_streamed, one {frames}-frame call: {json.dumps(out)}")
+    return out
+
+
+def stream_runs(dev, root, runs=5):
+    """config5_streamed (config 5's Kit scene plus a streamed 44.1 kHz FLAC
+    music track and a looped 48 kHz WAV ambience on a music bus) and config
+    5 at full size (128 voices, superblock 32, 351 superblocks), ``runs``
+    renders each in this call (``render_runs``): the streamed scene's first
+    8 superblocks within 1e-5 of its CPU render, K15 once a step for each
+    of its two stream stages (one in each mode); the feeds' staging costs
+    (``feed_costs``).
+    The native codec must have loaded, with FLAC."""
+    from graphaudio_tpu_torch.io import codec_capabilities, native
+    from graphaudio_tpu_torch.testing.configs import config5_spatial_scene, config5_streamed
+
+    caps = codec_capabilities()
+    if native.load() is None or not caps["flac"]:
+        raise AssertionError(f"the native codec did not load with FLAC: {caps}")
+    phase("codec", f"native codec {native.load()._name}; capabilities {json.dumps(caps)}")
+    T = 32 * 128
+    frames = (30 * SR // T) * T
+    steps = frames // T
+    build = lambda: config5_streamed(superblock=32, device=dev, root=root)  # noqa: E731
+    ref = config5_streamed(superblock=32, device="cpu", root=root).render(8 * T)
+    counts = {"K15": ("stream_feed",), "K15 resample": ("stream_feed/resample",),
+              "K15 unity": ("stream_feed/unity",), "K5": ("unity_group_step",),
+              "P1": ("hrtf_fir",), "K10b": ("spatial_gains_batch",), "K2b": ("overlap_add",)}
+    groups = {"K15": "stream_feed", **K2BK10B_GROUPS}
+    out = {"config5_streamed": render_runs("5 streamed", build, T, frames, counts, groups,
+                                           runs=runs, ref=ref),
+           "config5": render_runs(5, lambda: config5_spatial_scene(superblock=32, device=dev),
+                                  T, frames, counts, groups, runs=runs)}
+    launches = out["config5_streamed"]["launches"]
+    if not launches["K15 resample"] == launches["K15 unity"] == steps:
+        raise AssertionError(f"K15 launched {launches} in {steps} steps, not once a step for "
+                             f"each stream stage (one resampled, one at unity)")
+    out["config5_streamed"]["feeds"] = feed_costs(dev, build, frames)
+    for key, r in out.items():
+        phase("render", f"{key}: xRT median {r['f32']['xrt_median']!r}, host us a step "
+              f"{r['host_us_per_step_median']!r}, device us a step "
+              f"{r['profile']['device_us_per_step']!r}, launches a step "
+              f"{r['profile']['launches_per_step']!r}, sha256 {r['sha256']}")
+    return out
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -2664,6 +2843,8 @@ def main(device="cuda", only=None):
     kind = torch.cuda.get_device_name(0)
     phase("device", f"{kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
           f"python {sys.version.split()[0]}; cards {torch.cuda.device_count()}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    phase("device", f"host compiler: {gxx.stdout.splitlines()[0] if gxx.returncode == 0 else gxx}")
 
     sys.path.insert(0, ROOT)
     import graphaudio_tpu_torch as gat  # noqa: F401  (sets the TF32 policy)
@@ -2684,6 +2865,15 @@ def main(device="cuda", only=None):
         if log.is_file() else []
     phase("build", f"{lib_path.name} in {build_s!r} s from {len(cudabuild.sources())} "
           f"sources; ptxas: {' | '.join(regs) or 'cached library, no compiler output'}")
+    from graphaudio_tpu_torch.io import native as tnative
+
+    t0 = time.perf_counter()
+    codec = tnative.load()
+    codec_s = time.perf_counter() - t0
+    if codec is None:
+        raise AssertionError("the native codec (graphaudio_tpu_torch/native/gacodec.cpp) "
+                             "did not build or load")
+    phase("build", f"native codec {os.path.basename(codec._name)} in {codec_s!r} s (g++)")
     # The floor under any kernel's device time as torch.profiler reads it:
     # the smallest kernel the card runs, a one-element fill.
     one = torch.zeros(1, device=dev)
@@ -2785,6 +2975,12 @@ def main(device="cuda", only=None):
             entries[0]["launches"] = runs["config4_pingpong"]["launches"]["K12"]
             entries[1]["launches"] = runs["config5_steplinear"]["launches"]["K13"]
             entries[1]["launches_pingpong"] = runs["config4_pingpong"]["launches"]["K13"]
+        elif only == "stream":
+            with tempfile.TemporaryDirectory(dir=ROOT, prefix="_stream_media_") as root:
+                entries = k15_checks(dev, root)
+                runs = stream_runs(dev, root)
+            for e, label in zip(entries, ("K15 resample", "K15 unity")):
+                e["launches"] = runs["config5_streamed"]["launches"][label]
         elif only == "pipe":
             entries = []
             golden_err = goldens(dev)
@@ -2820,8 +3016,8 @@ def main(device="cuda", only=None):
             for n in (4, 3, 5):
                 runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
         print(json.dumps({"kernels": entries, **runs, "golden_max_abs_err": golden_err,
-                          "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}),
-              flush=True)
+                          "build_s": build_s, "codec_build_s": codec_s,
+                          "floor_device_ms": floor_ms, "card": smi}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
@@ -3100,7 +3296,15 @@ def main(device="cuda", only=None):
             e["launches"] = runs_p10["config5_steplinear"]["launches"]["K13"]
             e["launches_pingpong"] = runs_p10["config4_pingpong"]["launches"]["K13"]
 
-    print(json.dumps({"kernels": entries, "render": {
+    # -- 13. the streamed scene (audio IO) --------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_stream_media_") as root:
+        k15 = k15_checks(dev, root)
+        runs_stream = stream_runs(dev, root)
+    for e, label in zip(k15, ("K15 resample", "K15 unity")):
+        e["launches"] = runs_stream["config5_streamed"]["launches"][label]
+    entries += k15
+
+    render = {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
         "config3": {"frames": frames3, "f32": render3, "host_us_per_step_median": host_us3,
@@ -3117,8 +3321,13 @@ def main(device="cuda", only=None):
         "config6": dict(runs6, golden_max_abs_err=golden_err[6]),
         **runs16,
         **runs_p10,
+        "config5_streamed": runs_stream["config5_streamed"],
+        "config5_beside_streamed": runs_stream["config5"],
         "config2_golden_max_abs_err": golden_err[2],
-        "build_s": build_s, "floor_device_ms": floor_ms, "card": smi}}), flush=True)
+        "build_s": build_s, "codec_build_s": codec_s, "floor_device_ms": floor_ms,
+        "card": smi}
+    check_earlier_hashes(render)
+    print(json.dumps({"kernels": entries, "render": render}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -3159,6 +3368,10 @@ if __name__ == "__main__":
                   "config5_steplinear and config4_pingpong",
         "pipe": "the goldens and config 3 fused and unfused, five 30 s renders each, "
                 "alternated, with a 100-step profile each",
+        "stream": "the K15 checks (config5_streamed's two stream stages mid-render, S = 1 "
+                  "and 64, mono, rates 0.5 and 3.0, a stream that runs out), five 30 s "
+                  "renders each of config5_streamed and config 5 and the feeds' staging "
+                  "costs",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

@@ -557,6 +557,7 @@ class AudioContextBase:
             self.chunk_schedule = ",".join(map(str, sched))  # materialize iterables
 
         frames_per_step = self.superblock * FRAMES_PER_BLOCK
+        cuda = self.device.type == "cuda"
         # A graph with pipes runs D rows more than it delivers (the first D
         # refill the pipes, the last D drain them); the clock continues
         # past the call's end for the drain rows, which go with the last
@@ -565,10 +566,11 @@ class AudioContextBase:
         rows = n_steps + D
         bt_host = self._block_clock(rows * self.superblock).reshape(rows, self.superblock)
         block_times = torch.from_numpy(bt_host).to(self.device)
+        t_feed = time.perf_counter()
+        feeds, held = self._stage_feeds(n_steps * frames_per_step, cuda)
         t_enq = time.perf_counter()
         prep_s = t_enq - t0
 
-        cuda = self.device.type == "cuda"
         pending = []
         tail = None
         launched = 0
@@ -582,7 +584,7 @@ class AudioContextBase:
             frame0s = [self._current_frame + frames_per_step * r for r in range(launched, end)]
             self._states, out = self._render_fn(
                 self._states, self._encs, self._consts,
-                block_times[launched:end], frame0s, launched, n_steps,
+                block_times[launched:end], frame0s, launched, n_steps, feeds,
             )
             launched += this
             if keep is not None and last:
@@ -601,6 +603,7 @@ class AudioContextBase:
         t_sync = time.perf_counter()
         if cuda:
             torch.cuda.current_stream(self.device).synchronize()
+        del held  # the feeds' pinned host copies: every launch has run
         parts = [p.numpy() for p in pending]
         axis = 1 if pack is None else 0
         out_np = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
@@ -620,6 +623,7 @@ class AudioContextBase:
             steps=n_steps,
             breakdown={
                 "prep_s": prep_s,
+                "feed_s": t_enq - t_feed,  # prepare_feed and the copies' issue
                 "enqueue_s": t_sync - t_enq,
                 "sync_s": t_notify - t_sync,
                 "notify_s": t_end - t_notify,
@@ -628,6 +632,30 @@ class AudioContextBase:
             },
         )
         return out_np if pack is None else (out_np, tail)
+
+    def _stage_feeds(self, total_frames: int, cuda: bool):
+        """Host-streamed data (decoder-fed stream nodes), staged once a
+        render call (the analogue of the reference's decoder-thread buffer
+        queue, AudioDecoderStreamNode.cs:47-87; parity:
+        graphaudio_tpu/core/context.py:623-633): each node's
+        ``prepare_feed(total_frames)`` on the render device, and
+        ``__base__``, the call's first frame, against which a step indexes
+        its feed. On the card each feed goes through pinned memory with a
+        non-blocking copy. Returns (feeds or None, the pinned host tensors,
+        which the caller keeps until its launches have run)."""
+        feeds, held = {}, []
+        for node in self._compiled.topo:
+            if not hasattr(node, "prepare_feed"):
+                continue
+            host = torch.from_numpy(node.prepare_feed(total_frames))
+            if cuda:
+                host = host.pin_memory()
+                held.append(host)
+            feeds[str(node.node_id)] = host.to(self.device, non_blocking=True)
+        if not feeds:
+            return None, held
+        feeds["__base__"] = self._current_frame
+        return feeds, held
 
     def _notify_sources(self) -> None:
         """Fire ended-events / self-disposal on scheduled sources that can

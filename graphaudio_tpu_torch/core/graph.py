@@ -106,6 +106,10 @@ class RenderContext:
         self.globals = None
         # The running stage's result from the step's prologue, if it asked.
         self.prologue_result = None
+        # The call's host-staged feeds (stream nodes), set by the step:
+        # {str(node_id): f32[C, N] on the render device, "__base__": the
+        # call's first frame (host int)}, or None.
+        self.feeds = None
 
     @property
     def block_end_times(self):
@@ -179,12 +183,23 @@ def active(span, row, n_main) -> bool:
 
 def one_gather_routes(plan):
     """The per-lane routes of a plan's group stages (inputs and modulation)
-    of two lanes or more in which every lane reads exactly one lane of one
-    group output, as when a group is fed by part of a larger one (so no
-    CHAIN): id(routing) -> (stage, port, channels, lanes). The step serves
-    each with one gather instead of a mix a lane and a stack. A one-lane
-    route keeps the mix: there the gather is one launch more (on an H100,
-    2.5 us a step more for config3_wah's four one-lane biquad stages)."""
+    of two lanes or more that the step serves with one gather instead of a
+    mix a lane and a stack: id(routing) -> (sources, lanes), the sources
+    (stage, port, grouped, channels) and each lane's (source, lane), or None
+    for a pad lane. Two kinds of route qualify:
+
+    * every lane reads exactly one lane of one group output, as when a
+      group is fed by part of a larger one (so no CHAIN): one source;
+    * every lane reads one lane of a group output, the whole output of a
+      single stage or nothing, with lanes of both of the first two kinds,
+      as when streamed sounds' gains join the voices' gain group
+      (config5_streamed): the sources joined, with a silent row for the
+      pad lanes.
+
+    A one-lane route keeps the mix: there the gather is one launch more (on
+    an H100, 2.5 us a step more for config3_wah's four one-lane biquad
+    stages). So do lanes that read single stages only: each is a view, and
+    the stack is one launch (the vibrato's eight)."""
     gathers = {}
     for sp in plan:
         if sp["kind"] != "group":
@@ -193,11 +208,21 @@ def one_gather_routes(plan):
         for routing in routes:
             if not routing or routing[0] == "CHAIN" or len(routing) < 2:
                 continue
-            firsts = [pl[0] if len(pl) == 1 else None for pl in routing]
-            if (all(p is not None and p[0] != "ALL" and p[2] is not None for p in firsts)
-                    and len({p[:2] for p in firsts}) == 1):
-                p0 = firsts[0]
-                gathers[id(routing)] = (p0[0], p0[1], p0[3], [p[2] for p in firsts])
+            if any(len(pl) > 1 or (pl and pl[0][0] == "ALL") for pl in routing):
+                continue
+            firsts = [pl[0] if pl else None for pl in routing]
+            grouped = {p[2] is not None for p in firsts if p is not None}
+            one_group = (grouped == {True} and None not in firsts
+                         and len({p[:2] for p in firsts}) == 1)
+            if not (one_group or grouped == {True, False}):
+                continue
+            sources = {}
+            for p in firsts:
+                if p is not None:
+                    sources.setdefault(p[:2], (*p[:2], p[2] is not None, p[3]))
+            order = list(sources)
+            lanes = [None if p is None else (order.index(p[:2]), p[2] or 0) for p in firsts]
+            gathers[id(routing)] = (list(sources.values()), lanes)
     return gathers
 
 
@@ -882,7 +907,8 @@ class CompiledGraph:
         only the plan and each stage representative's kernel methods, never
         live connection lists. Returns (step, destination channel count).
 
-        ``step(states, encs, consts, clocks, frame0, row=None, n_main=None)``:
+        ``step(states, encs, consts, clocks, frame0, row=None, n_main=None,
+        feeds=None)``:
         ``clocks`` f64[D+1, S] are the block clocks of the last D+1 steps,
         the live one last (D = ``pipe_delay``; a stage at level l runs at
         row D - l, the superblock that began at ``frame0 - l * T``).
@@ -890,6 +916,10 @@ class CompiledGraph:
         graph with pipes: a stage none of whose lanes is active in the row
         (``active``) is skipped and keeps its state (its output would feed
         only stages as idle), and a pipe commits only its active lanes'.
+        ``feeds`` are the call's staged feeds, handed to every stage's
+        context (``RenderContext.feeds``); a stream node is a source at
+        level 0, so it runs in the call's rows 0 to n_main - 1 only and
+        the drain rows read no feed.
         Returns (new states, destination audio f32[C, T], or None in a
         row where the destination is idle)."""
         info = self.info
@@ -912,7 +942,7 @@ class CompiledGraph:
         gathers = one_gather_routes(plan)
         lane_index = {}
 
-        def step(states, encs, consts, clocks, frame0, row=None, n_main=None):
+        def step(states, encs, consts, clocks, frame0, row=None, n_main=None, feeds=None):
             by_level = {}
 
             def rc_for(level):
@@ -923,6 +953,7 @@ class CompiledGraph:
                     rc = by_level[level] = RenderContext(info, frame0 - level * T,
                                                          clocks[D - level])
                     rc.globals = states["__globals__"]
+                    rc.feeds = feeds
                 return rc
 
             live = rc_for(0)
@@ -975,23 +1006,38 @@ class CompiledGraph:
                 return acc
 
             def gathered(routing, dst_c):
-                """A one-lane-each route's lanes, f32[V, dst_c, T], by one
-                gather and one re-channelling of all lanes (each element
-                mixed as ``mixed_signal`` mixes it), or None for another
-                route or a down-mix of more than two channels."""
+                """A ``one_gather_routes`` route's lanes, f32[V, dst_c, T],
+                by one gather (each element mixed as ``mixed_signal`` mixes
+                it), or None for another route or a down-mix of more than
+                two channels. One source without pad lanes is gathered,
+                then re-channelled; several, or pad lanes, are re-channelled
+                and joined by one ``cat`` (a silent row for the pads)
+                first."""
                 g = gathers.get(id(routing))
                 if g is None:
                     return None
-                psi, pport, src_c, lanes = g
-                if not (src_c in (1, dst_c) or (src_c, dst_c) == (2, 1)):
+                sources, lanes = g
+                if not all(c in (1, dst_c) or (c, dst_c) == (2, 1) for *_, c in sources):
                     return None
-                t = out_table[(psi, pport)]
-                idx = lane_index.get((id(routing), t.device))
+                tables = [out_table[(psi, pport)] if grouped else out_table[(psi, pport)][None]
+                          for psi, pport, grouped, _ in sources]
+                pad = None in lanes
+                join = pad or len(tables) > 1
+                if join:
+                    tables = [adapt_channels(t.transpose(0, 1), dst_c).transpose(0, 1)
+                              for t in tables]
+                    if pad:
+                        tables.append(torch.zeros((1, dst_c, T), dtype=torch.float32,
+                                                  device=clocks.device))
+                table = torch.cat(tables) if len(tables) > 1 else tables[0]
+                idx = lane_index.get((id(routing), table.device))
                 if idx is None:
-                    idx = lane_index[(id(routing), t.device)] = torch.tensor(lanes,
-                                                                             device=t.device)
-                t = t.index_select(0, idx)
-                return adapt_channels(t.transpose(0, 1), dst_c).transpose(0, 1)
+                    offs = np.cumsum([0] + [t.shape[0] for t in tables])
+                    idx = lane_index[(id(routing), table.device)] = torch.tensor(
+                        [offs[-2] if lane is None else offs[lane[0]] + lane[1]
+                         for lane in lanes], device=table.device)
+                t = table.index_select(0, idx)
+                return t if join else adapt_channels(t.transpose(0, 1), dst_c).transpose(0, 1)
 
             def modulation(sp, routing):
                 """A modulated param's modulation input, f32[V, Cm, T]: a
@@ -1162,7 +1208,7 @@ class CompiledGraph:
     def make_render_fn(self):
         """Multi-superblock renderer: the step in a Python loop over
         superblocks. ``render(states, encs, consts, block_times f64[n, S],
-        frame0s, first_row=0, n_main=None)`` runs n rows of a render call
+        frame0s, first_row=0, n_main=None, feeds=None)`` runs n rows of a render call
         from its row ``first_row`` and returns (states, out f32[C, m*T]),
         the audio of its m rows at or past the pipe delay D (all n without
         pipes). A call that delivers ``n_main`` steps runs n_main + D rows,
@@ -1173,7 +1219,8 @@ class CompiledGraph:
         step, dest_channels = self.make_step_fn()
         D = self.pipe_delay
 
-        def render(states, encs, consts, block_times, frame0s, first_row=0, n_main=None):
+        def render(states, encs, consts, block_times, frame0s, first_row=0, n_main=None,
+                   feeds=None):
             if D:
                 clocks = torch.cat([states["__pipe_bt__"].flip(0), block_times])
             else:
@@ -1182,7 +1229,7 @@ class CompiledGraph:
             for j, frame0 in enumerate(frame0s):
                 row = first_row + j if D else None
                 states, out = step(states, encs, consts, clocks[j:j + D + 1], int(frame0),
-                                   row, n_main)
+                                   row, n_main, feeds)
                 if out is not None:
                     outs.append(out)
             if D:

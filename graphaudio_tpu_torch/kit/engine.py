@@ -1,7 +1,6 @@
 """AudioEngine: the game-facing facade (parity: GraphAudio.Kit/AudioEngine.cs:15).
 
-The port of graphaudio_tpu/kit/engine.py; ``create_streaming_sound`` waits
-for the port of ``io`` (ROADMAP.md module item 12) and raises.
+The port of graphaudio_tpu/kit/engine.py.
 
 Owns the context, the path-addressed bus hierarchy (:81-118), the sound
 lifecycle with one-shot reaping (:210-233), the LRU buffer cache (:66-67), and
@@ -17,7 +16,7 @@ import numpy as np
 
 from graphaudio_tpu_torch.kit.bus import AudioBus
 from graphaudio_tpu_torch.kit.cache import AudioBufferCache, AudioBufferCacheOptions
-from graphaudio_tpu_torch.kit.sound import BufferedSound, Sound, SoundMixState
+from graphaudio_tpu_torch.kit.sound import BufferedSound, Sound, SoundMixState, StreamingSound
 
 
 class AudioEngine:
@@ -117,11 +116,15 @@ class AudioEngine:
 
     def create_streaming_sound(self, path: str,
                                mix_state: SoundMixState = SoundMixState.DIRECT,
-                               bus: Optional[AudioBus] = None):
-        raise NotImplementedError(
-            "streaming sounds need the io package, which is not ported yet "
-            "(ROADMAP.md module item 12)"
-        )
+                               bus: Optional[AudioBus] = None) -> StreamingSound:
+        self._check()
+        if self.data_provider is None:
+            raise RuntimeError("data_provider must be set before creating sounds.")
+        node = self.data_provider.get_streaming_node(self.context, path)
+        sound = StreamingSound(self, node, mix_state, bus)
+        with self._lock:
+            self._sounds.append(sound)
+        return sound
 
     def create_sound_from_buffer(self, buffer,
                                  mix_state: SoundMixState = SoundMixState.DIRECT,

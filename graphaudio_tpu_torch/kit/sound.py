@@ -3,11 +3,9 @@
 The port of graphaudio_tpu/kit/sound.py. Parity: GraphAudio.Kit/Sound.cs
 (abstract playable with mix modes, per-sound subgraph source -> gain ->
 [panner] -> bus, ~20 spatial property proxies, anchor following,
-distance-driven spatial blend, step-linear updates, fades) and
-BufferedSound.cs (recreates the one-shot source node on Play/Seek).
-
-Not ported yet (ROADMAP.md): ``StreamingSound`` (needs ``io``, module item
-12).
+distance-driven spatial blend, step-linear updates, fades),
+BufferedSound.cs (recreates the one-shot source node on Play/Seek), and
+StreamingSound.cs (delegates transport to AudioDecoderStreamNode).
 """
 
 from __future__ import annotations
@@ -495,3 +493,61 @@ class BufferedSound(Sound):
 
     def _on_dispose(self) -> None:
         self._dispose_source()
+
+
+class StreamingSound(Sound):
+    """Sound over AudioDecoderStreamNode (parity: StreamingSound.cs:9)."""
+
+    def __init__(self, engine, stream_node, mix_state: SoundMixState = SoundMixState.DIRECT,
+                 bus=None):
+        super().__init__(engine, mix_state, bus)
+        self._stream = stream_node
+        self._stream.connect(self.input)
+
+    @property
+    def is_playing(self) -> bool:
+        from graphaudio_tpu_torch.io.stream import StreamState
+
+        return self._stream.state == StreamState.PLAYING
+
+    @property
+    def is_looping(self) -> bool:
+        return self._stream.loop
+
+    @is_looping.setter
+    def is_looping(self, value: bool) -> None:
+        self._stream.loop = value
+
+    @property
+    def playback_rate(self) -> float:
+        return self._stream.playback_rate.value
+
+    @playback_rate.setter
+    def playback_rate(self, value: float) -> None:
+        self._stream.playback_rate.value = value
+
+    @property
+    def duration(self) -> float:
+        return self._stream.duration
+
+    @property
+    def sample_rate(self) -> int:
+        return self._stream.sample_rate
+
+    def seek(self, seconds: float) -> None:
+        self._stream.seek(seconds)
+
+    def _do_play(self) -> None:
+        self._stream.play()
+
+    def _do_pause(self) -> None:
+        self._stream.pause()
+
+    def _do_stop(self) -> None:
+        self._stream.stop()
+
+    def _apply_effective_playback_rate(self, rate: float) -> None:
+        self._stream.playback_rate.value = rate
+
+    def _on_dispose(self) -> None:
+        self._stream.dispose()

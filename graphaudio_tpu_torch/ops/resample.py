@@ -22,7 +22,7 @@ its plain version is nodes/sources.AudioBufferSourceNode
 .resample_group_step_plain, built from ``split_positions``,
 ``cr_weights_fma`` and the XLA-ordered sums here (``xla_cumsum``,
 ``xla_sum``). ``gather_resample`` is the reference's loop-wrapped gather,
-kept for the stream resampler.
+the stream resampler's plain version (ops/stream.py).
 """
 
 from __future__ import annotations
@@ -112,28 +112,35 @@ def xla_sum(x, dim=-1):
     return total
 
 
-def split_positions(xb, rate_b, frames_per_block: int = FRAMES_PER_BLOCK):
+def split_positions(xb, rate_b, frames_per_block: int = FRAMES_PER_BLOCK, contract=True):
     """Per-block f64 positions expanded to per-sample (i32 base, f32 frac),
     the JAX package's ``split_positions`` (graphaudio_tpu/ops/resample.py:
     99-127) over any leading dims. xb, rate_b f64[..., S]: block-start
     positions and per-block rates. f64 anchors every ``SUB_CHUNK`` samples,
     ``xb + k*(16*rate)`` as one fma (XLA contracts it), then f32 offsets
     ``a_frac + j*fl32(rate)`` within the chunk, also one fma, as XLA
-    compiles them inside ``_process_resample`` and K7 computes them (XLA
-    compiling the function alone rounds the product first, an ulp of the
-    offset apart now and then).
+    compiles them inside ``_process_resample`` and K7 computes them. With
+    ``contract=False`` each product is rounded before its add, as XLA
+    compiles the function alone and inside the stream node's ``process``
+    (K15).
 
     Returns (base i32[..., S, fpb], frac f32[..., S, fpb])."""
     n_sub = frames_per_block // SUB_CHUNK
     dev = xb.device
     k = torch.arange(n_sub, dtype=torch.float64, device=dev)
     step = (SUB_CHUNK * rate_b)[..., None].expand(*rate_b.shape, n_sub)
-    anchors = xla_rounding.fma64(k.expand_as(step), step, xb[..., None].expand_as(step))
+    if contract:
+        anchors = xla_rounding.fma64(k.expand_as(step), step, xb[..., None].expand_as(step))
+    else:
+        anchors = xb[..., None] + k * step
     a_int = torch.floor(anchors)
     a_frac = (anchors - a_int).float()  # [..., S, n_sub]
     j = torch.arange(SUB_CHUNK, dtype=torch.float32, device=dev)
     rf = rate_b.float()[..., None, None].expand(*a_frac.shape, SUB_CHUNK)
-    local = xla_rounding.fma(j.expand_as(rf), rf, a_frac[..., None].expand_as(rf))
+    if contract:
+        local = xla_rounding.fma(j.expand_as(rf), rf, a_frac[..., None].expand_as(rf))
+    else:
+        local = a_frac[..., None] + j * rf
     base_local = torch.floor(local)
     lead = xb.shape
     frac = (local - base_local).reshape(*lead, frames_per_block)
@@ -143,14 +150,16 @@ def split_positions(xb, rate_b, frames_per_block: int = FRAMES_PER_BLOCK):
 
 
 def gather_resample(data, base, frac, loop_active, loop_start, loop_end, loop_len,
-                    arena_offset=0, length=None):
+                    arena_offset=0, length=None, interp=None):
     """Resample ``data`` f32[C, A] at positions base + frac, the JAX
     package's ``gather_resample`` (graphaudio_tpu/ops/resample.py:130-176):
     the four taps at base + {-1, 0, 1, 2}, wrapped into the loop region
     when ``loop_active`` (both directions, so the window stays continuous
     across the seam), clipped to [0, length) and offset by
-    ``arena_offset``, then ``catmull_rom``. ``loop_end`` is unused, as in
-    the reference. Returns f32[C, *base.shape]."""
+    ``arena_offset``, then ``catmull_rom`` (or ``interp``, a function of
+    the four taps and the fraction rounded as its caller's XLA program
+    rounds it). ``loop_end`` is unused, as in the reference. Returns
+    f32[C, *base.shape]."""
     del loop_end
     if length is None:
         length = data.shape[1]
@@ -165,7 +174,7 @@ def gather_resample(data, base, frac, loop_active, loop_start, loop_end, loop_le
         tk = torch.where(active, loop_start + torch.remainder(tk - loop_start, safe_len), tk)
         tk = torch.clamp(tk, 0, int(length) - 1) + int(arena_offset)
         taps.append(data[:, tk.reshape(-1)].reshape(data.shape[0], *base.shape))
-    return catmull_rom(*taps, frac)
+    return (interp or catmull_rom)(*taps, frac)
 
 
 def poly_matrix(p: int, q: int) -> np.ndarray:

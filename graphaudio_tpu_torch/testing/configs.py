@@ -13,7 +13,9 @@ modulate a param that a stage's prologue reads or run the delay and the
 stereo panner: ``config3_wah`` (an LFO on each biquad's frequency),
 ``config5_orbit`` (an LFO on each panner's positionX),
 ``config5_steplinear`` (config 5's sounds in the Kit's step-linear mode)
-and ``config4_pingpong`` (config 4 with a ping-pong delay send). Their
+and ``config4_pingpong`` (config 4 with a ping-pong delay send).
+``config5_streamed`` adds a streamed music track and a looping ambience to
+config 5 (the stream node's K15, through the Kit's data provider). Their
 ``api`` argument names the package whose classes build the graph (the
 port by default; a test passes the JAX package to build the same graph
 there), so one definition serves both.
@@ -465,4 +467,38 @@ def config4_pingpong(superblock=64, voices=64, device="cuda", api=None):
     left.connect(merge, input=0)
     right.connect(merge, input=1)
     merge.connect(pan).connect(wet).connect(ctx.destination)
+    return ctx
+
+
+def config5_streamed(superblock=32, voices=128, device="cuda", api=None, root=None,
+                     seed=12):
+    """Config 5's Kit scene (the same draws and graph) plus two streamed
+    sounds on a ``music`` bus, as a game mixes many short SFX voices with
+    one streamed music track and one looping ambience: ``music.flac`` (30 s
+    stereo at 44.1 kHz, resampled to the context's 48 kHz by the stream
+    node: K15's resample mode) and ``ambience.wav`` (10 s stereo PCM16 at
+    48 kHz, looped: K15's unity mode). Both files are written into the
+    directory ``root`` by ``api``'s own encoders from
+    ``np.random.default_rng(seed)`` and read back through the Kit's
+    ``FileSystemDataProvider``; the two packages write the same bytes."""
+    if root is None:
+        raise ValueError("config5_streamed needs a directory for its two media files")
+    api, ctx, engine, sounds = _kit_scene(
+        api, superblock, voices, device, "BINAURAL_SPATIALIZED")
+    io = importlib.import_module(f"{api.__name__}.io")
+    kit = importlib.import_module(f"{api.__name__}.kit")
+    rng = np.random.default_rng(seed)
+    music = (rng.standard_normal((2, 30 * 44100)) * 0.1).astype(np.float32)
+    ambience = (rng.standard_normal((2, 10 * SR)) * 0.05).astype(np.float32)
+    io.write_flac(f"{root}/music.flac", music, 44100)
+    io.write_wav(f"{root}/ambience.wav", ambience, SR)
+    engine.data_provider = kit.FileSystemDataProvider(root)
+    bus = engine.get_bus("music")
+    streams = []
+    for name, loop in (("music.flac", False), ("ambience.wav", True)):
+        s = engine.create_streaming_sound(name, bus=bus)
+        s.is_looping = loop
+        s.play()
+        streams.append(s)
+    ctx._streams = streams
     return ctx

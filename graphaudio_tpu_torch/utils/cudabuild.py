@@ -89,6 +89,9 @@ _SIGNATURES = {
     "ga_stereo_pan": [_P, _I, _I, _P, _I, _I, _P, _P],
     # x, y0 low/high, a low, a^16 low, a high, a^16 high, gl, gm, gh, rows,
     # C, T, split, out, carry low/high, stream
+    # feed, C, N, j0, S, x0, rate (f64 state, or null for unity), resample?,
+    # out, stream
+    "ga_stream_feed": [_P, _I, _I64, _I64, _I, _P, _P, _I, _P, _P],
     "ga_onepole_split": [_P, _P, _P, *[ctypes.c_double] * 4, _P, _P, _P, _I, _I, _I, _I,
                          _P, _P, _P, _P],
 }

@@ -10,7 +10,10 @@ Both packages schedule stages the same way, so stage keys ("st<i>") and
 group lane order agree, and most states have the same layout in both: the
 sources (the buffer sources' positions; the oscillator's f64 ``phase`` and
 every scheduled source's ``started`` / ``start_time`` / ``stop_time``),
-the biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), and
+the biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), the
+decoder stream nodes (``x0``, ``rate``: f64, rewritten by each call's
+feed staging; each package's node keeps its own decoder queue, so a
+hand-off needs both nodes at the same point of the same file), and
 the ``__globals__`` entry (the listener transform, f32[3] each). What
 differs are two rings: the convolver's delay line (the JAX package keeps
 the P-1 past spectra oldest first, ``hist_r`` / ``hist_i`` [K, P-1,

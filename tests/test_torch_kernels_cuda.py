@@ -1247,3 +1247,61 @@ def test_prologue_and_item10_paths_on_card(dev, builder, kw, launches):
     assert float(np.abs(got - want).max()) < 1e-5
     for name, n in launches.items():
         assert cudabuild.launches[name] == 8 * n, name
+
+
+# -- K15: the stream node's feed read -------------------------------------------
+
+STREAM_CASES = ["config5_streamed music (S=32 C=2 rate 0.91875)",
+                "config5_streamed ambience (unity, S=32 C=2)", "S=1 C=2 rate 0.91875",
+                "S=64 C=2 rate 0.91875", "unity S=64 C=2", "mono S=32 rate 0.91875",
+                "rate 0.5 S=32 C=2", "rate 3.0 S=32 C=2 (taps clamped at the end)",
+                "run out (end of stream, S=32 C=2)"]
+
+
+@pytest.fixture(scope="module")
+def stream_cases(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from graphaudio_tpu_torch.testing import streams
+
+    return streams.feed_cases(torch.device("cuda"), str(tmp_path_factory.mktemp("streams")))
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_k15_stream_feed(dev, stream_cases, case):
+    """K15 bit for bit its plain version at config5_streamed's mid-render
+    arguments and the seeded shapes."""
+    from graphaudio_tpu_torch.ops import stream as tstr
+
+    args = stream_cases[case]
+    cudabuild.launches.clear()
+    got = tstr.stream_feed(*args)
+    want = tstr.stream_feed_plain(*args)
+    torch.cuda.synchronize()
+    mode = "unity" if args[3] is None else "resample"
+    assert cudabuild.launches["stream_feed"] == cudabuild.launches[f"stream_feed/{mode}"] == 1
+    assert got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_config5_streamed_launches_k15_once_a_step(dev, tmp_path, monkeypatch):
+    """8 superblocks of config5_streamed (16 voices) on the card: one K15
+    launch a step for each of its two stream stages (one in each mode),
+    the plain version never called, the audio within 1e-5 of the CPU
+    render."""
+    from graphaudio_tpu_torch.ops import stream as tstr
+    from graphaudio_tpu_torch.testing.configs import config5_streamed
+
+    kw = dict(superblock=32, voices=16, root=str(tmp_path))
+    frames = 8 * 32 * 128
+    want = config5_streamed(device="cpu", **kw).render(frames)
+    plain = []
+    real = tstr.stream_feed_plain
+    monkeypatch.setattr(tstr, "stream_feed_plain", lambda *a: plain.append(a) or real(*a))
+    cudabuild.launches.clear()
+    got = config5_streamed(device=dev, **kw).render(frames)
+    assert cudabuild.launches["stream_feed"] == 2 * 8
+    assert cudabuild.launches["stream_feed/resample"] == cudabuild.launches["stream_feed/unity"] == 8
+    assert not plain
+    assert np.abs(want).max() > 0.1
+    assert float(np.abs(got - want).max()) < 1e-5

@@ -315,12 +315,15 @@ def _builders():
 
 
 @pytest.mark.parametrize("name", list(_builders()))
-def test_plan_kinds_match_jax(name):
+def test_plan_kinds_match_jax(name, tmp_path):
     """Every config builder at a small size: the same stages, kinds, levels,
-    lane counts and pipe delay as the JAX package's graph."""
+    lane counts and pipe delay as the JAX package's graph (a builder that
+    streams media writes its files into a temporary directory)."""
     fn = getattr(tconfigs, name)
     params = inspect.signature(fn).parameters
     kw = {"superblock": 4, **({"voices": 4} if "voices" in params else {})}
+    if "root" in params:
+        kw["root"] = str(tmp_path)
     if "api" in params:
         jctx = fn(api=ga, **kw)
     else:

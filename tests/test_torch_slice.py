@@ -127,7 +127,9 @@ def test_import_without_jax():
         "import sys, graphaudio_tpu_torch, graphaudio_tpu_torch.utils.from_jax, "
         "graphaudio_tpu_torch.testing.configs, graphaudio_tpu_torch.kit, "
         "graphaudio_tpu_torch.nodes.spatial, graphaudio_tpu_torch.ops.hrtf, "
-        "graphaudio_tpu_torch.ops.onepole; "
+        "graphaudio_tpu_torch.ops.onepole, graphaudio_tpu_torch.io, "
+        "graphaudio_tpu_torch.io.stream, graphaudio_tpu_torch.kit.providers, "
+        "graphaudio_tpu_torch.ops.stream, graphaudio_tpu_torch.utils.nativebuild; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'graphaudio_tpu' or m.startswith('graphaudio_tpu.')]; "
         "assert not bad, bad"

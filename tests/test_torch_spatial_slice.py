@@ -272,7 +272,7 @@ def test_kit_reverb_effect(engine, rng):
     assert np.allclose(engine.context.render(2048), 0.0, atol=1e-7)
 
 
-def test_kit_cache_and_unported_modes(engine):
+def test_kit_cache_and_unported_modes(engine, tmp_path):
     cache = tkit.AudioBufferCache(tkit.AudioBufferCacheOptions(max_cached_buffers=2))
     cache.add("a", 1)
     cache.add("b", 2)
@@ -293,8 +293,17 @@ def test_kit_cache_and_unported_modes(engine):
     got = engine.context.render(1024)
     assert want[1].max() > want[0].max() > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.create_streaming_sound("x.wav")
+    # The streaming sound (once a raise naming item 12) renders as the JAX
+    # package's: a 44.1 kHz file streamed through the Kit's data provider.
+    sig = (np.random.default_rng(12).standard_normal((2, 6000)) * 0.3).astype(np.float32)
+    gat.io.write_wav(tmp_path / "x.wav", sig, 44100, float32=True)
+    for eng, kit in ((engine, tkit), (jengine, jkit)):
+        eng.data_provider = kit.FileSystemDataProvider(str(tmp_path))
+        eng.create_streaming_sound("x.wav").play()
+    want = np.asarray(jengine.context.render(2048))
+    got = engine.context.render(2048)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.abs(got).max() > 0.1
 
 
 def test_kit_anchor_moves_binaural_sound(engine):
