@@ -138,18 +138,21 @@ any failure raises and the script exits non-zero:
      and config4_pingpong (a ping-pong delay send) at full size, five 30 s
      runs each (``render_runs``), their first 8 superblocks within 1e-5 of
      their CPU renders, the kernels' launches a step checked;
- 13. audio IO: K15 (the stream node's feed read) bit for bit against its
-     plain version at config5_streamed's two stream stages mid-render (the
-     44.1 kHz music resampled, the ambience's unity copy) and at S = 1 and
-     64, mono, rates 0.5 and 3.0 and a stream that runs out; then
+ 13. audio IO: K15 (the stream node's feed read, one launch a stream node
+     a render call) bit for bit against its plain version over
+     config5_streamed's two stream nodes in a 351-step call (the 44.1 kHz
+     music resampled, the ambience's unity copy) and over calls at S = 1
+     and 64, mono, rates 0.5 and 3.0 and a stream that runs out; then
      config5_streamed (config 5's Kit scene plus a streamed FLAC music
      track and a looped WAV ambience, their files written by the port's
      encoders and read through the Kit's data provider and the native
      codec, which must load) and config 5 beside it, five 30 s runs each
      (``stream_runs``), the streamed scene's first 8 superblocks within
-     1e-5 of its CPU render, K15 once a step for each stream stage, and
-     the feeds' staging costs a call (``prepare_feed`` with its decoding,
-     the copy from pinned memory).
+     1e-5 of its CPU render, its sha256 and config 5's the recorded ones,
+     K15 once a call for each stream node, K15's device time in a 30 s
+     render, the call's peak device memory, and the feeds' staging costs a
+     call (``prepare_feed`` with its decoding, the copy from pinned
+     memory).
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -253,13 +256,15 @@ def median_ms(fn, repeats=REPEATS):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20, windows=5, only=None):
+def device_ms(fn, calls=20, windows=5, only=None, expect=None):
     """Device time of one call of ``fn``: the CUDA kernels' self time
     under torch.profiler over ``calls`` calls (with ``only``, of the
     kernels whose names hold it). Now and then a window loses
     some of its kernels' events (seen on the chip machine, for kernels
     launched through the ctypes library): of ``windows`` windows, the
-    median of those that recorded the most kernel events."""
+    median of those that recorded the most kernel events; with
+    ``expect`` (kernel events a call), of those that recorded them all,
+    and None if none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -281,8 +286,9 @@ def device_ms(fn, calls=20, windows=5, only=None):
                 total_us += t_us
                 events += e.count
         reads.append((events, total_us / calls / 1e3))
-    most = max(n for n, _ in reads)
-    return statistics.median([t for n, t in reads if n == most])
+    most = max(n for n, _ in reads) if expect is None else expect * calls
+    kept = [t for n, t in reads if n == most]
+    return statistics.median(kept) if kept else None
 
 
 def burst_ms(fn, calls=5, bursts=3):
@@ -1522,12 +1528,12 @@ def wire_checks(dev, frames, mulaw=True):
 COLD_BYTES = 64 << 20
 
 
-def cold_times(fn, x):
+def cold_times(fn, x, **dev):
     """(call ms, device ms) of ``fn`` for a cold caller: ``fn`` takes
     copies of ``x`` in turn, more than ``COLD_BYTES`` of them in all, so no
     call finds its input in L2 (each copy has ``x``'s offset in its
     storage). The call time is ``median_ms``'s, the device time
-    ``device_ms``'s."""
+    ``device_ms``'s (``dev`` its ``only`` and ``expect``)."""
     import itertools
 
     import torch
@@ -1538,7 +1544,7 @@ def cold_times(fn, x):
         buf = torch.empty(base + x.numel(), dtype=x.dtype, device=x.device)
         copies.append(buf[base:].view(x.shape).copy_(x))
     turn = itertools.cycle(copies)
-    return median_ms(lambda: fn(next(turn))), device_ms(lambda: fn(next(turn)))
+    return median_ms(lambda: fn(next(turn))), device_ms(lambda: fn(next(turn)), **dev)
 
 
 def k4mu_case(label, audio):
@@ -2585,9 +2591,10 @@ def prologue_item10_runs(dev, which=("config3_wah", "config5_orbit", "config5_st
 #: H100 as the trees before chain fusion rendered it, four biquad stages.
 CONFIG3_UNFUSED_SHA256 = "8f976460eb322f3e69c908dc7125ecd20cc0fb18a818a9129e6f0b93e0cd9655"
 
-#: Every earlier path's sha256 on the H100 as the trees before the audio IO
-#: rendered it, by its place in the main run's ``render`` object (for
-#: config4_wire, of the 30 s ``render_mulaw`` and ``render_adpcm`` bytes).
+#: Every earlier path's sha256 on the H100 as the earlier trees rendered it,
+#: by its place in the main run's ``render`` object (for config4_wire, of
+#: the 30 s ``render_mulaw`` and ``render_adpcm`` bytes; config5_streamed's
+#: as the tree that read its feeds a step at a time rendered it).
 EARLIER_SHA256 = {
     "config4/sha256": "cc19c4b404ddd256d994e9d6cf33fd356eaf1aa4dc87da3e398da3416701bac2",
     "config3/sha256": CONFIG3_UNFUSED_SHA256,
@@ -2611,6 +2618,7 @@ EARLIER_SHA256 = {
     "config4_pingpong/sha256": "0e2ca53785726174d257b8b535ceb40e203fffa92955317daaab34b340018bdd",
     "config5_beside_streamed/sha256":
         "45734c209b2a8184d7b144f5cb3932a5fc191762e9e10584e3e2ba53f93a3932",
+    "config5_streamed/sha256": "6c5ef658c1272bbf94186e3e4e6863062bec20ab151b73cc8bb9dfd22b6de783",
 }
 
 
@@ -2690,37 +2698,43 @@ def pipe_runs(dev, runs=5):
     return res
 
 
-def k15_bound(feed, j0, S, x0, rate):
+def k15_bound(feed, n_steps, S, x0, rate):
     """``bound`` of one K15 call from this call's data: the feed frames its
-    taps touch (the span from the first quantum's first tap to the last's,
-    clamped to the feed; rates up to 4 touch every frame of it) read once,
-    the output written once and the two f64 state scalars; about 20 f32
-    operations an output."""
+    taps touch (counted: the distinct clamped taps of every output) read
+    once, the output written once; about 20 f32 operations an output."""
+    import torch
+
     C, n = feed.shape
-    T = S * 128
+    frames = n_steps * S * 128
     if x0 is None:
-        span = T
+        touched = frames
     else:
+        from graphaudio_tpu_torch.ops.resample import split_positions
         from graphaudio_tpu_torch.ops.stream import block_positions
 
-        xb = block_positions(x0, rate, j0, S)
-        first = int(np.floor(float(xb[0]))) - 1
-        last = int(np.floor(float(xb[-1]) + 127 * float(rate))) + 2
-        span = min(n - 1, last) - max(0, first) + 1
-    return bound(C * span * 4 + C * T * 4 + (16 if x0 is not None else 0), 20 * C * T)
+        f64 = dict(dtype=torch.float64, device=feed.device)
+        x0t, rt = torch.tensor(x0, **f64), torch.tensor(rate, **f64)
+        base, _ = split_positions(block_positions(x0t, rt, 0, n_steps * S), rt.expand(n_steps * S),
+                                  contract=False)
+        taps = base.reshape(-1, 1).long() + torch.arange(-1, 3, device=feed.device)
+        touched = int(torch.unique(taps.clamp(0, n - 1)).numel())
+    return bound(C * touched * 4 + C * frames * 4, 20 * C * frames)
 
 
 def k15_checks(dev, root):
-    """K15 against its plain version on the card, bit for bit, at the
-    shapes of ``testing/streams.feed_cases`` (config5_streamed's two stream
-    stages mid-render, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that
-    runs out), each timed as ``compare`` times with device times. A unity
-    case is also timed against the one PyTorch call that computes it, a
-    ``narrow`` and ``clone`` of the feed; no PyTorch call interpolates at
-    the resample mode's positions. Returns two entries, one a mode (the
-    template flag): the resample mode at config5_streamed's music stage and
-    the unity mode at its ambience stage, each with its mode's cases under
-    ``cases``."""
+    """K15 against its plain version on the card, bit for bit, over the
+    whole render calls of ``testing/streams.feed_cases`` (config5_streamed's
+    two stream nodes in a 351-step call, S = 1 and 64, mono, rates 0.5 and
+    3.0, a stream that runs out), each timed as ``compare`` times with
+    device times, and config5_streamed's two also cold (``cold_times``: the
+    feed rotated through more than the L2), both device times counted only
+    from profiler windows that recorded every launch. A unity case is also timed
+    against the one PyTorch expression that computes it, the feed's first
+    n_steps * T frames reshaped to [C, n_steps, T], transposed and made
+    contiguous; no PyTorch call interpolates at the resample mode's
+    positions. Returns two entries, one a mode (the template flag): the
+    resample mode at config5_streamed's music node and the unity mode at
+    its ambience, each with its mode's cases under ``cases``."""
     from graphaudio_tpu_torch.ops import stream as tstr
     from graphaudio_tpu_torch.testing import streams
 
@@ -2728,18 +2742,99 @@ def k15_checks(dev, root):
               "library_device_ms", "bound_ms", "bound_by")
     entries = {}
     for name, args in streams.feed_cases(dev, root).items():
-        feed, j0, S, x0, _ = args
-        library = (lambda f=feed, j=j0, n=S * 128: f.narrow(1, j, n).clone()) \
-            if x0 is None else None
+        feed, n_steps, S, x0, _ = args
+        T = S * 128
+        library = (lambda f=feed, k=n_steps, t=T: f[:, :k * t].reshape(f.shape[0], k, t)
+                   .transpose(0, 1).contiguous()) if x0 is None else None
         e = compare(f"K15 stream feed read, {name}", "cuda", "graphaudio_tpu_torch/csrc/stream.cu",
                     "graphaudio_tpu/io/stream.py:304",
-                    lambda a=args: tstr.stream_feed(*a), lambda a=args: tstr.stream_feed_plain(*a),
+                    lambda a=args: tstr.stream_feed_call(*a),
+                    lambda a=args: tstr.stream_feed_call_plain(*a),
                     0, bnd=k15_bound(*args), library=library, device_times=True)
         mode = "unity" if x0 is None else "resample"
-        if mode not in entries:  # the first case of a mode is config5_streamed's stage
-            entries[mode] = dict(e, name=f"K15 stream feed read, {mode}", cases={})
+        if mode not in entries:  # the first case of a mode is config5_streamed's node
+            checked = dict(only="stream_feed", expect=1)
+            warm = device_ms(lambda a=args: tstr.stream_feed_call(*a), **checked)
+            cold_ms, cold_dev = cold_times(
+                lambda f, a=args: tstr.stream_feed_call(f, *a[1:]), feed, **checked)
+            phase("kernels", f"K15 stream feed read, {name}: every launch recorded, {warm!r} ms "
+                  f"warm and {cold_dev!r} ms cold on the device; cold {cold_ms!r} ms a call")
+            entries[mode] = dict(e, name=f"K15 stream feed read, {mode}", cases={},
+                                 device_ms=warm, cold_ms=cold_ms, cold_device_ms=cold_dev)
         entries[mode]["cases"][name] = {f: e[f] for f in fields}
     return [entries["resample"], entries["unity"]]
+
+
+def k15_in_render(build, frames, windows=3):
+    """K15's device time in a ``frames``-frame render call: for each of
+    ``windows`` fresh ``build()``s (after a one-step call), the kernels whose
+    names hold ``stream_feed`` under torch.profiler, CUDA activity only,
+    each mode's events against its launches counted by the wrapper. The
+    profiler can lose kernel events, so only windows that recorded every
+    launch count. Returns {mode: {"launches", "us" (summed), "us_per_launch"}}
+    (the mode ``resample`` for the template's ``<true>`` instance), the
+    median of the windows kept, or None if no window kept them all (not
+    measured), and the number of windows kept."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    kept = []
+    for _ in range(windows):
+        gc.collect()
+        ctx = build()
+        ctx.render(128 * ctx.superblock)
+        torch.cuda.synchronize()
+        cudabuild.launches.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ctx.render(frames)
+            torch.cuda.synchronize()
+        read = {}
+        for e in prof.key_averages():
+            t_us = getattr(e, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(e, "self_cuda_time_total", 0.0)
+            if "stream_feed" in e.key and t_us > 0:
+                r = read.setdefault("resample" if "<true>" in e.key else "unity",
+                                    {"launches": 0, "us": 0.0})
+                r["launches"] += e.count
+                r["us"] += t_us
+        counted = {m: cudabuild.launches[f"stream_feed/{m}"] for m in ("resample", "unity")}
+        if {m: r["launches"] for m, r in read.items()} == {m: n for m, n in counted.items() if n}:
+            kept.append(read)
+    if not kept:
+        return None, 0
+    out = {}
+    for mode in sorted({m for read in kept for m in read}):
+        us = statistics.median(read[mode]["us"] for read in kept)
+        n = kept[0][mode]["launches"]
+        out[mode] = {"launches": n, "us": us, "us_per_launch": us / n}
+    return out, len(kept)
+
+
+def peak_memory(build, frames):
+    """Device memory of one ``frames``-frame render call of a fresh
+    ``build()`` (after Python's garbage is collected and a one-step call):
+    allocated before it and the peak during it
+    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``),
+    in bytes."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    ctx = build()
+    ctx.render(128 * ctx.superblock)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ctx.render(frames)
+    torch.cuda.synchronize()
+    return {"before_call": before, "peak": torch.cuda.max_memory_allocated(),
+            "call": torch.cuda.max_memory_allocated() - before}
 
 
 def feed_costs(dev, build, frames):
@@ -2770,9 +2865,10 @@ def stream_runs(dev, root, runs=5):
     music track and a looped 48 kHz WAV ambience on a music bus) and config
     5 at full size (128 voices, superblock 32, 351 superblocks), ``runs``
     renders each in this call (``render_runs``): the streamed scene's first
-    8 superblocks within 1e-5 of its CPU render, K15 once a step for each
-    of its two stream stages (one in each mode); the feeds' staging costs
-    (``feed_costs``).
+    8 superblocks within 1e-5 of its CPU render, K15 once a call for each
+    of its two stream nodes (one in each mode); K15's device time in a 30 s
+    render (``k15_in_render``), the peak device memory of a 30 s call
+    (``peak_memory``) and the feeds' staging costs (``feed_costs``).
     The native codec must have loaded, with FLAC."""
     from graphaudio_tpu_torch.io import codec_capabilities, native
     from graphaudio_tpu_torch.testing.configs import config5_spatial_scene, config5_streamed
@@ -2794,11 +2890,23 @@ def stream_runs(dev, root, runs=5):
                                            runs=runs, ref=ref),
            "config5": render_runs(5, lambda: config5_spatial_scene(superblock=32, device=dev),
                                   T, frames, counts, groups, runs=runs)}
+    for key, where in (("config5_streamed", "config5_streamed"),
+                       ("config5", "config5_beside_streamed")):
+        if out[key]["sha256"] != EARLIER_SHA256[f"{where}/sha256"]:
+            raise AssertionError(f"{key} rendered {out[key]['sha256']}, not its recorded "
+                                 f"{EARLIER_SHA256[where + '/sha256']}")
     launches = out["config5_streamed"]["launches"]
-    if not launches["K15 resample"] == launches["K15 unity"] == steps:
-        raise AssertionError(f"K15 launched {launches} in {steps} steps, not once a step for "
-                             f"each stream stage (one resampled, one at unity)")
-    out["config5_streamed"]["feeds"] = feed_costs(dev, build, frames)
+    if not launches["K15 resample"] == launches["K15 unity"] == 1:
+        raise AssertionError(f"K15 launched {launches} in a {steps}-step call, not once a "
+                             f"call for each stream node (one resampled, one at unity)")
+    r = out["config5_streamed"]
+    r["k15_in_render"], kept = k15_in_render(build, frames)
+    r["memory"] = peak_memory(build, frames)
+    r["feeds"] = feed_costs(dev, build, frames)
+    in_render = json.dumps(r["k15_in_render"]) if kept else "not measured"
+    phase("stream", f"config5_streamed, one {steps}-step call: K15 in the render "
+          f"{in_render} ({kept} of 3 profiler windows recorded every launch); device "
+          f"memory {json.dumps(r['memory'])}")
     for key, r in out.items():
         phase("render", f"{key}: xRT median {r['f32']['xrt_median']!r}, host us a step "
               f"{r['host_us_per_step_median']!r}, device us a step "
@@ -3368,10 +3476,11 @@ if __name__ == "__main__":
                   "config5_steplinear and config4_pingpong",
         "pipe": "the goldens and config 3 fused and unfused, five 30 s renders each, "
                 "alternated, with a 100-step profile each",
-        "stream": "the K15 checks (config5_streamed's two stream stages mid-render, S = 1 "
-                  "and 64, mono, rates 0.5 and 3.0, a stream that runs out), five 30 s "
-                  "renders each of config5_streamed and config 5 and the feeds' staging "
-                  "costs",
+        "stream": "the K15 checks (whole calls: config5_streamed's two stream nodes over "
+                  "351 steps, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that runs "
+                  "out), five 30 s renders each of config5_streamed and config 5, K15's "
+                  "time in the render, the call's peak device memory and the feeds' "
+                  "staging costs",
     }
     for mode, what in modes.items():
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,

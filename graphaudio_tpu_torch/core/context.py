@@ -567,7 +567,7 @@ class AudioContextBase:
         bt_host = self._block_clock(rows * self.superblock).reshape(rows, self.superblock)
         block_times = torch.from_numpy(bt_host).to(self.device)
         t_feed = time.perf_counter()
-        feeds, held = self._stage_feeds(n_steps * frames_per_step, cuda)
+        feeds, held = self._stage_feeds(n_steps, cuda)
         t_enq = time.perf_counter()
         prep_s = t_enq - t0
 
@@ -623,7 +623,7 @@ class AudioContextBase:
             steps=n_steps,
             breakdown={
                 "prep_s": prep_s,
-                "feed_s": t_enq - t_feed,  # prepare_feed and the copies' issue
+                "feed_s": t_enq - t_feed,  # prepare_feed, the copies' and reads' issue
                 "enqueue_s": t_sync - t_enq,
                 "sync_s": t_notify - t_sync,
                 "notify_s": t_end - t_notify,
@@ -633,25 +633,31 @@ class AudioContextBase:
         )
         return out_np if pack is None else (out_np, tail)
 
-    def _stage_feeds(self, total_frames: int, cuda: bool):
+    def _stage_feeds(self, n_steps: int, cuda: bool):
         """Host-streamed data (decoder-fed stream nodes), staged once a
         render call (the analogue of the reference's decoder-thread buffer
         queue, AudioDecoderStreamNode.cs:47-87; parity:
         graphaudio_tpu/core/context.py:623-633): each node's
-        ``prepare_feed(total_frames)`` on the render device, and
-        ``__base__``, the call's first frame, against which a step indexes
-        its feed. On the card each feed goes through pinned memory with a
-        non-blocking copy. Returns (feeds or None, the pinned host tensors,
-        which the caller keeps until its launches have run)."""
+        ``prepare_feed`` of the call's frames, copied to the render device
+        and read at once for all ``n_steps`` steps by the node's
+        ``read_feed`` (one K15 launch on the card, on the current stream,
+        right after the copy; the feed is freed once read), and
+        ``__base__``, the call's first frame, against which a step finds its
+        row. On the card each feed goes through pinned memory with a
+        non-blocking copy. Returns ({str(node_id): f32[n_steps, C, T],
+        "__base__": frame} or None, the pinned host tensors, which the
+        caller keeps until its launches have run)."""
         feeds, held = {}, []
+        S = self.superblock
         for node in self._compiled.topo:
             if not hasattr(node, "prepare_feed"):
                 continue
-            host = torch.from_numpy(node.prepare_feed(total_frames))
+            host = torch.from_numpy(node.prepare_feed(n_steps * S * FRAMES_PER_BLOCK))
             if cuda:
                 host = host.pin_memory()
                 held.append(host)
-            feeds[str(node.node_id)] = host.to(self.device, non_blocking=True)
+            feed = host.to(self.device, non_blocking=True)
+            feeds[str(node.node_id)] = node.read_feed(feed, n_steps, S)
         if not feeds:
             return None, held
         feeds["__base__"] = self._current_frame

@@ -107,8 +107,8 @@ class RenderContext:
         # The running stage's result from the step's prologue, if it asked.
         self.prologue_result = None
         # The call's host-staged feeds (stream nodes), set by the step:
-        # {str(node_id): f32[C, N] on the render device, "__base__": the
-        # call's first frame (host int)}, or None.
+        # {str(node_id): the call's read f32[n_steps, C, T] on the render
+        # device, "__base__": the call's first frame (host int)}, or None.
         self.feeds = None
 
     @property

@@ -1,9 +1,10 @@
 """Streaming source node: decoder thread + host-staged feeds.
 
 The port of graphaudio_tpu/io/stream.py: the host side (decoder thread,
-transport, feed staging) is copied; ``process`` reads the step's frames from
-the call's feed with K15 (ops/stream.py, csrc/stream.cu) on a CUDA feed,
-with its plain version on a CPU feed.
+transport, feed staging) is copied. Every step's frames of a render call
+are read at once when the call stages its feeds (``read_feed``: one K15
+launch, ops/stream.py and csrc/stream.cu, on a CUDA feed; its plain version
+on a CPU feed), and ``process`` hands the step its row of that read.
 
 Parity: GraphAudio.IO/AudioStreamSourceNodeBase.cs (push-source with buffer
 recycling, StreamState Playing/Paused/Stopped with flush-on-stop, per-channel
@@ -15,9 +16,10 @@ Design: the decoder thread fills a host-side chunk queue exactly like the
 reference; at each render-call boundary the node *stages a feed* — a float32
 [channels, N] array of upcoming source samples, which the context copies to
 the render device once a call (core/context.py). The kernel is a stateless
-gather (unity-rate copy or Catmull-Rom resample at x_j = x0 + j*rate); all
-stream bookkeeping (consumption, looping, pause/stop, underruns) happens on
-the host, mirroring the reference's host-thread discipline.
+gather over the whole call (unity-rate copy or Catmull-Rom resample at
+x_j = x0 + j*rate); all stream bookkeeping (consumption, looping,
+pause/stop, underruns) happens on the host, mirroring the reference's
+host-thread discipline.
 
 Documented deviations: ``playback_rate`` takes effect at render-call
 boundaries (the reference applies it per 128-frame block), as in the JAX
@@ -37,7 +39,7 @@ import numpy as np
 from graphaudio_tpu_torch.core.node import AudioNode
 from graphaudio_tpu_torch.core.params import AutomationRate
 from graphaudio_tpu_torch.io.decode import AudioDecoder
-from graphaudio_tpu_torch.ops.stream import stream_feed
+from graphaudio_tpu_torch.ops.stream import stream_feed_call
 
 # Feed arrays pad to multiples of this, as in the JAX package (stable jit
 # shapes there); the padding is part of the result: the resampler's taps
@@ -75,6 +77,9 @@ class AudioDecoderStreamNode(AudioNode):
         self._pending = np.zeros((decoder.channels, 0), np.float32)
         self._next_x0 = 1.0  # resampler warmup position (CubicResampler.cs:31-38)
         self._primed = False
+        # The staged call's read: None for the unity copy, else the
+        # resampler's (x0, rate); set by prepare_feed, read by read_feed.
+        self._call_read = None
         self._wake = threading.Event()
         self._quit = False
         self._thread = threading.Thread(
@@ -261,6 +266,7 @@ class AudioDecoderStreamNode(AudioNode):
             n = _FEED_BUCKET * (-(-max(total_out_frames, 1) // _FEED_BUCKET))
             feed = np.zeros((C, n), np.float32)
             self.context.update_node_state(self, x0=1.0, rate=1.0)
+            self._call_read = None if self._unity() else (1.0, 1.0)
             return feed
 
         if self._unity():
@@ -277,6 +283,7 @@ class AudioDecoderStreamNode(AudioNode):
             feed = np.zeros((C, n), np.float32)
             feed[:, :need] = out
             self.context.update_node_state(self, x0=0.0, rate=1.0)
+            self._call_read = None
             return feed
 
         # Automation evaluated at the call boundary (the reference reads the
@@ -306,7 +313,18 @@ class AudioDecoderStreamNode(AudioNode):
         )
         self._next_x0 = x_end - consumed if not starved else 1.0
         self.context.update_node_state(self, x0=x0, rate=rate)
+        self._call_read = (x0, rate)
         return feed
+
+    def read_feed(self, feed, n_steps: int, S: int):
+        """Every step's frames of the call from its staged ``feed`` (f32[C,
+        N] on the render device), f32[n_steps, C, S*128]: one K15 launch on
+        the card, the plain read on the CPU. The mode and the resampler's
+        x0 and rate are the ones ``prepare_feed`` staged the call with, so
+        a playbackRate touched mid-call takes effect at the next call."""
+        if self._call_read is None:
+            return stream_feed_call(feed, n_steps, S)
+        return stream_feed_call(feed, n_steps, S, *self._call_read)
 
     # -- kernel -----------------------------------------------------------------
 
@@ -314,16 +332,12 @@ class AudioDecoderStreamNode(AudioNode):
         return {"x0": np.float64(1.0), "rate": np.float64(1.0)}
 
     def process(self, state, inputs, params, rc):
-        """The step's frames from the call's feed: one K15 launch on a CUDA
-        feed (the unity copy, or the resampler at the stage's f64 x0 and
-        rate), its plain version on a CPU feed."""
-        feed = rc.feeds[str(self.node_id)]  # [C, N]
-        # Output-sample index of this superblock within the render call (the
-        # feed is staged per call; the steps advance through it).
-        j0 = rc.frame0 - rc.feeds["__base__"]
-        if self._unity():
-            return state, [stream_feed(feed, j0, rc.superblock)]
-        return state, [stream_feed(feed, j0, rc.superblock, state["x0"], state["rate"])]
+        """The step's frames: its row of the call's read (``read_feed``), a
+        contiguous [C, T] view. The state is the call's x0 and rate, which
+        that read used."""
+        read = rc.feeds[str(self.node_id)]  # [n_steps, C, T]
+        row = (rc.frame0 - rc.feeds["__base__"]) // read.shape[2]
+        return state, [read[row]]
 
     def dispose(self) -> None:
         self._quit = True

@@ -1269,26 +1269,28 @@ def stream_cases(tmp_path_factory):
 
 @pytest.mark.parametrize("case", STREAM_CASES)
 def test_k15_stream_feed(dev, stream_cases, case):
-    """K15 bit for bit its plain version at config5_streamed's mid-render
-    arguments and the seeded shapes."""
+    """K15 bit for bit its plain version over whole render calls: both of
+    config5_streamed's stream nodes in a 351-step call and the seeded
+    calls; one launch each, counted by its mode."""
     from graphaudio_tpu_torch.ops import stream as tstr
 
     args = stream_cases[case]
     cudabuild.launches.clear()
-    got = tstr.stream_feed(*args)
-    want = tstr.stream_feed_plain(*args)
+    got = tstr.stream_feed_call(*args)
+    want = tstr.stream_feed_call_plain(*args)
     torch.cuda.synchronize()
     mode = "unity" if args[3] is None else "resample"
     assert cudabuild.launches["stream_feed"] == cudabuild.launches[f"stream_feed/{mode}"] == 1
-    assert got.is_contiguous() and got.shape == want.shape
+    assert got.is_contiguous() and got.shape == want.shape == (args[1], args[0].shape[0],
+                                                               args[2] * 128)
     assert torch.equal(got, want)
 
 
-def test_config5_streamed_launches_k15_once_a_step(dev, tmp_path, monkeypatch):
-    """8 superblocks of config5_streamed (16 voices) on the card: one K15
-    launch a step for each of its two stream stages (one in each mode),
-    the plain version never called, the audio within 1e-5 of the CPU
-    render."""
+def test_config5_streamed_launches_k15_once_a_call(dev, tmp_path, monkeypatch):
+    """8 superblocks of config5_streamed (16 voices) in one call on the
+    card: one K15 launch for each of its two stream nodes (one in each
+    mode), the plain version never called, the audio within 1e-5 of the
+    CPU render."""
     from graphaudio_tpu_torch.ops import stream as tstr
     from graphaudio_tpu_torch.testing.configs import config5_streamed
 
@@ -1296,12 +1298,12 @@ def test_config5_streamed_launches_k15_once_a_step(dev, tmp_path, monkeypatch):
     frames = 8 * 32 * 128
     want = config5_streamed(device="cpu", **kw).render(frames)
     plain = []
-    real = tstr.stream_feed_plain
-    monkeypatch.setattr(tstr, "stream_feed_plain", lambda *a: plain.append(a) or real(*a))
+    real = tstr.stream_feed_call_plain
+    monkeypatch.setattr(tstr, "stream_feed_call_plain", lambda *a: plain.append(a) or real(*a))
     cudabuild.launches.clear()
     got = config5_streamed(device=dev, **kw).render(frames)
-    assert cudabuild.launches["stream_feed"] == 2 * 8
-    assert cudabuild.launches["stream_feed/resample"] == cudabuild.launches["stream_feed/unity"] == 8
+    assert cudabuild.launches["stream_feed"] == 2
+    assert cudabuild.launches["stream_feed/resample"] == cudabuild.launches["stream_feed/unity"] == 1
     assert not plain
     assert np.abs(want).max() > 0.1
     assert float(np.abs(got - want).max()) < 1e-5

@@ -12,8 +12,9 @@ the per-call feeds, against the JAX package on the CPU.
 * the first touch of playbackRate switches the unity copy to the
   resampler at the next call, in both packages;
 * a streamed Kit sound under the Kit's gain pipes (D = 2) over several
-  calls: K15 runs in the call's rows 0 to n - 1 only (the drain rows read
-  no feed), and the audio equals the JAX render;
+  calls: K15 reads each call's n steps once, the stream stage runs in the
+  call's rows 0 to n - 1 only (the drain rows read no feed), row r handing
+  on row r of the read, and the audio equals the JAX render;
 * a mid-render ``from_jax`` hand-off of the stream stage's state;
 * ``config5_streamed`` reduced (8 voices, superblock 4, 8192 frames)
   against its JAX twin within 1e-5.
@@ -29,7 +30,6 @@ import graphaudio_tpu_torch as gat
 from graphaudio_tpu.io import codec_capabilities, write_mp3, write_opus, write_wav
 from graphaudio_tpu_torch.io import stream as tstream
 from graphaudio_tpu_torch.io import StreamState
-from graphaudio_tpu_torch.ops import stream as tops
 from graphaudio_tpu_torch.testing import configs as tconfigs
 from graphaudio_tpu_torch.utils import from_jax
 
@@ -211,20 +211,29 @@ def test_opus_stream_node_with_loop(tmp_path):
     assert float(np.sqrt(np.mean(got[0, n:].astype(np.float64) ** 2))) > 0.2
 
 
-def test_streamed_sound_under_kit_pipes_reads_no_feed_in_drain_rows(tmp_path, rng):
+def test_streamed_sound_under_kit_pipes_reads_no_feed_in_drain_rows(tmp_path, rng,
+                                                                    monkeypatch):
     """A streamed Kit sound (44.1 kHz, resampled) on a bus: its gain, the
     bus's and the master's are one pipe (D = 2), so each call runs n + 2 rows;
-    the stream stage runs in rows 0 to n - 1 only, its j0 inside the call's
-    frames, and the render equals the JAX package's over calls of several
-    lengths."""
+    K15 reads the call's n steps once, at staging, and the stream stage runs
+    in rows 0 to n - 1 only, row r handing on row r of that read; the
+    render equals the JAX package's over calls of several lengths."""
     _wav(tmp_path, rng, 30000, channels=2, rate=44100, name="m.wav")
     calls, renders = (2048, 1000, 3072, 512), []
-    seen = []
-    real = tops.stream_feed
+    reads, rows = [], []
+    real_call = tstream.stream_feed_call
+    real_process = tstream.AudioDecoderStreamNode.process
 
-    def spy(feed, j0, S, *rest):
-        seen.append((feed.shape[1], j0))
-        return real(feed, j0, S, *rest)
+    def spy_call(feed, n_steps, S, *rest):
+        out = real_call(feed, n_steps, S, *rest)
+        reads.append((n_steps, S, rest, out))
+        return out
+
+    def spy_process(self, state, inputs, params, rc):
+        state, outs = real_process(self, state, inputs, params, rc)
+        read = reads[-1][3]
+        rows.append((outs[0].data_ptr() - read.data_ptr()) // (read[0].numel() * 4))
+        return state, outs
 
     for pkg, ctx in _contexts(superblock=2):
         kit = importlib.import_module(f"{pkg.__name__}.kit")
@@ -235,17 +244,18 @@ def test_streamed_sound_under_kit_pipes_reads_no_feed_in_drain_rows(tmp_path, rn
         parts = []
         for n in calls:
             if pkg is gat:
-                tstream.stream_feed = spy
-                seen.clear()
-            try:
-                parts.append(np.asarray(ctx.render(n)))
-            finally:
-                tstream.stream_feed = real
+                monkeypatch.setattr(tstream, "stream_feed_call", spy_call)
+                monkeypatch.setattr(tstream.AudioDecoderStreamNode, "process", spy_process)
+                reads.clear()
+                rows.clear()
+            parts.append(np.asarray(ctx.render(n)))
+            monkeypatch.undo()
             if pkg is gat:
                 steps = ctx.stats.last_breakdown["rows"] - ctx._compiled.pipe_delay
                 assert ctx._compiled.pipe_delay == 2
-                T = ctx.superblock * 128
-                assert [j0 for _, j0 in seen] == [r * T for r in range(steps)]
+                assert [(k, S, len(rest)) for k, S, rest, _ in reads] == [(steps, 2, 2)]
+                assert reads[0][3].shape == (steps, 2, 2 * 128)
+                assert rows == list(range(steps))
         renders.append(np.concatenate(parts, axis=1))
     assert np.abs(renders[1]).max() > 0.1
     np.testing.assert_array_equal(renders[1], renders[0])
