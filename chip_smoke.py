@@ -17,8 +17,9 @@ voices, each gain modulated by its own oscillator), and the paths of a
 time-varying rate: config 4 with ramped playbackRates, config 6 with swept
 LFO frequencies and a vibrato on config 2's voices, and the paths of
 phase 12 (a modulated biquad frequency and panner position, the Kit's
-step-linear mode, a ping-pong delay send) and, in phase 13, config 5's
-scene with a streamed music track and ambience. Phases, one line each;
+step-linear mode, a ping-pong delay send), in phase 13, config 5's
+scene with a streamed music track and ambience and, in phase 14, config
+5's scene on a measured-like HRIR set past 128 taps. Phases, one line each;
 any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -152,7 +153,20 @@ any failure raises and the script exits non-zero:
      K15 once a call for each stream node, K15's device time in a 30 s
      render, the call's peak device memory, and the feeds' staging costs a
      call (``prepare_feed`` with its decoding, the copy from pinned
-     memory).
+     memory);
+ 14. a measured HRIR set past 128 taps: K10p-a (the partitioned filter's
+     spectral MAC, each partition's spectrum interpolated in the kernel)
+     and K10p-b (its overlap-add and blend) against their plain versions
+     within 1e-6 x max|ref| (bit for bit reported) on the fourth step of
+     config5_measured with every source moving (128 voices, superblock 32)
+     at P = 2 (the loader's default 256 taps of a 512-tap 44.1 kHz set)
+     and P = 8 (1024 taps), each beside one PyTorch call (an einsum over
+     the interpolated spectra materialized beforehand; ``fold`` for the
+     overlap-add), and at S = 1 and 4 with P = 8, one voice, a stereo
+     input, the occluded route and P = 3; then config5_measured at P = 2
+     and P = 8 at full size, five 30 s runs each (``measured_runs``): the
+     first 8 superblocks within 1e-5 of the CPU render, one K10p-a and one
+     K10p-b launch a step for each panner stage and no P1 launch.
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -176,7 +190,8 @@ the goldens and phase 12's config5_steplinear and config4_pingpong.
 ``--pipe`` runs the goldens and config 3 fused and unfused, five 30 s
 renders each, alternated, every hash the unfused trees' config-3 hash,
 with P2's launches, host and device time a step (``pipe_runs``).
-``--stream`` runs phase 13 alone.
+``--stream`` runs phase 13 alone. ``--hrtfpart`` runs phase 14, the
+goldens and three 30 s renders of config 5 (its recorded sha256).
 ``--k4mu`` runs
 K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
 loads), mono, three channels (through shared memory) and a base one float
@@ -2594,7 +2609,8 @@ CONFIG3_UNFUSED_SHA256 = "8f976460eb322f3e69c908dc7125ecd20cc0fb18a818a9129e6f0b
 #: Every earlier path's sha256 on the H100 as the earlier trees rendered it,
 #: by its place in the main run's ``render`` object (for config4_wire, of
 #: the 30 s ``render_mulaw`` and ``render_adpcm`` bytes; config5_streamed's
-#: as the tree that read its feeds a step at a time rendered it).
+#: as the tree that read its feeds a step at a time rendered it;
+#: config5_measured's as the first tree with the partitioned filter did).
 EARLIER_SHA256 = {
     "config4/sha256": "cc19c4b404ddd256d994e9d6cf33fd356eaf1aa4dc87da3e398da3416701bac2",
     "config3/sha256": CONFIG3_UNFUSED_SHA256,
@@ -2619,6 +2635,10 @@ EARLIER_SHA256 = {
     "config5_beside_streamed/sha256":
         "45734c209b2a8184d7b144f5cb3932a5fc191762e9e10584e3e2ba53f93a3932",
     "config5_streamed/sha256": "6c5ef658c1272bbf94186e3e4e6863062bec20ab151b73cc8bb9dfd22b6de783",
+    "config5_measured/p2/sha256":
+        "276b4ab9498d89b6e98141073c437261c08b4cdfdfa815b44e42c7a7ad1e8847",
+    "config5_measured/p8/sha256":
+        "b4772c54d337a98908ee8c02781aa9764773371f300f9114b16f4da4b99fdcb4",
 }
 
 
@@ -2915,6 +2935,181 @@ def stream_runs(dev, root, runs=5):
     return out
 
 
+#: K10p's two kernels (hrtf_part_mac_kernel, hrtf_part_ola_kernel), cuFFT's
+#: transforms around them and P1's kernel, which the measured scene must
+#: not launch.
+K10P_GROUPS = {"K10p-a": "hrtf_part_mac", "K10p-b": "hrtf_part_ola", "FFT": "fft",
+               "P1": "hrtf_fir_kernel"}
+#: The measured scene's HRIR lengths: the loader's default cut of the 512-tap
+#: 44.1 kHz set (256 taps, P = 2) and the longest set (1024 taps, P = 8).
+MEASURED_TAPS = {"p2": None, "p8": 1024}
+
+
+def measured_scene(dev, taps, superblock=32, moving=False):
+    """config5_measured (config 5's Kit scene on a measured-like HRIR set);
+    with ``moving`` every source moves along the chord to the point a
+    quarter turn further round over 3 s (per-quantum positions), as in
+    ``moving_config5``."""
+    from graphaudio_tpu_torch.testing.configs import config5_measured
+
+    ctx = config5_measured(superblock=superblock, device=dev, taps=taps)
+    if moving:
+        for v, snd in enumerate(ctx._sounds):
+            a = 2 * np.pi * v / len(ctx._sounds)
+            pan = snd._spatial_panner
+            for prm, fn in ((pan.position_x, np.cos), (pan.position_z, np.sin)):
+                prm.set_value_at_time(float(5 * fn(a)), 0.0)
+                prm.linear_ramp_to_value_at_time(float(5 * fn(a + np.pi / 2)), 3.0)
+    return ctx
+
+
+def k10p_case(label, args, library=False):
+    """K10p-a and K10p-b against their plain versions on one call's
+    arguments (``testing.hrtf_part.kernel_inputs``), within 1e-6 x max|ref|
+    (the kernels spell the plain versions' operations in their order, so
+    bit for bit is expected and reported). With ``library``, each beside one
+    PyTorch call: K10p-a's MAC as one ``torch.einsum`` over the
+    interpolated spectra materialized beforehand (its windows of the
+    concatenated timeline gathered outside the timing), K10p-b's
+    overlap-add as ``torch.nn.functional.fold``. Returns the two entries."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import hrtf as th
+    from graphaudio_tpu_torch.testing import hrtf_part
+
+    mac, ola = hrtf_part.kernel_inputs(args)
+    X, hx, haz, hel, az, el, sr, si = mac
+    y, ola0, x, gain, blend = ola
+    V, S, B = X.shape
+    E, A, _, P, _ = sr.shape
+    C = x.shape[1]
+    lib_a = lib_b = None
+    if library:
+        xcat = torch.cat([torch.complex(hx[..., :B], hx[..., B:]), X], 1)  # [V, P-1+S, B]
+        azc, elc = torch.cat([haz, az], 1), torch.cat([hel, el], 1)
+        H = torch.complex(th.interp_hrir(sr, azc, elc), th.interp_hrir(si, azc, elc))
+        u = (torch.arange(S, device=X.device)[:, None] - torch.arange(P, device=X.device)
+             + P - 1)  # [S, P]: the input quantum of (s, p)
+        xw = xcat[:, u].contiguous()  # [V, S, P, B]
+        # partition p of the spectra interpolated at (s, p)'s input quantum
+        hw = H[:, u].diagonal(dim1=2, dim2=4).permute(0, 1, 4, 2, 3).contiguous()  # [V, S, P, 2, B]
+        lib_a = lambda: torch.einsum("vspb,vspeb->vseb", xw, hw)  # noqa: E731
+        cols = torch.cat([torch.cat([torch.zeros_like(ola0), ola0], -1)[:, :, None],
+                          y.transpose(1, 2)], 2)  # [V, 2, S + 1, 256]
+        cols = cols.reshape(V * 2, S + 1, 256).transpose(1, 2).contiguous()
+        lib_b = lambda: torch.nn.functional.fold(  # noqa: E731
+            cols, (1, (S + 2) * 128), (1, 256), stride=(1, 128))
+    ringb = nbytes(hx, haz, hel)
+    a = compare(f"K10p-a partitioned HRTF MAC ({label}: V={V} S={S} P={P} grid {E}x{A})", "cuda",
+                "graphaudio_tpu_torch/csrc/hrtf_part.cu", "graphaudio_tpu/ops/hrtf.py:302",
+                lambda: flat(th.partitioned_mac(*mac)), lambda: flat(th.partitioned_mac_plain(*mac)),
+                1e-6, rel=True, library=lib_a, device_times=library,
+                # X, the ring, the directions and the grid spectra read once,
+                # the sums and the next ring written once; a (v, s, p, ear,
+                # bin) interpolates re and im (8 mul, 6 add) and multiplies
+                # in (4 mul, 4 add)
+                bnd=bound(nbytes(X, az, el, sr, si) + 2 * ringb + V * S * 2 * B * 8,
+                          22 * V * S * P * 2 * B))
+    b = compare(f"K10p-b partitioned HRTF overlap-add ({label}: V={V} C={C} S={S})", "cuda",
+                "graphaudio_tpu_torch/csrc/hrtf_part.cu", "graphaudio_tpu/ops/hrtf.py:380",
+                lambda: flat(th.partitioned_ola(*ola)), lambda: flat(th.partitioned_ola_plain(*ola)),
+                1e-6, rel=True, library=lib_b, device_times=library,
+                # y, x, gain, blend and the tail read once, out and the tail
+                # written once; an add, the gain, three for the blend a sample
+                bnd=bound(nbytes(y, x, gain, blend, ola0) + V * 2 * S * 128 * 4 + nbytes(ola0),
+                          5 * V * 2 * S * 128))
+    for e, kernel, plain in ((a, th.partitioned_mac, th.partitioned_mac_plain),
+                             (b, th.partitioned_ola, th.partitioned_ola_plain)):
+        got, want = kernel(*(mac if e is a else ola)), plain(*(mac if e is a else ola))
+        torch.cuda.synchronize()
+        e["bit_for_bit"] = all(torch.equal(torch.view_as_real(g) if g.is_complex() else g,
+                                           torch.view_as_real(w) if w.is_complex() else w)
+                               for g, w in zip(got, want))
+    if library:
+        want_a = th.partitioned_mac_plain(*mac)[0]
+        a["library_max_abs_err"] = float((lib_a() - want_a).abs().max())
+        fo = lib_b()[:, 0, 0].reshape(V, 2, -1)
+        prev = torch.cat([ola0[:, None], y[..., 128:][:, :-1]], 1)
+        wet = (y[..., :128] + prev).permute(0, 2, 1, 3).reshape(V, 2, S * 128)
+        b["library_max_abs_err"] = float((fo[..., 128:(S + 1) * 128] - wet).abs().max())
+    phase("kernels", f"K10p ({label}): bit for bit {a['bit_for_bit']} and {b['bit_for_bit']}; "
+          f"library vs plain {a.get('library_max_abs_err')!r}, {b.get('library_max_abs_err')!r}")
+    return a, b
+
+
+def k10p_checks(dev):
+    """K10p-a and K10p-b against their plain versions: on the arguments of
+    the fourth step of config5_measured with every source moving (V=128,
+    C=1, S=32) at P = 2 and P = 8, beside their library calls, and at the
+    seeded ``testing.hrtf_part.PART_CASES`` (S = 1 and 4 at P = 8, the ring
+    longer than the superblock; one voice; stereo input; the occluded route
+    without a gain; P = 3 with a zero-padded partition). Returns the two
+    entries, each with the other shapes under ``shapes``."""
+    from unittest import mock
+
+    from graphaudio_tpu_torch.nodes import spatial as tsp
+    from graphaudio_tpu_torch.testing import hrtf_part
+
+    cases = []
+    for key, taps in MEASURED_TAPS.items():
+        ctx = measured_scene(dev, taps, moving=True)
+        # The panner looks the filter up in its own module: a spy there sees
+        # the arguments of each call.
+        with mock.patch.object(tsp, "hrtf_fir_partitioned",
+                               wraps=tsp.hrtf_fir_partitioned) as fir:
+            ctx.render(4 * 32 * 128)
+        cases.append((f"config5_measured {key} step 4", list(fir.call_args.args), True))
+    for label, case in hrtf_part.PART_CASES.items():
+        cases.append((label, hrtf_part.seeded_case(dev, *case), False))
+    pairs = [k10p_case(label, args, library) for label, args, library in cases]
+    keys = ("name", "max_abs_err", "bit_for_bit", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "plain_device_ms", "library_device_ms",
+            "library_max_abs_err")
+    out = []
+    for i, name in enumerate(("K10p-a partitioned HRTF MAC", "K10p-b partitioned HRTF overlap-add")):
+        group = [p[i] for p in pairs]
+        group[0]["shapes"] = [{k: e[k] for k in keys if k in e} for e in group[1:]]
+        group[0]["name"] = name
+        out.append(group[0])
+    return out
+
+
+def measured_runs(dev, runs=5):
+    """config5_measured at full size (128 voices, superblock 32, 351
+    superblocks) at P = 2 and P = 8, ``runs`` renders each
+    (``render_runs``): each within 1e-5 of its CPU render over its first 8
+    superblocks, one K10p-a and one K10p-b launch a step for each panner
+    stage and no P1; the device time, launches and host time a step, xRT."""
+    from graphaudio_tpu_torch.nodes.spatial import SpatialPannerNode
+
+    T = 32 * 128
+    frames = (30 * SR // T) * T
+    steps = frames // T
+    counts = {"K10p-a": ("hrtf_part_mac",), "K10p-b": ("hrtf_part_ola",), "P1": ("hrtf_fir",),
+              "K10b": ("spatial_gains_batch",), "K5": ("unity_group_step",)}
+    out = {}
+    for key, taps in MEASURED_TAPS.items():
+        ref = measured_scene("cpu", taps).render(8 * T)
+        probe = measured_scene(dev, taps)
+        probe._ensure_compiled()
+        stages = sum(isinstance(sp["rep"], SpatialPannerNode) for sp in probe._compiled.plan)
+        r = render_runs(f"5 measured {key}", lambda: measured_scene(dev, taps), T, frames,  # noqa: B023
+                        counts, K10P_GROUPS, runs=runs, ref=ref)
+        n = r["launches"]
+        phase("render", f"config5_measured {key}: {stages} panner stage(s); launches {n} in "
+              f"{steps} steps")
+        if not (n["K10p-a"] == n["K10p-b"] == stages * steps and n["P1"] == 0 and stages >= 1):
+            raise AssertionError(f"config5_measured {key}: launches {n} in {steps} steps, not one "
+                                 f"K10p-a and one K10p-b a step for each of {stages} panner "
+                                 "stages and no P1")
+        want = EARLIER_SHA256[f"config5_measured/{key}/sha256"]
+        if r["sha256"] != want:
+            raise AssertionError(f"config5_measured {key} rendered {r['sha256']}, not {want}")
+        r["panner_stages"] = stages
+        out[key] = r
+    return out
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -3093,6 +3288,18 @@ def main(device="cuda", only=None):
             entries = []
             golden_err = goldens(dev)
             runs = {"config3_pipe": pipe_runs(dev)}
+        elif only == "hrtfpart":
+            entries = k10p_checks(dev)
+            golden_err = goldens(dev)
+            runs = {"config5_measured": measured_runs(dev),
+                    "config5": render_runs(5, b5, T5, frames5, {"P1": ("hrtf_fir",)},
+                                           K10P_GROUPS)}
+            if runs["config5"]["sha256"] != EARLIER_SHA256["config5/sha256"]:
+                raise AssertionError(f"config 5 rendered {runs['config5']['sha256']}, not its "
+                                     f"recorded {EARLIER_SHA256['config5/sha256']}")
+            for e, label in zip(entries, ("K10p-a", "K10p-b")):
+                e["launches"] = runs["config5_measured"]["p2"]["launches"][label]
+                e["launches_p8"] = runs["config5_measured"]["p8"]["launches"][label]
         elif only == "k9":
             entries = [k9_checks(dev)]
             golden_err = goldens(dev)
@@ -3412,6 +3619,14 @@ def main(device="cuda", only=None):
         e["launches"] = runs_stream["config5_streamed"]["launches"][label]
     entries += k15
 
+    # -- 14. a measured HRIR set past 128 taps (the partitioned filter) ----------------
+    k10p = k10p_checks(dev)
+    runs_measured = measured_runs(dev)
+    for e, label in zip(k10p, ("K10p-a", "K10p-b")):
+        e["launches"] = runs_measured["p2"]["launches"][label]
+        e["launches_p8"] = runs_measured["p8"]["launches"][label]
+    entries += k10p
+
     render = {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
@@ -3431,6 +3646,7 @@ def main(device="cuda", only=None):
         **runs_p10,
         "config5_streamed": runs_stream["config5_streamed"],
         "config5_beside_streamed": runs_stream["config5"],
+        "config5_measured": runs_measured,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "codec_build_s": codec_s, "floor_device_ms": floor_ms,
         "card": smi}
@@ -3476,6 +3692,10 @@ if __name__ == "__main__":
                   "config5_steplinear and config4_pingpong",
         "pipe": "the goldens and config 3 fused and unfused, five 30 s renders each, "
                 "alternated, with a 100-step profile each",
+        "hrtfpart": "the K10p-a and K10p-b checks (config5_measured's step at P = 2 and 8 "
+                    "beside their library calls, S = 1 and 4 at P = 8, one voice, stereo, "
+                    "the occluded route, P = 3), the goldens, five 30 s renders each of "
+                    "config5_measured at P = 2 and P = 8 and three of config 5",
         "stream": "the K15 checks (whole calls: config5_streamed's two stream nodes over "
                   "351 steps, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that runs "
                   "out), five 30 s renders each of config5_streamed and config 5, K15's "

@@ -20,11 +20,18 @@ state run as one group stage; ``process`` takes the stacked lanes:
   or transmission was touched: both crossovers and the 3-band combine in
   one launch;
 * P1 ``hrtf_fir`` (ops/hrtf.py, csrc/hrtf_fir.cu): the direct gain, the
-  mono downmix, the per-quantum interpolated HRIR filter and the blend.
+  mono downmix, the per-quantum interpolated HRIR filter and the blend,
+  for HRIRs of up to 128 taps;
+* K10p ``hrtf_fir_partitioned`` (ops/hrtf.py, csrc/hrtf_part.cu) in its
+  place for HRIRs of 129-1024 taps (measured sets): the mono spectra,
+  K10p-a's spectral MAC over P 128-tap partitions, the inverse transform,
+  K10p-b's overlap-add and blend.
 
-The HRIR grid is the group's stage constant ``hrtf_grid`` f32[E, A, 2, L].
-Left out (ROADMAP.md): HRIRs past 128 taps (the partitioned path, item
-11b) and the ``part``-mesh single-stage members (item 15).
+The HRIR is the group's stage constant: ``hrtf_grid`` f32[E, A, 2, L] for
+P1, or its partition spectra ``hrtf_sr`` / ``hrtf_si`` f32[E, A, 2, P, 129]
+for K10p, whose lanes also carry the JAX package's ring ``hx`` f32[P-1,
+258] and its directions ``haz`` / ``hel`` f32[P-1]. Left out (ROADMAP.md):
+the ``part``-mesh single-stage members (item 15).
 """
 
 from __future__ import annotations
@@ -47,11 +54,12 @@ from graphaudio_tpu_torch.core.params import AutomationRate
 from graphaudio_tpu_torch.ops.hrtf import (
     N_AZIMUTH,
     N_ELEVATION,
-    PARTITIONED_TODO,
     build_hrir_grid,
+    hrir_grid_spectra,
     hrir_partition_count,
     hrtf_fft_size,
     hrtf_fir,
+    hrtf_fir_partitioned,
     load_hrir_grid,
 )
 from graphaudio_tpu_torch.ops.onepole import band_split
@@ -423,21 +431,36 @@ class SpatialPannerNode(AudioNode):
         return _hrir_grid(sample_rate)
 
     def stage_consts(self) -> dict:
-        """The group's HRIR grid f32[E, A, 2, L], uploaded once per build."""
-        return {"hrtf_grid": self._active_grid(self.context.sample_rate)}
+        """The group's HRIR, uploaded once per build: the grid f32[E, A, 2,
+        L] for P1, or past 128 taps its partition spectra (Sr, Si) f32[E,
+        A, 2, P, 129] for K10p (``hrtf_sr``, ``hrtf_si``, the JAX package's
+        names)."""
+        grid = self._active_grid(self.context.sample_rate)
+        if hrir_partition_count(grid.shape[-1]) == 1:
+            return {"hrtf_grid": grid}
+        sr, si = hrir_grid_spectra(grid)
+        return {"hrtf_sr": sr, "hrtf_si": si}
 
     def init_state(self, info):
         grid = self._active_grid(self.context.sample_rate)
-        if hrir_partition_count(grid.shape[-1]) > 1:
-            raise NotImplementedError(PARTITIONED_TODO)
         fft = hrtf_fft_size(grid.shape[-1])
-        return {
+        state = {
             # Overlap-add tail of the binaural render (ops/hrtf.hrtf_fir).
             "ola": np.zeros((2, fft - FRAMES_PER_BLOCK), np.float32),
             # One-pole crossover states for 3-band transmission, per channel.
             "xlow": np.zeros((self._channels,), np.float32),
             "xhigh": np.zeros((self._channels,), np.float32),
         }
+        P = hrir_partition_count(grid.shape[-1])
+        if P > 1:
+            # The partitioned filter's history (graphaudio_tpu/nodes/
+            # spatial.py:254-267): the packed input spectra of the P-1
+            # quanta before the superblock, oldest first, and their source
+            # directions, from which their kernels are interpolated again.
+            state["hx"] = np.zeros((P - 1, fft + 2), np.float32)
+            state["haz"] = np.zeros((P - 1,), np.float32)
+            state["hel"] = np.zeros((P - 1,), np.float32)
+        return state
 
     def prologue_request(self, slots, lanes=None):
         """K10b's item: the distance model (in the group key, so one for
@@ -448,29 +471,38 @@ class SpatialPannerNode(AudioNode):
 
     def process(self, state, inputs, params, rc):
         """A group of V lanes: x f32[V, C, T]; state ola f32[V, 2, W],
-        xlow / xhigh f32[V, C]; the direct path f32[6, V, S] from the
-        step's K10b (the prologue's batch, or the stage's own launch when a
-        param is modulated). Returns [f32[V, 2, T]]. An ungrouped stage
-        has no lane dim in x, its state or its output."""
+        xlow / xhigh f32[V, C] (and past 128 taps hx f32[V, P-1, 258], haz
+        / hel f32[V, P-1]); the direct path f32[6, V, S] from the step's
+        K10b (the prologue's batch, or the stage's own launch when a param
+        is modulated). Returns [f32[V, 2, T]]. An ungrouped stage has no
+        lane dim in x, its state or its output."""
         if inputs[0].dim() == 2:
             st, (out,) = self.process({k: v[None] for k, v in state.items()},
                                       [inputs[0][None]], params, rc)
             return {k: v[0] for k, v in st.items()}, [out[0]]
         x = inputs[0]
         az, el, gl, gm, gh, blend = rc.prologue_result
-        grid = rc.stage_consts["hrtf_grid"]
         if self._occlusion_active():
             # Direct effect: per-band per-quantum gains (the reference
             # applies the DirectEffect in place on the input, :247-248).
             sr = rc.sample_rate
-            direct, xlow, xhigh = band_split(
+            x, xlow, xhigh = band_split(
                 x, math.exp(-2.0 * math.pi * XOVER_LOW_HZ / sr),
                 math.exp(-2.0 * math.pi * XOVER_HIGH_HZ / sr), state["xlow"], state["xhigh"],
                 gl, gm, gh)
-            out, ola = hrtf_fir(direct, None, az, el, blend, grid, state["ola"])
+            gain = None
         else:
             # All band gains equal attenuation x directivity: one broadband
-            # gain, applied inside P1.
-            out, ola = hrtf_fir(x, gl, az, el, blend, grid, state["ola"])
+            # gain, applied inside the filter.
+            gain = gl
             xlow, xhigh = state["xlow"], state["xhigh"]
+        sc = rc.stage_consts
+        if "hrtf_sr" in sc:
+            # Past 128 taps: the partitioned filter, its ring carried.
+            out, hx, haz, hel, ola = hrtf_fir_partitioned(
+                x, gain, az, el, blend, sc["hrtf_sr"], sc["hrtf_si"], state["hx"],
+                state["haz"], state["hel"], state["ola"])
+            return {"ola": ola, "xlow": xlow, "xhigh": xhigh, "hx": hx, "haz": haz,
+                    "hel": hel}, [out]
+        out, ola = hrtf_fir(x, gain, az, el, blend, sc["hrtf_grid"], state["ola"])
         return {"ola": ola, "xlow": xlow, "xhigh": xhigh}, [out]

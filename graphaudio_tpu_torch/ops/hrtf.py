@@ -26,8 +26,19 @@ spectrum of the interpolated HRIR):
 * ``hrtf_fir_rows``: the probe's own row form, for holding the kernel
   against the probe's function (``hrtf_fir_rows_plain``).
 
-Kernels longer than 128 taps take the JAX package's partitioned path
-(``fir_freq_partitioned`` :302), which is not ported: they raise.
+Kernels longer than 128 taps (up to MAX_HRIR_LENGTH) take the JAX
+package's partitioned path (``fir_freq_partitioned`` :302, K10p): P
+uniform 128-tap partitions on 256-point transforms, in the frequency
+domain as there, with the same carried state (the packed input spectra of
+the last P-1 quanta ``hx``, their directions ``haz`` / ``hel``, the tail
+``ola``):
+
+* ``hrtf_fir_partitioned``: on a CUDA tensor torch.fft's rfft (cuFFT),
+  K10p-a (csrc/hrtf_part.cu ``ga_hrtf_part_mac``: each partition's
+  spectrum interpolated in the kernel from the four grid-spectra corners,
+  the spectral MAC and the next ring), torch.fft's irfft and K10p-b
+  (``ga_hrtf_part_ola``: the overlap-add and the blend); on a CPU tensor
+  ``hrtf_fir_partitioned_plain``.
 """
 
 from __future__ import annotations
@@ -49,15 +60,10 @@ HRIR_LENGTH = 64
 N_AZIMUTH = 24  # full circle, 15 degree steps
 N_ELEVATION = 7  # -90..90, 30 degree steps
 
-# Longest measured HRIR the JAX renderer accepts: 8 uniform 128-tap partitions.
+# Longest measured HRIR the renderer accepts: 8 uniform 128-tap partitions.
 MAX_HRIR_LENGTH = 8 * FRAMES_PER_BLOCK
-
-PARTITIONED_TODO = (
-    "HRIRs longer than 128 taps render through uniformly partitioned "
-    "kernels (the JAX package's fir_freq_partitioned with its hx/haz/hel "
-    "history), which are not ported yet (ROADMAP.md module item 11b); "
-    "pass length<=128 to load_hrir/set_default_hrir"
-)
+#: Bins of the partitioned path's 256-point transforms.
+NUM_SPEC_BINS = FRAMES_PER_BLOCK + 1
 
 # f32 constants as Python floats: a torch f32 op rounds a Python scalar to
 # f32, so these are exactly the JAX package's weak-typed f32 constants.
@@ -171,11 +177,46 @@ def hrtf_fft_size(hrir_length: int) -> int:
 
 def hrir_partition_count(hrir_length: int) -> int:
     """1 while one overlap-add quantum holds the kernel (L <= fft - 127),
-    else ceil(L / 128) uniform 128-tap partitions (not ported)."""
+    else ceil(L / 128) uniform 128-tap partitions on the 256-point
+    transform (``hrtf_fir_partitioned``)."""
     fft = hrtf_fft_size(hrir_length)
     if hrir_length <= fft - FRAMES_PER_BLOCK:
         return 1
     return -(-hrir_length // FRAMES_PER_BLOCK)
+
+
+_spectra_cache = {}
+
+
+def hrir_grid_spectra(grid):
+    """Kernel spectra of an HRIR grid (graphaudio_tpu/ops/hrtf.py:214-252):
+    (Sr, Si) f32[E, A, 2, B] (B = hrtf_fft_size(L) // 2 + 1) while L fits
+    one exact overlap-add transform, or f32[E, A, 2, P, 129] for P uniform
+    128-tap partitions, each zero-padded to 256 points; numpy's f64 rfft,
+    rounded to f32 once. Interpolating these spectra is the spectrum of the
+    interpolated HRIR (both are linear).
+
+    Keyed on id(grid); the cache holds the grid, so an id cannot be reused
+    while its entry lives, and keeps the last 8 grids."""
+    key = id(grid)
+    entry = _spectra_cache.get(key)
+    if entry is None or entry[0] is not grid:
+        g = np.asarray(grid, dtype=np.float64)  # [E, A, 2, L]
+        L = g.shape[-1]
+        fft = hrtf_fft_size(L)
+        P = hrir_partition_count(L)
+        if P > 1:
+            # h = sum_p delay(h_p, 128 p), each h_p zero-padded to 128 taps.
+            g = np.pad(g, [(0, 0)] * (g.ndim - 1) + [(0, P * FRAMES_PER_BLOCK - L)])
+            g = g.reshape(g.shape[:-1] + (P, FRAMES_PER_BLOCK))
+        padded = np.zeros(g.shape[:-1] + (fft,))
+        padded[..., :g.shape[-1]] = g
+        spec = np.fft.rfft(padded, axis=-1)  # [E, A, 2(, P), bins]
+        entry = (grid, spec.real.astype(np.float32), spec.imag.astype(np.float32))
+        while len(_spectra_cache) >= 8:
+            _spectra_cache.pop(next(iter(_spectra_cache)))
+        _spectra_cache[key] = entry
+    return entry[1], entry[2]
 
 
 def _regrid_hrirs(hrirs, az_rad, el_rad, sample_rate, source_rate,
@@ -253,7 +294,8 @@ def load_hrir_grid(source, sample_rate,
     ``.npz`` path or dict with ``hrir`` f32[M, 2, N], ``azimuth_deg`` [M]
     (counterclockwise), ``elevation_deg`` [M], ``sample_rate``. IRs are
     rate-converted to ``sample_rate``, cut or padded to ``length`` (default
-    min(N, 256)) and regridded by inverse-distance weighting of the 3
+    min(N, 256); at most MAX_HRIR_LENGTH = 1024, past 128 taps the
+    renderer splits it into 128-tap partitions) and regridded by inverse-distance weighting of the 3
     nearest measurement directions. Returns f32[n_elevation, n_azimuth, 2,
     length].
     """
@@ -345,7 +387,8 @@ def _check_fir_shapes(x, gain, az, el, blend, grid, ola):
     if ears != 2:
         raise ValueError(f"grid must be [E, A, 2, L], got {tuple(grid.shape)}")
     if L > W:
-        raise NotImplementedError(PARTITIONED_TODO)
+        raise ValueError(f"P1 takes at most {W} taps; an HRIR of {L} taps renders in "
+                         f"{hrir_partition_count(L)} partitions (hrtf_fir_partitioned)")
     if tuple(ola.shape) != (V, 2, W):
         raise ValueError(f"ola must be [{V}, 2, {W}], got {tuple(ola.shape)}")
     for name, t in (("az", az), ("el", el), ("blend", blend), ("gain", gain)):
@@ -499,3 +542,202 @@ def hrtf_fir_rows(x, h):
     cudabuild.check(status, "ga_hrtf_fir_rows")
     cudabuild.launches["hrtf_fir_rows"] += 1
     return out
+
+
+# ---- K10p: the partitioned filter of HRIRs past 128 taps ----------------------
+#
+# graphaudio_tpu/ops/hrtf.py fir_freq_partitioned (:302) with interp_hrir
+# (:135) of the partition spectra (hrir_grid_spectra, :214), as the JAX
+# panner calls them (graphaudio_tpu/nodes/spatial.py:410-430). Input
+# quantum u is convolved with the HRIR interpolated at u's direction, whose
+# partition p lands on output quantum u + p: the spectra of output quantum
+# s are sum_p X[s-p] H_p(s-p), the partitions in ascending order, where
+# X[u] for u < 0 comes from the ring of the last P-1 input spectra (``hx``,
+# packed [R | I], oldest first) and H_p(u) from the four grid-spectra
+# corners around u's direction (``haz``, ``hel`` for the ring's quanta).
+
+
+def _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola):
+    V, C, T = x.shape
+    F, B = FRAMES_PER_BLOCK, NUM_SPEC_BINS
+    S = T // F
+    if T % F or S < 1 or C not in (1, 2):
+        raise ValueError(f"x must be [V, 1 or 2, S*128], got {tuple(x.shape)}")
+    if spec_r.dim() != 5 or tuple(spec_i.shape) != tuple(spec_r.shape):
+        raise ValueError(f"spectra must be two [E, A, 2, P, {B}], got {tuple(spec_r.shape)} "
+                         f"and {tuple(spec_i.shape)}")
+    E, A, ears, P, bins = spec_r.shape
+    if ears != 2 or bins != B or not 2 <= P <= MAX_HRIR_LENGTH // F:
+        raise ValueError(f"spectra must be [E, A, 2, P, {B}] with 2 <= P <= "
+                         f"{MAX_HRIR_LENGTH // F}, got {tuple(spec_r.shape)}")
+    for name, t, want in (("hx", hx, (V, P - 1, 2 * B)), ("haz", haz, (V, P - 1)),
+                          ("hel", hel, (V, P - 1)), ("ola", ola, (V, 2, F)),
+                          ("az", az, (V, S)), ("el", el, (V, S)), ("blend", blend, (V, S)),
+                          ("gain", gain, (V, S))):
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {list(want)}, got {tuple(t.shape)}")
+    return V, C, S, E, A, P
+
+
+def partitioned_input_spectra(x, gain):
+    """The spectra the partitioned filter takes in: direct = x * gain (gain
+    f32[V, S] per quantum; x itself when gain is None), its mean over the
+    channels, and each 128-sample quantum's 256-point real DFT (torch.fft,
+    numpy's sign; cuFFT on the card). x f32[V, C, S*128]; returns
+    complex64 [V, S, 129]."""
+    V, C, T = x.shape
+    F = FRAMES_PER_BLOCK
+    S = T // F
+    q = x.reshape(V, C, S, F)
+    direct = q if gain is None else q * gain.reshape(V, 1, S, 1)
+    mono = direct[:, 0] if C == 1 else direct.mean(dim=1)
+    return torch.fft.rfft(mono, n=2 * F, dim=-1)
+
+
+def partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i):
+    """Plain K10p-a: the spectral MAC of the partitioned filter.
+
+    X complex64[V, S, 129] this superblock's input spectra; hx f32[V, P-1,
+    258] the last P-1 quanta's, packed [R | I], oldest first, and haz, hel
+    f32[V, P-1] their directions; az, el f32[V, S] this superblock's;
+    spec_r, spec_i f32[E, A, 2, P, 129] the grid's partition spectra. Over
+    the P-1+S quanta of concat(ring, X) each partition's spectrum is
+    interpolated at its quantum's direction (``interp_hrir``), and output
+    quantum s takes, for p = 0, 1, .., P-1 in turn, Y = Y + X[s-p] H_p(s-p)
+    as yr + xr hr - xi hi and yi + xr hi + xi hr (the JAX package's
+    expression). Returns (acc complex64[V, S, 2, 129], the next ring f32[V,
+    P-1, 258], haz, hel f32[V, P-1]): the last P-1 rows of the
+    concatenations."""
+    V, S, B = X.shape
+    P = spec_r.shape[3]
+    xcat = torch.cat([hx, torch.cat([X.real, X.imag], dim=-1)], dim=1)  # [V, P-1+S, 2B]
+    az_cat = torch.cat([haz, az], dim=1)
+    el_cat = torch.cat([hel, el], dim=1)
+    hr = interp_hrir(spec_r, az_cat, el_cat)  # [V, P-1+S, 2, P, B]
+    hi = interp_hrir(spec_i, az_cat, el_cat)
+    yr = torch.zeros((V, S, 2, B), dtype=hx.dtype, device=hx.device)
+    yi = torch.zeros_like(yr)
+    for p in range(P):
+        start = P - 1 - p
+        xs = xcat[:, start:start + S, None]  # [V, S, 1, 2B]
+        xr, xi = xs[..., :B], xs[..., B:]
+        hrp, hip = hr[:, start:start + S, :, p], hi[:, start:start + S, :, p]  # [V, S, 2, B]
+        yr = yr + xr * hrp - xi * hip
+        yi = yi + xr * hip + xi * hrp
+    return (torch.complex(yr, yi), xcat[:, S:].contiguous(), az_cat[:, S:].contiguous(),
+            el_cat[:, S:].contiguous())
+
+
+def partitioned_ola_plain(y, ola, x, gain, blend):
+    """Plain K10p-b: the overlap-add and the SpatialBlend crossfade.
+
+    y f32[V, S, 2, 256]: each output quantum's filtered block (the inverse
+    DFT of K10p-a's spectra); ola f32[V, 2, 128] the previous quantum's
+    second half; x, gain as ``partitioned_input_spectra``; blend f32[V, S].
+    wet = the first 128 samples of quantum s + the last 128 of s-1 (``ola``
+    for s = 0); out = wet * blend + dry * (1 - blend), dry the direct
+    signal up-mixed to stereo. Returns (out f32[V, 2, S*128], ola f32[V, 2,
+    128]: the last quantum's second half)."""
+    V, S = blend.shape
+    F = FRAMES_PER_BLOCK
+    C, T = x.shape[1], S * F
+    first, second = y[..., :F], y[..., F:]
+    prev = torch.cat([ola[:, None], second[:, :-1]], dim=1)  # [V, S, 2, F]
+    wet = (first + prev).permute(0, 2, 1, 3).reshape(V, 2, T)
+    direct = x if gain is None else x * torch.repeat_interleave(gain, F, dim=-1)[:, None, :]
+    dry = direct.expand(V, 2, T) if C == 1 else direct
+    b = torch.repeat_interleave(blend, F, dim=-1)[:, None, :]
+    return wet * b + dry * (1.0 - b), second[:, -1].contiguous()
+
+
+def hrtf_fir_partitioned_plain(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola):
+    """Plain torch K10p: the panner's partitioned HRTF filter for a group.
+
+    x f32[V, C, T] (C = 1 or 2, T = S*128); gain f32[V, S] per-quantum
+    broadband gain, or None when ``x`` is already the direct signal; az,
+    el, blend f32[V, S]; spec_r, spec_i f32[E, A, 2, P, 129]
+    (``hrir_grid_spectra`` of an HRIR of 129-1024 taps); the carried state
+    hx f32[V, P-1, 258], haz, hel f32[V, P-1], ola f32[V, 2, 128], in the
+    JAX package's layout. ``partitioned_input_spectra``, then
+    ``partitioned_mac_plain``, the inverse DFT (torch.fft.irfft, 256
+    points) and ``partitioned_ola_plain``. Returns (out f32[V, 2, T], hx,
+    haz, hel, ola)."""
+    _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola)
+    X = partitioned_input_spectra(x, gain)
+    acc, hx, haz, hel = partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i)
+    y = torch.fft.irfft(acc, n=2 * FRAMES_PER_BLOCK, dim=-1)
+    out, ola = partitioned_ola_plain(y, ola, x, gain, blend)
+    return out, hx, haz, hel, ola
+
+
+def partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i):
+    """K10p-a: csrc/hrtf_part.cu ``ga_hrtf_part_mac`` on CUDA tensors,
+    ``partitioned_mac_plain`` (arguments and result as there) on CPU
+    tensors. One block per (output quantum, voice), a thread a bin: the
+    block's P corner sets once, then each partition's two ears interpolated
+    and multiplied in, in the plain version's order; the blocks of the
+    first P-1 quanta also write the next ring."""
+    if X.device.type == "cpu":
+        return partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i)
+    V, S, B = X.shape
+    E, A, _, P, _ = spec_r.shape
+    req = cudabuild.require
+    req(X, "X", torch.complex64, shape=(V, S, NUM_SPEC_BINS))
+    for name, t, shape in (("hx", hx, (V, P - 1, 2 * B)), ("haz", haz, (V, P - 1)),
+                           ("hel", hel, (V, P - 1)), ("az", az, (V, S)), ("el", el, (V, S)),
+                           ("spec_r", spec_r, (E, A, 2, P, B)),
+                           ("spec_i", spec_i, (E, A, 2, P, B))):
+        req(t, name, torch.float32, shape=shape)
+    dev = X.device
+    acc = torch.empty((V, S, 2, B), dtype=torch.complex64, device=dev)
+    hx_out = torch.empty((V, P - 1, 2 * B), dtype=torch.float32, device=dev)
+    haz_out = torch.empty((V, P - 1), dtype=torch.float32, device=dev)
+    hel_out = torch.empty((V, P - 1), dtype=torch.float32, device=dev)
+    status = cudabuild.launcher("ga_hrtf_part_mac")(
+        X.data_ptr(), hx.data_ptr(), haz.data_ptr(), hel.data_ptr(), az.data_ptr(),
+        el.data_ptr(), spec_r.data_ptr(), spec_i.data_ptr(), V, S, P, E, A,
+        _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1), acc.data_ptr(),
+        hx_out.data_ptr(), haz_out.data_ptr(), hel_out.data_ptr(), cudabuild.stream_of(X))
+    cudabuild.check(status, "ga_hrtf_part_mac")
+    cudabuild.launches["hrtf_part_mac"] += 1
+    return acc, hx_out, haz_out, hel_out
+
+
+def partitioned_ola(y, ola, x, gain, blend):
+    """K10p-b: csrc/hrtf_part.cu ``ga_hrtf_part_ola`` on CUDA tensors,
+    ``partitioned_ola_plain`` (arguments and result as there) on CPU
+    tensors. A thread an output sample."""
+    if y.device.type == "cpu":
+        return partitioned_ola_plain(y, ola, x, gain, blend)
+    V, S = blend.shape
+    F = FRAMES_PER_BLOCK
+    C = x.shape[1]
+    req = cudabuild.require
+    req(y, "y", torch.float32, shape=(V, S, 2, 2 * F))
+    req(ola, "ola", torch.float32, shape=(V, 2, F))
+    req(x, "x", torch.float32, shape=(V, C, S * F))
+    req(blend, "blend", torch.float32, shape=(V, S))
+    if gain is not None:
+        req(gain, "gain", torch.float32, shape=(V, S))
+    out = torch.empty((V, 2, S * F), dtype=torch.float32, device=y.device)
+    ola_out = torch.empty((V, 2, F), dtype=torch.float32, device=y.device)
+    status = cudabuild.launcher("ga_hrtf_part_ola")(
+        y.data_ptr(), ola.data_ptr(), x.data_ptr(), None if gain is None else gain.data_ptr(),
+        blend.data_ptr(), V, C, S, out.data_ptr(), ola_out.data_ptr(), cudabuild.stream_of(y))
+    cudabuild.check(status, "ga_hrtf_part_ola")
+    cudabuild.launches["hrtf_part_ola"] += 1
+    return out, ola_out
+
+
+def hrtf_fir_partitioned(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola):
+    """K10p for a group of spatial panners whose HRIR has 129-1024 taps
+    (arguments and result as ``hrtf_fir_partitioned_plain``): the input
+    spectra (torch ops and cuFFT), K10p-a, cuFFT's inverse and K10p-b, each
+    kernel's plain version on CPU tensors (which is then
+    ``hrtf_fir_partitioned_plain``)."""
+    _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola)
+    X = partitioned_input_spectra(x, gain)
+    acc, hx, haz, hel = partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i)
+    y = torch.fft.irfft(acc, n=2 * FRAMES_PER_BLOCK, dim=-1)
+    out, ola = partitioned_ola(y, ola, x, gain, blend)
+    return out, hx, haz, hel, ola

@@ -15,7 +15,9 @@ stereo panner: ``config3_wah`` (an LFO on each biquad's frequency),
 ``config5_steplinear`` (config 5's sounds in the Kit's step-linear mode)
 and ``config4_pingpong`` (config 4 with a ping-pong delay send).
 ``config5_streamed`` adds a streamed music track and a looping ambience to
-config 5 (the stream node's K15, through the Kit's data provider). Their
+config 5 (the stream node's K15, through the Kit's data provider);
+``config5_measured`` renders config 5 on a measured-like HRIR set past 128
+taps (the partitioned filter, K10p). Their
 ``api`` argument names the package whose classes build the graph (the
 port by default; a test passes the JAX package to build the same graph
 there), so one definition serves both.
@@ -501,4 +503,25 @@ def config5_streamed(superblock=32, voices=128, device="cuda", api=None, root=No
         s.play()
         streams.append(s)
     ctx._streams = streams
+    return ctx
+
+
+def config5_measured(superblock=32, voices=128, device="cuda", api=None, taps=None):
+    """Config 5's Kit scene (the same draws and graph) with a measured-like
+    HRIR set as the engine's default (``engine.set_default_hrir``), passed
+    as a dict: ``testing.sofa.synthetic_hrir_set``'s 72 directions (seed 9)
+    at 512 taps and 44.1 kHz, like a public measured set such as MIT KEMAR,
+    which the loader resamples to 48 kHz and cuts to its default min(N,
+    256) taps: P = 2 partitions, the common case. ``taps`` = L instead
+    generates the set at 48 kHz with L taps and loads all of them (1024:
+    P = 8, the most the renderer takes). Every panner runs the partitioned
+    filter (K10p)."""
+    from graphaudio_tpu_torch.testing.sofa import synthetic_hrir_set
+
+    api, ctx, engine, sounds = _kit_scene(
+        api, superblock, voices, device, "BINAURAL_SPATIALIZED")
+    rate, length = (44100, 512) if taps is None else (SR, taps)
+    hrir, az, el = synthetic_hrir_set(sample_rate=rate, n_directions=72, length=length, seed=9)
+    engine.set_default_hrir({"hrir": hrir, "azimuth_deg": az, "elevation_deg": el,
+                             "sample_rate": rate}, length=taps)
     return ctx

@@ -10,7 +10,10 @@ Both packages schedule stages the same way, so stage keys ("st<i>") and
 group lane order agree, and most states have the same layout in both: the
 sources (the buffer sources' positions; the oscillator's f64 ``phase`` and
 every scheduled source's ``started`` / ``start_time`` / ``stop_time``),
-the biquads and spatial panners (``ola``, ``xlow``, ``xhigh``), the
+the biquads and spatial panners (``ola``, ``xlow``, ``xhigh``, and past
+128 taps the partitioned filter's ring ``hx`` with its directions ``haz``
+/ ``hel``, and the partition spectra ``hrtf_sr`` / ``hrtf_si`` among the
+constants), the
 decoder stream nodes (``x0``, ``rate``: f64, rewritten by each call's
 feed staging; each package's node keeps its own decoder queue, so a
 hand-off needs both nodes at the same point of the same file), and

@@ -13,6 +13,8 @@
   5's voice level (std 0.03): within 1e-6 max abs, output and carried tail,
   and within 1e-7 of a float64 direct convolution;
 * P1 in the Pallas probe's row form against the probe's f64 reference;
+* a 320-tap grid: P1 refuses it, the partitioned filter (K10p's plain
+  version) renders it as ``fir_freq_partitioned`` does, within 1e-5;
 * K9's plain version against ``onepole_lowpass`` with a carry: within
   1e-6 x max.
 """
@@ -156,11 +158,35 @@ def test_p1_rows_plain_matches_probe():
 
 
 def test_partitioned_kernels_raise():
-    grid = torch.zeros(7, 24, 2, 320)
-    x = torch.zeros(1, 1, 128)
-    one = torch.zeros(1, 1)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        th.hrtf_fir(x, None, one, one, one, grid, torch.zeros(1, 2, 128))
+    """A 320-tap grid on one quantum, once a raise of P1 (the partitioned
+    filter was not ported): P1 still refuses it, and the partitioned filter
+    renders it as the JAX package's fir_freq_partitioned does (jitted, with
+    interp_hrir of the partition spectra), within 1e-5."""
+    rng = np.random.default_rng(16)
+    grid = (rng.standard_normal((7, 24, 2, 320)) * 0.1).astype(np.float32)
+    x = (rng.standard_normal((1, 1, 128)) * 0.5).astype(np.float32)
+    az, el = np.float32([[0.9]]), np.float32([[-0.3]])
+    ola = np.zeros((1, 2, 128), np.float32)
+    with pytest.raises(ValueError, match="hrtf_fir_partitioned"):
+        th.hrtf_fir(torch.from_numpy(x), None, torch.from_numpy(az), torch.from_numpy(el),
+                    torch.ones(1, 1), torch.from_numpy(grid), torch.from_numpy(ola))
+    sr, si = th.hrir_grid_spectra(grid)
+    assert sr.shape == (7, 24, 2, 3, 129)
+    hx, hang = np.zeros((1, 2, 258), np.float32), np.zeros((1, 2), np.float32)
+    t = torch.from_numpy
+    out, *_ = th.hrtf_fir_partitioned(t(x), None, t(az), t(el), torch.ones(1, 1), t(sr), t(si),
+                                      t(hx), t(hang), t(hang), t(ola))
+
+    @jax.jit
+    def jax_filter(x, az, el):
+        azc, elc = jnp.concatenate([hang[0], az]), jnp.concatenate([hang[0], el])
+        hr = jh.interp_hrir(jnp.asarray(sr), azc, elc)
+        hi = jh.interp_hrir(jnp.asarray(si), azc, elc)
+        return jh.fir_freq_partitioned(x.reshape(1, 128), hr, hi, hx[0], ola[0])[0]
+
+    want = np.asarray(jax_filter(x[0, 0], az[0], el[0])).reshape(2, 128)
+    assert np.abs(want).max() > 1e-2
+    assert np.abs(out[0].numpy() - want).max() < 1e-5
 
 
 @pytest.mark.parametrize("hz", [800.0, 8000.0])

@@ -24,12 +24,14 @@ from graphaudio_tpu_torch.ops import oscillator as tosc
 from graphaudio_tpu_torch.ops import param_eval as tpe
 from graphaudio_tpu_torch.ops import wire
 from graphaudio_tpu_torch.testing import groups
+from graphaudio_tpu_torch.testing import hrtf_part
 from graphaudio_tpu_torch.testing import tables as ttab
 from graphaudio_tpu_torch.testing.configs import (
     config2_mix_bus,
     config3_eq_chain,
     config4_conv_reverb,
     config4_pitched,
+    config5_measured,
     config5_spatial_scene,
     config6_lfo_tremolo,
 )
@@ -1307,3 +1309,101 @@ def test_config5_streamed_launches_k15_once_a_call(dev, tmp_path, monkeypatch):
     assert not plain
     assert np.abs(want).max() > 0.1
     assert float(np.abs(got - want).max()) < 1e-5
+
+
+def _bits(t):
+    return torch.view_as_real(t).view(torch.int32) if t.is_complex() else t.view(torch.int32)
+
+
+def _k10p_same_bits(args):
+    """K10p-a and K10p-b against their plain versions on one call's
+    arguments, and the whole wrapper against the whole plain version: the
+    same f32 operations in the same order (__f*_rn in the kernels), so bit
+    for bit."""
+    mac, ola = hrtf_part.kernel_inputs(args)
+    for got, want in ((th.partitioned_mac(*mac), th.partitioned_mac_plain(*mac)),
+                      (th.partitioned_ola(*ola), th.partitioned_ola_plain(*ola)),
+                      (th.hrtf_fir_partitioned(*args), th.hrtf_fir_partitioned_plain(*args))):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("case", sorted(hrtf_part.PART_CASES))
+def test_k10p_kernels(dev, case):
+    _k10p_same_bits(hrtf_part.seeded_case(dev, *hrtf_part.PART_CASES[case]))
+
+
+@pytest.mark.parametrize("taps,P", [(None, 2), (1024, 8)])
+def test_k10p_config5_measured(dev, taps, P):
+    """config5_measured (128 voices, superblock 32) with every source moving:
+    the kernels bit for bit on its fourth step's arguments; one K10p-a and
+    one K10p-b launch a step and no P1; 4 steps within 1e-5 of the CPU
+    render."""
+    from unittest import mock
+
+    def build(d):
+        ctx = config5_measured(superblock=32, device=d, taps=taps)
+        for v, snd in enumerate(ctx._sounds):
+            a = 2 * np.pi * v / len(ctx._sounds)
+            for prm, fn in ((snd._spatial_panner.position_x, np.cos),
+                            (snd._spatial_panner.position_z, np.sin)):
+                prm.set_value_at_time(float(5 * fn(a)), 0.0)
+                prm.linear_ramp_to_value_at_time(float(5 * fn(a + np.pi / 2)), 3.0)
+        return ctx
+
+    ctx = build(dev)
+    ctx._ensure_compiled()
+    cudabuild.launches.clear()
+    with mock.patch.object(tsp, "hrtf_fir_partitioned", wraps=tsp.hrtf_fir_partitioned) as k:
+        got = ctx.render(4 * 32 * 128)
+    assert k.call_count == 4
+    assert (cudabuild.launches["hrtf_part_mac"], cudabuild.launches["hrtf_part_ola"],
+            cudabuild.launches["hrtf_fir"]) == (4, 4, 0)
+    args = list(k.call_args.args)
+    assert tuple(args[5].shape) == (7, 24, 2, P, 129)
+    _k10p_same_bits(args)
+    want = build("cpu").render(4 * 32 * 128)
+    assert np.abs(want).max() > 1e-3
+    assert np.abs(got - want).max() < 1e-5
+
+
+def test_k10p_per_node_and_context_default(dev):
+    """A per-node 320-tap set (P = 3) beside panners on a 200-tap context
+    default (P = 2): two panner stages, each one K10p-a and one K10p-b
+    launch a step, and the render within 1e-5 of the CPU render."""
+    from graphaudio_tpu_torch.testing.sofa import synthetic_hrir_set
+
+    def data(n):
+        hrir, az, el = synthetic_hrir_set(length=n, seed=n)
+        return {"hrir": hrir, "azimuth_deg": az, "elevation_deg": el, "sample_rate": 48000}
+
+    def build(d):
+        rng = np.random.default_rng(27)
+        ctx = gat.OfflineAudioContext(superblock=4, device=d)
+        ctx.set_default_hrir(data(200), length=200)
+        pans = []
+        for v in range(3):
+            src = gat.AudioBufferSourceNode(ctx)
+            src.buffer = gat.PlayableAudioBuffer.from_mono_array(
+                (rng.standard_normal(48000) * 0.2).astype(np.float32), 48000)
+            src.loop = True
+            pan = gat.SpatialPannerNode(ctx)
+            pan.position_x.set_value_at_time(2.0 - 2.0 * v, 0.0)
+            pan.position_x.linear_ramp_to_value_at_time(2.0 * v - 2.0, 0.05)
+            pan.position_z.value = -1.0
+            src.connect(pan).connect(ctx.destination)
+            src.start(0)
+            pans.append(pan)
+        pans[0].load_hrir(data(320), length=320)
+        return ctx
+
+    ctx = build(dev)
+    ctx._ensure_compiled()
+    cudabuild.launches.clear()
+    got = ctx.render(8 * 512)
+    assert (cudabuild.launches["hrtf_part_mac"], cudabuild.launches["hrtf_part_ola"],
+            cudabuild.launches["hrtf_fir"]) == (16, 16, 0)
+    want = build("cpu").render(8 * 512)
+    assert np.abs(want).max() > 1e-2
+    assert np.abs(got - want).max() < 1e-5

@@ -14,7 +14,8 @@
 * a measured HRIR set: ``load_hrir_grid`` is exact at measurement directions; the
   context default (``set_default_hrir``) renders as a per-node
   ``load_hrir`` does, batches the voices in one group, matches JAX within
-  1e-5 and reverts with None; sets past 128 taps raise;
+  1e-5 and reverts with None; a set past 128 taps renders through the
+  partitioned filter as the JAX package's does;
 * the listener is render-state data: moving it rebuilds nothing.
 """
 
@@ -251,13 +252,22 @@ def test_context_default_hrir():
 
 
 def test_hrir_past_128_taps_raises():
+    """A 320-tap per-node set (3 partitions) beside the analytic 64-tap
+    default, once a raise (the partitioned filter was not ported): it now
+    renders through the partitioned path, as the JAX package's does."""
     rng = np.random.default_rng(25)
     data = _delta_set(n=320)
     data["hrir"] = data["hrir"] + rng.standard_normal(data["hrir"].shape).astype(np.float32) * 0.01
     ctx, pans = _two_pans(gat, device="cpu")
     pans[0].load_hrir(data, length=320)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ctx.render(512)
+    got = ctx.render(512)
+    st = ctx.peek_node_state(pans[0])
+    assert st["hx"].shape == (2, 258) and st["ola"].shape == (2, 128)
+    jctx, jpans = _two_pans(ga)
+    jpans[0].load_hrir(data, length=320)
+    want = np.asarray(jctx.render(512))
+    assert np.abs(want).max() > 1e-2
+    assert np.abs(got - want).max() < TOL
 
 
 def test_listener_is_render_state():
