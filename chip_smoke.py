@@ -154,19 +154,23 @@ any failure raises and the script exits non-zero:
      render, the call's peak device memory, and the feeds' staging costs a
      call (``prepare_feed`` with its decoding, the copy from pinned
      memory);
- 14. a measured HRIR set past 128 taps: K10p-a (the partitioned filter's
-     spectral MAC, each partition's spectrum interpolated in the kernel)
-     and K10p-b (its overlap-add and blend) against their plain versions
-     within 1e-6 x max|ref| (bit for bit reported) on the fourth step of
-     config5_measured with every source moving (128 voices, superblock 32)
-     at P = 2 (the loader's default 256 taps of a 512-tap 44.1 kHz set)
-     and P = 8 (1024 taps), each beside one PyTorch call (an einsum over
-     the interpolated spectra materialized beforehand; ``fold`` for the
-     overlap-add), and at S = 1 and 4 with P = 8, one voice, a stereo
-     input, the occluded route and P = 3; then config5_measured at P = 2
-     and P = 8 at full size, five 30 s runs each (``measured_runs``): the
-     first 8 superblocks within 1e-5 of the CPU render, one K10p-a and one
-     K10p-b launch a step for each panner stage and no P1 launch.
+ 14. a measured HRIR set past 128 taps: the input pass (the gain, the
+     channel mean and the transform's zero half), K10p-a (the partitioned
+     filter's spectral MAC, each partition's spectrum interpolated in the
+     kernel once per direction run) and K10p-b (the inverse's scale, the
+     overlap-add and the blend) against their plain versions within 1e-6 x
+     max|ref| (bit for bit reported) on the fourth step of
+     config5_measured with every source moving and with every source
+     still (128 voices, superblock 32) at P = 2 (the loader's default 256
+     taps of a 512-tap 44.1 kHz set) and P = 8 (1024 taps), K10p-a warm
+     and cold on each, the moving steps beside one PyTorch call (an einsum
+     over the interpolated spectra materialized beforehand; ``fold`` for
+     the overlap-add), and at S = 1 and 4 with P = 8, one voice, a stereo
+     input, the occluded route, P = 3, directions still and in runs of 1-5
+     quanta at P = 2 and 8; then config5_measured at P = 2 and P = 8 at
+     full size, five 30 s runs each (``measured_runs``): the first 8
+     superblocks within 1e-5 of the CPU render, one input pass, one K10p-a
+     and one K10p-b launch a step for each panner stage and no P1 launch.
 
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
@@ -192,6 +196,9 @@ renders each, alternated, every hash the unfused trees' config-3 hash,
 with P2's launches, host and device time a step (``pipe_runs``).
 ``--stream`` runs phase 13 alone. ``--hrtfpart`` runs phase 14, the
 goldens and three 30 s renders of config 5 (its recorded sha256).
+``--k10pa`` times K10p-a alone, warm and cold, at config5_measured's
+fourth step and five seeded cases (``k10pa_times``; copied into the tree
+that first had K10p, it times that tree's kernel the same way).
 ``--k4mu`` runs
 K4mu at config 4's launch chunk and last chunk, a ragged T (scalar
 loads), mono, three channels (through shared memory) and a base one float
@@ -2935,11 +2942,12 @@ def stream_runs(dev, root, runs=5):
     return out
 
 
-#: K10p's two kernels (hrtf_part_mac_kernel, hrtf_part_ola_kernel), cuFFT's
-#: transforms around them and P1's kernel, which the measured scene must
-#: not launch.
-K10P_GROUPS = {"K10p-a": "hrtf_part_mac", "K10p-b": "hrtf_part_ola", "FFT": "fft",
-               "P1": "hrtf_fir_kernel"}
+#: K10p's kernels (hrtf_part_input_kernel, hrtf_part_mac_kernel,
+#: hrtf_part_ola_kernel), cuFFT's transforms around them and P1's kernel,
+#: which the measured scene must not launch.
+K10P_GROUPS = {"K10p-in": "hrtf_part_input", "K10p-a": "hrtf_part_mac",
+               "K10p-b": "hrtf_part_ola", "FFT": "fft", "P1": "hrtf_fir_kernel"}
+
 #: The measured scene's HRIR lengths: the loader's default cut of the 512-tap
 #: 44.1 kHz set (256 taps, P = 2) and the longest set (1024 taps, P = 8).
 MEASURED_TAPS = {"p2": None, "p8": 1024}
@@ -2963,21 +2971,24 @@ def measured_scene(dev, taps, superblock=32, moving=False):
     return ctx
 
 
-def k10p_case(label, args, library=False):
-    """K10p-a and K10p-b against their plain versions on one call's
-    arguments (``testing.hrtf_part.kernel_inputs``), within 1e-6 x max|ref|
-    (the kernels spell the plain versions' operations in their order, so
-    bit for bit is expected and reported). With ``library``, each beside one
-    PyTorch call: K10p-a's MAC as one ``torch.einsum`` over the
-    interpolated spectra materialized beforehand (its windows of the
-    concatenated timeline gathered outside the timing), K10p-b's
-    overlap-add as ``torch.nn.functional.fold``. Returns the two entries."""
+def k10p_case(label, args, library=False, cold=False):
+    """The input pass, K10p-a and K10p-b against their plain versions on one
+    call's arguments (``testing.hrtf_part.kernel_inputs``), within 1e-6 x
+    max|ref| (the kernels spell the plain versions' operations in their
+    order, so bit for bit is expected and reported). With ``library``,
+    K10p-a and K10p-b each beside one PyTorch call: K10p-a's MAC as one
+    ``torch.einsum`` over the interpolated spectra materialized beforehand
+    (its windows of the concatenated timeline gathered outside the
+    timing), K10p-b's overlap-add as ``torch.nn.functional.fold``; the
+    input pass has none (a multiply, a mean and a pad are three calls).
+    With ``cold``, K10p-a is also timed cold (``cold_times``: copies of X
+    rotated through more than the L2). Returns the three entries."""
     import torch
 
     from graphaudio_tpu_torch.ops import hrtf as th
     from graphaudio_tpu_torch.testing import hrtf_part
 
-    mac, ola = hrtf_part.kernel_inputs(args)
+    inp, mac, ola = hrtf_part.kernel_inputs(args)
     X, hx, haz, hel, az, el, sr, si = mac
     y, ola0, x, gain, blend = ola
     V, S, B = X.shape
@@ -2995,11 +3006,20 @@ def k10p_case(label, args, library=False):
         hw = H[:, u].diagonal(dim1=2, dim2=4).permute(0, 1, 4, 2, 3).contiguous()  # [V, S, P, 2, B]
         lib_a = lambda: torch.einsum("vspb,vspeb->vseb", xw, hw)  # noqa: E731
         cols = torch.cat([torch.cat([torch.zeros_like(ola0), ola0], -1)[:, :, None],
-                          y.transpose(1, 2)], 2)  # [V, 2, S + 1, 256]
+                          y.transpose(1, 2) * (1.0 / 256)], 2)  # [V, 2, S + 1, 256]
         cols = cols.reshape(V * 2, S + 1, 256).transpose(1, 2).contiguous()
         lib_b = lambda: torch.nn.functional.fold(  # noqa: E731
             cols, (1, (S + 2) * 128), (1, 256), stride=(1, 128))
     ringb = nbytes(hx, haz, hel)
+    i = compare(f"K10p input pass ({label}: V={V} C={C} S={S})", "cuda",
+                "graphaudio_tpu_torch/csrc/hrtf_part.cu", "graphaudio_tpu/nodes/spatial.py:392",
+                lambda: th.partitioned_input(*inp), lambda: th.partitioned_input_plain(*inp),
+                1e-6, rel=True, device_times=library,
+                # x and the gain read once, the transform input written
+                # once; the gain multiply a sample of a channel, two for
+                # the mean
+                bnd=bound(nbytes(x, gain) + V * S * 256 * 4,
+                          (C if gain is not None else 0) * V * S * 128 + 2 * (C - 1) * V * S * 128))
     a = compare(f"K10p-a partitioned HRTF MAC ({label}: V={V} S={S} P={P} grid {E}x{A})", "cuda",
                 "graphaudio_tpu_torch/csrc/hrtf_part.cu", "graphaudio_tpu/ops/hrtf.py:302",
                 lambda: flat(th.partitioned_mac(*mac)), lambda: flat(th.partitioned_mac_plain(*mac)),
@@ -3015,62 +3035,134 @@ def k10p_case(label, args, library=False):
                 lambda: flat(th.partitioned_ola(*ola)), lambda: flat(th.partitioned_ola_plain(*ola)),
                 1e-6, rel=True, library=lib_b, device_times=library,
                 # y, x, gain, blend and the tail read once, out and the tail
-                # written once; an add, the gain, three for the blend a sample
+                # written once; the scale twice, an add, the gain, three for
+                # the blend a sample
                 bnd=bound(nbytes(y, x, gain, blend, ola0) + V * 2 * S * 128 * 4 + nbytes(ola0),
-                          5 * V * 2 * S * 128))
-    for e, kernel, plain in ((a, th.partitioned_mac, th.partitioned_mac_plain),
-                             (b, th.partitioned_ola, th.partitioned_ola_plain)):
-        got, want = kernel(*(mac if e is a else ola)), plain(*(mac if e is a else ola))
+                          7 * V * 2 * S * 128))
+    if cold:
+        # The kernel alone (``compare``'s device time also holds ``flat``'s
+        # concatenation), warm and cold.
+        a["alone_device_ms"] = device_ms(lambda: th.partitioned_mac(*mac), only="hrtf_part_mac",
+                                         expect=1)
+        a["cold_ms"], a["cold_device_ms"] = cold_times(
+            lambda X_: th.partitioned_mac(X_, *mac[1:]), X, only="hrtf_part_mac", expect=1)
+        phase("kernels", f"K10p-a ({label}), the kernel alone: warm {a['alone_device_ms']!r} ms "
+              f"on the device; cold {a['cold_ms']!r} ms a call, {a['cold_device_ms']!r} ms on the "
+              f"device (X rotated through {COLD_BYTES} bytes); bound {a['bound_ms']!r} ms")
+    for e, kernel, plain, kargs in (
+            (i, lambda *q: (th.partitioned_input(*q),),
+             lambda *q: (th.partitioned_input_plain(*q),), inp),
+            (a, th.partitioned_mac, th.partitioned_mac_plain, mac),
+            (b, th.partitioned_ola, th.partitioned_ola_plain, ola)):
+        got, want = kernel(*kargs), plain(*kargs)
         torch.cuda.synchronize()
-        e["bit_for_bit"] = all(torch.equal(torch.view_as_real(g) if g.is_complex() else g,
-                                           torch.view_as_real(w) if w.is_complex() else w)
+        e["bit_for_bit"] = all(torch.equal(torch.view_as_real(g).view(torch.int32) if g.is_complex()
+                                           else g.view(torch.int32),
+                                           torch.view_as_real(w).view(torch.int32) if w.is_complex()
+                                           else w.view(torch.int32))
                                for g, w in zip(got, want))
     if library:
         want_a = th.partitioned_mac_plain(*mac)[0]
         a["library_max_abs_err"] = float((lib_a() - want_a).abs().max())
         fo = lib_b()[:, 0, 0].reshape(V, 2, -1)
-        prev = torch.cat([ola0[:, None], y[..., 128:][:, :-1]], 1)
-        wet = (y[..., :128] + prev).permute(0, 2, 1, 3).reshape(V, 2, S * 128)
+        ys = y * (1.0 / 256)
+        prev = torch.cat([ola0[:, None], ys[..., 128:][:, :-1]], 1)
+        wet = (ys[..., :128] + prev).permute(0, 2, 1, 3).reshape(V, 2, S * 128)
         b["library_max_abs_err"] = float((fo[..., 128:(S + 1) * 128] - wet).abs().max())
-    phase("kernels", f"K10p ({label}): bit for bit {a['bit_for_bit']} and {b['bit_for_bit']}; "
-          f"library vs plain {a.get('library_max_abs_err')!r}, {b.get('library_max_abs_err')!r}")
-    return a, b
+    phase("kernels", f"K10p ({label}): bit for bit {i['bit_for_bit']}, {a['bit_for_bit']} and "
+          f"{b['bit_for_bit']}; library vs plain {a.get('library_max_abs_err')!r}, "
+          f"{b.get('library_max_abs_err')!r}")
+    if not (i["bit_for_bit"] and a["bit_for_bit"] and b["bit_for_bit"]):
+        raise AssertionError(f"K10p ({label}): a kernel is not bit for bit its plain version")
+    return i, a, b
 
 
-def k10p_checks(dev):
-    """K10p-a and K10p-b against their plain versions: on the arguments of
-    the fourth step of config5_measured with every source moving (V=128,
-    C=1, S=32) at P = 2 and P = 8, beside their library calls, and at the
-    seeded ``testing.hrtf_part.PART_CASES`` (S = 1 and 4 at P = 8, the ring
-    longer than the superblock; one voice; stereo input; the occluded route
-    without a gain; P = 3 with a zero-padded partition). Returns the two
-    entries, each with the other shapes under ``shapes``."""
+def measured_step_args(dev, taps, moving):
+    """The arguments of config5_measured's fourth ``hrtf_fir_partitioned``
+    call (its fourth step), sources moving or still."""
     from unittest import mock
 
     from graphaudio_tpu_torch.nodes import spatial as tsp
+
+    ctx = measured_scene(dev, taps, moving=moving)
+    # The panner looks the filter up in its own module: a spy there sees
+    # the arguments of each call.
+    with mock.patch.object(tsp, "hrtf_fir_partitioned", wraps=tsp.hrtf_fir_partitioned) as fir:
+        ctx.render(4 * 32 * 128)
+    return list(fir.call_args.args)
+
+
+def k10p_checks(dev):
+    """The input pass, K10p-a and K10p-b against their plain versions: on
+    the arguments of the fourth step of config5_measured (V=128, C=2,
+    S=32) at P = 2 and P = 8 with every source moving, beside their
+    library calls, and with every source still, K10p-a warm and cold on
+    all four; and at the seeded ``testing.hrtf_part.PART_CASES`` (S = 1
+    and 4 at P = 8, the ring longer than the superblock; one voice; stereo
+    input; the occluded route without a gain; P = 3 with a zero-padded
+    partition; directions still, and in runs of 1-5 quanta, at P = 2 and
+    8). Returns the three entries, each with the other shapes under
+    ``shapes``."""
     from graphaudio_tpu_torch.testing import hrtf_part
 
     cases = []
     for key, taps in MEASURED_TAPS.items():
-        ctx = measured_scene(dev, taps, moving=True)
-        # The panner looks the filter up in its own module: a spy there sees
-        # the arguments of each call.
-        with mock.patch.object(tsp, "hrtf_fir_partitioned",
-                               wraps=tsp.hrtf_fir_partitioned) as fir:
-            ctx.render(4 * 32 * 128)
-        cases.append((f"config5_measured {key} step 4", list(fir.call_args.args), True))
+        cases.append((f"config5_measured {key} step 4", measured_step_args(dev, taps, True),
+                      True, True))
+        cases.append((f"config5_measured {key} static step 4",
+                      measured_step_args(dev, taps, False), False, True))
     for label, case in hrtf_part.PART_CASES.items():
-        cases.append((label, hrtf_part.seeded_case(dev, *case), False))
-    pairs = [k10p_case(label, args, library) for label, args, library in cases]
+        cases.append((label, hrtf_part.seeded_case(dev, *case), False, False))
+    groups = [k10p_case(*c) for c in cases]
     keys = ("name", "max_abs_err", "bit_for_bit", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "plain_device_ms", "library_device_ms",
-            "library_max_abs_err")
+            "library_max_abs_err", "alone_device_ms", "cold_ms", "cold_device_ms")
     out = []
-    for i, name in enumerate(("K10p-a partitioned HRTF MAC", "K10p-b partitioned HRTF overlap-add")):
-        group = [p[i] for p in pairs]
+    for i, name in enumerate(("K10p input pass", "K10p-a partitioned HRTF MAC",
+                              "K10p-b partitioned HRTF overlap-add")):
+        group = [g[i] for g in groups]
         group[0]["shapes"] = [{k: e[k] for k in keys if k in e} for e in group[1:]]
         group[0]["name"] = name
         out.append(group[0])
+    return out
+
+
+def k10pa_times(dev):
+    """K10p-a alone (the profiler's device time of ``hrtf_part_mac``
+    kernels), warm (20 calls on the same inputs) and cold (``cold_times``:
+    copies of X rotated through more than the L2), in µs, at
+    config5_measured's fourth step with sources moving and still, P = 2
+    and 8, and at five seeded cases whose sources cross a grid cell every
+    1-2 quanta; where the tree picks a block length
+    (``ops.hrtf.mac_block_quanta``), also at each length it may pick. It
+    uses only names the tree that first had K10p has too, so copied into
+    that tree's checkout it times its kernel the same way. Returns {case:
+    [warm, cold]}."""
+    from graphaudio_tpu_torch.ops import hrtf as th
+    from graphaudio_tpu_torch.testing import hrtf_part
+
+    cases = [(f"{key} {'moving' if moving else 'still'}", measured_step_args(dev, taps, moving))
+             for key, taps in MEASURED_TAPS.items() for moving in (True, False)]
+    for label in ("S=1 P=8", "S=4 P=8", "V=1 P=8", "stereo P=2", "occluded P=2"):
+        cases.append((label, hrtf_part.seeded_case(dev, *hrtf_part.PART_CASES[label][:5])))
+    rule = getattr(th, "mac_block_quanta", None)
+    out = {}
+    for label, args in cases:
+        mac = hrtf_part.kernel_inputs(args)[-2]
+        for q in (None,) + (() if rule is None else th.MAC_BLOCK_QUANTA):
+            if q is not None:
+                th.mac_block_quanta = lambda V, S, sms, q=q: q
+            try:
+                warm = device_ms(lambda: th.partitioned_mac(*mac), only="hrtf_part_mac", expect=1)
+                _, cold = cold_times(lambda X_: th.partitioned_mac(X_, *mac[1:]), mac[0],
+                                     only="hrtf_part_mac", expect=1)
+            finally:
+                if rule is not None:
+                    th.mac_block_quanta = rule
+            key = label if q is None else f"{label} q={q}"
+            out[key] = [None if t is None else t * 1e3 for t in (warm, cold)]
+            phase("kernels", f"K10p-a alone ({key}): warm {out[key][0]!r} us, cold "
+                  f"{out[key][1]!r} us on the device")
     return out
 
 
@@ -3078,14 +3170,16 @@ def measured_runs(dev, runs=5):
     """config5_measured at full size (128 voices, superblock 32, 351
     superblocks) at P = 2 and P = 8, ``runs`` renders each
     (``render_runs``): each within 1e-5 of its CPU render over its first 8
-    superblocks, one K10p-a and one K10p-b launch a step for each panner
-    stage and no P1; the device time, launches and host time a step, xRT."""
+    superblocks, one input pass, one K10p-a and one K10p-b launch a step
+    for each panner stage and no P1; the device time, launches and host
+    time a step, xRT."""
     from graphaudio_tpu_torch.nodes.spatial import SpatialPannerNode
 
     T = 32 * 128
     frames = (30 * SR // T) * T
     steps = frames // T
-    counts = {"K10p-a": ("hrtf_part_mac",), "K10p-b": ("hrtf_part_ola",), "P1": ("hrtf_fir",),
+    counts = {"K10p-in": ("hrtf_part_input",), "K10p-a": ("hrtf_part_mac",),
+              "K10p-b": ("hrtf_part_ola",), "P1": ("hrtf_fir",),
               "K10b": ("spatial_gains_batch",), "K5": ("unity_group_step",)}
     out = {}
     for key, taps in MEASURED_TAPS.items():
@@ -3098,10 +3192,11 @@ def measured_runs(dev, runs=5):
         n = r["launches"]
         phase("render", f"config5_measured {key}: {stages} panner stage(s); launches {n} in "
               f"{steps} steps")
-        if not (n["K10p-a"] == n["K10p-b"] == stages * steps and n["P1"] == 0 and stages >= 1):
+        if not (n["K10p-in"] == n["K10p-a"] == n["K10p-b"] == stages * steps and n["P1"] == 0
+                and stages >= 1):
             raise AssertionError(f"config5_measured {key}: launches {n} in {steps} steps, not one "
-                                 f"K10p-a and one K10p-b a step for each of {stages} panner "
-                                 "stages and no P1")
+                                 f"input pass, one K10p-a and one K10p-b a step for each of "
+                                 f"{stages} panner stages and no P1")
         want = EARLIER_SHA256[f"config5_measured/{key}/sha256"]
         if r["sha256"] != want:
             raise AssertionError(f"config5_measured {key} rendered {r['sha256']}, not {want}")
@@ -3297,9 +3392,12 @@ def main(device="cuda", only=None):
             if runs["config5"]["sha256"] != EARLIER_SHA256["config5/sha256"]:
                 raise AssertionError(f"config 5 rendered {runs['config5']['sha256']}, not its "
                                      f"recorded {EARLIER_SHA256['config5/sha256']}")
-            for e, label in zip(entries, ("K10p-a", "K10p-b")):
+            for e, label in zip(entries, ("K10p-in", "K10p-a", "K10p-b")):
                 e["launches"] = runs["config5_measured"]["p2"]["launches"][label]
                 e["launches_p8"] = runs["config5_measured"]["p8"]["launches"][label]
+        elif only == "k10pa":
+            entries = []
+            runs = {"k10pa_us": k10pa_times(dev)}
         elif only == "k9":
             entries = [k9_checks(dev)]
             golden_err = goldens(dev)
@@ -3622,7 +3720,7 @@ def main(device="cuda", only=None):
     # -- 14. a measured HRIR set past 128 taps (the partitioned filter) ----------------
     k10p = k10p_checks(dev)
     runs_measured = measured_runs(dev)
-    for e, label in zip(k10p, ("K10p-a", "K10p-b")):
+    for e, label in zip(k10p, ("K10p-in", "K10p-a", "K10p-b")):
         e["launches"] = runs_measured["p2"]["launches"][label]
         e["launches_p8"] = runs_measured["p8"]["launches"][label]
     entries += k10p
@@ -3692,10 +3790,15 @@ if __name__ == "__main__":
                   "config5_steplinear and config4_pingpong",
         "pipe": "the goldens and config 3 fused and unfused, five 30 s renders each, "
                 "alternated, with a 100-step profile each",
-        "hrtfpart": "the K10p-a and K10p-b checks (config5_measured's step at P = 2 and 8 "
-                    "beside their library calls, S = 1 and 4 at P = 8, one voice, stereo, "
-                    "the occluded route, P = 3), the goldens, five 30 s renders each of "
-                    "config5_measured at P = 2 and P = 8 and three of config 5",
+        "hrtfpart": "the input pass, K10p-a and K10p-b checks (config5_measured's step "
+                    "at P = 2 and 8, moving beside their library calls and still, K10p-a "
+                    "warm and cold; S = 1 and 4 at P = 8, one voice, stereo, the occluded "
+                    "route, P = 3, still and run directions), the goldens, five 30 s "
+                    "renders each of config5_measured at P = 2 and P = 8 and three of "
+                    "config 5",
+        "k10pa": "K10p-a alone, warm and cold, at config5_measured's fourth step (moving "
+                 "and still, P = 2 and 8) and five seeded cases, at each block length the "
+                 "tree may pick (runs on the tree that first had K10p too)",
         "stream": "the K15 checks (whole calls: config5_streamed's two stream nodes over "
                   "351 steps, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that runs "
                   "out), five 30 s renders each of config5_streamed and config 5, K15's "

@@ -33,11 +33,14 @@ domain as there, with the same carried state (the packed input spectra of
 the last P-1 quanta ``hx``, their directions ``haz`` / ``hel``, the tail
 ``ola``):
 
-* ``hrtf_fir_partitioned``: on a CUDA tensor torch.fft's rfft (cuFFT),
-  K10p-a (csrc/hrtf_part.cu ``ga_hrtf_part_mac``: each partition's
-  spectrum interpolated in the kernel from the four grid-spectra corners,
-  the spectral MAC and the next ring), torch.fft's irfft and K10p-b
-  (``ga_hrtf_part_ola``: the overlap-add and the blend); on a CPU tensor
+* ``hrtf_fir_partitioned``: on a CUDA tensor the input pass
+  (csrc/hrtf_part.cu ``ga_hrtf_part_input``: the gain, the channel mean and
+  the zero half of each quantum's 256-point transform input), torch.fft's
+  rfft (cuFFT), K10p-a (``ga_hrtf_part_mac``: each partition's spectrum
+  interpolated in the kernel from the four grid-spectra corners, once per
+  direction run of a block's quanta, the spectral MAC and the next ring),
+  torch.fft's irfft without its scale and K10p-b (``ga_hrtf_part_ola``:
+  the 2^-8 scale, the overlap-add and the blend); on a CPU tensor
   ``hrtf_fir_partitioned_plain``.
 """
 
@@ -579,19 +582,50 @@ def _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola
     return V, C, S, E, A, P
 
 
-def partitioned_input_spectra(x, gain):
-    """The spectra the partitioned filter takes in: direct = x * gain (gain
-    f32[V, S] per quantum; x itself when gain is None), its mean over the
-    channels, and each 128-sample quantum's 256-point real DFT (torch.fft,
-    numpy's sign; cuFFT on the card). x f32[V, C, S*128]; returns
-    complex64 [V, S, 129]."""
+def partitioned_input_plain(x, gain):
+    """Plain input pass: the real input of the partitioned filter's forward
+    transforms. direct = x * gain (gain f32[V, S] per quantum; x itself
+    when gain is None), its mean over the channels, and each 128-sample
+    quantum followed by 128 zeros, for a 256-point real DFT. x f32[V, C,
+    S*128]; returns f32[V, S, 256]."""
     V, C, T = x.shape
     F = FRAMES_PER_BLOCK
     S = T // F
     q = x.reshape(V, C, S, F)
     direct = q if gain is None else q * gain.reshape(V, 1, S, 1)
     mono = direct[:, 0] if C == 1 else direct.mean(dim=1)
-    return torch.fft.rfft(mono, n=2 * F, dim=-1)
+    return torch.nn.functional.pad(mono, (0, F))
+
+
+def partitioned_input(x, gain):
+    """The input pass: csrc/hrtf_part.cu ``ga_hrtf_part_input`` on CUDA
+    tensors (one launch in place of the gain multiply, the mean and rfft's
+    pad), ``partitioned_input_plain`` (arguments and result as there) on
+    CPU tensors."""
+    if x.device.type == "cpu":
+        return partitioned_input_plain(x, gain)
+    V, C, T = x.shape
+    F = FRAMES_PER_BLOCK
+    S = T // F
+    cudabuild.require(x, "x", torch.float32, shape=(V, C, S * F))
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the input pass reads float4s)")
+    if gain is not None:
+        cudabuild.require(gain, "gain", torch.float32, shape=(V, S))
+    out = torch.empty((V, S, 2 * F), dtype=torch.float32, device=x.device)
+    status = cudabuild.launcher("ga_hrtf_part_input")(
+        x.data_ptr(), None if gain is None else gain.data_ptr(), V, C, S, out.data_ptr(),
+        cudabuild.stream_of(x))
+    cudabuild.check(status, "ga_hrtf_part_input")
+    cudabuild.launches["hrtf_part_input"] += 1
+    return out
+
+
+def partitioned_inverse(acc):
+    """Each output quantum's filtered block f32[V, S, 2, 256] from K10p-a's
+    sums, UNSCALED (torch.fft.irfft with norm="forward"): K10p-b applies
+    the 1/256."""
+    return torch.fft.irfft(acc, n=2 * FRAMES_PER_BLOCK, dim=-1, norm="forward")
 
 
 def partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i):
@@ -631,16 +665,18 @@ def partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i):
 def partitioned_ola_plain(y, ola, x, gain, blend):
     """Plain K10p-b: the overlap-add and the SpatialBlend crossfade.
 
-    y f32[V, S, 2, 256]: each output quantum's filtered block (the inverse
-    DFT of K10p-a's spectra); ola f32[V, 2, 128] the previous quantum's
-    second half; x, gain as ``partitioned_input_spectra``; blend f32[V, S].
-    wet = the first 128 samples of quantum s + the last 128 of s-1 (``ola``
-    for s = 0); out = wet * blend + dry * (1 - blend), dry the direct
-    signal up-mixed to stereo. Returns (out f32[V, 2, S*128], ola f32[V, 2,
-    128]: the last quantum's second half)."""
+    y f32[V, S, 2, 256]: each output quantum's filtered block, the inverse
+    DFT of K10p-a's spectra UNSCALED (``partitioned_inverse``), here
+    multiplied by 2^-8 as irfft's own scale would; ola f32[V, 2, 128] the
+    previous quantum's second half; x, gain as ``partitioned_input_plain``;
+    blend f32[V, S]. wet = the first 128 samples of quantum s + the last
+    128 of s-1 (``ola`` for s = 0); out = wet * blend + dry * (1 - blend),
+    dry the direct signal up-mixed to stereo. Returns (out f32[V, 2,
+    S*128], ola f32[V, 2, 128]: the last quantum's second half)."""
     V, S = blend.shape
     F = FRAMES_PER_BLOCK
     C, T = x.shape[1], S * F
+    y = y * (1.0 / (2 * F))
     first, second = y[..., :F], y[..., F:]
     prev = torch.cat([ola[:, None], second[:, :-1]], dim=1)  # [V, S, 2, F]
     wet = (first + prev).permute(0, 2, 1, 3).reshape(V, 2, T)
@@ -658,25 +694,46 @@ def hrtf_fir_partitioned_plain(x, gain, az, el, blend, spec_r, spec_i, hx, haz, 
     el, blend f32[V, S]; spec_r, spec_i f32[E, A, 2, P, 129]
     (``hrir_grid_spectra`` of an HRIR of 129-1024 taps); the carried state
     hx f32[V, P-1, 258], haz, hel f32[V, P-1], ola f32[V, 2, 128], in the
-    JAX package's layout. ``partitioned_input_spectra``, then
-    ``partitioned_mac_plain``, the inverse DFT (torch.fft.irfft, 256
-    points) and ``partitioned_ola_plain``. Returns (out f32[V, 2, T], hx,
-    haz, hel, ola)."""
+    JAX package's layout. ``partitioned_input_plain``, the forward DFT
+    (torch.fft.rfft), ``partitioned_mac_plain``, the unscaled inverse DFT
+    (``partitioned_inverse``) and ``partitioned_ola_plain``. Returns (out
+    f32[V, 2, T], hx, haz, hel, ola)."""
     _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola)
-    X = partitioned_input_spectra(x, gain)
+    X = torch.fft.rfft(partitioned_input_plain(x, gain), dim=-1)
     acc, hx, haz, hel = partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i)
-    y = torch.fft.irfft(acc, n=2 * FRAMES_PER_BLOCK, dim=-1)
-    out, ola = partitioned_ola_plain(y, ola, x, gain, blend)
+    out, ola = partitioned_ola_plain(partitioned_inverse(acc), ola, x, gain, blend)
     return out, hx, haz, hel, ola
+
+
+#: The output quanta a K10p-a block may walk (csrc/hrtf_part.cu
+#: instantiates these), most first.
+MAC_BLOCK_QUANTA = (16, 8, 4)
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def mac_block_quanta(V, S, sms):
+    """The quanta a K10p-a block walks: the most of ``MAC_BLOCK_QUANTA``
+    whose grid, ceil(S / q) blocks a voice, still gives each of the card's
+    ``sms`` SMs a block (else the fewest)."""
+    for q in MAC_BLOCK_QUANTA:
+        if -(-S // q) * V >= sms:
+            return q
+    return MAC_BLOCK_QUANTA[-1]
 
 
 def partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i):
     """K10p-a: csrc/hrtf_part.cu ``ga_hrtf_part_mac`` on CUDA tensors,
     ``partitioned_mac_plain`` (arguments and result as there) on CPU
-    tensors. One block per (output quantum, voice), a thread a bin: the
-    block's P corner sets once, then each partition's two ears interpolated
-    and multiplied in, in the plain version's order; the blocks of the
-    first P-1 quanta also write the next ring."""
+    tensors. A block per (``mac_block_quanta`` output quanta, voice), a
+    thread an (ear, bin): the block's window of the ring and X staged once;
+    each partition walks the block's quanta in order, interpolating its
+    spectrum only where the direction changes and fetching the four
+    corners only where they change; the last block of a voice writes the
+    next ring."""
     if X.device.type == "cpu":
         return partitioned_mac_plain(X, hx, haz, hel, az, el, spec_r, spec_i)
     V, S, B = X.shape
@@ -696,7 +753,8 @@ def partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i):
     status = cudabuild.launcher("ga_hrtf_part_mac")(
         X.data_ptr(), hx.data_ptr(), haz.data_ptr(), hel.data_ptr(), az.data_ptr(),
         el.data_ptr(), spec_r.data_ptr(), spec_i.data_ptr(), V, S, P, E, A,
-        _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1), acc.data_ptr(),
+        _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1),
+        mac_block_quanta(V, S, _sm_count(dev.index)), acc.data_ptr(),
         hx_out.data_ptr(), haz_out.data_ptr(), hel_out.data_ptr(), cudabuild.stream_of(X))
     cudabuild.check(status, "ga_hrtf_part_mac")
     cudabuild.launches["hrtf_part_mac"] += 1
@@ -705,8 +763,8 @@ def partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i):
 
 def partitioned_ola(y, ola, x, gain, blend):
     """K10p-b: csrc/hrtf_part.cu ``ga_hrtf_part_ola`` on CUDA tensors,
-    ``partitioned_ola_plain`` (arguments and result as there) on CPU
-    tensors. A thread an output sample."""
+    ``partitioned_ola_plain`` (arguments and result as there: y unscaled)
+    on CPU tensors. A thread an output sample."""
     if y.device.type == "cpu":
         return partitioned_ola_plain(y, ola, x, gain, blend)
     V, S = blend.shape
@@ -732,12 +790,11 @@ def partitioned_ola(y, ola, x, gain, blend):
 def hrtf_fir_partitioned(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola):
     """K10p for a group of spatial panners whose HRIR has 129-1024 taps
     (arguments and result as ``hrtf_fir_partitioned_plain``): the input
-    spectra (torch ops and cuFFT), K10p-a, cuFFT's inverse and K10p-b, each
-    kernel's plain version on CPU tensors (which is then
+    pass, cuFFT's forward transform, K10p-a, cuFFT's unscaled inverse and
+    K10p-b, each kernel's plain version on CPU tensors (which is then
     ``hrtf_fir_partitioned_plain``)."""
     _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola)
-    X = partitioned_input_spectra(x, gain)
+    X = torch.fft.rfft(partitioned_input(x, gain), dim=-1)
     acc, hx, haz, hel = partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i)
-    y = torch.fft.irfft(acc, n=2 * FRAMES_PER_BLOCK, dim=-1)
-    out, ola = partitioned_ola(y, ola, x, gain, blend)
+    out, ola = partitioned_ola(partitioned_inverse(acc), ola, x, gain, blend)
     return out, hx, haz, hel, ola

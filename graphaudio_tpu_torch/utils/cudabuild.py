@@ -78,11 +78,13 @@ _SIGNATURES = {
     "ga_hrtf_fir": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P],
     "ga_hrtf_fir_rows": [_P, _P, _I, _I, _I, _P, _P],
-    # X, hx, haz, hel, az, el, spectra r/i, V, S, P, E, A, c_az, c_el, acc,
-    # next hx, haz, hel, stream
+    # X, hx, haz, hel, az, el, spectra r/i, V, S, P, E, A, c_az, c_el, quanta
+    # a block, acc, next hx, haz, hel, stream
     "ga_hrtf_part_mac": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         ctypes.c_float, ctypes.c_float, _P, _P, _P, _P, _P],
-    # y, ola, x, gain, blend, V, C, S, out, next ola, stream
+                         ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P],
+    # x, gain, V, C, S, out, stream
+    "ga_hrtf_part_input": [_P, _P, _I, _I, _I, _P, _P],
+    # y (unscaled), ola, x, gain, blend, V, C, S, out, next ola, stream
     "ga_hrtf_part_ola": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # src, consts, S, listener pos/right/up/ahead, out, host plan words, stream
     "ga_spatial_gains_batch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P],

@@ -1316,12 +1316,13 @@ def _bits(t):
 
 
 def _k10p_same_bits(args):
-    """K10p-a and K10p-b against their plain versions on one call's
-    arguments, and the whole wrapper against the whole plain version: the
-    same f32 operations in the same order (__f*_rn in the kernels), so bit
-    for bit."""
-    mac, ola = hrtf_part.kernel_inputs(args)
-    for got, want in ((th.partitioned_mac(*mac), th.partitioned_mac_plain(*mac)),
+    """The input pass, K10p-a and K10p-b against their plain versions on one
+    call's arguments, and the whole wrapper against the whole plain
+    version: the same f32 operations in the same order (__f*_rn in the
+    kernels), so bit for bit."""
+    inp, mac, ola = hrtf_part.kernel_inputs(args)
+    for got, want in (((th.partitioned_input(*inp),), (th.partitioned_input_plain(*inp),)),
+                      (th.partitioned_mac(*mac), th.partitioned_mac_plain(*mac)),
                       (th.partitioned_ola(*ola), th.partitioned_ola_plain(*ola)),
                       (th.hrtf_fir_partitioned(*args), th.hrtf_fir_partitioned_plain(*args))):
         torch.cuda.synchronize()
@@ -1334,12 +1335,26 @@ def test_k10p_kernels(dev, case):
     _k10p_same_bits(hrtf_part.seeded_case(dev, *hrtf_part.PART_CASES[case]))
 
 
+@pytest.mark.parametrize("q", th.MAC_BLOCK_QUANTA)
+@pytest.mark.parametrize("motion", ["moving", "runs", "static"])
+def test_k10p_a_block_quanta(dev, monkeypatch, q, motion):
+    """K10p-a with each block length the launcher may pick, at S = 20 (a
+    short last block at every length) and P = 8: bit for bit its plain
+    version, sums and next ring."""
+    monkeypatch.setattr(th, "mac_block_quanta", lambda V, S, sms: q)
+    mac = hrtf_part.kernel_inputs(hrtf_part.seeded_case(dev, 16, 1, 20, 8, True, motion))[1]
+    got, want = th.partitioned_mac(*mac), th.partitioned_mac_plain(*mac)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
 @pytest.mark.parametrize("taps,P", [(None, 2), (1024, 8)])
 def test_k10p_config5_measured(dev, taps, P):
     """config5_measured (128 voices, superblock 32) with every source moving:
-    the kernels bit for bit on its fourth step's arguments; one K10p-a and
-    one K10p-b launch a step and no P1; 4 steps within 1e-5 of the CPU
-    render."""
+    the kernels bit for bit on its fourth step's arguments; one input pass,
+    one K10p-a and one K10p-b launch a step and no P1; 4 steps within 1e-5
+    of the CPU render."""
     from unittest import mock
 
     def build(d):
@@ -1358,8 +1373,8 @@ def test_k10p_config5_measured(dev, taps, P):
     with mock.patch.object(tsp, "hrtf_fir_partitioned", wraps=tsp.hrtf_fir_partitioned) as k:
         got = ctx.render(4 * 32 * 128)
     assert k.call_count == 4
-    assert (cudabuild.launches["hrtf_part_mac"], cudabuild.launches["hrtf_part_ola"],
-            cudabuild.launches["hrtf_fir"]) == (4, 4, 0)
+    assert (cudabuild.launches["hrtf_part_input"], cudabuild.launches["hrtf_part_mac"],
+            cudabuild.launches["hrtf_part_ola"], cudabuild.launches["hrtf_fir"]) == (4, 4, 4, 0)
     args = list(k.call_args.args)
     assert tuple(args[5].shape) == (7, 24, 2, P, 129)
     _k10p_same_bits(args)
@@ -1370,8 +1385,9 @@ def test_k10p_config5_measured(dev, taps, P):
 
 def test_k10p_per_node_and_context_default(dev):
     """A per-node 320-tap set (P = 3) beside panners on a 200-tap context
-    default (P = 2): two panner stages, each one K10p-a and one K10p-b
-    launch a step, and the render within 1e-5 of the CPU render."""
+    default (P = 2): two panner stages, each one input pass, one K10p-a and
+    one K10p-b launch a step, and the render within 1e-5 of the CPU
+    render."""
     from graphaudio_tpu_torch.testing.sofa import synthetic_hrir_set
 
     def data(n):
@@ -1402,8 +1418,8 @@ def test_k10p_per_node_and_context_default(dev):
     ctx._ensure_compiled()
     cudabuild.launches.clear()
     got = ctx.render(8 * 512)
-    assert (cudabuild.launches["hrtf_part_mac"], cudabuild.launches["hrtf_part_ola"],
-            cudabuild.launches["hrtf_fir"]) == (16, 16, 0)
+    assert (cudabuild.launches["hrtf_part_input"], cudabuild.launches["hrtf_part_mac"],
+            cudabuild.launches["hrtf_part_ola"], cudabuild.launches["hrtf_fir"]) == (16, 16, 16, 0)
     want = build("cpu").render(8 * 512)
     assert np.abs(want).max() > 1e-2
     assert np.abs(got - want).max() < 1e-5
