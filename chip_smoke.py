@@ -172,6 +172,25 @@ any failure raises and the script exits non-zero:
      superblocks within 1e-5 of the CPU render, one input pass, one K10p-a
      and one K10p-b launch a step for each panner stage and no P1 launch.
 
+ 15. the realtime context (``realtime_phase``): configs 4 and 5 at full
+     width built into a ``RealtimeAudioContext`` at superblock 2 (no
+     render thread, the null output device), 64 steps of
+     ``render_step_blocking`` bit for bit the same graph's unfused
+     ``OfflineAudioContext`` render and within 1e-5 of its CPU render over
+     8 steps; K2a against its plain version at the step's shape (its plan
+     printed: the small-grain tiles); the same 64 steps pipelined as the
+     render thread runs them (launch k+1, finish k) bit for bit, with the
+     share of finishes at which the next step was still running and the
+     synchronizing calls torch's sync debug mode caught in the launches
+     and the finishes; config 5 live on its render thread for 10 s of wall
+     time into the native ring and the null output device: frames played
+     and underrun, in total and after the first second, steps rendered,
+     the host walls of launch, finish and launch-to-finish (p50, p99), the
+     last render error (none allowed), a 20-step profile of single-step
+     calls, the startup latency probe and the superblock ``auto_tune``
+     would pick; checkpoint resume (``utils.save_context_state`` /
+     ``load_context_state``) of config 5 at superblock 32 and of config 3
+     fused, 8 superblocks bit for bit.
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
 renders of the configs that run it, each render with its profile window
@@ -196,6 +215,7 @@ renders each, alternated, every hash the unfused trees' config-3 hash,
 with P2's launches, host and device time a step (``pipe_runs``).
 ``--stream`` runs phase 13 alone. ``--hrtfpart`` runs phase 14, the
 goldens and three 30 s renders of config 5 (its recorded sha256).
+``--realtime`` runs phase 15 alone.
 ``--k10pa`` times K10p-a alone, warm and cold, at config5_measured's
 fourth step and five seeded cases (``k10pa_times``; copied into the tree
 that first had K10p, it times that tree's kernel the same way).
@@ -359,12 +379,13 @@ K11K6M_GROUPS = {"K11": "oscillator_kernel", "K6m": "apply_modulation", "K5": "u
                  "K3": "fan_in"}
 
 
-def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
+def profile_steps(ctx, step_frames, host_us, steps=20, groups=None, step_calls=False):
     """Device time a step and per kernel over ``steps`` steps of ``ctx``
-    under torch.profiler (after two warm-up steps); the busy share divides
-    it by ``host_us``, the unprofiled host time a step, since the profiler
-    slows the host. ``groups`` ({label: substring of kernel names}) adds
-    each group's device time and launches a step."""
+    under torch.profiler (after two warm-up steps), in one render call or,
+    with ``step_calls``, in one call a step as a realtime context renders;
+    the busy share divides it by ``host_us``, the unprofiled host time a
+    step, since the profiler slows the host. ``groups`` ({label: substring
+    of kernel names}) adds each group's device time and launches a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,11 +393,12 @@ def profile_steps(ctx, step_frames, host_us, steps=20, groups=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctx.render(steps * step_frames)
+        for _ in range(steps if step_calls else 1):
+            ctx.render(step_frames if step_calls else steps * step_frames)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
     # a graph with pipes runs its pipe delay's rows more than it delivers
-    rows = ctx.stats.last_breakdown.get("rows", steps)
+    rows = ctx.stats.last_breakdown.get("rows", steps) * (steps if step_calls else 1)
     per_kernel = {}
     for e in prof.key_averages():
         t_us = getattr(e, "self_device_time_total", None)
@@ -3205,6 +3227,304 @@ def measured_runs(dev, runs=5):
     return out
 
 
+#: Steps of the realtime phase's parity and pipelining checks.
+RT_STEPS = 64
+#: Seconds of wall time the live realtime run plays.
+RT_LIVE_S = 10.0
+
+
+def rt_context(dev, **kw):
+    """A ``RealtimeAudioContext`` factory for the config builders' ``context``
+    argument: no render thread, the null output device."""
+    from graphaudio_tpu_torch.realtime import RealtimeAudioContext
+
+    def make(**geom):
+        return RealtimeAudioContext(device=dev, auto_start_thread=False, output_device="null",
+                                    **kw, **geom)
+    return make
+
+
+def offline_unfused(dev):
+    """An ``OfflineAudioContext`` factory with chain fusion off, as in a
+    realtime context."""
+    from graphaudio_tpu_torch.core.context import OfflineAudioContext
+
+    return lambda **geom: OfflineAudioContext(device=dev, pipeline_chains=False, **geom)
+
+
+def pipelined_steps(ctx, n):
+    """``n`` steps as the render thread runs them: launch step k+1, then
+    finish step k. Returns (the steps' audio, counts of the finishes at which
+    the next launch's event had not yet completed ("next_running") and at
+    which the finished step's own event had completed before the wait
+    ("own_done"), and the synchronizing CUDA calls that torch's sync debug
+    mode caught: in the first launch (which builds the graph), in the later
+    launches and in the finishes, each by the innermost line of the package
+    that made it)."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    pkg = os.path.join(ROOT, "graphaudio_tpu_torch")
+    outs, seen = [], {"next_running": 0, "own_done": 0}
+    syncs = {"first_launch": Counter(), "launches": Counter(), "finishes": Counter()}
+
+    def counted(where, fn, *args):
+        def show(message, category, filename, lineno, file=None, line=None):
+            frames = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)]
+            at = (f"{os.path.relpath(frames[-1].filename, ROOT)}:{frames[-1].lineno}" if frames
+                  else f"{os.path.relpath(filename, ROOT)}:{lineno}")
+            syncs[where][at] += "synchroniz" in str(message)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    pending = counted("first_launch", ctx._render_steps_launch, 1)
+    for _ in range(n - 1):
+        nxt = counted("launches", ctx._render_steps_launch, 1)
+        seen["next_running"] += not nxt.ready()
+        seen["own_done"] += pending.ready()
+        outs.append(counted("finishes", ctx._render_steps_finish, pending))
+        pending = nxt
+    outs.append(counted("finishes", ctx._render_steps_finish, pending))
+    return outs, seen, {k: dict(v) for k, v in syncs.items()}
+
+
+def k2a_live_check(dev, build):
+    """K2a against its plain version on the arguments that the first
+    realtime step at superblock 2 of ``build`` gives it (captured by a spy on
+    the name ``conv_step`` looks up), within 1e-5 x max|ref| as in
+    ``k2_checks``; the ring writes bit for bit. Returns the entry."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import convolve as tconv
+
+    seen = []
+    orig = tconv.spectral_mac
+
+    def spy(X, hr, hi, ring_r, ring_i, head, rev):
+        if not seen:
+            seen.append((X.clone(), hr, hi, ring_r.clone(), ring_i.clone(), head, rev))
+        return orig(X, hr, hi, ring_r, ring_i, head, rev)
+
+    ctx = build(superblock=2, context=rt_context(dev))
+    tconv.spectral_mac = spy
+    try:
+        ctx.render_step_blocking()
+    finally:
+        tconv.spectral_mac = orig
+        ctx.dispose()
+    X, hr, hi, ring_r, ring_i, head, rev = seen[0]
+    K, L, NB = X.shape
+    P = hr.shape[1]
+    plan = tconv.mac_plan(K, L, P, NB)
+    rk = (ring_r.clone(), ring_i.clone())
+    rp = (ring_r.clone(), ring_i.clone())
+    e = compare(f"K2a spectral MAC (realtime step, superblock 2: K={K} L={L} P={P} bins={NB}, "
+                f"plan lt={plan[0]} clusters={plan[1]} groups={plan[2]} lags={plan[3]})", "cuda",
+                "graphaudio_tpu_torch/csrc/conv.cu",
+                "graphaudio_tpu/ops/convolve.py:191" if rev else "graphaudio_tpu/ops/convolve.py:72",
+                lambda: tconv.spectral_mac(X, hr, hi, *rk, head, rev),
+                lambda: tconv.spectral_mac_plain(X, hr, hi, *rp, head, rev), 1e-5, rel=True,
+                bnd=bound(nbytes(X, hr, hi, ring_r, ring_i, X), 8 * K * L * P * NB))
+    if not (torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])):
+        raise AssertionError("K2a's ring writes differ from the plain version's at superblock 2")
+    e["shape"] = {"K": K, "L": L, "P": P, "bins": NB, "lt": plan[0], "clusters": plan[1],
+                  "groups": plan[2], "lags": plan[3]}
+    return e
+
+
+def realtime_parity(dev, n, build, steps=RT_STEPS):
+    """(a) and (b) of the realtime phase for config ``n``: ``steps`` steps of
+    ``render_step_blocking`` in a ``RealtimeAudioContext`` at superblock 2,
+    bit for bit the same graph's ``OfflineAudioContext(superblock=2,
+    pipeline_chains=False)`` render of as many steps in one call and within
+    1e-5 of the port's CPU render over the first 8; then the same steps run
+    pipelined (launch k+1, finish k), bit for bit (a)'s audio."""
+    import torch
+
+    T = 2 * 128
+    ctx = build(superblock=2, context=rt_context(dev))
+    try:
+        t0 = time.perf_counter()
+        got = np.concatenate([ctx.render_step_blocking() for _ in range(steps)], axis=1)
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.dispose()
+    want = build(superblock=2, context=offline_unfused(dev)).render(steps * T)
+    cpu = build(superblock=2, context=offline_unfused("cpu")).render(8 * T)
+    err = float(np.abs(got[:, :8 * T].astype(np.float64) - cpu).max())
+    same = bool(np.array_equal(got, want))
+    ctx = build(superblock=2, context=rt_context(dev))
+    try:
+        torch.cuda.synchronize()
+        outs, seen, syncs = pipelined_steps(ctx, steps)
+    finally:
+        ctx.dispose()
+    piped = np.concatenate(outs, axis=1)
+    same_piped = bool(np.array_equal(piped, got))
+    out = {"steps": steps, "bit_for_bit_offline": same, "max_abs_err_vs_cpu_8_steps": err,
+           "cpu_peak": float(np.abs(cpu).max()), "wall_s_blocking": wall,
+           "sha256": hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest(),
+           "pipelined_bit_for_bit": same_piped,
+           "next_step_running_share": seen["next_running"] / (steps - 1),
+           "own_step_done_before_finish_share": seen["own_done"] / (steps - 1),
+           "sync_calls": syncs}
+    phase("realtime", f"config {n}, superblock 2, {steps} steps of render_step_blocking: "
+          f"bit for bit the unfused offline render {same}; vs the CPU render over 8 steps "
+          f"max_abs_err={err!r} (tolerance 1e-05); pipelined (launch k+1, finish k) bit for "
+          f"bit {same_piped}; of {steps - 1} finishes, the next step still running at "
+          f"{seen['next_running']}, the finished step's own work done before its wait at "
+          f"{seen['own_done']}; synchronizing calls (torch sync debug mode) {json.dumps(syncs)}")
+    if not (same and same_piped and err < 1e-5 and np.isfinite(got).all()
+            and out["cpu_peak"] > 1e-3):
+        raise AssertionError(f"config {n}'s realtime steps differ from the offline or the CPU "
+                             f"render, or from each other: {out}")
+    return out
+
+
+def live_run(dev, seconds=RT_LIVE_S):
+    """(c): config 5 at full width in a ``RealtimeAudioContext`` (superblock
+    2, the null output device) playing for ``seconds`` of wall time on its
+    render thread. The steps' host walls come from wrappers of the
+    context's launch and finish: the launch alone, the finish alone, and a
+    step's launch start to its finish end."""
+    from graphaudio_tpu_torch.realtime import RealtimeAudioContext
+    from graphaudio_tpu_torch.realtime import ring as tring
+    from graphaudio_tpu_torch.testing.configs import config5_spatial_scene
+
+    ctx = config5_spatial_scene(superblock=2, context=rt_context(dev))
+    walls = {"launch": [], "finish": [], "launch_to_finish": []}
+    starts = {}
+    launch0, finish0 = ctx._render_steps_launch, ctx._render_steps_finish
+
+    def launch(n_steps, pack=None, keep=None):
+        t0 = time.perf_counter()
+        h = launch0(n_steps, pack, keep)
+        starts[id(h)] = t0
+        walls["launch"].append(time.perf_counter() - t0)
+        return h
+
+    def finish(h):
+        t0 = time.perf_counter()
+        out = finish0(h)
+        t1 = time.perf_counter()
+        walls["finish"].append(t1 - t0)
+        walls["launch_to_finish"].append(t1 - starts.pop(id(h)))
+        return out
+
+    try:
+        ctx._ensure_compiled()
+        ctx._ensure_params_encoded()
+        ctx._render_steps_launch, ctx._render_steps_finish = launch, finish
+        ctx._start_render_thread()
+        ctx.start()
+        t0 = time.perf_counter()
+        time.sleep(1.0)
+        at1 = (ctx.frames_played, ctx.underrun_frames, ctx.stats.steps_rendered)
+        time.sleep(max(0.0, seconds - (time.perf_counter() - t0)))
+        ctx.stop()
+        elapsed = time.perf_counter() - t0
+        end = (ctx.frames_played, ctx.underrun_frames, ctx.stats.steps_rendered)
+        native = ctx.ring.native_handle is not None and tring.load_native() is not None
+        backend, error = ctx.device_backend, ctx.last_render_error
+        ctx._thread_quit = True
+        ctx._render_thread.join(timeout=5.0)
+        # What every launch checks on the host before it enqueues a kernel,
+        # the mean of 50 calls each once the thread has stopped.
+        checks = {name: host_us(fn, calls=50) for name, fn in (
+            ("params_encoded", ctx._ensure_params_encoded),
+            ("static_config_stale", ctx._compiled.static_config_stale),
+            ("notify_refs", ctx._notify_refs), ("drain_commands", ctx._drain_commands))}
+    finally:
+        ctx.dispose()
+
+    def pct(xs):
+        xs = sorted(xs)
+        return {"p50_us": xs[len(xs) // 2] * 1e6, "p99_us": xs[int(0.99 * (len(xs) - 1))] * 1e6,
+                "max_us": xs[-1] * 1e6, "n": len(xs)} if xs else None
+
+    rtt = RealtimeAudioContext._measure_step_rtt(dev)
+    tuned = RealtimeAudioContext._tune_geometry(rtt, SR, 2, 256)[0]
+    out = {"seconds": elapsed, "frames_played": end[0], "underrun_frames": end[1],
+           "steps_rendered": end[2], "frames_played_after_1s": end[0] - at1[0],
+           "underrun_frames_after_1s": end[1] - at1[1], "steps_after_1s": end[2] - at1[2],
+           "step_audio_us": 256 / SR * 1e6, "walls": {k: pct(v) for k, v in walls.items()},
+           "native_ring": native, "device_backend": backend,
+           "last_render_error": None if error is None else repr(error),
+           "render_errors": ctx.stats.render_errors,
+           "measure_step_rtt_us": rtt * 1e6, "auto_tune_superblock": tuned,
+           "launch_host_checks_us": checks}
+    phase("realtime", f"config 5 live, superblock 2, null output, {elapsed!r} s: {json.dumps(out)}")
+    if error is not None or not native or backend not in ("null", "alsa") or end[2] <= 0:
+        raise AssertionError(f"the live realtime run failed: {out}")
+    return out
+
+
+def checkpoint_resume(dev, label, build, T, steps=8):
+    """(d): render ``steps`` superblocks, save, render ``steps`` more; a fresh
+    context that loads the file renders those same ``steps`` bit for bit."""
+    from graphaudio_tpu_torch.utils import load_context_state, save_context_state
+
+    a = build()
+    a.render(steps * T)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_ckpt_") as d:
+        path = os.path.join(d, "state.npz")
+        save_context_state(a, path)
+        cont = a.render(steps * T)
+        b = build()
+        load_context_state(b, path)
+        got = b.render(steps * T)
+        size = os.path.getsize(path)
+    same = bool(np.array_equal(got, cont))
+    phase("realtime", f"checkpoint, {label}: {steps} superblocks resumed from a {size}-byte file "
+          f"bit for bit {same}")
+    if not (same and np.abs(cont).max() > 0):
+        raise AssertionError(f"{label}: the resumed render differs from the uninterrupted one")
+    return {"bit_for_bit": same, "file_bytes": size}
+
+
+def realtime_phase(dev):
+    """Phase 15, ``--realtime``: (a) configs 4 and 5 at full width in a
+    ``RealtimeAudioContext`` at superblock 2 against their offline and CPU
+    renders (``realtime_parity``), K2a against its plain version at the
+    step's shape; (b) the same steps pipelined; (c) config 5 live for
+    ``RT_LIVE_S`` s (``live_run``) and a 20-step profile of single-step calls
+    at superblock 2; (d) checkpoint resume of config 5 at superblock 32 and
+    of config 3 fused. Returns ([the K2a entry], results)."""
+    from graphaudio_tpu_torch.testing.configs import (config3_eq_chain, config4_conv_reverb,
+                                                      config5_spatial_scene)
+
+    res = {}
+    k2a = k2a_live_check(dev, config5_spatial_scene)
+    for n, build in ((4, config4_conv_reverb), (5, config5_spatial_scene)):
+        res[f"config{n}"] = realtime_parity(dev, n, build)
+    res["live"] = live_run(dev)
+    host = (res["live"]["walls"]["launch"]["p50_us"] + res["live"]["walls"]["finish"]["p50_us"])
+    prof = profile_steps(config5_spatial_scene(superblock=2, context=rt_context(dev)), 256, host,
+                         groups={**K2BK10B_GROUPS, "K5": "unity_", "P1": "hrtf_fir",
+                                 "K2a": "conv_mac", "K3": "fan_in"}, step_calls=True)
+    phase("profile", f"config 5 realtime, superblock 2, 20 single-step calls under "
+          f"torch.profiler: {json.dumps(prof)}")
+    res["live"]["profile"] = prof
+    res["checkpoint"] = {
+        "config5_superblock32": checkpoint_resume(
+            dev, "config 5, superblock 32", lambda: config5_spatial_scene(superblock=32, device=dev),
+            32 * 128),
+        "config3_fused": checkpoint_resume(
+            dev, "config 3 fused (superblock 32)", lambda: config3_eq_chain(superblock=32, device=dev),
+            32 * 128)}
+    return [k2a], res
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -3415,6 +3735,9 @@ def main(device="cuda", only=None):
                 runs["occluded"]["launches"]["K9 one-pole lowpass"]
             for n in (4, 5):
                 runs[f"config{n}"]["golden_max_abs_err"] = golden_err[n]
+        elif only == "realtime":
+            entries, rt = realtime_phase(dev)
+            runs = {"realtime": rt}
         else:  # k1k5
             entries, _ = k1k5_checks(dev)
             golden_err = goldens(dev)
@@ -3725,6 +4048,14 @@ def main(device="cuda", only=None):
         e["launches_p8"] = runs_measured["p8"]["launches"][label]
     entries += k10p
 
+    # -- 15. the realtime context at superblock 2, and checkpoint resume --------------
+    k2a_rt, runs_rt = realtime_phase(dev)
+    for e in entries:
+        if e["name"] == "K2a spectral MAC":
+            e["shapes"].append({k: k2a_rt[0][k] for k in ("name", "max_abs_err", "ms", "plain_ms",
+                                                          "bound_ms", "bound_by", "device_ms",
+                                                          "shape")})
+
     render = {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
@@ -3745,6 +4076,7 @@ def main(device="cuda", only=None):
         "config5_streamed": runs_stream["config5_streamed"],
         "config5_beside_streamed": runs_stream["config5"],
         "config5_measured": runs_measured,
+        "realtime": runs_rt,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "codec_build_s": codec_s, "floor_device_ms": floor_ms,
         "card": smi}
@@ -3799,6 +4131,11 @@ if __name__ == "__main__":
         "k10pa": "K10p-a alone, warm and cold, at config5_measured's fourth step (moving "
                  "and still, P = 2 and 8) and five seeded cases, at each block length the "
                  "tree may pick (runs on the tree that first had K10p too)",
+        "realtime": "the realtime phase: configs 4 and 5 at full width in a "
+                    "RealtimeAudioContext at superblock 2, 64 steps bit for bit their unfused "
+                    "offline renders and within 1e-5 of their CPU renders, then pipelined; K2a "
+                    "at the step's shape; config 5 live for 10 s on the null output device; "
+                    "checkpoint resume of config 5 and of config 3 fused",
         "stream": "the K15 checks (whole calls: config5_streamed's two stream nodes over "
                   "351 steps, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that runs "
                   "out), five 30 s renders each of config5_streamed and config 5, K15's "

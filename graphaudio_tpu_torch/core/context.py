@@ -131,6 +131,25 @@ def _same_structure(a, b) -> bool:
     return True
 
 
+class PendingRender:
+    """A launched render call (``_render_steps_launch``) not yet finished:
+    its event (None on the CPU), its audio in pinned host tensors being
+    filled, the pinned inputs the device still reads (``held``), the stop
+    times of the sources that may end, the clock at its end and its
+    host-time breakdown so far."""
+
+    __slots__ = ("event", "pending", "tail", "pack", "held", "wanted", "stops",
+                 "end_time", "n_steps", "breakdown")
+
+    def __init__(self, **fields):
+        for k, v in fields.items():
+            setattr(self, k, v)
+
+    def ready(self) -> bool:
+        """True once the device has run everything the launch enqueued."""
+        return self.event is None or self.event.query()
+
+
 class AudioContextBase:
     def __init__(
         self,
@@ -526,20 +545,23 @@ class AudioContextBase:
 
     # -- rendering ------------------------------------------------------------
 
-    def _render_steps(self, n_steps: int, pack=None, keep=None):
-        """Render ``n_steps`` superblocks; returns f32[channels, n_steps*S*128].
-
-        With ``pack``, a function of one launch's f32 device audio [C, F]
-        (``pack_int16``, ``pack_mulaw``, ``ImaDeviceStream.pack``), every
-        launch is packed on the device and the call returns (the packed
-        launches joined along axis 0, None). With ``keep`` too, only the
-        first ``keep`` frames are packed (``keep`` lies in the last
-        superblock) and the rest comes back unpacked: (packed, f32[C, n]).
+    def _render_steps_launch(self, n_steps: int, pack=None, keep=None) -> PendingRender:
+        """Enqueue ``n_steps`` superblocks on the device and return a handle
+        for ``_render_steps_finish``, which waits for them (parity:
+        graphaudio_tpu/core/context.py ``_render_steps_launch``).
 
         Drains pending commands first (parity: DrainCommands at block start,
-        AudioContextBase.cs:272), then enqueues the steps in launches of
-        ``chunk_schedule`` steps; each launch's audio is copied to the host
-        asynchronously, and the call waits once at the end.
+        AudioContextBase.cs:272), builds and encodes, stages the feeds, then
+        enqueues the steps in launches of ``chunk_schedule`` steps; each
+        launch's audio, and then the stop times of the sources that may
+        end, are copied to pinned host memory without blocking. The clock
+        advances here, so the next launch runs on the right clock before
+        this one is finished. Nothing here waits for the device: the block
+        clock and the feeds go up from pinned memory too, held by the
+        handle until its finish. On a CUDA device the handle carries one
+        event recorded on the current stream after all of this.
+
+        ``pack`` and ``keep`` are as for ``_render_steps``.
         """
         if self._disposed:
             raise RuntimeError("context is disposed")
@@ -565,11 +587,16 @@ class AudioContextBase:
         D = self._compiled.pipe_delay
         rows = n_steps + D
         bt_host = self._block_clock(rows * self.superblock).reshape(rows, self.superblock)
-        block_times = torch.from_numpy(bt_host).to(self.device)
+        bt = torch.from_numpy(bt_host)
+        held = []  # pinned host tensors the device reads after this returns
+        if cuda:
+            bt = bt.pin_memory()
+            held.append(bt)
+        block_times = bt.to(self.device, non_blocking=True)
         t_feed = time.perf_counter()
-        feeds, held = self._stage_feeds(n_steps, cuda)
+        feeds, feed_held = self._stage_feeds(n_steps, cuda)
+        held += feed_held
         t_enq = time.perf_counter()
-        prep_s = t_enq - t0
 
         pending = []
         tail = None
@@ -600,38 +627,74 @@ class AudioContextBase:
             # Async device-to-host copy (into pinned memory) so the device
             # keeps working while the host enqueues the next launch.
             pending.append(out.to("cpu", non_blocking=True) if cuda else out)
-        t_sync = time.perf_counter()
-        if cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-        del held  # the feeds' pinned host copies: every launch has run
-        parts = [p.numpy() for p in pending]
-        axis = 1 if pack is None else 0
-        out_np = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
-        if tail is not None:
-            tail = tail.numpy()
-        t_notify = time.perf_counter()
-
+        # The stop times the finish notifies from, as this launch left them
+        # (parity: _notify_refs and its prefetch): copied behind the audio,
+        # never read back after a later launch has written them.
+        wanted, fetch = self._notify_refs()
+        stops = {k: v.to("cpu", non_blocking=True) if cuda else v.clone()
+                 for k, v in fetch.items()}
         self._current_frame += n_steps * frames_per_step
         self._current_time = float(
             bt_host[n_steps - 1, -1] + np.float64(FRAMES_PER_BLOCK) / self.sample_rate
         )
-        self._notify_sources()
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         t_end = time.perf_counter()
-        self.stats.record(
-            frames=n_steps * frames_per_step,
-            quanta=n_steps * self.superblock,
-            steps=n_steps,
+        return PendingRender(
+            event=event, pending=pending, tail=tail, pack=pack, held=held,
+            wanted=wanted, stops=stops, end_time=self._current_time, n_steps=n_steps,
             breakdown={
-                "prep_s": prep_s,
+                "prep_s": t_enq - t0,
                 "feed_s": t_enq - t_feed,  # prepare_feed, the copies' and reads' issue
-                "enqueue_s": t_sync - t_enq,
-                "sync_s": t_notify - t_sync,
-                "notify_s": t_end - t_notify,
+                "enqueue_s": t_end - t_enq,
                 "n_launches": chunk_i,
                 "rows": rows,  # steps run: n_steps and the pipes' D
             },
         )
-        return out_np if pack is None else (out_np, tail)
+
+    def _render_steps_finish(self, handle: PendingRender):
+        """Wait for a launch's own event (no stream or device sync), join
+        its audio, fire its sources' ended-events from the stop times
+        prefetched at launch, and record its stats. Handles finish in launch
+        order; the recorded wall is the launch's host time and the finish's,
+        not the time between them."""
+        t_sync = time.perf_counter()
+        if handle.event is not None:
+            handle.event.synchronize()
+        handle.held = None  # every copy from pinned memory has run
+        parts = [p.numpy() for p in handle.pending]
+        axis = 1 if handle.pack is None else 0
+        out_np = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
+        tail = handle.tail.numpy() if handle.tail is not None else None
+        t_notify = time.perf_counter()
+        self._notify_sources(handle.wanted, handle.stops, handle.end_time)
+        t_end = time.perf_counter()
+        frames_per_step = self.superblock * FRAMES_PER_BLOCK
+        self.stats.record(
+            frames=handle.n_steps * frames_per_step,
+            quanta=handle.n_steps * self.superblock,
+            steps=handle.n_steps,
+            breakdown=dict(handle.breakdown, sync_s=t_notify - t_sync,
+                           notify_s=t_end - t_notify),
+        )
+        return out_np if handle.pack is None else (out_np, tail)
+
+    def _render_steps(self, n_steps: int, pack=None, keep=None):
+        """Render ``n_steps`` superblocks; returns f32[channels, n_steps*S*128].
+
+        With ``pack``, a function of one launch's f32 device audio [C, F]
+        (``pack_int16``, ``pack_mulaw``, ``ImaDeviceStream.pack``), every
+        launch is packed on the device and the call returns (the packed
+        launches joined along axis 0, None). With ``keep`` too, only the
+        first ``keep`` frames are packed (``keep`` lies in the last
+        superblock) and the rest comes back unpacked: (packed, f32[C, n]).
+
+        One launch and its finish (``_render_steps_launch``,
+        ``_render_steps_finish``): the call waits once, at the end.
+        """
+        return self._render_steps_finish(self._render_steps_launch(n_steps, pack, keep))
 
     def _stage_feeds(self, n_steps: int, cuda: bool):
         """Host-streamed data (decoder-fed stream nodes), staged once a
@@ -663,10 +726,9 @@ class AudioContextBase:
         feeds["__base__"] = self._current_frame
         return feeds, held
 
-    def _notify_sources(self) -> None:
-        """Fire ended-events / self-disposal on scheduled sources that can
-        end; all their stop times come to the host in one copy per stage."""
-        end_time = self.current_time
+    def _notify_refs(self):
+        """The sources that may end (``may_notify``), each with its state
+        reference, and the stop-time tensor of each of their stages."""
         wanted = []
         fetch = {}
         for node in self._compiled.topo:
@@ -680,9 +742,15 @@ class AudioContextBase:
                 continue
             wanted.append((node, ref))
             fetch.setdefault(ref[0], entry["stop_time"])
+        return wanted, fetch
+
+    @staticmethod
+    def _notify_sources(wanted, stops, end_time: float) -> None:
+        """Fire ended-events / self-disposal on the scheduled sources of a
+        launch, from its host stop times (one copy per stage)."""
         if not wanted:
             return
-        host = {k: v.cpu().numpy() for k, v in fetch.items()}
+        host = {k: v.numpy() for k, v in stops.items()}
         for node, (key, lane) in wanted:
             st = host[key] if lane is None else host[key][lane]
             node.notify_rendered({"stop_time": st}, end_time)

@@ -20,7 +20,10 @@ config 5 (the stream node's K15, through the Kit's data provider);
 taps (the partitioned filter, K10p). Their
 ``api`` argument names the package whose classes build the graph (the
 port by default; a test passes the JAX package to build the same graph
-there), so one definition serves both.
+there), so one definition serves both. Configs 4 and 5 also take a
+``context`` factory, ``context(sample_rate=, superblock=)``, to build the
+same graph into another context, a ``RealtimeAudioContext`` of either
+package for one.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ import importlib
 import numpy as np
 
 import graphaudio_tpu_torch as ga
-from graphaudio_tpu_torch.kit import AudioEngine, ReverbEffect, SoundMixState
 
 SR = 48000
 
@@ -106,16 +108,16 @@ def config3_eq_chain(superblock=32, device="cuda"):
     return ctx
 
 
-def config4_conv_reverb(superblock=32, voices=64, device="cuda"):
+def config4_conv_reverb(superblock=32, voices=64, device="cuda", api=None, context=None):
     """64 voices -> cubic resampler (44.1->48k) -> 2 s IR convolver -> gain."""
     rng = np.random.default_rng(4)
-    ctx = ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
-    master = ga.GainNode(ctx)
+    api, ctx = _context(api, superblock, device, context)
+    master = api.GainNode(ctx)
     master.gain.value = 0.5
-    conv = ga.ConvolverNode(ctx)
+    conv = api.ConvolverNode(ctx)
     ir_len = 2 * SR
     decay = np.exp(-np.arange(ir_len) / (0.4 * SR))
-    conv.buffer = ga.PlayableAudioBuffer.from_stereo_arrays(
+    conv.buffer = api.PlayableAudioBuffer.from_stereo_arrays(
         (rng.standard_normal(ir_len) * decay).astype(np.float32),
         (rng.standard_normal(ir_len) * decay).astype(np.float32),
         SR,
@@ -123,8 +125,8 @@ def config4_conv_reverb(superblock=32, voices=64, device="cuda"):
     conv.connect(master).connect(ctx.destination)
     for _ in range(voices):
         sig = (rng.standard_normal(2 * 44100) * 0.05).astype(np.float32)
-        src = ga.AudioBufferSourceNode(ctx)
-        src.buffer = ga.PlayableAudioBuffer.from_mono_array(sig, 44100)
+        src = api.AudioBufferSourceNode(ctx)
+        src.buffer = api.PlayableAudioBuffer.from_mono_array(sig, 44100)
         src.loop = True
         src.playback_rate.value = 1.0  # resampler path
         src.connect(conv)
@@ -132,38 +134,10 @@ def config4_conv_reverb(superblock=32, voices=64, device="cuda"):
     return ctx
 
 
-def config5_spatial_scene(superblock=32, voices=128, device="cuda"):
+def config5_spatial_scene(superblock=32, voices=128, device="cuda", api=None, context=None):
     """128 moving spatialized sources with a shared reverb send
     (Kit AudioBus / EffectChain topology)."""
-    rng = np.random.default_rng(5)
-    ctx = ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
-    engine = AudioEngine(ctx)
-    engine.set_listener([0, 0, 0], [0, 0, -1], [0, 1, 0])
-
-    sfx = engine.get_bus("sfx")
-    rev = ReverbEffect(engine)
-    ir = (
-        rng.standard_normal(SR) * np.exp(-np.arange(SR) / (0.25 * SR))
-    ).astype(np.float32)
-    rev.set_impulse_response(ga.PlayableAudioBuffer.from_mono_array(ir, SR))
-    rev.wet.value = 0.3
-    sfx.effects.add(rev)
-
-    sounds = []
-    for v in range(voices):
-        sig = (rng.standard_normal(SR) * 0.03).astype(np.float32)
-        buf = ga.PlayableAudioBuffer.from_mono_array(sig, SR)
-        s = engine.create_sound_from_buffer(
-            buf, mix_state=SoundMixState.BINAURAL_SPATIALIZED, bus=sfx
-        )
-        s.is_looping = True
-        angle = 2 * np.pi * v / voices
-        s.position = (5 * np.cos(angle), 0.0, 5 * np.sin(angle))
-        s.play()
-        sounds.append(s)
-    ctx._engine = engine  # keep alive; callers may move sounds via engine
-    ctx._sounds = sounds
-    return ctx
+    return _kit_scene(api, superblock, voices, device, "BINAURAL_SPATIALIZED", context)[1]
 
 
 def config6_lfo_tremolo(superblock=32, voices=64, modulated=True, device="cuda"):
@@ -200,9 +174,15 @@ def config6_lfo_tremolo(superblock=32, voices=64, modulated=True, device="cuda")
     return ctx
 
 
-def _context(api, superblock, device):
-    """An OfflineAudioContext of ``api`` (the port unless given)."""
-    if api is None or api is ga:
+def _context(api, superblock, device, context=None):
+    """(api, a context of ``api``): ``context(sample_rate=, superblock=)``
+    where a factory is given (a ``RealtimeAudioContext`` of either package,
+    say; it picks its own device), else an OfflineAudioContext (the port's
+    on ``device`` unless ``api`` names another package)."""
+    api = ga if api is None else api
+    if context is not None:
+        return api, context(sample_rate=SR, superblock=superblock)
+    if api is ga:
         return ga, ga.OfflineAudioContext(sample_rate=SR, superblock=superblock, device=device)
     return api, api.OfflineAudioContext(sample_rate=SR, superblock=superblock)
 
@@ -355,12 +335,12 @@ def config3_wah(superblock=32, device="cuda", api=None):
     return ctx
 
 
-def _kit_scene(api, superblock, voices, device, mix_state):
+def _kit_scene(api, superblock, voices, device, mix_state, context=None):
     """Config 5's Kit scene (the same draws and graph: a reverb send on the
     sfx bus, ``voices`` looped mono sounds on a circle of 5 m) with every
-    sound in the ``SoundMixState`` named ``mix_state``. Returns (api, ctx,
-    engine, sounds)."""
-    api, ctx = _context(api, superblock, device)
+    sound in the ``SoundMixState`` named ``mix_state``, in a context of
+    ``_context``. Returns (api, ctx, engine, sounds)."""
+    api, ctx = _context(api, superblock, device, context)
     kit = importlib.import_module(f"{api.__name__}.kit")
     mix_state = getattr(kit.SoundMixState, mix_state)
     rng = np.random.default_rng(5)

@@ -1,4 +1,6 @@
-"""Build-on-demand loader for the port's native C++ helpers (the codec).
+"""Build-on-demand loader for the port's native C++ helpers: the codec
+(``native/gacodec.cpp``) and the realtime ring and output device
+(``native/garing.cpp``).
 
 The port of graphaudio_tpu/utils/nativebuild.py. The shared objects are not
 committed: each library builds with g++ into ``graphaudio_tpu_torch/_build/``
@@ -16,7 +18,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -33,12 +35,14 @@ def _loads(so_path: str) -> bool:
         return False
 
 
-def load_or_build(src_path: str) -> Optional[str]:
+def load_or_build(src_path: str, extra_flags: Optional[List[str]] = None) -> Optional[str]:
     """Return the path of an up-to-date shared object for ``src_path``.
 
-    Builds with g++ when the hash-named artifact is missing; returns None
-    when the source is absent or the build fails (callers fall back to
-    pure-Python implementations).
+    Builds with g++ when the hash-named artifact is missing, with
+    ``extra_flags`` after the source (``-pthread`` for the ring); returns
+    None when the source is absent or the build fails (callers fall back
+    to pure-Python implementations: the WAV-only decoder for the codec,
+    the ``threading.Condition`` ring with no output device for the ring).
     """
     if not os.path.exists(src_path):
         return None
@@ -61,7 +65,10 @@ def load_or_build(src_path: str) -> Optional[str]:
         tmp = so_path.with_name(f"{so_path.name}.tmp{os.getpid()}")
         try:
             subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), src_path],
+                # Link flags after the source: with ld's --as-needed
+                # default, -lfoo before the object that needs it is dropped.
+                ["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), src_path,
+                 *(extra_flags or [])],
                 check=True,
                 capture_output=True,
                 timeout=120,

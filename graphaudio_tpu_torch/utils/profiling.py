@@ -1,6 +1,7 @@
 """Render performance statistics of the port.
 
-The context records one entry per ``_render_steps`` call. Breakdown fields
+The context records one entry per render call (a launch and its finish,
+``core/context.py``). Breakdown fields
 (``last_breakdown``, seconds on the host clock):
 
 * ``prep_s``    drain commands, (re)build the graph, encode params, upload
@@ -9,7 +10,8 @@ The context records one entry per ``_render_steps`` call. Breakdown fields
                 (kernel launches, cuFFT calls, async device-to-host copies);
                 nothing in it waits for the device.
 * ``sync_s``    waiting for the device to finish the call's work and its
-                device-to-host copies.
+                device-to-host copies: at the finish, on the launch's own
+                CUDA event.
 * ``notify_s``  source ended-events after the call.
 
 ``wall = prep_s + enqueue_s + sync_s + notify_s``. On a CUDA device the
@@ -35,6 +37,9 @@ class RenderStats:
     enqueue_seconds: float = 0.0
     sync_seconds: float = 0.0
     graph_builds: int = 0
+    #: render-thread exceptions survived (a realtime context records each in
+    #: ``last_render_error`` and keeps rendering)
+    render_errors: int = 0
     last_breakdown: dict = field(default_factory=dict)
     _call_quantum_us: List[float] = field(default_factory=list)
 

@@ -20,9 +20,10 @@ continues within 1e-5; and the plain K6 evaluates each table row at its own
 clock: bit for bit the per-row evaluation at that clock, and within
 2.5e-7 relative of ``eval_intrinsic`` there (exact rows bit for bit).
 
-Not twinned here: the checkpoint round trip (tests/test_pipeline.py:111,
-module item 14), the realtime context (:191, item 13) and the meshes
-(:272, :292, item 15); ROADMAP.md lists them.
+Twinned elsewhere: the checkpoint round trip (tests/test_pipeline.py:111)
+in tests/test_torch_utils.py, the realtime context (:191) in
+tests/test_torch_realtime.py. Not twinned: the meshes (:272, :292, module
+item 15); ROADMAP.md lists them.
 """
 
 import inspect

@@ -129,7 +129,9 @@ def test_import_without_jax():
         "graphaudio_tpu_torch.nodes.spatial, graphaudio_tpu_torch.ops.hrtf, "
         "graphaudio_tpu_torch.ops.onepole, graphaudio_tpu_torch.io, "
         "graphaudio_tpu_torch.io.stream, graphaudio_tpu_torch.kit.providers, "
-        "graphaudio_tpu_torch.ops.stream, graphaudio_tpu_torch.utils.nativebuild; "
+        "graphaudio_tpu_torch.ops.stream, graphaudio_tpu_torch.utils.nativebuild, "
+        "graphaudio_tpu_torch.realtime, graphaudio_tpu_torch.utils.checkpoint, "
+        "graphaudio_tpu_torch.utils.inspect; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'graphaudio_tpu' or m.startswith('graphaudio_tpu.')]; "
         "assert not bad, bad"
@@ -157,6 +159,8 @@ def test_cuda_device_is_explicit(monkeypatch):
         gat.OfflineAudioContext()
     with pytest.raises(RuntimeError, match="device='cuda'"):
         config4_conv_reverb(superblock=4, voices=1)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        gat.realtime.RealtimeAudioContext()
     assert gat.OfflineAudioContext(device="cpu").device.type == "cpu"
 
 
