@@ -177,20 +177,44 @@ any failure raises and the script exits non-zero:
      render thread, the null output device), 64 steps of
      ``render_step_blocking`` bit for bit the same graph's unfused
      ``OfflineAudioContext`` render and within 1e-5 of its CPU render over
-     8 steps; K2a against its plain version at the step's shape (its plan
+     8 steps, the step replayed as its CUDA graph (core/stepgraph.py) from
+     the fourth (each run must replay it; captures, replays and any refusal
+     printed); K2a against its plain version at the step's shape (its plan
      printed: the small-grain tiles); the same 64 steps pipelined as the
      render thread runs them (launch k+1, finish k) bit for bit, with the
      share of finishes at which the next step was still running and the
      synchronizing calls torch's sync debug mode caught in the launches
-     and the finishes; config 5 live on its render thread for 10 s of wall
-     time into the native ring and the null output device: frames played
-     and underrun, in total and after the first second, steps rendered,
-     the host walls of launch, finish and launch-to-finish (p50, p99), the
-     last render error (none allowed), a 20-step profile of single-step
-     calls, the startup latency probe and the superblock ``auto_tune``
-     would pick; checkpoint resume (``utils.save_context_state`` /
-     ``load_context_state``) of config 5 at superblock 32 and of config 3
-     fused, 8 superblocks bit for bit.
+     and the finishes; config 5 live on its render thread, twice, for 10 s
+     of wall time each into the native ring and the null output device,
+     in a fresh process of this script (``--live-child``: a torch.profiler
+     session leaves CUPTI's callbacks on every later CUDA call of its
+     process, and the phases before open dozens; after them the child
+     reads a torch op's host cost before and after one profiler session
+     and runs config 5 live once more, 4 s, not gated):
+     frames played and underrun, in the first second and after it (none
+     allowed after it: the run raises), steps rendered, the host walls of
+     launch, finish and launch-to-finish (p50, p99), every launch over 10
+     ms with its parts, the render thread's CPU time in it and the garbage
+     collections inside it, the ring's waits over 10 ms, the collections
+     of each generation, the launch's per-call checks, the step graph's
+     counts, the last render error (none allowed), a 20-step
+     profile of single-step calls, the startup latency probe and the
+     superblock ``auto_tune`` would pick; checkpoint resume
+     (``utils.save_context_state`` / ``load_context_state``) of config 5 at
+     superblock 32 and of config 3 fused, 8 superblocks bit for bit.
+ 16. multi-device rendering (``mesh_phase``): K14a (the convolver's
+     partition-slice MAC) at config 4's part-sharded shapes and K14b (the
+     partitioned HRTF's) at a 1024-tap per-node HRIR, every rank's slice of
+     part = 2 and 4 within 1e-6 x max|ref| of its plain version (bit for
+     bit reported) and the slices' sum within 1e-5 x max|ref| of the
+     unsliced MAC; then four ranks on the card (gloo with CUDA tensors on
+     one card, since NCCL refuses two ranks on one GPU; NCCL with a card a
+     rank) render config 4 and config5_part_hrir (config 5 with 8
+     panners on their own 1024-tap HRIR) at full width on a voice 2 x part
+     2 mesh, 8 superblocks, every rank's audio equal and within 1e-5 of the
+     single-card and the CPU render, with the sharding, the launches, the
+     host and all_reduce ms a step; and ``ShardedVoiceScene`` (64 voices,
+     2 s IR, superblock 8, 4 steps) within 1e-5 of its numpy mirror.
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
 renders of the configs that run it, each render with its profile window
@@ -215,7 +239,7 @@ renders each, alternated, every hash the unfused trees' config-3 hash,
 with P2's launches, host and device time a step (``pipe_runs``).
 ``--stream`` runs phase 13 alone. ``--hrtfpart`` runs phase 14, the
 goldens and three 30 s renders of config 5 (its recorded sha256).
-``--realtime`` runs phase 15 alone.
+``--realtime`` runs phase 15 alone, ``--mesh`` phase 16 alone.
 ``--k10pa`` times K10p-a alone, warm and cold, at config5_measured's
 fourth step and five seeded cases (``k10pa_times``; copied into the tree
 that first had K10p, it times that tree's kernel the same way).
@@ -1294,7 +1318,7 @@ def config5_kernel_checks(dev):
     ctx = moving_config5(dev)
     with mock.patch.object(tgraph, "fan_in_lanes", wraps=tgraph.fan_in_lanes) as fan:
         ctx.render(4 * 32 * 128)
-    xf, dst = max((c.args for c in fan.call_args_list), key=lambda a: a[0].numel())
+    xf, dst = max((c.args[:2] for c in fan.call_args_list), key=lambda a: a[0].numel())
     k3 = k3_check(f"config 5 step 4, its largest: {list(xf.shape)} -> [{dst}, {xf.shape[2]}]",
                   xf, dst)
     return [p1, k10b, k9_checks(dev)], k3
@@ -3233,6 +3257,15 @@ RT_STEPS = 64
 RT_LIVE_S = 10.0
 
 
+def step_graph_stats(ctx):
+    """A realtime context's CUDA-graph counts (core/stepgraph.py): captures,
+    launches replayed, and why a capture was refused (None: none was)."""
+    sg = ctx._step_graph
+    if sg is None:
+        return {"captures": 0, "replays": 0, "refused": "no step graph"}
+    return {"captures": sg.captures, "replays": sg.replays, "refused": sg.refused}
+
+
 def rt_context(dev, **kw):
     """A ``RealtimeAudioContext`` factory for the config builders' ``context``
     argument: no render thread, the null output device."""
@@ -3348,7 +3381,9 @@ def realtime_parity(dev, n, build, steps=RT_STEPS):
     bit for bit the same graph's ``OfflineAudioContext(superblock=2,
     pipeline_chains=False)`` render of as many steps in one call and within
     1e-5 of the port's CPU render over the first 8; then the same steps run
-    pipelined (launch k+1, finish k), bit for bit (a)'s audio."""
+    pipelined (launch k+1, finish k), bit for bit (a)'s audio. Both runs
+    must have replayed the step's CUDA graph (core/stepgraph.py), so the
+    comparisons hold the graph to the kernel-by-kernel offline render."""
     import torch
 
     T = 2 * 128
@@ -3357,6 +3392,7 @@ def realtime_parity(dev, n, build, steps=RT_STEPS):
         t0 = time.perf_counter()
         got = np.concatenate([ctx.render_step_blocking() for _ in range(steps)], axis=1)
         wall = time.perf_counter() - t0
+        graph_blocking = step_graph_stats(ctx)
     finally:
         ctx.dispose()
     want = build(superblock=2, context=offline_unfused(dev)).render(steps * T)
@@ -3367,6 +3403,7 @@ def realtime_parity(dev, n, build, steps=RT_STEPS):
     try:
         torch.cuda.synchronize()
         outs, seen, syncs = pipelined_steps(ctx, steps)
+        graph_piped = step_graph_stats(ctx)
     finally:
         ctx.dispose()
     piped = np.concatenate(outs, axis=1)
@@ -3377,40 +3414,117 @@ def realtime_parity(dev, n, build, steps=RT_STEPS):
            "pipelined_bit_for_bit": same_piped,
            "next_step_running_share": seen["next_running"] / (steps - 1),
            "own_step_done_before_finish_share": seen["own_done"] / (steps - 1),
-           "sync_calls": syncs}
+           "sync_calls": syncs,
+           "step_graph": {"blocking": graph_blocking, "pipelined": graph_piped}}
     phase("realtime", f"config {n}, superblock 2, {steps} steps of render_step_blocking: "
           f"bit for bit the unfused offline render {same}; vs the CPU render over 8 steps "
           f"max_abs_err={err!r} (tolerance 1e-05); pipelined (launch k+1, finish k) bit for "
           f"bit {same_piped}; of {steps - 1} finishes, the next step still running at "
           f"{seen['next_running']}, the finished step's own work done before its wait at "
-          f"{seen['own_done']}; synchronizing calls (torch sync debug mode) {json.dumps(syncs)}")
+          f"{seen['own_done']}; synchronizing calls (torch sync debug mode) {json.dumps(syncs)}; "
+          f"the step's CUDA graph, blocking and pipelined: {json.dumps(out['step_graph'])}")
     if not (same and same_piped and err < 1e-5 and np.isfinite(got).all()
-            and out["cpu_peak"] > 1e-3):
+            and out["cpu_peak"] > 1e-3 and graph_blocking["replays"] > 0
+            and graph_piped["replays"] > 0):
         raise AssertionError(f"config {n}'s realtime steps differ from the offline or the CPU "
                              f"render, or from each other: {out}")
     return out
 
 
-def live_run(dev, seconds=RT_LIVE_S):
+#: A launch slower than this is a hitch: its parts are kept and printed.
+RT_HITCH_S = 0.010
+
+
+def thread_cpu_s():
+    """CPU seconds (user + system) of each of this process's threads, by
+    native thread id, from /proc/self/task (empty where there is none)."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    try:
+        tids = os.listdir("/proc/self/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                st = f.read()
+        except OSError:
+            continue
+        fields = st[st.rindex(")") + 2:].split()
+        out[int(tid)] = (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def live_run(dev, label, seconds=RT_LIVE_S, gate=True):
     """(c): config 5 at full width in a ``RealtimeAudioContext`` (superblock
     2, the null output device) playing for ``seconds`` of wall time on its
     render thread. The steps' host walls come from wrappers of the
-    context's launch and finish: the launch alone, the finish alone, and a
-    step's launch start to its finish end."""
+    context's launch and finish: the launch alone, the finish alone, a
+    step's launch start to its finish end, and the wait for a step's audio
+    and its join (``audio``: before the next launch where the step was
+    done, else inside the finish). Every launch slower than
+    ``RT_HITCH_S`` is kept with what names its cause: its parts (the
+    launch breakdown's ``parts``: drain, graph build, static-config check,
+    param encode, block clock and its pinned copy, feeds, the step loop's
+    enqueue, the copies back), the render thread's CPU time in it (a wall
+    far above it is time the thread did not run: contention or a wait),
+    and the Python garbage collections that ran inside it (``gc.callbacks``,
+    each with its generation and duration). One full collection is forced
+    a second in, while the context plays (its heap frozen at start), and
+    timed beside the same collection once the context has stopped. The CPU
+    time each thread of the process used while it played is read from
+    /proc. The ring's waits for space
+    past ``RT_HITCH_S`` are kept too. Raises unless no frame underran after
+    the first second (with ``gate``)."""
+    import gc
+    import threading
+
     from graphaudio_tpu_torch.realtime import RealtimeAudioContext
     from graphaudio_tpu_torch.realtime import ring as tring
     from graphaudio_tpu_torch.testing.configs import config5_spatial_scene
 
     ctx = config5_spatial_scene(superblock=2, context=rt_context(dev))
-    walls = {"launch": [], "finish": [], "launch_to_finish": []}
-    starts = {}
-    launch0, finish0 = ctx._render_steps_launch, ctx._render_steps_finish
+    walls = {"launch": [], "finish": [], "launch_to_finish": [], "audio": []}
+    starts, hitches, waits, collections, parts = {}, [], [], [], {}
+    # where frames underran: seen at the next launch, with the ring's fill
+    # there and the launches before it
+    underruns, seen = [], {"frames": 0, "t": None}
+    launch0, finish0, audio0 = (ctx._render_steps_launch, ctx._render_steps_finish,
+                                ctx._render_steps_audio)
+    wait0 = ctx.ring.wait_for_space
+    t_base = time.perf_counter()
+
+    def on_gc(phase_, info):
+        if phase_ == "start":
+            collections.append([time.perf_counter(), None, info["generation"],
+                                threading.current_thread().name])
+        elif collections and collections[-1][1] is None:
+            collections[-1][1] = time.perf_counter()
 
     def launch(n_steps, pack=None, keep=None):
-        t0 = time.perf_counter()
+        t0, c0, n_gc = time.perf_counter(), time.thread_time(), len(collections)
+        under = ctx.underrun_frames
+        if under != seen["frames"]:
+            underruns.append({"at_s": t0 - t_base, "frames": under - seen["frames"],
+                              "ring_frames": ctx.ring.available_read(),
+                              "since_last_launch_ms": None if seen["t"] is None
+                              else (t0 - seen["t"]) * 1e3,
+                              "last_launches_ms": [w * 1e3 for w in walls["launch"][-4:]]})
+            seen["frames"] = under
+        seen["t"] = t0
         h = launch0(n_steps, pack, keep)
+        t1, c1 = time.perf_counter(), time.thread_time()
         starts[id(h)] = t0
-        walls["launch"].append(time.perf_counter() - t0)
+        walls["launch"].append(t1 - t0)
+        for k, v in h.breakdown["parts"].items():
+            parts.setdefault(k, []).append(v)
+        if t1 - t0 > RT_HITCH_S:
+            gcs = [{"generation": g, "ms": (e - b) * 1e3, "thread": th}
+                   for b, e, g, th in collections[n_gc:] if e is not None]
+            hitches.append({"at_s": t0 - t_base, "wall_ms": (t1 - t0) * 1e3,
+                            "thread_cpu_ms": (c1 - c0) * 1e3,
+                            "parts_ms": {k: v * 1e3 for k, v in h.breakdown["parts"].items()},
+                            "gc": gcs})
         return h
 
     def finish(h):
@@ -3421,31 +3535,84 @@ def live_run(dev, seconds=RT_LIVE_S):
         walls["launch_to_finish"].append(t1 - starts.pop(id(h)))
         return out
 
+    def audio(h):
+        if h.audio is not None:
+            return h.audio
+        t0 = time.perf_counter()
+        out = audio0(h)
+        walls["audio"].append(time.perf_counter() - t0)
+        return out
+
+    def wait_for_space(frames, timeout_ms):
+        t0 = time.perf_counter()
+        r = wait0(frames, timeout_ms)
+        if time.perf_counter() - t0 > RT_HITCH_S:
+            waits.append({"at_s": t0 - t_base, "ms": (time.perf_counter() - t0) * 1e3})
+        return r
+
+    # The process's other threads (an idle stream node's decoder thread of
+    # an earlier phase's context, say): each contends for the GIL.
+    from collections import Counter
+
+    threads = dict(Counter(t.name.split("-")[0] if t.name.startswith("Thread-") else t.name
+                           for t in threading.enumerate()))
+    cpu0 = thread_cpu_s()
+    gc.callbacks.append(on_gc)
     try:
         ctx._ensure_compiled()
         ctx._ensure_params_encoded()
         ctx._render_steps_launch, ctx._render_steps_finish = launch, finish
+        ctx._render_steps_audio = audio
+        ctx.ring.wait_for_space = wait_for_space
+        t_base = time.perf_counter()
         ctx._start_render_thread()
         ctx.start()
         t0 = time.perf_counter()
         time.sleep(1.0)
         at1 = (ctx.frames_played, ctx.underrun_frames, ctx.stats.steps_rendered)
+        # A full collection on this thread while the context plays (it
+        # holds the GIL, as one on the render thread would): the heap as it
+        # was at start is frozen out of it. (Nothing here counts the frozen
+        # objects while it plays: gc.get_freeze_count walks them all,
+        # holding the GIL.)
+        t_gc = time.perf_counter()
+        gc.collect()
+        gc_playing_ms = (time.perf_counter() - t_gc) * 1e3
         time.sleep(max(0.0, seconds - (time.perf_counter() - t0)))
         ctx.stop()
         elapsed = time.perf_counter() - t0
         end = (ctx.frames_played, ctx.underrun_frames, ctx.stats.steps_rendered)
+        # Who used the CPU while it played: this process's threads (Python's
+        # by name, the others as "native").
+        cpu1 = thread_cpu_s()
+        names = {t.native_id: t.name.split("-")[0] if t.name.startswith("Thread-") else t.name
+                 for t in threading.enumerate()}
+        by_thread = Counter()
+        for tid, c in cpu1.items():
+            by_thread[names.get(tid, "native")] += (c - cpu0.get(tid, 0.0)) * 1e3
+        cpu_use = {"threads_ms": dict(by_thread.most_common(8)), "wall_ms": elapsed * 1e3,
+                   "cpus": os.cpu_count()}
         native = ctx.ring.native_handle is not None and tring.load_native() is not None
         backend, error = ctx.device_backend, ctx.last_render_error
+        graph = step_graph_stats(ctx)
         ctx._thread_quit = True
         ctx._render_thread.join(timeout=5.0)
+        gc.callbacks.remove(on_gc)
         # What every launch checks on the host before it enqueues a kernel,
-        # the mean of 50 calls each once the thread has stopped.
+        # the mean of 50 calls each once the thread has stopped: the two
+        # checks as the launch makes them (one read of the edit count each).
         checks = {name: host_us(fn, calls=50) for name, fn in (
             ("params_encoded", ctx._ensure_params_encoded),
-            ("static_config_stale", ctx._compiled.static_config_stale),
+            ("static_config", ctx._ensure_static_config),
             ("notify_refs", ctx._notify_refs), ("drain_commands", ctx._drain_commands))}
     finally:
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
         ctx.dispose()
+    # the same collection with no context playing: the whole heap
+    t_gc = time.perf_counter()
+    gc.collect()
+    gc_stopped_ms = (time.perf_counter() - t_gc) * 1e3
 
     def pct(xs):
         xs = sorted(xs)
@@ -3454,19 +3621,137 @@ def live_run(dev, seconds=RT_LIVE_S):
 
     rtt = RealtimeAudioContext._measure_step_rtt(dev)
     tuned = RealtimeAudioContext._tune_geometry(rtt, SR, 2, 256)[0]
-    out = {"seconds": elapsed, "frames_played": end[0], "underrun_frames": end[1],
-           "steps_rendered": end[2], "frames_played_after_1s": end[0] - at1[0],
-           "underrun_frames_after_1s": end[1] - at1[1], "steps_after_1s": end[2] - at1[2],
+    done = [(b, e, g, th) for b, e, g, th in collections if e is not None]
+    gc_ms = {g: sorted((e - b) * 1e3 for b, e, gg, _ in done if gg == g) for g in (0, 1, 2)}
+    hitches.sort(key=lambda h: -h["wall_ms"])
+    out = {"label": label, "seconds": elapsed, "frames_played": end[0],
+           "underrun_frames": end[1], "steps_rendered": end[2],
+           "frames_played_after_1s": end[0] - at1[0],
+           "underrun_frames_first_s": at1[1], "underrun_frames_after_1s": end[1] - at1[1],
+           "steps_after_1s": end[2] - at1[2],
            "step_audio_us": 256 / SR * 1e6, "walls": {k: pct(v) for k, v in walls.items()},
+           "launch_parts_p50_us": {k: statistics.median(v) * 1e6 for k, v in parts.items()},
            "native_ring": native, "device_backend": backend,
            "last_render_error": None if error is None else repr(error),
            "render_errors": ctx.stats.render_errors,
            "measure_step_rtt_us": rtt * 1e6, "auto_tune_superblock": tuned,
-           "launch_host_checks_us": checks}
-    phase("realtime", f"config 5 live, superblock 2, null output, {elapsed!r} s: {json.dumps(out)}")
+           "step_graph": graph,
+           "launch_host_checks_us": checks, "threads_at_start": threads,
+           "hitches": {"n": len(hitches), "slowest": hitches[:8]},
+           "ring_waits_over_10ms": waits[:8], "underruns": underruns[:12],
+           "gc": {f"gen{g}": {"n": len(v), "max_ms": v[-1] if v else None,
+                              "sum_ms": sum(v)} for g, v in gc_ms.items()},
+           "full_collection_ms": {"playing": gc_playing_ms, "stopped": gc_stopped_ms},
+           "cpu_while_playing": cpu_use}
+    phase("realtime", f"config 5 live ({label}), superblock 2, null output, {elapsed!r} s: "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'hitches'})}")
+    phase("realtime", f"config 5 live ({label}): {len(hitches)} launches over "
+          f"{RT_HITCH_S * 1e3:g} ms, the slowest first: {json.dumps(hitches[:8])}")
     if error is not None or not native or backend not in ("null", "alsa") or end[2] <= 0:
         raise AssertionError(f"the live realtime run failed: {out}")
+    if gate and out["underrun_frames_after_1s"] != 0:
+        raise AssertionError(f"config 5 live ({label}): {out['underrun_frames_after_1s']} "
+                             "frames underran after the first second (the limit is 0)")
     return out
+
+
+#: Seconds the process of the two live runs may take, its start and build
+#: included, before it is killed.
+RT_LIVE_TIMEOUT_S = 300
+
+
+def live_runs(dev):
+    """Config 5's two live runs (``live_run``, each raising if a frame
+    underran after its first second), in a fresh process of this script
+    (``--live-child``), as a realtime application runs: no earlier phase's
+    contexts, threads or heap, and no torch.profiler session before it (a
+    session leaves CUPTI's callbacks on later CUDA calls of its process;
+    the child measures what one costs, and the phases before this one
+    open dozens). The child's phase lines go to this process's output; its
+    results come back through a file. Raises if the child fails or
+    outlives ``RT_LIVE_TIMEOUT_S``. Returns {"runs": [the
+    two runs' results], "after_profiler": ``live_child``'s reading of what a
+    profiler session leaves behind}."""
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_live_") as d:
+        path = os.path.join(d, "live.json")
+        try:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--live-child",
+                                   path, "--device", str(dev)], timeout=RT_LIVE_TIMEOUT_S)
+        except subprocess.TimeoutExpired as exc:
+            raise AssertionError(f"the live runs' process outlived {RT_LIVE_TIMEOUT_S} s") \
+                from exc
+        if proc.returncode != 0:
+            raise AssertionError(f"the live runs' process exited with {proc.returncode} "
+                                 "(its error is above)")
+        with open(path) as f:
+            return json.load(f)
+
+
+def live_child(path, device="cuda"):
+    """``--live-child PATH``: build (or load) the kernels, run config 5 live
+    twice, then read what one torch.profiler session (50 launches) leaves
+    behind in the process: a torch op's host cost before and after it
+    (``op_host_us``) and a third live run after it, not gated; write the
+    results to ``PATH`` as JSON. Exits 1 if either gated run fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import graphaudio_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    from graphaudio_tpu_torch.testing.configs import config5_spatial_scene
+
+    cudabuild.build()
+    cudabuild.load()
+    dev = torch.device(device)
+    # The kernels' modules and cuFFT's plans loaded before playback, as they
+    # are in the script's process by phase 15 (else the first launch of run
+    # 1 loads them: 271 ms on an H100 host, 16128 frames in its first second).
+    warm = config5_spatial_scene(superblock=2, context=rt_context(dev))
+    try:
+        for _ in range(8):
+            warm.render_step_blocking()
+    finally:
+        warm.dispose()
+    runs = [live_run(dev, f"run {i}, a fresh process") for i in (1, 2)]
+    from torch.profiler import ProfilerActivity, profile
+
+    op_before = op_host_us(dev)
+    x = torch.zeros(1024, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(50):
+            x.add_(1)
+        torch.cuda.synchronize()
+    op_after = op_host_us(dev)
+    post = live_run(dev, "run 3, after one profiler session (not gated)", seconds=4.0,
+                    gate=False)
+    after = {"op_host_us": {"before": op_before, "after": op_after},
+             "launch_p50_us": {"runs_1_2": [r["walls"]["launch"]["p50_us"] for r in runs],
+                               "run_3": post["walls"]["launch"]["p50_us"]},
+             "launch_parts_p50_us_run_3": post["launch_parts_p50_us"],
+             "underrun_frames_after_1s_run_3": post["underrun_frames_after_1s"]}
+    phase("realtime", f"what one torch.profiler session leaves in its process: {json.dumps(after)}")
+    with open(path, "w") as f:
+        json.dump({"runs": runs, "after_profiler": after}, f)
+    return 0
+
+
+def op_host_us(dev, calls=3000):
+    """Host µs a torch op takes to issue (the mean of ``calls`` in-place adds
+    to a small tensor on the card, one sync at the end)."""
+    import torch
+
+    x = torch.zeros(1024, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def checkpoint_resume(dev, label, build, T, steps=8):
@@ -3497,7 +3782,9 @@ def realtime_phase(dev):
     ``RealtimeAudioContext`` at superblock 2 against their offline and CPU
     renders (``realtime_parity``), K2a against its plain version at the
     step's shape; (b) the same steps pipelined; (c) config 5 live for
-    ``RT_LIVE_S`` s (``live_run``) and a 20-step profile of single-step calls
+    ``RT_LIVE_S`` s, twice, in a fresh process (``live_runs``; ``live_run``:
+    each raises if a frame underran after its first second), and a 20-step
+    profile of single-step calls
     at superblock 2; (d) checkpoint resume of config 5 at superblock 32 and
     of config 3 fused. Returns ([the K2a entry], results)."""
     from graphaudio_tpu_torch.testing.configs import (config3_eq_chain, config4_conv_reverb,
@@ -3507,7 +3794,9 @@ def realtime_phase(dev):
     k2a = k2a_live_check(dev, config5_spatial_scene)
     for n, build in ((4, config4_conv_reverb), (5, config5_spatial_scene)):
         res[f"config{n}"] = realtime_parity(dev, n, build)
-    res["live"] = live_run(dev)
+    live = live_runs(dev)
+    res["live"], res["live_2"] = live["runs"]
+    res["live_after_profiler"] = live["after_profiler"]
     host = (res["live"]["walls"]["launch"]["p50_us"] + res["live"]["walls"]["finish"]["p50_us"])
     prof = profile_steps(config5_spatial_scene(superblock=2, context=rt_context(dev)), 256, host,
                          groups={**K2BK10B_GROUPS, "K5": "unity_", "P1": "hrtf_fir",
@@ -3523,6 +3812,371 @@ def realtime_phase(dev):
             dev, "config 3 fused (superblock 32)", lambda: config3_eq_chain(superblock=32, device=dev),
             32 * 128)}
     return [k2a], res
+
+
+#: Superblocks the mesh renders of phase 16 run.
+MESH_STEPS = 8
+#: Ranks of phase 16's meshes: voice 2 x part 2.
+MESH_SHAPE = (2, 2)
+
+
+def k14a_checks(dev):
+    """(a) K14a alone: config 4's part-sharded shapes (K = 2, L = 1, T =
+    8192, 8193 bins, P = 12 partitions of the 2 s IR at grain T, padded for
+    ``part`` = 2 and 4, rows reversed), every rank's slice against its
+    plain version within 1e-6 x max|ref| (bit for bit reported) and its ring
+    writes bit for bit, then the slices' sum against the unsliced MAC
+    (``spectral_mac_plain`` over every row) within 1e-5 x max|ref| (sums in
+    another order). The entry times rank 0's slice at part = 2, beside one
+    ``torch.einsum`` over its delay-line rows gathered beforehand."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import convolve as tconv
+
+    rng = np.random.default_rng(14)
+    T, K, L = 8192, 2, 1
+    NB = T + 1
+    decay = np.exp(-np.arange(2 * SR) / (0.4 * SR))
+    irs = [(rng.standard_normal(2 * SR) * decay).astype(np.float32) for _ in range(K)]
+    prep = [tconv.prepare_ir_big(ir, T) for ir in irs]
+    H, Hi = np.stack([p[0] for p in prep]), np.stack([p[1] for p in prep])
+    P0 = H.shape[1]
+
+    def cplx(*shape):
+        return torch.complex(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)),
+                             torch.from_numpy(rng.standard_normal(shape).astype(np.float32))).to(dev)
+
+    entry, cases = None, []
+    for part in (2, 4):
+        P = -(-P0 // part) * part
+        Hp = np.pad(H, ((0, 0), (P - P0, 0), (0, 0)))
+        Hip = np.pad(Hi, ((0, 0), (P - P0, 0), (0, 0)))
+        R = P - 1 + L
+        X = cplx(K, L, NB)
+        ring = torch.view_as_real(cplx(K, R, NB))
+        ring_r, ring_i = ring[..., 0].contiguous(), ring[..., 1].contiguous()
+        head = int(rng.integers(R))
+        pl = P // part
+        whole = tconv.spectral_mac_plain(X, torch.from_numpy(Hp).to(dev), torch.from_numpy(Hip).to(dev),
+                                         ring_r.clone(), ring_i.clone(), head, True)
+        total = torch.zeros_like(whole)
+        for d in range(part):
+            hr = torch.from_numpy(np.ascontiguousarray(Hp[:, d * pl:(d + 1) * pl])).to(dev)
+            hi = torch.from_numpy(np.ascontiguousarray(Hip[:, d * pl:(d + 1) * pl])).to(dev)
+            rk, rp = (ring_r.clone(), ring_i.clone()), (ring_r.clone(), ring_i.clone())
+            got = tconv.spectral_mac_slice(X, hr, hi, *rk, head, True, d * pl)
+            want = tconv.spectral_mac_slice_plain(X, hr, hi, *rp, head, True, d * pl)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            peak = float(want.abs().max())
+            same = bool(torch.equal(torch.view_as_real(got), torch.view_as_real(want)))
+            rings = bool(torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1]))
+            cases.append({"part": part, "rank": d, "P": P, "P_local": pl, "max_abs_err": err,
+                          "peak": peak, "bit_for_bit": same, "ring_bit_for_bit": rings})
+            if not (err <= 1e-6 * peak and rings):
+                raise AssertionError(f"K14a slice {d} of part {part}: {err} > 1e-6 x {peak}, "
+                                     f"or its ring writes differ")
+            total = total + want
+            if part == 2 and d == 0:
+                # one einsum over the slice's delay-line rows (slot of row j:
+                # sub-block -(P-1-j) for j < P-1, X for the last)
+                lags = [P - 1 - j for j in range(pl)]
+                slots = [(head - lag) % R for lag in lags]
+                win = torch.complex(ring_r[:, slots], ring_i[:, slots])
+                Hc = torch.complex(hr, hi)
+                # read: X, the slice's spectra, its ring rows; written: the
+                # sums and this step's ring row, each (re, im) f32
+                moved = nbytes(X, hr, hi) + 2 * K * len(slots) * NB * 4 + 2 * K * L * NB * 8
+                entry = compare(
+                    f"K14a partition-slice MAC (config 4 under part = 2, rank 0: K={K} L={L} "
+                    f"P_local={pl} of P={P}, {NB} bins)", "cuda", "graphaudio_tpu_torch/csrc/conv.cu",
+                    "graphaudio_tpu/ops/convolve.py:236",
+                    lambda: tconv.spectral_mac_slice(X, hr, hi, *rk, head, True, 0),
+                    lambda: tconv.spectral_mac_slice_plain(X, hr, hi, *rp, head, True, 0),
+                    1e-6, rel=True, bnd=bound(moved, 8 * K * L * NB * pl),
+                    library=lambda: torch.einsum("kjb,kjb->kb", Hc, win), device_times=True)
+        err_sum = float((total - whole).abs().max())
+        peak = float(whole.abs().max())
+        cases.append({"part": part, "slices_sum_vs_whole": err_sum, "peak": peak})
+        if err_sum > 1e-5 * peak:
+            raise AssertionError(f"K14a: the slices' sum at part {part} is {err_sum} off the "
+                                 f"unsliced MAC (peak {peak})")
+    entry["cases"] = cases
+    phase("kernels", f"K14a slices: {json.dumps(cases)}")
+    return entry
+
+
+def k14b_checks(dev):
+    """(a) K14b alone: one voice of a per-node 1024-tap HRIR (P = 8; the
+    synthetic set of config5_measured), S = 32, its source moving, split
+    over ``part`` = 2 and 4: every rank's slice against its plain version
+    within 1e-6 x max|ref| (bit for bit reported), the next ring bit for
+    bit, and the slices' sum against K10p-a's plain version over every
+    partition within 1e-5 x max|ref|. The entry times rank 0's slice at
+    part = 2, beside one ``torch.einsum`` over the slice's spectra
+    interpolated beforehand."""
+    import torch
+
+    from graphaudio_tpu_torch.ops import hrtf as th
+    from graphaudio_tpu_torch.testing.sofa import synthetic_hrir_set
+
+    rng = np.random.default_rng(15)
+    hrir, az_d, el_d = synthetic_hrir_set(sample_rate=SR, n_directions=72, length=1024, seed=9)
+    grid = th.load_hrir_grid({"hrir": hrir, "azimuth_deg": az_d, "elevation_deg": el_d,
+                              "sample_rate": SR}, SR, length=1024)
+    sr_np, si_np = th.hrir_grid_spectra(grid)
+    E, A, _, P, B = sr_np.shape
+    V, S = 1, 32
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    X = torch.complex(f32(V, S, B), f32(V, S, B))
+    hx = f32(V, P - 1, 2 * B)
+    # a source sweeping a quarter turn over the superblock and its ring
+    sweep = np.linspace(-1.2, 0.4, P - 1 + S).astype(np.float32)[None]
+    haz, az = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (sweep[:, :P - 1],
+                                                                          sweep[:, P - 1:]))
+    hel = torch.full((V, P - 1), 0.1, device=dev)
+    el = torch.full((V, S), 0.1, device=dev)
+    whole = th.partitioned_mac_plain(X, hx, haz, hel, az, el, torch.from_numpy(sr_np).to(dev),
+                                     torch.from_numpy(si_np).to(dev))
+    entry, cases = None, []
+    for part in (2, 4):
+        pl = P // part
+        total = torch.zeros_like(whole[0])
+        for d in range(part):
+            sr = torch.from_numpy(np.ascontiguousarray(sr_np[:, :, :, d * pl:(d + 1) * pl])).to(dev)
+            si = torch.from_numpy(np.ascontiguousarray(si_np[:, :, :, d * pl:(d + 1) * pl])).to(dev)
+            args = (X, hx, haz, hel, az, el, sr, si, d * pl)
+            got, want = th.partitioned_mac_slice(*args), th.partitioned_mac_slice_plain(*args)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max())
+            peak = float(want[0].abs().max())
+            same = bool(torch.equal(torch.view_as_real(got[0]), torch.view_as_real(want[0])))
+            rings = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+            cases.append({"part": part, "rank": d, "P_local": pl, "max_abs_err": err,
+                          "peak": peak, "bit_for_bit": same, "ring_bit_for_bit": rings})
+            if not (err <= 1e-6 * peak and rings):
+                raise AssertionError(f"K14b slice {d} of part {part}: {err} > 1e-6 x {peak}, "
+                                     "or its next ring differs")
+            total = total + want[0]
+            if part == 2 and d == 0:
+                u = (torch.arange(S, device=dev)[:, None] - torch.arange(pl, device=dev) + P - 1)
+                xcat = torch.cat([torch.complex(hx[..., :B], hx[..., B:]), X], 1)
+                azc, elc = torch.cat([haz, az], 1), torch.cat([hel, el], 1)
+                Hs = torch.complex(th.interp_hrir(sr, azc, elc), th.interp_hrir(si, azc, elc))
+                xw = xcat[:, u].contiguous()  # [V, S, pl, B]
+                hw = Hs[:, u].diagonal(dim1=2, dim2=4).permute(0, 1, 4, 2, 3).contiguous()
+                # the corner spectra this run's directions touch, once each
+                rows = set()
+                for j in range(pl):
+                    c = (P - 1) + np.arange(S) - j
+                    a_c = torch.cat([haz, az], 1)[0, c].cpu().numpy()
+                    e_c = torch.cat([hel, el], 1)[0, c].cpu().numpy()
+                    r, _ = th.interp_corners(torch.from_numpy(a_c), torch.from_numpy(e_c), E, A)
+                    rows |= {(int(x), j) for x in torch.stack(list(r)).flatten()}
+                corner_bytes = len(rows) * 2 * B * 8
+                # the ring rows the slice reads (output quantum s of global
+                # partition p reads input quantum s - p, a ring row where
+                # s < p) or carries into the next ring, each with its
+                # direction; the whole next ring is written
+                ps = range(d * pl, (d + 1) * pl)
+                ring_rows = {s - p + P - 1 for s in range(S) for p in ps if s < p} | set(
+                    range(S, P - 1))
+                row_bytes = V * (2 * B + 2) * 4
+                moved = (nbytes(X, az, el) + len(ring_rows) * row_bytes + nbytes(hx, haz, hel)
+                         + V * S * 2 * B * 8 + corner_bytes)
+                entry = compare(
+                    f"K14b partitioned HRTF slice MAC (a 1024-tap per-node HRIR under part = 2, "
+                    f"rank 0: V={V} S={S} P_local={pl} of P={P}, grid {E}x{A})", "cuda",
+                    "graphaudio_tpu_torch/csrc/hrtf_part.cu", "graphaudio_tpu/ops/hrtf.py:345",
+                    lambda: flat(th.partitioned_mac_slice(*args)),
+                    lambda: flat(th.partitioned_mac_slice_plain(*args)), 1e-6, rel=True,
+                    bnd=bound(moved, 22 * V * S * pl * 2 * B),
+                    library=lambda: torch.einsum("vspb,vspeb->vseb", xw, hw), device_times=True)
+                entry["corner_spectra_bytes"] = corner_bytes
+        err_sum = float((total - whole[0]).abs().max())
+        peak = float(whole[0].abs().max())
+        cases.append({"part": part, "slices_sum_vs_whole": err_sum, "peak": peak})
+        if err_sum > 1e-5 * peak:
+            raise AssertionError(f"K14b: the slices' sum at part {part} is {err_sum} off K10p-a's "
+                                 f"plain MAC (peak {peak})")
+    entry["cases"] = cases
+    phase("kernels", f"K14b slices: {json.dumps(cases)}")
+    return entry
+
+
+def mesh_job(rank, world, steps):
+    """One rank of phase 16's (b)-(d), on ``cuda:0`` with the others (a
+    ``MESH_SHAPE`` mesh): config 4 at full width, config5_part_hrir at full
+    width (``steps`` superblocks each, after one warm superblock of another
+    context), and ``ShardedVoiceScene`` (64 voices, 2 s IR, superblock 8, 4
+    steps). Returns, for each, the audio, the sharding, the K14 launches a
+    step, the host ms a step and the all_reduce wall ms a step."""
+    import torch
+    import torch.distributed as dist
+
+    from graphaudio_tpu_torch.parallel import ShardedVoiceScene, make_mesh
+    from graphaudio_tpu_torch.testing.configs import config4_conv_reverb, config5_part_hrir
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    mesh = make_mesh(voice_axis=MESH_SHAPE[0], part_axis=MESH_SHAPE[1], device_type="cuda")
+    reduce0 = dist.all_reduce
+    walls = []
+
+    def timed_reduce(*a, **kw):
+        t0 = time.perf_counter()
+        r = reduce0(*a, **kw)
+        walls.append(time.perf_counter() - t0)
+        return r
+
+    dist.all_reduce = timed_reduce
+    out = {"backend": dist.get_backend(), "rank": rank}
+    try:
+        for name, build, T in (("config4", lambda: config4_conv_reverb(superblock=64, voices=64),
+                                64 * 128),
+                               ("config5_part_hrir", lambda: config5_part_hrir(superblock=32), 32 * 128)):
+            warm = build()
+            warm.set_mesh(mesh)
+            warm.render(T)  # the kernels' first launches, cuFFT plans
+            ctx = build()
+            ctx.set_mesh(mesh)
+            ctx._ensure_compiled()
+            ctx._ensure_params_encoded()
+            torch.cuda.synchronize()
+            dist.barrier()
+            cudabuild.launches.clear()
+            walls.clear()
+            t0 = time.perf_counter()
+            audio = ctx.render(steps * T)
+            wall = time.perf_counter() - t0
+            c = ctx._compiled
+            out[name] = {
+                "audio": audio, "sharded_stages": sorted(c.sharded_stages),
+                "part_sharded": sorted(c.part_sharded),
+                "part_sharded_nodes": sorted(type(c.plan[si]["rep"]).__name__ for si in c.part_sharded),
+                "render_sharded": c.render_sharded,
+                "launches": dict(cudabuild.launches),
+                "host_ms_a_step": wall / steps * 1e3,
+                "all_reduce_ms_a_step": sum(walls) / steps * 1e3,
+                "all_reduces_a_step": len(walls) / steps}
+        rng = np.random.default_rng(16)
+        V, S = 64, 8
+        arenas = (rng.standard_normal((V, 24000)) * 0.2).astype(np.float32)
+        ir = (rng.standard_normal(2 * SR) * np.exp(-np.arange(2 * SR) / (0.4 * SR))).astype(np.float32)
+        gains = rng.uniform(0.2, 1.0, V).astype(np.float32)
+        pans = np.linspace(-1, 1, V).astype(np.float32)
+        scene = ShardedVoiceScene(mesh, arenas, ir, gains, pans, superblock=S)
+        state = scene.init_state()
+        cudabuild.launches.clear()
+        walls.clear()
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(4):
+            state, wet = scene.render_step(state, i)
+            outs.append(wet.cpu().numpy())
+        wall = time.perf_counter() - t0
+        out["scene"] = {"audio": np.concatenate(outs, axis=1), "launches": dict(cudabuild.launches),
+                        "host_ms_a_step": wall / 4 * 1e3,
+                        "all_reduce_ms_a_step": sum(walls) / 4 * 1e3,
+                        "P": scene.P, "P_local": scene.p_local,
+                        "inputs": (arenas, ir, gains, pans) if rank == 0 else None}
+    finally:
+        dist.all_reduce = reduce0
+    return out
+
+
+def scene_mirror(arenas, ir, gains, pans, frames, master=0.5):
+    """The numpy mirror of tests/test_parallel.py:22-35: loop voices,
+    equal-power pan, mix, convolve with the normalized IR, master gain."""
+    from graphaudio_tpu_torch.ops.convolve import normalization_scale
+
+    V, L = arenas.shape
+    mix = np.zeros((2, frames), np.float64)
+    for v in range(V):
+        idx = np.arange(frames) % L
+        s = arenas[v][idx].astype(np.float64) * gains[v]
+        x = (pans[v] + 1.0) * 0.5
+        mix[0] += s * np.cos(np.float32(x * np.pi / 2))
+        mix[1] += s * np.sin(np.float32(x * np.pi / 2))
+    ir_n = (ir.astype(np.float32) * np.float32(normalization_scale(ir))).astype(np.float64)
+    return np.stack([np.convolve(mix[c], ir_n)[:frames] for c in range(2)]) * master
+
+
+def mesh_phase(dev):
+    """Phase 16, ``--mesh``: (a) K14a and K14b alone (``k14a_checks``,
+    ``k14b_checks``); then ``MESH_SHAPE``'s four ranks on one card
+    (``testing.mesh.run_ranks``; gloo with CUDA tensors where there is one
+    card, since NCCL refuses two ranks on one GPU; NCCL with a card a rank
+    otherwise) run ``mesh_job``: (b) config 4 and (c) config5_part_hrir at
+    full width, ``MESH_STEPS`` superblocks, every rank's audio equal to every
+    other's and within 1e-5 of the single-device render on the card and of
+    the CPU render; (d) ``ShardedVoiceScene`` within 1e-5 of its numpy
+    mirror. Returns ([the K14a and K14b entries], results)."""
+    import torch
+
+    from graphaudio_tpu_torch.testing.configs import config4_conv_reverb, config5_part_hrir
+    from graphaudio_tpu_torch.testing.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    entries = [k14a_checks(dev), k14b_checks(dev)]
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_job, world, backend, args=(MESH_STEPS,), timeout=600, cuda=True)
+    spawn_s = time.perf_counter() - t0
+    res = {"backend": backend, "world": world, "cards": cards, "mesh": list(MESH_SHAPE),
+           "ranks_s": spawn_s}
+    phase("mesh", f"{world} ranks on {cards} card(s) over {backend} "
+          f"(ranks report {sorted({r['backend'] for r in ranks})}) in {spawn_s!r} s")
+    for name, build, T in (("config4", lambda d: config4_conv_reverb(superblock=64, voices=64, device=d),
+                            64 * 128),
+                           ("config5_part_hrir", lambda d: config5_part_hrir(superblock=32, device=d),
+                            32 * 128)):
+        got = [r[name]["audio"] for r in ranks]
+        equal = all(np.array_equal(g, got[0]) for g in got[1:])
+        single = build(dev).render(MESH_STEPS * T)
+        cpu = build("cpu").render(MESH_STEPS * T)
+        err_card = float(np.abs(got[0].astype(np.float64) - single).max())
+        err_cpu = float(np.abs(got[0].astype(np.float64) - cpu).max())
+        r0 = {k: v for k, v in ranks[0][name].items() if k != "audio"}
+        res[name] = dict(r0, ranks_equal=equal, max_abs_err_vs_single_card=err_card,
+                         max_abs_err_vs_cpu=err_cpu, peak=float(np.abs(cpu).max()),
+                         per_rank=dict({k: [r[name][k] for r in ranks] for k in (
+                             "host_ms_a_step", "all_reduce_ms_a_step")}, k14_launches_a_step=[
+                             sum(v for k, v in r[name]["launches"].items() if "_slice" in k)
+                             / MESH_STEPS for r in ranks]))
+        phase("mesh", f"{name}, {MESH_STEPS} superblocks on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh: "
+              f"ranks equal {equal}; vs the single-card render max_abs_err={err_card!r}, vs the "
+              f"CPU render {err_cpu!r} (tolerance 1e-05); {json.dumps(res[name])}")
+        if not (equal and err_card < 1e-5 and err_cpu < 1e-5 and np.isfinite(got[0]).all()
+                and res[name]["peak"] > 1e-3):
+            raise AssertionError(f"{name} under the mesh differs across ranks or from the "
+                                 f"single-device render: {res[name]}")
+    sc = ranks[0]["scene"]
+    got = [r["scene"]["audio"] for r in ranks]
+    want = scene_mirror(*sc["inputs"], got[0].shape[1])
+    err = float(np.abs(got[0] - want).max())
+    equal = all(np.array_equal(g, got[0]) for g in got[1:])
+    res["scene"] = {k: v for k, v in sc.items() if k not in ("audio", "inputs")}
+    res["scene"].update(ranks_equal=equal, max_abs_err_vs_mirror=err,
+                        peak=float(np.abs(want).max()))
+    phase("mesh", f"ShardedVoiceScene (64 voices, 2 s IR, superblock 8, 4 steps): ranks equal "
+          f"{equal}; vs the numpy mirror max_abs_err={err!r} (tolerance 1e-05); "
+          f"{json.dumps(res['scene'])}")
+    if not (equal and err < 1e-5):
+        raise AssertionError(f"ShardedVoiceScene differs from its mirror: {res['scene']}")
+    k14a = res["config4"]["launches"].get("spectral_mac_slice", 0)
+    k14b = res["config5_part_hrir"]["launches"].get("hrtf_part_mac_slice", 0)
+    if k14a <= 0 or k14b <= 0:
+        raise AssertionError(f"the mesh renders did not launch K14a ({k14a}) or K14b ({k14b})")
+    entries[0]["launches"], entries[1]["launches"] = k14a, k14b
+    res["phase_s"] = time.perf_counter() - t_phase
+    phase("mesh", f"phase 16 in {res['phase_s']!r} s; K14a launches {k14a}, K14b {k14b} "
+          f"(rank 0, {MESH_STEPS} superblocks)")
+    return entries, res
 
 
 def goldens(dev):
@@ -3738,6 +4392,9 @@ def main(device="cuda", only=None):
         elif only == "realtime":
             entries, rt = realtime_phase(dev)
             runs = {"realtime": rt}
+        elif only == "mesh":
+            entries, mesh = mesh_phase(dev)
+            runs = {"mesh": mesh}
         else:  # k1k5
             entries, _ = k1k5_checks(dev)
             golden_err = goldens(dev)
@@ -4056,6 +4713,10 @@ def main(device="cuda", only=None):
                                                           "bound_ms", "bound_by", "device_ms",
                                                           "shape")})
 
+    # -- 16. multi-device rendering: K14 and the mesh renders ------------------------
+    k14, runs_mesh = mesh_phase(dev)
+    entries += k14
+
     render = {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
@@ -4077,6 +4738,7 @@ def main(device="cuda", only=None):
         "config5_beside_streamed": runs_stream["config5"],
         "config5_measured": runs_measured,
         "realtime": runs_rt,
+        "mesh": runs_mesh,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "codec_build_s": codec_s, "floor_device_ms": floor_ms,
         "card": smi}
@@ -4134,8 +4796,14 @@ if __name__ == "__main__":
         "realtime": "the realtime phase: configs 4 and 5 at full width in a "
                     "RealtimeAudioContext at superblock 2, 64 steps bit for bit their unfused "
                     "offline renders and within 1e-5 of their CPU renders, then pipelined; K2a "
-                    "at the step's shape; config 5 live for 10 s on the null output device; "
+                    "at the step's shape; config 5 live for 10 s on the null output device, "
+                    "twice, in a fresh process; "
                     "checkpoint resume of config 5 and of config 3 fused",
+        "mesh": "phase 16: K14a and K14b against their plain versions at every rank's "
+                "slice (part = 2 and 4) and summed against the unsliced MAC; config 4 and "
+                "config5_part_hrir at full width on a 2x2 mesh of four ranks on the card, "
+                "8 superblocks, equal across ranks and within 1e-5 of the single-card and CPU "
+                "renders; ShardedVoiceScene against its numpy mirror",
         "stream": "the K15 checks (whole calls: config5_streamed's two stream nodes over "
                   "351 steps, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that runs "
                   "out), five 30 s renders each of config5_streamed and config 5, K15's "
@@ -4146,4 +4814,12 @@ if __name__ == "__main__":
         ap.add_argument(f"--{mode}", dest="only", action="store_const", const=mode,
                         help=f"only the build, {what}, with their profiles (to alternate two "
                              "trees in one call)")
-    sys.exit(main(only=ap.parse_args().only))
+    ap.add_argument("--live-child", metavar="PATH",
+                    help="only phase 15's two live runs of config 5, in this process, their "
+                         "results written to PATH as JSON (phase 15 starts this in a fresh "
+                         "process)")
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.live_child:
+        sys.exit(live_child(args.live_child, args.device))
+    sys.exit(main(only=args.only))

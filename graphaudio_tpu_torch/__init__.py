@@ -54,7 +54,7 @@ from graphaudio_tpu_torch.nodes import (  # noqa: E402
     SpatialPannerNode,
     StereoPannerNode,
 )
-from graphaudio_tpu_torch import io, kit, realtime, utils  # noqa: E402
+from graphaudio_tpu_torch import io, kit, parallel, realtime, utils  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -89,6 +89,7 @@ __all__ = [
     "DistanceModelType",
     "io",
     "kit",
+    "parallel",
     "realtime",
     "utils",
 ]

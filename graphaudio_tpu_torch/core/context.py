@@ -118,13 +118,23 @@ def parse_chunk_schedule(override) -> List[int]:
     return sched
 
 
+def _held_int(t, i) -> bool:
+    """``t`` is a host int ``i``'s leaf held on the card (a 0-d int64, as a
+    realtime context's captured step holds the convolver's ring head)."""
+    return (isinstance(t, torch.Tensor) and t.dim() == 0 and t.dtype == torch.int64
+            and isinstance(i, int))
+
+
 def _same_structure(a, b) -> bool:
-    """Same keys, shapes and dtypes (host ints compare by type)."""
+    """Same keys, shapes and dtypes (host ints compare by type; a host int
+    held on the card is the host int's leaf)."""
     if set(a) != set(b):
         return False
     for k in a:
         x, y = a[k], b[k]
         if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            if _held_int(x, y) or _held_int(y, x):
+                continue
             return False
         if isinstance(x, torch.Tensor) and (x.shape != y.shape or x.dtype != y.dtype):
             return False
@@ -138,8 +148,8 @@ class PendingRender:
     times of the sources that may end, the clock at its end and its
     host-time breakdown so far."""
 
-    __slots__ = ("event", "pending", "tail", "pack", "held", "wanted", "stops",
-                 "end_time", "n_steps", "breakdown")
+    __slots__ = ("event", "pending", "tail", "pack", "held", "clock", "wanted", "stops",
+                 "end_time", "n_steps", "breakdown", "audio")
 
     def __init__(self, **fields):
         for k, v in fields.items():
@@ -183,7 +193,24 @@ class AudioContextBase:
         self._states = None
         self._consts = None
         self._encs = None
-        self._param_versions: Dict = {}
+        # Edits since the context began: every param mutation adds one to
+        # ``_param_edits`` (AudioParam._bump_version), every
+        # update_node_state one to ``_state_edits``. A launch reads them
+        # once: the param encoding runs only when ``_param_edits`` moved
+        # since it last ran (``_encs_version``), the static-config check
+        # only when either did (``_stale_version``).
+        self._param_edits = 0
+        self._state_edits = 0
+        self._stale_version = None
+        self._encs_version = -1
+        # Pinned block-clock buffers of finished launches, for the next
+        # launches of the same shape: (shape, [tensors]).
+        self._free_clocks = (None, [])
+        # (chunk schedule and GA_RENDER_CHUNK, the steps per launch they give)
+        self._parsed_schedule = (None, None)
+        # The step as one CUDA graph (core/stepgraph.py), where a subclass
+        # asks for it: a realtime context on the card.
+        self._step_graph = None
         self._current_frame = 0  # host-side absolute frame counter
         # The reference's clock ACCUMULATES (`_currentTime = blockTime +
         # increment`, AudioContextBase.cs:77-78); replicating the exact
@@ -196,6 +223,8 @@ class AudioContextBase:
         self.stats = RenderStats()
         self._disposed = False
         self._disposing_callbacks: List[Callable] = []
+        # The device mesh the render shards over (``set_mesh``), or None.
+        self.mesh = None
 
         # Listener transform for spatialization. Right-handed basis with
         # ahead = -forward (parity: SteamAudioContext.SetListener, :136-164).
@@ -404,13 +433,16 @@ class AudioContextBase:
                 # drain (AudioContextBase.cs:276-283).
                 pass
 
-    def _block_clock(self, n_blocks: int) -> np.ndarray:
+    def _block_clock(self, n_blocks: int, out=None) -> np.ndarray:
         """Start times of the next ``n_blocks`` blocks: t[k+1] = fl(t[k] +
         fl(128/sr)) (AudioContextBase.cs:77-78); np.add.accumulate folds
-        left to right with intermediate rounding, bit for bit."""
-        inc = np.full(n_blocks, np.float64(FRAMES_PER_BLOCK) / self.sample_rate)
-        inc[0] = self._current_time
-        return np.add.accumulate(inc)
+        left to right with intermediate rounding, bit for bit. Into ``out``
+        (f64[n_blocks]) where given."""
+        if out is None:
+            out = np.empty(n_blocks, np.float64)
+        out[0] = self._current_time
+        out[1:] = np.float64(FRAMES_PER_BLOCK) / self.sample_rate
+        return np.add.accumulate(out, out=out)
 
     # -- graph build & state management ------------------------------------------
 
@@ -418,12 +450,40 @@ class AudioContextBase:
     def static_info(self) -> StaticRenderInfo:
         return StaticRenderInfo(self.sample_rate, self.superblock)
 
+    def set_mesh(self, mesh) -> None:
+        """Shard the render over a device mesh (parity:
+        graphaudio_tpu/core/context.py set_mesh, :372-387): a
+        ``torch.distributed`` ``DeviceMesh`` with a ``voice`` dimension of a
+        power-of-two size (group lanes pad to one) and optionally a
+        ``part`` dimension (``parallel.make_mesh``). Every rank of the mesh
+        builds the same graph, calls this and renders; each renders its
+        share of the sharded stages and receives the whole output. Voice
+        groups fed by per-voice chains and mixed by whole-group bus fan-ins
+        shard over ``voice``, one all_reduce a fan-in; partitioned
+        convolvers and long per-node HRIRs over ``part``; other stages run
+        whole on every rank. The mesh's device type must be the context's
+        (a CUDA mesh renders on the card, never on the CPU). Pass None to
+        unshard. The graph is rebuilt at the next render."""
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            if "voice" not in names:
+                raise ValueError("mesh must have a 'voice' axis")
+            n = int(mesh.mesh.shape[names.index("voice")])
+            if n & (n - 1):
+                raise ValueError("'voice' axis size must be a power of two")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot shard a context that "
+                                 f"renders on {self.device}")
+        self.mesh = mesh
+        self._invalidate_topology()
+
     def _ensure_compiled(self) -> None:
         if self._compiled is not None and self._compiled_version == self._topology_version:
             return
         old_states = self._states
-        old_comp = self._compiled.state_composition if self._compiled else {}
-        old_ref = self._compiled.state_ref if self._compiled else {}
+        old = self._compiled
+        old_comp = old.state_composition if old else {}
+        old_ref = old.state_ref if old else {}
         self._compiled = CompiledGraph(self)
         self._compiled_version = self._topology_version
         self._render_fn, self._dest_channels = self._compiled.make_render_fn()
@@ -437,6 +497,7 @@ class AudioContextBase:
         # graphaudio_tpu/core/context.py _ensure_compiled). The globals
         # always come fresh from the context.
         if old_states:
+            old_graph = old
             new_comp = self._compiled.state_composition
             for key, st in new_states.items():
                 if key == "__globals__":
@@ -451,12 +512,13 @@ class AudioContextBase:
                     old is not None
                     and old_comp.get(key) == new_comp.get(key)
                     and _same_structure(old, st)
+                    and old_graph.lane_range(key) == self._compiled.lane_range(key)
                 ):
                     new_states[key] = old
                 else:
                     # A pipe's register bank has no members: it restarts
                     # silent (nothing a later call delivers reads it).
-                    self._migrate_members(key, st, old_states, old_ref)
+                    self._migrate_members(key, st, old_states, old_ref, old_graph)
         self._states = new_states
         # Config-derived leaves (the biquad's type selector) must reflect the
         # node's CURRENT config, not the one a kept state was built with.
@@ -466,19 +528,27 @@ class AudioContextBase:
             if cfg is not None:
                 self.update_node_state(node, **cfg())
         self._encs = None  # re-encode against (possibly) new capacities
-        self._param_versions = {}
+        # The variants were just read from the nodes as they are now.
+        self._stale_version = (self._param_edits, self._state_edits)
 
-    def _migrate_members(self, key, st, old_states, old_ref) -> None:
+    def _migrate_members(self, key, st, old_states, old_ref, old_graph) -> None:
         """Copy into the fresh stage state ``st`` (in place) the previous
         state of each member that ran before in a layout of the same keys,
-        shapes and dtypes."""
+        shapes and dtypes. Under a mesh a member moves only where this rank
+        held it before and holds it now (another rank's lane starts
+        fresh)."""
         for nid, (k, lane) in self._compiled.state_ref.items():
             src = old_ref.get(nid)
             if k != key or src is None or src[0] not in old_states:
                 continue
+            here = self._compiled.local_lane(k, lane)
+            src_lane = old_graph.local_lane(src[0], src[1])
+            if (lane is not None and here is None) or (src[1] is not None and src_lane is None):
+                continue
+            lane = here
             old = old_states[src[0]]
-            if src[1] is not None:
-                old = {n: v[src[1]] for n, v in old.items()}
+            if src_lane is not None:
+                old = {n: v[src_lane] for n, v in old.items()}
             dst = st if lane is None else {n: v[lane] for n, v in st.items()}
             if not _same_structure(old, dst):
                 continue
@@ -488,17 +558,27 @@ class AudioContextBase:
                 else:
                     st[n][lane] = v
 
+    def _ensure_static_config(self) -> None:
+        """Rebuild when a buffer source's kernel variant no longer matches its
+        params or state overrides; checked only when a param or a node
+        state was edited since the last check or build."""
+        edits = (self._param_edits, self._state_edits)
+        if self._stale_version == edits:
+            return
+        self._stale_version = edits
+        if self._compiled.static_config_stale():
+            self._invalidate_topology()
+            self._ensure_compiled()
+
     def _ensure_params_encoded(self) -> None:
-        dirty = self._encs is None or any(
-            self._param_versions.get((node.node_id, name)) != p.version
-            for node in self._compiled.topo
-            for name, p in node.params.items()
-        )
-        if dirty:
+        """Encode every param's events when a param was edited since the
+        last encoding (or the graph was rebuilt): a call after an edit
+        re-encodes, as a walk over every param's version would find, and a
+        call after none costs one integer compare."""
+        edits = self._param_edits
+        if self._encs is None or self._encs_version != edits:
             self._encs = to_device(self._compiled.encode_params(), self.device)
-            for node in self._compiled.topo:
-                for name, p in node.params.items():
-                    self._param_versions[(node.node_id, name)] = p.version
+            self._encs_version = edits
 
     def update_node_state(self, node, **updates) -> None:
         """Replace leaves of a node's state (host command helper). Updates
@@ -507,12 +587,17 @@ class AudioContextBase:
         if not hasattr(node, "_state_overrides"):
             node._state_overrides = {}
         node._state_overrides.update(updates)
+        self._state_edits += 1  # a buffer source's variant reads its "pos"
         if self._states is None or self._compiled is None:
             return
         ref = self._compiled.state_ref.get(node.node_id)
         if ref is None or ref[0] not in self._states:
             return
         key, lane = ref
+        if lane is not None:
+            lane = self._compiled.local_lane(key, lane)
+            if lane is None:  # another rank holds this lane
+                return
         st = dict(self._states[key])
         for k, v in updates.items():
             if k not in st:
@@ -527,19 +612,23 @@ class AudioContextBase:
         self._states[key] = st
 
     def peek_node_state(self, node) -> Optional[dict]:
-        """Host (numpy) view of a node's current state."""
+        """Host (numpy) view of a node's current state (None under a mesh
+        where another rank holds the node's lane)."""
         if self._states is None or self._compiled is None:
             return None
         ref = self._compiled.state_ref.get(node.node_id)
         if ref is None or ref[0] not in self._states:
             return None
         entry = self._states[ref[0]]
+        lane = self._compiled.local_lane(*ref)
+        if ref[1] is not None and lane is None:
+            return None
 
         def host(v):
             if not isinstance(v, torch.Tensor):
                 return v
             v = v.cpu().numpy()
-            return v if ref[1] is None else v[ref[1]]
+            return v if lane is None else v[lane]
 
         return {k: host(v) for k, v in entry.items()}
 
@@ -565,18 +654,26 @@ class AudioContextBase:
         """
         if self._disposed:
             raise RuntimeError("context is disposed")
-        t0 = time.perf_counter()
+        clock = time.perf_counter
+        t0 = clock()
         self._drain_commands()
+        t_drain = clock()
         self._ensure_compiled()
-        if self._compiled.static_config_stale():
-            self._invalidate_topology()
-            self._ensure_compiled()
+        t_compile = clock()
+        self._ensure_static_config()
+        t_stale = clock()
         self._ensure_params_encoded()
-        sched = parse_chunk_schedule(self.chunk_schedule)
+        t_encode = clock()
         if self.chunk_schedule is not None and not isinstance(
             self.chunk_schedule, (int, str)
         ):
+            sched = parse_chunk_schedule(self.chunk_schedule)
             self.chunk_schedule = ",".join(map(str, sched))  # materialize iterables
+        # parsed once for each value of the schedule and of GA_RENDER_CHUNK
+        key = (self.chunk_schedule, os.environ.get("GA_RENDER_CHUNK"))
+        if self._parsed_schedule[0] != key:
+            self._parsed_schedule = (key, parse_chunk_schedule(self.chunk_schedule))
+        sched = self._parsed_schedule[1]
 
         frames_per_step = self.superblock * FRAMES_PER_BLOCK
         cuda = self.device.type == "cuda"
@@ -586,19 +683,30 @@ class AudioContextBase:
         # launch.
         D = self._compiled.pipe_delay
         rows = n_steps + D
-        bt_host = self._block_clock(rows * self.superblock).reshape(rows, self.superblock)
-        bt = torch.from_numpy(bt_host)
         held = []  # pinned host tensors the device reads after this returns
         if cuda:
-            bt = bt.pin_memory()
-            held.append(bt)
+            # the clock computed into a pinned buffer (with its numpy view)
+            # that a finished launch gave back, else into a new one
+            shape, free = self._free_clocks
+            if shape == (rows, self.superblock) and free:
+                bt, bt_host = free.pop()
+            else:
+                bt = torch.empty((rows, self.superblock), dtype=torch.float64, pin_memory=True)
+                bt_host = bt.numpy()
+            self._block_clock(rows * self.superblock, out=bt_host.reshape(-1))
+        else:
+            bt_host = self._block_clock(rows * self.superblock).reshape(rows, self.superblock)
+            bt = torch.from_numpy(bt_host)
         block_times = bt.to(self.device, non_blocking=True)
-        t_feed = time.perf_counter()
+        t_feed = clock()
         feeds, feed_held = self._stage_feeds(n_steps, cuda)
         held += feed_held
-        t_enq = time.perf_counter()
+        t_enq = clock()
 
-        pending = []
+        # Launches on the card with no feeds, pipes or mesh may go through
+        # the step's CUDA graph.
+        graph = self._step_graph if (cuda and not D and not feeds and self.mesh is None) else None
+        outs = []
         tail = None
         launched = 0
         delivered = 0  # frames of audio the launches so far returned
@@ -609,10 +717,11 @@ class AudioContextBase:
             last = launched + this == n_steps
             end = rows if last else launched + this
             frame0s = [self._current_frame + frames_per_step * r for r in range(launched, end)]
-            self._states, out = self._render_fn(
-                self._states, self._encs, self._consts,
-                block_times[launched:end], frame0s, launched, n_steps, feeds,
-            )
+            args = (block_times[launched:end], frame0s, launched, n_steps, feeds)
+            if graph is None:
+                self._states, out = self._render_fn(self._states, self._encs, self._consts, *args)
+            else:
+                self._states, out = graph.render(self, *args)
             launched += this
             if keep is not None and last:
                 cut = keep - delivered
@@ -624,15 +733,18 @@ class AudioContextBase:
                 continue
             if pack is not None:
                 out = pack(out)
-            # Async device-to-host copy (into pinned memory) so the device
-            # keeps working while the host enqueues the next launch.
-            pending.append(out.to("cpu", non_blocking=True) if cuda else out)
-        # The stop times the finish notifies from, as this launch left them
-        # (parity: _notify_refs and its prefetch): copied behind the audio,
-        # never read back after a later launch has written them.
+            outs.append(out)
+        # Async device-to-host copies (into pinned memory) behind the
+        # steps, so nothing here waits for the device; then the stop times
+        # the finish notifies from, as this launch left them (parity:
+        # _notify_refs and its prefetch), never read back after a later
+        # launch has written them.
+        t_copy = clock()
+        pending = [o.to("cpu", non_blocking=True) for o in outs] if cuda else outs
         wanted, fetch = self._notify_refs()
         stops = {k: v.to("cpu", non_blocking=True) if cuda else v.clone()
                  for k, v in fetch.items()}
+        t_copied = clock()
         self._current_frame += n_steps * frames_per_step
         self._current_time = float(
             bt_host[n_steps - 1, -1] + np.float64(FRAMES_PER_BLOCK) / self.sample_rate
@@ -640,10 +752,13 @@ class AudioContextBase:
         event = None
         if cuda:
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        t_end = time.perf_counter()
+            # the stream by the device's index: finding the current device
+            # of a bare "cuda" queries CUDA again on every call
+            event.record(torch.cuda.current_stream(block_times.get_device()))
+        t_end = clock()
         return PendingRender(
             event=event, pending=pending, tail=tail, pack=pack, held=held,
+            clock=(bt, bt_host) if cuda else None, audio=None,
             wanted=wanted, stops=stops, end_time=self._current_time, n_steps=n_steps,
             breakdown={
                 "prep_s": t_enq - t0,
@@ -651,23 +766,44 @@ class AudioContextBase:
                 "enqueue_s": t_end - t_enq,
                 "n_launches": chunk_i,
                 "rows": rows,  # steps run: n_steps and the pipes' D
+                # the launch's parts in order, seconds: they sum to
+                # prep_s + enqueue_s
+                "parts": {"drain": t_drain - t0, "compile": t_compile - t_drain,
+                          "stale_check": t_stale - t_compile, "param_encode": t_encode - t_stale,
+                          "block_clock": t_feed - t_encode, "feeds": t_enq - t_feed,
+                          "enqueue": t_copy - t_enq + t_end - t_copied,
+                          "copies_back": t_copied - t_copy},
             },
         )
 
+    def _render_steps_audio(self, handle: PendingRender):
+        """Wait for a launch's own event (no stream or device sync) and join
+        its audio: f32[C, F], or with ``pack`` (packed, tail). Kept on the
+        handle, so a second call returns it again."""
+        if handle.audio is None:
+            if handle.event is not None:
+                handle.event.synchronize()
+            handle.held = None  # every copy from pinned memory has run
+            if handle.clock is not None:
+                shape = handle.clock[1].shape
+                if self._free_clocks[0] != shape:
+                    self._free_clocks = (shape, [])
+                self._free_clocks[1].append(handle.clock)
+                handle.clock = None
+            parts = [p.numpy() for p in handle.pending]
+            axis = 1 if handle.pack is None else 0
+            out_np = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
+            tail = handle.tail.numpy() if handle.tail is not None else None
+            handle.audio = out_np if handle.pack is None else (out_np, tail)
+        return handle.audio
+
     def _render_steps_finish(self, handle: PendingRender):
-        """Wait for a launch's own event (no stream or device sync), join
-        its audio, fire its sources' ended-events from the stop times
-        prefetched at launch, and record its stats. Handles finish in launch
-        order; the recorded wall is the launch's host time and the finish's,
-        not the time between them."""
+        """Join a launch's audio (``_render_steps_audio``), fire its sources'
+        ended-events from the stop times prefetched at launch, and record
+        its stats. Handles finish in launch order; the recorded wall is the
+        launch's host time and the finish's, not the time between them."""
         t_sync = time.perf_counter()
-        if handle.event is not None:
-            handle.event.synchronize()
-        handle.held = None  # every copy from pinned memory has run
-        parts = [p.numpy() for p in handle.pending]
-        axis = 1 if handle.pack is None else 0
-        out_np = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
-        tail = handle.tail.numpy() if handle.tail is not None else None
+        audio = self._render_steps_audio(handle)
         t_notify = time.perf_counter()
         self._notify_sources(handle.wanted, handle.stops, handle.end_time)
         t_end = time.perf_counter()
@@ -679,7 +815,7 @@ class AudioContextBase:
             breakdown=dict(handle.breakdown, sync_s=t_notify - t_sync,
                            notify_s=t_end - t_notify),
         )
-        return out_np if handle.pack is None else (out_np, tail)
+        return audio
 
     def _render_steps(self, n_steps: int, pack=None, keep=None):
         """Render ``n_steps`` superblocks; returns f32[channels, n_steps*S*128].
@@ -712,9 +848,7 @@ class AudioContextBase:
         caller keeps until its launches have run)."""
         feeds, held = {}, []
         S = self.superblock
-        for node in self._compiled.topo:
-            if not hasattr(node, "prepare_feed"):
-                continue
+        for node in self._compiled.feed_nodes:
             host = torch.from_numpy(node.prepare_feed(n_steps * S * FRAMES_PER_BLOCK))
             if cuda:
                 host = host.pin_memory()
@@ -731,8 +865,8 @@ class AudioContextBase:
         reference, and the stop-time tensor of each of their stages."""
         wanted = []
         fetch = {}
-        for node in self._compiled.topo:
-            if not getattr(node, "wants_notify", False) or not node.may_notify():
+        for node in self._compiled.notify_nodes:
+            if not node.may_notify():
                 continue
             ref = self._compiled.state_ref.get(node.node_id)
             if ref is None or ref[0] not in self._states:
@@ -741,8 +875,22 @@ class AudioContextBase:
             if "stop_time" not in entry:
                 continue
             wanted.append((node, ref))
-            fetch.setdefault(ref[0], entry["stop_time"])
+            if ref[0] not in fetch:
+                fetch[ref[0]] = self._gather_lanes(ref[0], entry["stop_time"])
         return wanted, fetch
+
+    def _gather_lanes(self, key, t):
+        """A voice-sharded stage's per-lane tensor joined from every rank, in
+        lane order (all_gather over ``voice``), so every rank notifies the
+        same sources; ``t`` itself for a stage held whole."""
+        if self._compiled.lane_range(key) is None:
+            return t
+        import torch.distributed as dist
+
+        group = self._compiled.voice_group
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts)
 
     @staticmethod
     def _notify_sources(wanted, stops, end_time: float) -> None:

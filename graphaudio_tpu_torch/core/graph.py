@@ -39,8 +39,20 @@ by the pipe delay D. A render call runs D rows more than it delivers and a
 stage at level L commits its state only in rows L <= r < n + L, so the
 audio equals the unfused graph's, bit for bit.
 
-Left out so far (see ROADMAP.md): mesh sharding (``_compute_sharding`` /
-``shard_map``).
+Under a device mesh (``context.set_mesh``, a ``torch.distributed``
+``DeviceMesh`` with dims ``("voice", "part")``; parallel/), every rank
+builds the same graph and runs the same steps on its own device, SPMD, and
+receives the whole destination output (the JAX package's ``shard_map`` with
+``out_specs`` ``P()``). ``_compute_sharding`` decides per stage, as the JAX
+package does: a group whose padded lane count divides by the ``voice``
+size keeps only its rank's lanes (states, param encodings and the K6
+table's rows built from them, source geometry and its packed table), its
+whole-group fan-ins completing with one ``all_reduce`` over ``voice``
+after K3; a single whose node supports partition sharding (the convolver's
+IR, a long per-node HRIR) keeps only its rank's slice of its partition
+spectra, sliced on the node's ``const_part_axes``, and completes its MAC
+(K14) with one ``all_reduce`` over ``part``. Everything else, pipes
+included, is computed identically on every rank.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.core.mesh import axis_group, axis_index, axis_size
 from graphaudio_tpu_torch.core.mixing import (
     adapt_channels,
     fan_in_lanes,
@@ -110,6 +123,10 @@ class RenderContext:
         # {str(node_id): the call's read f32[n_steps, C, T] on the render
         # device, "__base__": the call's first frame (host int)}, or None.
         self.feeds = None
+        # The running stage's partition slice under a ``part`` mesh: (this
+        # rank's index along ``part``, the dimension's process group), or
+        # None; its stage consts hold that slice's rows.
+        self.part = None
 
     @property
     def block_end_times(self):
@@ -232,14 +249,59 @@ def _is_buffer_source(node) -> bool:
     return hasattr(node, "process_poly_group") and hasattr(node, "_buffer")
 
 
+#: Byte alignment of each array in ``to_device``'s staging buffer.
+_STAGE_ALIGN = 64
+
+
 def to_device(tree, device):
     """numpy arrays / scalars in a (nested) dict -> tensors on ``device``,
-    dtypes kept; Python ints (host-side scalars such as a ring head) stay."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (np.ndarray, np.generic)):
-        return torch.from_numpy(np.array(tree)).to(device)
-    return tree
+    values and dtypes kept; Python ints (host-side scalars such as a ring
+    head) stay. For a CUDA device the arrays are packed into one pinned
+    host buffer, each on a 64-byte boundary, copied up by one non-blocking
+    copy, and returned as views of its device copy: no call here waits for
+    the device (a pageable copy a leaf would synchronize once each)."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (np.ndarray, np.generic)):
+            leaves.append(np.array(t))  # a copy: the result never aliases the caller's
+            return _Leaf(len(leaves) - 1)
+        return t
+
+    skeleton = walk(tree)
+    device = torch.device(device)
+    if device.type != "cuda":
+        tensors = [torch.from_numpy(a).to(device) for a in leaves]
+    else:
+        offs, total = [], 0
+        for a in leaves:
+            offs.append(total)
+            total += -(-a.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+        host = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
+        flat = host.numpy()
+        for a, off in zip(leaves, offs):
+            flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = host.to(device, non_blocking=True)
+        tensors = [dev[off:off + a.nbytes].view(torch.from_numpy(a.reshape(-1)[:0]).dtype)
+                   .reshape(a.shape) for a, off in zip(leaves, offs)]
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(v) for k, v in t.items()}
+        return tensors[t.index] if isinstance(t, _Leaf) else t
+
+    return fill(skeleton)
+
+
+class _Leaf:
+    """An array's place in ``to_device``'s list of leaves."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, index):
+        self.index = index
 
 
 class CompiledGraph:
@@ -252,6 +314,7 @@ class CompiledGraph:
 
     def __init__(self, context):
         self.context = context
+        self.mesh = getattr(context, "mesh", None)
         self.info = StaticRenderInfo(context.sample_rate, context.superblock)
         self.destination = context.destination
         self.topo: List = []
@@ -308,6 +371,10 @@ class CompiledGraph:
                 if uc == WHITE:
                     stack.append((up, False))
         self.topo = topo
+        # The nodes a launch asks each call: host-streamed data to stage
+        # (``prepare_feed``) and sources whose ended-event it may fire.
+        self.feed_nodes = [n for n in topo if hasattr(n, "prepare_feed")]
+        self.notify_nodes = [n for n in topo if getattr(n, "wants_notify", False)]
 
         # Static channel resolution in topo order (AudioNodeInput.cs:140-168).
         node_in_counts = {}
@@ -467,10 +534,14 @@ class CompiledGraph:
             sc = getattr(nodes[0], "stage_consts", None)
             if sc is None:
                 continue
-            for name, arr in sc().items():
+            for name, arr in sc(self.mesh).items():
                 self.consts[f"st{si}/{name}"] = arr
 
         self._build_plan()
+        self._compute_sharding()
+        # The whole constants, and this rank's (the same without a mesh).
+        self.global_consts = self.consts
+        self.consts = self.shard_consts(self.global_consts)
 
     # -- chain fusion -----------------------------------------------------------
 
@@ -715,6 +786,153 @@ class CompiledGraph:
             )
         self.plan = plan
 
+    # -- mesh sharding -----------------------------------------------------------
+
+    def _compute_sharding(self) -> None:
+        """Decide per stage whether its lanes shard over the mesh's
+        ``voice`` dimension (the JAX package's ``_compute_sharding``,
+        graphaudio_tpu/core/graph.py:767-842).
+
+        Candidates: groups whose padded lane count divides by the ``voice``
+        size. Demotions, to a fixpoint (a demoted stage is computed whole on
+        every rank): any lane-indexed read of a group's output (it would
+        need the other ranks' lanes), per-lane input or modulation routing
+        (the plan names global lanes), and CHAIN endpoints sharded unlike
+        each other. Whole-group (ALL) fan-ins of a sharded stage complete
+        with an all_reduce over ``voice``. ``part_sharded``: the singles
+        whose node supports partition sharding under a ``part`` size > 1
+        (``supports_part_sharding``)."""
+        self.sharded_stages = set()
+        self.part_sharded = set()
+        self.voice_size = self.part_size = 1
+        self.voice_index = self.part_index = 0
+        self.voice_group = self.part_group = None
+        if self.mesh is None:
+            self.render_sharded = False
+            return
+        self.voice_size = axis_size(self.mesh, "voice")
+        self.part_size = axis_size(self.mesh, "part")
+        if self.part_size > 1:
+            for sp in self.plan:
+                if sp["kind"] == "single" and getattr(
+                        sp["rep"], "supports_part_sharding", lambda m: False)(self.mesh):
+                    self.part_sharded.add(sp["si"])
+        n = self.voice_size
+        cand = {sp["si"] for sp in self.plan
+                if sp["kind"] == "group" and sp["n_lanes"] % n == 0}
+        changed = True
+        while changed:
+            changed = False
+
+            def demote(si):
+                nonlocal changed
+                if si in cand:
+                    cand.discard(si)
+                    changed = True
+
+            def scan_prods(prods):
+                for p in prods:
+                    if p[0] != "ALL" and p[2] is not None:
+                        demote(p[0])
+
+            for sp in self.plan:
+                if sp["kind"] == "group":
+                    routings = [r for _c, r in sp["inputs"]]
+                    routings.extend(p[3][2] for p in sp["params"] if p[3] is not None)
+                    for routing in routings:
+                        if routing and routing[0] == "CHAIN":
+                            src = routing[1]
+                            if (sp["si"] in cand) != (src in cand):
+                                demote(sp["si"])
+                                demote(src)
+                        else:
+                            if any(pl for pl in routing):
+                                demote(sp["si"])
+                            for pl in routing:
+                                scan_prods(pl)
+                else:
+                    for _c, prods in sp["inputs"]:
+                        scan_prods(prods)
+                    for p in sp["params"]:
+                        if p[3] is not None:
+                            scan_prods(p[3][2])
+        self.sharded_stages = cand if n > 1 else set()
+        # Part-sharded singles run sharded even where no voice group
+        # shards: part_sharded never names a distribution that did not run.
+        self.render_sharded = bool(self.sharded_stages or self.part_sharded)
+        if self.sharded_stages:
+            self.voice_index = axis_index(self.mesh, "voice")
+            self.voice_group = axis_group(self.mesh, "voice")
+        if self.part_sharded:
+            self.part_index = axis_index(self.mesh, "part")
+            self.part_group = axis_group(self.mesh, "part")
+
+    def lane_range(self, key: str):
+        """The global lanes [lo, hi) that this rank holds of stage ``key``
+        ("st<i>"), or None for a stage held whole."""
+        si = int(key[2:]) if key.startswith("st") and key[2:].isdigit() else None
+        if si not in getattr(self, "sharded_stages", ()):
+            return None
+        n = self.stage_pad[si][1] // self.voice_size
+        return self.voice_index * n, (self.voice_index + 1) * n
+
+    def local_lane(self, key: str, lane):
+        """A stage's global lane as this rank's index into its state, or
+        None where another rank holds it (lane None: a single, itself)."""
+        rng = self.lane_range(key)
+        if rng is None or lane is None:
+            return lane
+        return lane - rng[0] if rng[0] <= lane < rng[1] else None
+
+    def shard_state(self, key: str, st):
+        """This rank's part of stage ``key``'s whole numpy state: its lanes
+        of a voice-sharded group, the whole of any other stage's."""
+        rng = self.lane_range(key)
+        if rng is None or not isinstance(st, dict):
+            return st
+        return {k: np.asarray(v)[rng[0]:rng[1]] for k, v in st.items()}
+
+    def shard_consts(self, consts: dict) -> dict:
+        """This rank's constants from the whole ones (numpy): a sharded
+        source group's geometry cut to its lanes and its packed table packed
+        again from them; a part-sharded stage's partition spectra cut to
+        its slice on the node's ``const_part_axes`` (a const the node does
+        not declare raises: it is neither known to be replicated nor known
+        to be cut); the rest whole. Returns ``consts`` itself without a
+        sharded stage."""
+        if not self.render_sharded:
+            return consts
+        out = dict(consts)
+        for si in self.sharded_stages:
+            key = f"st{si}"
+            if f"{key}/geom" not in consts:
+                continue
+            lo, hi = self.lane_range(key)
+            geom = {k: np.asarray(v)[lo:hi] for k, v in consts[f"{key}/geom"].items()}
+            out[f"{key}/geom"] = geom
+            w, variant, _ = self._bufsrc_cfg[si]
+            out[f"{key}/gtab"] = pack_group_table(geom, w, variant, self.info.superblock,
+                                                  self.info.sample_rate)
+        rep_of = {sp["si"]: sp["rep"] for sp in self.plan}
+        for name, arr in consts.items():
+            si = int(name.split("/", 1)[0][2:])
+            if si not in self.part_sharded:
+                continue
+            local = name.split("/", 1)[1]
+            axes = getattr(rep_of[si], "const_part_axes", {})
+            if local not in axes:
+                raise ValueError(f"stage const {name!r} of a part-sharded stage has no "
+                                 "partition axis in its node's const_part_axes")
+            ax = axes[local]
+            n = np.shape(arr)[ax]
+            if n % self.part_size:
+                raise ValueError(f"stage const {name!r}: {n} partitions do not split over "
+                                 f"part = {self.part_size}")
+            m = n // self.part_size
+            out[name] = np.take(arr, np.arange(self.part_index * m, (self.part_index + 1) * m),
+                                axis=ax)
+        return out
+
     def signature(self):
         """Structural identity of the step function: two CompiledGraphs with
         equal signatures compute the same function of (states, encs,
@@ -724,6 +942,9 @@ class CompiledGraph:
         step function on every graph build and keeps this as the graph's
         identity for callers and tests.)"""
         sig = [("hdr", self.info.sample_rate, self.info.superblock, self.pipe_delay)]
+        if self.mesh is not None:
+            sig.append(("mesh", self.voice_size, self.part_size,
+                        tuple(sorted(self.sharded_stages)), tuple(sorted(self.part_sharded))))
         for sp in self.plan:
             if sp["kind"] == "group":
                 ident = ("G", sp["group_key"], sp["n_lanes"], sp["bufsrc"])
@@ -787,7 +1008,7 @@ class CompiledGraph:
         # Context-level globals (listener transform) travel in the state, so
         # they are data, not rebuild triggers.
         states["__globals__"] = self.context.global_state()
-        return states
+        return {k: self.shard_state(k, v) for k, v in states.items()}
 
     def _share_group_capacity(self, nodes) -> None:
         """Unify event capacities across a group's lanes, per param name
@@ -839,6 +1060,12 @@ class CompiledGraph:
                     encs[f"st{si}/{name}"] = p.encode(
                         self.param_capacity[(n.node_id, name)]
                     )
+        # A sharded group keeps its lanes' encodings; the step's tables are
+        # packed from them (so the K6 table holds this rank's rows).
+        for si in self.sharded_stages:
+            for name in self.stages[si][1][0].params:
+                key = f"st{si}/{name}"
+                encs[key] = self.shard_state(f"st{si}", encs[key])
         self._pack_prologue(encs)
         return encs
 
@@ -941,6 +1168,10 @@ class CompiledGraph:
 
         gathers = one_gather_routes(plan)
         lane_index = {}
+        # The fan-in of a voice-sharded stage completes over ``voice``; a
+        # part-sharded stage runs its slice of the partitions.
+        fan_group = {si: self.voice_group for si in self.sharded_stages}
+        part_of = {si: (self.part_index, self.part_group) for si in self.part_sharded}
 
         def step(states, encs, consts, clocks, frame0, row=None, n_main=None, feeds=None):
             by_level = {}
@@ -984,7 +1215,8 @@ class CompiledGraph:
                 parts = []
                 for p in prods:
                     if p[0] == "ALL":
-                        parts.append(fan_in_lanes(out_table[(p[1], p[2])], dst_c))
+                        lanes_out = out_table[(p[1], p[2])]
+                        parts.append(fan_in_lanes(lanes_out, dst_c, fan_group.get(p[1])))
                         continue
                     psi, pport, plane, _c = p
                     if plane is None:
@@ -1089,9 +1321,11 @@ class CompiledGraph:
                 d = deferred.get(key)
                 rc.prologue_result = (d["run"](d["table"], arena, rc)[0] if d is not None
                                       else prologue.get(key))
+                rc.part = part_of.get(sp["si"])
                 result = sp["rep"].process(states[key], inputs, params, rc)
                 rc.stage_consts = {}
                 rc.prologue_result = None
+                rc.part = None
                 return result
 
             def run_single(sp):

@@ -10,7 +10,10 @@ Parity: GraphAudio.Core/AudioNodeInput.MixBuffer (AudioNodeInput.cs:182-244):
 re-channels the sum for the consumer: the ("ALL", ...) bus fan-in of
 graphaudio_tpu/core/graph.py mixed_signal (:1119-1127) plus adapt_channels,
 as one CUDA kernel (csrc/fan_in.cu) on a CUDA tensor and as plain torch on a
-CPU tensor.
+CPU tensor. Under a mesh whose ``voice`` dimension shards the group's lanes,
+each rank sums its own lanes and one ``all_reduce`` over the dimension's
+group completes the fan-in (``group``; graphaudio_tpu/core/graph.py:1124-1127,
+the JAX package's psum).
 """
 
 from __future__ import annotations
@@ -90,14 +93,33 @@ def _fan_in_mode(src_channels: int, dst_channels: int):
     return 3, 1.0
 
 
-def fan_in_lanes(x, dst_channels: int):
-    """Sum a group tensor f32[V, C, T] over lanes into f32[dst_channels, T].
+def all_reduce_sum(t, group):
+    """Sum ``t`` over the ranks of ``group`` and return the sum: ``t`` itself,
+    reduced in place, when it is contiguous, else a contiguous copy (a
+    collective writes every element of a dense buffer: a broadcast view,
+    such as the mono up-mix, has fewer); a complex tensor goes as its real
+    view. None is no group (one rank: nothing to add). Every rank of the
+    group receives the same bits."""
+    if group is not None:
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        dist.all_reduce(torch.view_as_real(t) if t.is_complex() else t, group=group)
+    return t
+
+
+def fan_in_lanes(x, dst_channels: int, group=None):
+    """Sum a group tensor f32[V, C, T] over lanes into f32[dst_channels, T];
+    with ``group`` (the mesh's ``voice`` line of a sharded group) ``x`` holds
+    this rank's lanes and the sum is completed over the group's ranks.
 
     CPU tensors take the plain version; CUDA tensors launch the K3 kernel,
     which needs T a multiple of 16 and a 16-byte-aligned tensor. The launch
     path is lean (one combined check, a cached mode and launcher): K3 runs
     several times a step.
     """
+    if group is not None:
+        return all_reduce_sum(fan_in_lanes(x, dst_channels), group)
     if x.is_cpu:
         return fan_in_lanes_plain(x, dst_channels)
     if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 3 and x.is_contiguous()):

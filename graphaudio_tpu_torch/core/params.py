@@ -107,8 +107,17 @@ class AudioParam:
 
     @property
     def version(self) -> int:
-        """Bumped on every mutation; the context re-encodes on change."""
+        """Bumped on every mutation, with the context's edit count."""
         return self._version
+
+    def _bump_version(self) -> None:
+        """A mutation: this param's version and its context's count of param
+        edits (``AudioContextBase._param_edits``), which the context reads
+        once a render call to know whether anything must be encoded."""
+        self._version += 1
+        ctx = getattr(self._owner, "context", None)
+        if ctx is not None:
+            ctx._param_edits += 1
 
     # -- value / events -----------------------------------------------------
 
@@ -138,7 +147,7 @@ class AudioParam:
         """Set the current value; cancels all scheduled events (AudioParam.cs:34-49)."""
         self._value = self._clamp(v)
         self._events.clear()
-        self._version += 1
+        self._bump_version()
         self._mark_touched()
 
     def _clamp(self, v: float) -> float:
@@ -153,7 +162,7 @@ class AudioParam:
         idx = bisect.bisect_right(times, float(time))
         self._events.insert(idx, entry)
         self._seq += 1
-        self._version += 1
+        self._bump_version()
         self._mark_touched()
         if not self._had_events:
             self._had_events = True
@@ -200,7 +209,7 @@ class AudioParam:
                 break
         if len(survivors) != len(self._events):
             self._events = survivors
-            self._version += 1
+            self._bump_version()
         return self
 
     def value_at_time(self, t: float) -> float:

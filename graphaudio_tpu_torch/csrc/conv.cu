@@ -81,8 +81,12 @@ __global__ void __launch_bounds__(kCols * kMaxGroups)
     conv_mac_kernel(const float* __restrict__ X, const float* __restrict__ hr,
                     const float* __restrict__ hi, float* __restrict__ ring_r,
                     float* __restrict__ ring_i, float2* __restrict__ acc, int K, int L, int P,
-                    int NB, int R, int head, int rev, int lags) {
+                    int NB, int R, int head_arg, const long long* __restrict__ head_dev, int rev,
+                    int lags) {
   extern __shared__ float2 part[];  // [S][LT][kCols]
+  // the ring's head: the argument, or where given, read from the card (a
+  // launch captured in a CUDA graph reads the head of each replay)
+  const int head = head_dev != nullptr ? static_cast<int>(*head_dev) : head_arg;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x, rank = blockIdx.x;  // the grid is one cluster wide
   const int S = blockDim.y, x = threadIdx.x, gy = threadIdx.y;
@@ -259,10 +263,62 @@ __global__ void __launch_bounds__(kOlaThreads)
   y[i] = v;
 }
 
+// K14a: the MAC over one rank's slice of the partitions (see the export's
+// note). A thread an output (k, l, bin), bin fastest, so a warp's loads
+// are 32 consecutive floats of one row.
+constexpr int kSliceThreads = 256;
+
+__global__ void __launch_bounds__(kSliceThreads)
+    conv_mac_slice_kernel(const float2* __restrict__ X, const float* __restrict__ hr,
+                          const float* __restrict__ hi, float* __restrict__ ring_r,
+                          float* __restrict__ ring_i, float2* __restrict__ acc, int K, int L,
+                          int Pl, int NB, int R, int head, int rev, int p0) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSliceThreads + threadIdx.x;
+  if (i >= static_cast<int64_t>(K) * L * NB) return;
+  const int b = static_cast<int>(i % NB);
+  const int64_t kl = i / NB;
+  const int l = static_cast<int>(kl % L), k = static_cast<int>(kl / L);
+  const int P = R - L + 1;  // the global (padded) partition count
+  const float2* xk = X + static_cast<int64_t>(k) * L * NB + b;
+  const float* rr = ring_r + static_cast<int64_t>(k) * R * NB + b;
+  const float* ri = ring_i + static_cast<int64_t>(k) * R * NB + b;
+  const float* hrk = hr + static_cast<int64_t>(k) * Pl * NB + b;
+  const float* hik = hi + static_cast<int64_t>(k) * Pl * NB + b;
+  float ar = 0.0f, ai = 0.0f;
+  for (int j = 0; j < Pl; ++j) {
+    const int lag = rev ? P - 1 - (p0 + j) : p0 + j;
+    const int m = l - lag;  // the sub-block this row multiplies: >= -(P-1)
+    float xr, xi;
+    if (m >= 0) {
+      const float2 v = xk[static_cast<int64_t>(m) * NB];
+      xr = v.x;
+      xi = v.y;
+    } else {
+      const int64_t slot = head + m < 0 ? head + m + R : head + m;
+      xr = rr[slot * NB];
+      xi = ri[slot * NB];
+    }
+    const float h_r = hrk[static_cast<int64_t>(j) * NB], h_i = hik[static_cast<int64_t>(j) * NB];
+    // acc + (xr hr - xi hi), acc + (xr hi + xi hr): each operation rounded,
+    // in the plain version's order.
+    ar = __fadd_rn(ar, __fsub_rn(__fmul_rn(xr, h_r), __fmul_rn(xi, h_i)));
+    ai = __fadd_rn(ai, __fadd_rn(__fmul_rn(xr, h_i), __fmul_rn(xi, h_r)));
+  }
+  acc[i] = make_float2(ar, ai);
+  // This step's spectrum into its slot. The slots read above hold sub-blocks
+  // m < 0, slots head + L .. head + R - 1 (mod R); these are head .. head +
+  // L - 1: disjoint, so no thread reads what another writes.
+  const int64_t slot = (head + l < R ? head + l : head + l - R) * static_cast<int64_t>(NB);
+  const float2 v = xk[static_cast<int64_t>(l) * NB];
+  ring_r[static_cast<int64_t>(k) * R * NB + slot + b] = v.x;
+  ring_i[static_cast<int64_t>(k) * R * NB + slot + b] = v.y;
+}
+
 template <int LT>
 cudaError_t launch_mac(dim3 grid, dim3 block, size_t smem, cudaStream_t stream, const float* X,
                        const float* hr, const float* hi, float* ring_r, float* ring_i, float2* acc,
-                       int K, int L, int P, int NB, int R, int head, int rev, int lags) {
+                       int K, int L, int P, int NB, int R, int head, const long long* head_dev, int rev,
+                       int lags) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
@@ -276,7 +332,7 @@ cudaError_t launch_mac(dim3 grid, dim3 block, size_t smem, cudaStream_t stream, 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, conv_mac_kernel<LT>, X, hr, hi, ring_r, ring_i, acc, K, L, P,
-                            NB, R, head, rev, lags);
+                            NB, R, head, head_dev, rev, lags);
 }
 
 }  // namespace
@@ -284,13 +340,15 @@ cudaError_t launch_mac(dim3 grid, dim3 block, size_t smem, cudaStream_t stream, 
 // lt: sub-blocks a thread owns (1, 2, 4 or 8); clusters: blocks a cluster
 // (1, 2, 4 or 8); groups: lag groups a block (1..16); lags: lags a group,
 // with clusters * groups * lags >= P. X and acc are interleaved complex.
+// head_dev: null, or an int64 on the card holding the head (in [0, R)),
+// read in place of head.
 GA_EXPORT int ga_conv_mac(const float* X, const float* hr, const float* hi, float* ring_r,
                           float* ring_i, float* acc, int K, int L, int P, int NB, int R,
-                          int head, int rev, int lt, int clusters, int groups, int lags,
-                          void* stream) {
+                          int head, const long long* head_dev, int rev, int lt, int clusters,
+                          int groups, int lags, void* stream) {
   if (groups < 1 || groups > kMaxGroups || clusters < 1 || clusters > kMaxCluster ||
       (clusters & (clusters - 1)) || static_cast<int64_t>(clusters) * groups * lags < P ||
-      R != P - 1 + L || head < 0 || head >= R)
+      R != P - 1 + L || (head_dev == nullptr && (head < 0 || head >= R)))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(clusters, (K * NB + kCols - 1) / kCols, (L + lt - 1) / lt);
   const dim3 block(kCols, groups);
@@ -302,7 +360,7 @@ GA_EXPORT int ga_conv_mac(const float* X, const float* hr, const float* hi, floa
 #define GA_MAC_CASE(T)                                                                   \
   case T:                                                                                \
     err = launch_mac<T>(grid, block, smem, s, X, hr, hi, ring_r, ring_i, a, K, L, P, NB, R, \
-                        head, rev, lags);                                                \
+                        head, head_dev, rev, lags);                                      \
     break;
     GA_MAC_CASE(1)
     GA_MAC_CASE(2)
@@ -313,6 +371,43 @@ GA_EXPORT int ga_conv_mac(const float* X, const float* hr, const float* hi, floa
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return err != cudaSuccess ? static_cast<int>(err) : ga_launch_status();
+}
+
+// K14a: K2a's MAC over the partitions [p0, p0 + Pl) of a P-partition IR, P =
+// R - L + 1, at their global lags (the rank's slice under a mesh whose
+// `part` dimension splits the partitions). Replaces graphaudio_tpu/ops/
+// convolve.py conv_superblock_big_sharded (:236-265, its per-device MAC
+// before the psum) and the MAC of graphaudio_tpu/parallel/sharded.py
+// (:170-180). hr, hi f32[K, Pl, NB] hold the slice's rows, in lag order
+// (rev = 0) or reversed (rev = 1: global row p multiplies the sub-block
+// P-1-p steps ago); X, acc interleaved complex [K, L, NB]; the ring f32[K,
+// R, NB] is the whole delay line (replicated on every rank), this step's
+// spectra written at slots head .. head + L - 1. The caller completes the
+// sum across ranks (all_reduce). acc[k, l, b] = sum over j ascending of
+// D(l - lag_j)[k, b] * H[k, j, b], D(m) X[k, m] for m >= 0 and ring slot
+// (head + m) mod R otherwise.
+//
+// Bound on the H100: bytes. Config 4 under part = 2 (K=2, L=1, NB=8193,
+// Pl=6 of P=12) reads X, the slice's spectra and the 6 ring rows it needs
+// and writes acc and one ring row, about 2 MB (0.6 us at 3.35 TB/s); its
+// 8 flops a (k, l, b, j) are 0.8 MFLOP. A simple design serves: a thread an
+// output walks its Pl rows (each H value and ring value read once by one
+// thread, coalesced across the warp's bins), 64 blocks of 256 at config 4.
+// K2a's lag split over clusters is for P in the hundreds at the 128 grain;
+// a slice has Pl = P / part rows, and under `part` the grain is T (L = 1).
+GA_EXPORT int ga_conv_mac_slice(const float* X, const float* hr, const float* hi, float* ring_r,
+                                float* ring_i, float* acc, int K, int L, int Pl, int NB, int R,
+                                int head, int rev, int p0, void* stream) {
+  const int P = R - L + 1;
+  const int64_t n = static_cast<int64_t>(K) * L * NB;
+  if (K < 1 || L < 1 || Pl < 1 || NB < 1 || P < 1 || p0 < 0 || p0 + Pl > P || head < 0 ||
+      head >= R || (n + kSliceThreads - 1) / kSliceThreads > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  conv_mac_slice_kernel<<<static_cast<unsigned>((n + kSliceThreads - 1) / kSliceThreads),
+                          kSliceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(X), hr, hi, ring_r, ring_i, reinterpret_cast<float2*>(acc),
+      K, L, Pl, NB, R, head, rev, p0);
+  return ga_launch_status();
 }
 
 // comb: host int32[2, C], row 0 each output's first instance, row 1 its

@@ -322,6 +322,76 @@ hrtf_part_mac_kernel(const float2* __restrict__ X, const float* __restrict__ hx,
     if (s < nq) acc[(row + s0 + s) * 2 * kB + t] = make_float2(yr[s], yi[s]);
 }
 
+// K14b: K10p-a over one rank's slice of the partitions (see the export's
+// note). A block an (output quantum, voice), a thread an (ear, bin).
+constexpr int kSliceMaxRows = 32;  // local partitions a launch takes
+
+__global__ void __launch_bounds__(kMacThreads)
+hrtf_part_mac_slice_kernel(const float2* __restrict__ X, const float* __restrict__ hx,
+                           const float* __restrict__ haz, const float* __restrict__ hel,
+                           const float* __restrict__ az, const float* __restrict__ el,
+                           const float* __restrict__ sr, const float* __restrict__ si, int S,
+                           int P, int Pl, int p_base, int E, int A, float c_az, float c_el,
+                           float2* __restrict__ acc, float* __restrict__ hx_out,
+                           float* __restrict__ haz_out, float* __restrict__ hel_out) {
+  __shared__ int4 rows[kSliceMaxRows];
+  __shared__ float4 wts[kSliceMaxRows];
+  const int s = blockIdx.x, v = blockIdx.y, t = threadIdx.x;
+  const int R = P - 1;  // ring rows: the global partition count's
+  const int64_t ring = static_cast<int64_t>(v) * R;
+  const int64_t row = static_cast<int64_t>(v) * S;
+  // Local row j is global partition p = p_base + j; output quantum s takes
+  // it at input quantum s - p, concatenation row c = R + s - p (ring rows
+  // first). Its corners and weights, one thread a row.
+  if (t < Pl) {
+    const int c = R + s - (p_base + t);
+    const float a = c < R ? haz[ring + c] : az[row + c - R];
+    const float e = c < R ? hel[ring + c] : el[row + c - R];
+    int r[4];
+    float w[4];
+    corners(a, e, E, A, c_az, c_el, r, w);
+    rows[t] = make_int4(r[0], r[1], r[2], r[3]);
+    wts[t] = make_float4(w[0], w[1], w[2], w[3]);
+  }
+  __syncthreads();
+  const int ear = t < kB ? 0 : 1, b = t - ear * kB;
+  float yr = 0.0f, yi = 0.0f;
+  for (int j = 0; j < Pl; ++j) {
+    const int c = R + s - (p_base + j);
+    float2 x;
+    if (c < R) {
+      const float* h = hx + (ring + c) * 2 * kB;
+      x = make_float2(h[b], h[kB + b]);
+    } else {
+      x = X[(row + c - R) * kB + b];
+    }
+    float gr[4], gi[4];
+    fetch_corners(sr, si, rows[j], ear, Pl, j, b, gr, gi);
+    mac(yr, yi, x, interp(wts[j], gr), interp(wts[j], gi));
+  }
+  acc[(row + s) * 2 * kB + t] = make_float2(yr, yi);
+  if (s == S - 1) {  // the next ring: concatenation rows S .. S + R - 1
+    for (int i = t; i < R * kB; i += kMacThreads) {
+      const int j = i / kB, bb = i - j * kB, c = S + j;
+      float2 q;
+      if (c < R) {
+        const float* h = hx + (ring + c) * 2 * kB;
+        q = make_float2(h[bb], h[kB + bb]);
+      } else {
+        q = X[(row + c - R) * kB + bb];
+      }
+      float* o = hx_out + (ring + j) * 2 * kB;
+      o[bb] = q.x;
+      o[kB + bb] = q.y;
+    }
+    if (t < R) {
+      const int c = S + t;
+      haz_out[ring + t] = c < R ? haz[ring + c] : az[row + c - R];
+      hel_out[ring + t] = c < R ? hel[ring + c] : el[row + c - R];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kOlaThreads)
 hrtf_part_ola_kernel(const float* __restrict__ y, const float* __restrict__ ola,
                      const float* __restrict__ x, const float* __restrict__ gain,
@@ -392,6 +462,45 @@ GA_EXPORT int ga_hrtf_part_mac(const void* X, const float* hx, const float* haz,
     hrtf_part_mac_kernel<4><<<grid, kMacThreads, 0, st>>>(Xc, hx, haz, hel, az, el, sr, si, S,
                                                           P, E, A, c_az, c_el, accc, hx_out,
                                                           haz_out, hel_out);
+  return ga_launch_status();
+}
+
+// K14b: K10p-a's MAC over the partitions [p_base, p_base + Pl) of a
+// P-partition HRIR (the rank's slice under a mesh whose `part` dimension
+// splits the partitions), at their global offsets into the replicated
+// timeline. Replaces the `part_axis` branch of graphaudio_tpu/ops/hrtf.py
+// fir_freq_partitioned (:345-379), its per-device MAC before the psum.
+// X complex64 [V, S, 129]; hx f32[V, P-1, 258], haz, hel f32[V, P-1] the
+// whole ring (P the global, padded, count); az, el f32[V, S]; sr, si f32[E,
+// A, 2, Pl, 129] the slice's grid spectra. Writes the partial acc
+// complex64 [V, S, 2, 129] (sum_j X[s-p] H_p(s-p), p = p_base + j, j
+// ascending: the caller's all_reduce completes it) and the next ring into
+// fresh buffers, the whole of it on every rank. The corners, weights,
+// interpolation and multiply-add are K10p-a's functions, each operation
+// rounded, in ops/hrtf.py partitioned_mac_slice_plain's order.
+//
+// Bound on the H100: bytes (X in, the partial sums out, the ring, the
+// corners' spectra from the L2). One voice of a per-node HRIR (V = 1, S =
+// 32, P = 8 over part = 2): X 33 KB, acc 66 KB, the slice's corners at most
+// 4 x 2 x 4 x 129 x 8 B = 33 KB a quantum (one direction: once); about
+// 0.15 MB, 0.05 us, so the launch's floor sets its time. A simple design
+// serves: a block a quantum, each thread its Pl corner fetches in turn;
+// K10p-a's direction-run walk pays at V = 128, not for the few per-node
+// panners a mesh part-shards.
+GA_EXPORT int ga_hrtf_part_mac_slice(const void* X, const float* hx, const float* haz,
+                                     const float* hel, const float* az, const float* el,
+                                     const float* sr, const float* si, int V, int S, int P, int Pl,
+                                     int p_base, int E, int A, float c_az, float c_el, void* acc,
+                                     float* hx_out, float* haz_out, float* hel_out,
+                                     void* stream) {
+  if (V < 1 || S < 1 || P < 2 || Pl < 1 || Pl > kSliceMaxRows || p_base < 0 ||
+      p_base + Pl > P || E < 1 || A < 1 || V > 65535 || hx == hx_out || haz == haz_out ||
+      hel == hel_out || P - 1 > kMacThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(S, V);
+  hrtf_part_mac_slice_kernel<<<grid, kMacThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(X), hx, haz, hel, az, el, sr, si, S, P, Pl, p_base, E, A, c_az,
+      c_el, static_cast<float2*>(acc), hx_out, haz_out, hel_out);
   return ga_launch_status();
 }
 

@@ -197,6 +197,9 @@ class AudioDecoderStreamNode(AudioNode):
 
     def _fill_loop(self) -> None:
         while not self._quit:
+            # Cleared before the check: a wake set after it ends the wait
+            # below at once, so none is lost.
+            self._wake.clear()
             filled = False
             with self._lock:
                 want = self._buffer_count * self._buffer_frames
@@ -213,8 +216,12 @@ class AudioDecoderStreamNode(AudioNode):
                     else:
                         self._eof = True
             if not filled:
-                self._wake.wait(timeout=0.01)
-                self._wake.clear()
+                # Nothing to do until a pull, play, stop, seek, a loop change
+                # or dispose sets the event: an idle decoder thread takes no
+                # CPU. (A 10 ms poll in every idle stream node of every live
+                # context took the GIL from a realtime render thread often
+                # enough to stall its launches by tens of ms.)
+                self._wake.wait()
 
     def _pull(self, frames: int) -> np.ndarray:
         """Take up to ``frames`` decoded frames (synchronous decode fallback

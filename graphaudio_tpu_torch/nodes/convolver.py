@@ -12,6 +12,13 @@ so both packages partition the IR the same way: 128 frames for superblocks
 below 1024 frames, else the largest multiple-of-128 divisor of the
 superblock up to 1024. All grains run through ops.convolve.conv_step (K2),
 whose overlap-add (K2b) also writes the true-stereo matrix's sums.
+
+Under a mesh whose ``part`` dimension has more than one rank (the JAX
+package's part members, graphaudio_tpu/nodes/convolver.py:186-270), a big
+grain is the whole superblock (B == T, one spectrum a step, so the
+replicated delay line grows by one row a step), the partitions are padded
+with zero partitions to a multiple of ``part`` and ``conv_step`` runs K14a
+over this rank's slice, an all_reduce, then the inverse and K2b.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.core.mesh import PartShardable, axis_size
 from graphaudio_tpu_torch.core.node import AudioNode, ChannelCountMode
 from graphaudio_tpu_torch.ops.convolve import (
     NUM_BINS,
@@ -53,7 +61,12 @@ def _pick_big_grain(T: int) -> int:
     return T
 
 
-class ConvolverNode(AudioNode):
+class ConvolverNode(PartShardable, AudioNode):
+    #: Host ints of the state that a realtime context's captured step holds
+    #: on the card as int64 scalars (core/stepgraph.py): K2a reads the ring's
+    #: head there, and conv_step advances it with torch ops.
+    device_state_scalars = ("head",)
+
     def __init__(self, context):
         super().__init__(context, input_count=1, output_count=1, name="Convolver")
         self._buffer = None
@@ -117,12 +130,15 @@ class ConvolverNode(AudioNode):
 
     # -- grain selection & lazy spectra prep ------------------------------------
 
-    def _grain_for(self) -> int:
+    def _grain_for(self, mesh) -> int:
         """0 = 128-sample quantum grain (short superblocks); otherwise the
-        sub-block grain B <= T of the big path."""
+        sub-block grain B <= T of the big path: T itself when the
+        partitions shard over the mesh's ``part``."""
         T = self.context.superblock * FRAMES_PER_BLOCK
         if T < _BIG_BLOCK_MIN:
             return 0
+        if self.supports_part_sharding(mesh):
+            return T
         return _pick_big_grain(T)
 
     def _prepped(self, grain: int):
@@ -145,29 +161,49 @@ class ConvolverNode(AudioNode):
             return [input_channels[0] if input_channels else 2]
         return [self._effective_output_channels]
 
-    def stage_consts(self) -> dict:
-        """IR spectra as stage constants, uploaded once per graph build."""
+    # -- partition sharding over a mesh's ``part`` ------------------------------
+
+    # Partition axis of each stage const, which the graph cuts to a rank's
+    # slice: spectra are [K, P, bins].
+    const_part_axes = {"conv_hr": 1, "conv_hi": 1}
+
+    def supports_part_sharding(self, mesh) -> bool:
+        return (self._ir_channels is not None
+                and self.context.superblock * FRAMES_PER_BLOCK >= _BIG_BLOCK_MIN
+                and mesh is not None and axis_size(mesh, "part") > 1)
+
+    def stage_consts(self, mesh=None) -> dict:
+        """IR spectra as stage constants, uploaded once per graph build. Under
+        a ``part`` mesh, zero partitions pad them to a multiple of its size:
+        the rows are reversed (newest-input row last), so the padding goes
+        before row 0; a zero partition adds exactly zero."""
         if self._ir_channels is None:
             return {}
-        H, Hi = self._prepped(self._grain_for())
+        H, Hi = self._prepped(self._grain_for(mesh))
+        pad = self._padded_parts(H.shape[1], mesh) - H.shape[1]
+        if pad:
+            widths = ((0, 0), (pad, 0), (0, 0))
+            H, Hi = np.pad(H, widths), np.pad(Hi, widths)
         return {"conv_hr": H, "conv_hi": Hi}
 
     def sub_blocks(self) -> int:
         """L: sub-blocks per step at the current grain."""
-        grain = self._grain_for()
+        grain = self._grain_for(self.context.mesh)
         return self.context.superblock if grain == 0 else (
             self.context.superblock * FRAMES_PER_BLOCK // grain
         )
 
     def init_state(self, info):
         """Delay-line ring f32[K, P-1+L, bins] (split re/im) with its head,
-        and the carried overlap f32[K, B]."""
+        and the carried overlap f32[K, B]; P counts the padding of a
+        ``part`` mesh."""
         if self._ir_channels is None:
             return {}
-        grain = self._grain_for()
+        mesh = self.context.mesh
+        grain = self._grain_for(mesh)
         H, _ = self._prepped(grain)
         K, P, bins = H.shape
-        R = P - 1 + self.sub_blocks()
+        R = self._padded_parts(P, mesh) - 1 + self.sub_blocks()
         return {
             "ring_r": np.zeros((K, R, bins), np.float32),
             "ring_i": np.zeros((K, R, bins), np.float32),
@@ -195,9 +231,11 @@ class ConvolverNode(AudioNode):
         else:
             xs = x.reshape(K, T // B, B)  # instance k reads channel k: a view
             combine = None
+        part = getattr(rc, "part", None)  # this rank's slice of the partitions (K14a)
         out, head = conv_step(
             xs, hr, hi, state["ring_r"], state["ring_i"], state["head"],
             state["overlap"], rev=bool(grain), combine=combine,
+            part=None if part is None else (part[0] * hr.shape[1], part[1]),
         )
         new_state = dict(state, head=head)
         return new_state, [out]

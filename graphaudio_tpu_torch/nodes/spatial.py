@@ -30,8 +30,15 @@ state run as one group stage; ``process`` takes the stacked lanes:
 The HRIR is the group's stage constant: ``hrtf_grid`` f32[E, A, 2, L] for
 P1, or its partition spectra ``hrtf_sr`` / ``hrtf_si`` f32[E, A, 2, P, 129]
 for K10p, whose lanes also carry the JAX package's ring ``hx`` f32[P-1,
-258] and its directions ``haz`` / ``hel`` f32[P-1]. Left out (ROADMAP.md):
-the ``part``-mesh single-stage members (item 15).
+258] and its directions ``haz`` / ``hel`` f32[P-1].
+
+Under a mesh whose ``part`` dimension has more than one rank, a panner with
+its own HRIR past 128 taps (``load_hrir``) runs as a single stage (the JAX
+package's part members, graphaudio_tpu/nodes/spatial.py:162-172,
+:182-260): its partition spectra, padded with zero partitions to a multiple
+of ``part``, are cut to this rank's slice, and ``hrtf_fir_partitioned``
+runs K14b over it, completed by an all_reduce. Panners on the
+context default keep voice batching and shard over ``voice``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.core.mesh import PartShardable, axis_size
 from graphaudio_tpu_torch.core.node import (
     AudioNode,
     ChannelCountMode,
@@ -317,7 +325,7 @@ def spatial_gains(p, listener, model: DistanceModelType):
     return out
 
 
-class SpatialPannerNode(AudioNode):
+class SpatialPannerNode(PartShardable, AudioNode):
     # K10b in the step's prologue reads these params; the stage's process
     # gets none of them.
     prologue_params = GAIN_PARAMS
@@ -412,6 +420,11 @@ class SpatialPannerNode(AudioNode):
     def group_key(self, input_channels):
         # A per-node HRIR is a stage constant of its own, so such panners
         # only group with themselves; panners on the CONTEXT default batch.
+        if self.supports_part_sharding(self.context.mesh):
+            # A long per-node HRIR under a ``part`` mesh is a single stage,
+            # so its partition axis can shard (nothing batches away: such a
+            # panner only grouped with itself).
+            return None
         if self._custom_hrir is not None:
             hrir_key = (self.node_id, self._custom_hrir_uid)
         elif self.context._default_hrir is not None:
@@ -430,15 +443,32 @@ class SpatialPannerNode(AudioNode):
             return self.context._default_hrir
         return _hrir_grid(sample_rate)
 
-    def stage_consts(self) -> dict:
+    # -- partition sharding over a mesh's ``part`` ------------------------------
+
+    # Partition axis of each stage const, which the graph cuts to a rank's
+    # slice: spectra are [E, A, 2, P, 129].
+    const_part_axes = {"hrtf_sr": 3, "hrtf_si": 3}
+
+    def supports_part_sharding(self, mesh) -> bool:
+        return (self._custom_hrir is not None
+                and hrir_partition_count(self._custom_hrir.shape[-1]) > 1
+                and mesh is not None and axis_size(mesh, "part") > 1)
+
+    def stage_consts(self, mesh=None) -> dict:
         """The group's HRIR, uploaded once per build: the grid f32[E, A, 2,
         L] for P1, or past 128 taps its partition spectra (Sr, Si) f32[E,
         A, 2, P, 129] for K10p (``hrtf_sr``, ``hrtf_si``, the JAX package's
-        names)."""
+        names). Under a ``part`` mesh zero partitions pad P to a multiple
+        of its size (a zero partition of an older quantum adds exactly
+        zero)."""
         grid = self._active_grid(self.context.sample_rate)
         if hrir_partition_count(grid.shape[-1]) == 1:
             return {"hrtf_grid": grid}
         sr, si = hrir_grid_spectra(grid)
+        pad = self._padded_parts(sr.shape[3], mesh) - sr.shape[3]
+        if pad:
+            widths = [(0, 0)] * 3 + [(0, pad), (0, 0)]
+            sr, si = np.pad(sr, widths), np.pad(si, widths)
         return {"hrtf_sr": sr, "hrtf_si": si}
 
     def init_state(self, info):
@@ -451,7 +481,7 @@ class SpatialPannerNode(AudioNode):
             "xlow": np.zeros((self._channels,), np.float32),
             "xhigh": np.zeros((self._channels,), np.float32),
         }
-        P = hrir_partition_count(grid.shape[-1])
+        P = self._padded_parts(hrir_partition_count(grid.shape[-1]), self.context.mesh)
         if P > 1:
             # The partitioned filter's history (graphaudio_tpu/nodes/
             # spatial.py:254-267): the packed input spectra of the P-1
@@ -498,10 +528,13 @@ class SpatialPannerNode(AudioNode):
             xlow, xhigh = state["xlow"], state["xhigh"]
         sc = rc.stage_consts
         if "hrtf_sr" in sc:
-            # Past 128 taps: the partitioned filter, its ring carried.
+            # Past 128 taps: the partitioned filter, its ring carried; under a
+            # ``part`` mesh this rank's slice of the partitions (K14b).
+            part = getattr(rc, "part", None)
             out, hx, haz, hel, ola = hrtf_fir_partitioned(
                 x, gain, az, el, blend, sc["hrtf_sr"], sc["hrtf_si"], state["hx"],
-                state["haz"], state["hel"], state["ola"])
+                state["haz"], state["hel"], state["ola"],
+                part=None if part is None else (part[0] * sc["hrtf_sr"].shape[3], part[1]))
             return {"ola": ola, "xlow": xlow, "xhigh": xhigh, "hx": hx, "haz": haz,
                     "hel": hel}, [out]
         out, ola = hrtf_fir(x, gain, az, el, blend, sc["hrtf_grid"], state["ola"])

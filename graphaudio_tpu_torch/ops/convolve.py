@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.core.mixing import all_reduce_sum
 from graphaudio_tpu_torch.utils import cudabuild
 
 FFT_SIZE = 2 * FRAMES_PER_BLOCK  # 256 (PartitionedConvolver.cs:40)
@@ -164,11 +165,13 @@ def mac_plan(K: int, L: int, P: int, NB: int):
     return lt, clusters, groups, -(-P // (clusters * groups))
 
 
-def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
+def spectral_mac(X, hr, hi, ring_r, ring_i, head, rev: bool):
     """K2a: the partitioned complex MAC (see spectral_mac_plain for shapes).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel with
-    the plan of ``mac_plan``.
+    the plan of ``mac_plan``. ``head`` is a host int, or on the card an
+    int64 scalar tensor in [0, R) that the kernel reads there (a realtime
+    context's captured step, core/stepgraph.py).
     """
     if X.device.type == "cpu":
         return spectral_mac_plain(X, hr, hi, ring_r, ring_i, head, rev)
@@ -181,14 +184,98 @@ def spectral_mac(X, hr, hi, ring_r, ring_i, head: int, rev: bool):
     req(hi, "hi", torch.float32, shape=(K, P, NB))
     req(ring_r, "ring_r", torch.float32, shape=(K, R, NB))
     req(ring_i, "ring_i", torch.float32, shape=(K, R, NB))
+    if isinstance(head, torch.Tensor):
+        req(head, "head", torch.int64, shape=())
+        head, head_dev = 0, head.data_ptr()
+    else:
+        head, head_dev = int(head) % R, None
     acc = torch.empty((K, L, NB), dtype=torch.complex64, device=X.device)
     status = cudabuild.launcher("ga_conv_mac")(
         X.data_ptr(), hr.data_ptr(), hi.data_ptr(), ring_r.data_ptr(),
-        ring_i.data_ptr(), acc.data_ptr(), K, L, P, NB, R, int(head) % R,
+        ring_i.data_ptr(), acc.data_ptr(), K, L, P, NB, R, head, head_dev,
         int(bool(rev)), *mac_plan(K, L, P, NB), cudabuild.stream_of(X),
     )
     cudabuild.check(status, "ga_conv_mac")
     cudabuild.launches["spectral_mac"] += 1
+    return acc
+
+
+# ---- K14a: the MAC over one rank's slice of the partitions -------------------
+#
+# graphaudio_tpu/ops/convolve.py conv_superblock_big_sharded (:236-265) and
+# the part-sharded MAC of graphaudio_tpu/parallel/sharded.py (:170-180):
+# under a mesh whose ``part`` dimension has n ranks the (zero-padded) P
+# partitions split into n slices of P / n; each rank MACs its slice against
+# the replicated delay line and an all_reduce over ``part`` completes the
+# sum (the caller's).
+
+
+def _slice_lags(P: int, p0: int, rows: int, rev: bool):
+    """The lag of each local row: global row p0 + j multiplies the
+    sub-block p0 + j steps ago in lag order, P-1-(p0+j) steps ago when the
+    rows are reversed (``prepare_ir_big``)."""
+    return [P - 1 - (p0 + j) if rev else p0 + j for j in range(rows)]
+
+
+def spectral_mac_slice_plain(X, hr, hi, ring_r, ring_i, head: int, rev: bool, p0: int):
+    """Plain K14a: K2a's MAC over the partitions [p0, p0 + P_local) of a
+    P-partition IR, at their global lags.
+
+    X complex64[K, L, NB] this step's spectra; hr, hi f32[K, P_local, NB]
+    the rank's rows of the (padded) spectra, in lag order or reversed as
+    ``rev`` says; ring_r, ring_i f32[K, R, NB] the whole delay line, R =
+    P-1+L (so P is global), updated in place as K2a updates it. Output
+    sub-block l takes, for local rows j = 0, 1, .. in turn, acc = acc +
+    (D(l-lag) re * h re - D(l-lag) im * h im) and the same for the
+    imaginary part, D(m) this step's spectrum m for m >= 0 and ring slot
+    (head + m) mod R for m < 0. Returns the partial acc complex64[K, L,
+    NB]: summed over every rank's slice it is K2a's."""
+    K, L, NB = X.shape
+    Pl = hr.shape[1]
+    R = ring_r.shape[1]
+    P = R - L + 1
+    if not (0 <= p0 and p0 + Pl <= P):
+        raise ValueError(f"rows [{p0}, {p0 + Pl}) are not partitions of P = {P}")
+    past = ring_slots(head, -(P - 1), P - 1, R, X.device)
+    seq_r = torch.cat([ring_r[:, past], X.real], dim=1)  # [K, R, NB]: D(s - (P-1))
+    seq_i = torch.cat([ring_i[:, past], X.imag], dim=1)
+    acc_r = torch.zeros((K, L, NB), dtype=torch.float32, device=X.device)
+    acc_i = torch.zeros_like(acc_r)
+    for j, lag in enumerate(_slice_lags(P, p0, Pl, rev)):
+        s0 = P - 1 - lag
+        xr, xi = seq_r[:, s0:s0 + L], seq_i[:, s0:s0 + L]
+        h_r, h_i = hr[:, j:j + 1], hi[:, j:j + 1]
+        acc_r = acc_r + (xr * h_r - xi * h_i)
+        acc_i = acc_i + (xr * h_i + xi * h_r)
+    new = ring_slots(head, 0, L, R, X.device)
+    ring_r[:, new] = X.real
+    ring_i[:, new] = X.imag
+    return torch.complex(acc_r, acc_i)
+
+
+def spectral_mac_slice(X, hr, hi, ring_r, ring_i, head: int, rev: bool, p0: int):
+    """K14a: csrc/conv.cu ``ga_conv_mac_slice`` on CUDA tensors (a thread an
+    output (k, l, bin), its local rows in order, this step's spectra written
+    into the ring in the same launch), ``spectral_mac_slice_plain``
+    (arguments and result as there) on CPU tensors."""
+    if X.device.type == "cpu":
+        return spectral_mac_slice_plain(X, hr, hi, ring_r, ring_i, head, rev, p0)
+    K, L, NB = X.shape
+    Pl = hr.shape[1]
+    R = ring_r.shape[1]
+    req = cudabuild.require
+    req(X, "X", torch.complex64, shape=(K, L, NB))
+    req(hr, "hr", torch.float32, shape=(K, Pl, NB))
+    req(hi, "hi", torch.float32, shape=(K, Pl, NB))
+    req(ring_r, "ring_r", torch.float32, shape=(K, R, NB))
+    req(ring_i, "ring_i", torch.float32, shape=(K, R, NB))
+    acc = torch.empty((K, L, NB), dtype=torch.complex64, device=X.device)
+    status = cudabuild.launcher("ga_conv_mac_slice")(
+        X.data_ptr(), hr.data_ptr(), hi.data_ptr(), ring_r.data_ptr(), ring_i.data_ptr(),
+        acc.data_ptr(), K, L, Pl, NB, R, int(head) % R, int(bool(rev)), int(p0),
+        cudabuild.stream_of(X))
+    cudabuild.check(status, "ga_conv_mac_slice")
+    cudabuild.launches["spectral_mac_slice"] += 1
     return acc
 
 
@@ -250,7 +337,8 @@ def overlap_add(y_full, overlap, combine=None):
     return y
 
 
-def conv_step(x, hr, hi, ring_r, ring_i, head: int, overlap, rev: bool, combine=None):
+def conv_step(x, hr, hi, ring_r, ring_i, head: int, overlap, rev: bool, combine=None,
+              part=None):
     """Convolve one step of K channels: x f32[K, L, B] (L sub-blocks of B
     frames) against partition spectra hr, hi f32[K, P, B+1], the
     instances' outputs combined as ``overlap_add_plain``'s ``combine``
@@ -259,11 +347,20 @@ def conv_step(x, hr, hi, ring_r, ring_i, head: int, overlap, rev: bool, combine=
     The ring (f32[K, P-1+L, B+1]) and ``overlap`` (f32[K, B]) are updated in
     place — the delay line is the largest state of the render, and the
     in-place ring replaces the JAX package's copy of the whole line per
-    step. Returns (y f32[C, L*B], new head).
+    step. With ``part`` = (p0, group) the partitions are split over ranks:
+    hr, hi hold this rank's rows [p0, p0 + P_local), the ring the whole
+    (replicated) delay line; K14a MACs the slice and one all_reduce over
+    ``group`` (the mesh's ``part`` line) completes the sums before the
+    inverse transform and K2b, which every rank runs on the whole sums.
+    Returns (y f32[C, L*B], new head).
     """
     K, L, B = x.shape
     X = torch.fft.rfft(x, n=2 * B, dim=-1)  # complex64 [K, L, B+1]
-    acc = spectral_mac(X, hr, hi, ring_r, ring_i, head, rev)
+    if part is None:
+        acc = spectral_mac(X, hr, hi, ring_r, ring_i, head, rev)
+    else:
+        p0, group = part
+        acc = all_reduce_sum(spectral_mac_slice(X, hr, hi, ring_r, ring_i, head, rev, p0), group)
     y_full = torch.fft.irfft(acc, n=2 * B, dim=-1)  # [K, L, 2B], 1/(2B) scaled
     y = overlap_add(y_full.contiguous(), overlap, combine)
     return y, (head + L) % ring_r.shape[1]

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
+from graphaudio_tpu_torch.core.mixing import all_reduce_sum
 from graphaudio_tpu_torch.utils import cudabuild
 
 SPEED_OF_SOUND = 343.0
@@ -560,7 +561,10 @@ def hrtf_fir_rows(x, h):
 # corners around u's direction (``haz``, ``hel`` for the ring's quanta).
 
 
-def _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola):
+def _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola,
+                       sliced=False):
+    """The partitioned filter's shapes; ``sliced``: the spectra hold a slice
+    of the partitions, whose global count P the ring gives (P-1 rows)."""
     V, C, T = x.shape
     F, B = FRAMES_PER_BLOCK, NUM_SPEC_BINS
     S = T // F
@@ -570,7 +574,12 @@ def _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola
         raise ValueError(f"spectra must be two [E, A, 2, P, {B}], got {tuple(spec_r.shape)} "
                          f"and {tuple(spec_i.shape)}")
     E, A, ears, P, bins = spec_r.shape
-    if ears != 2 or bins != B or not 2 <= P <= MAX_HRIR_LENGTH // F:
+    if sliced:
+        P = hx.shape[-2] + 1
+        if ears != 2 or bins != B or not 1 <= spec_r.shape[3] <= P or P < 2:
+            raise ValueError(f"spectra must be a slice [E, A, 2, P_local, {B}] of the ring's "
+                             f"P = {P} partitions, got {tuple(spec_r.shape)}")
+    elif ears != 2 or bins != B or not 2 <= P <= MAX_HRIR_LENGTH // F:
         raise ValueError(f"spectra must be [E, A, 2, P, {B}] with 2 <= P <= "
                          f"{MAX_HRIR_LENGTH // F}, got {tuple(spec_r.shape)}")
     for name, t, want in (("hx", hx, (V, P - 1, 2 * B)), ("haz", haz, (V, P - 1)),
@@ -761,6 +770,82 @@ def partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i):
     return acc, hx_out, haz_out, hel_out
 
 
+# ---- K14b: K10p-a over one rank's slice of the partitions ---------------------
+#
+# The ``part_axis`` branch of graphaudio_tpu/ops/hrtf.py fir_freq_partitioned
+# (:345-379): under a mesh whose ``part`` dimension splits a per-node HRIR's
+# (zero-padded) P partitions, each rank holds the grid spectra of its slice
+# [p_base, p_base + P_local) and MACs it against the replicated timeline at
+# the partitions' global offsets; one all_reduce over ``part`` completes
+# the sums before the inverse transform and K10p-b, which every rank runs
+# once on the whole sums (so the input pass's gain and downmix, and
+# K10p-b's dry path and blend, count once).
+
+
+def partitioned_mac_slice_plain(X, hx, haz, hel, az, el, spec_r, spec_i, p_base: int):
+    """Plain K14b: ``partitioned_mac_plain`` over the partitions [p_base,
+    p_base + P_local) of spec_r, spec_i f32[E, A, 2, P_local, 129] (the
+    rank's slice), with the whole ring hx f32[V, P-1, 258], haz, hel f32[V,
+    P-1] of a P-partition filter (P global). Output quantum s takes, for
+    local partitions j = 0, 1, .. in turn (global p = p_base + j), Y = Y +
+    X[s-p] H_p(s-p), the JAX package's expression. Returns (the partial
+    acc complex64[V, S, 2, 129], the next ring, haz, hel: the whole of
+    them, as ``partitioned_mac_plain``'s)."""
+    V, S, B = X.shape
+    Pl = spec_r.shape[3]
+    P = hx.shape[1] + 1
+    if not (0 <= p_base and p_base + Pl <= P):
+        raise ValueError(f"partitions [{p_base}, {p_base + Pl}) are not of P = {P}")
+    xcat = torch.cat([hx, torch.cat([X.real, X.imag], dim=-1)], dim=1)  # [V, P-1+S, 2B]
+    az_cat = torch.cat([haz, az], dim=1)
+    el_cat = torch.cat([hel, el], dim=1)
+    hr = interp_hrir(spec_r, az_cat, el_cat)  # [V, P-1+S, 2, P_local, B]
+    hi = interp_hrir(spec_i, az_cat, el_cat)
+    yr = torch.zeros((V, S, 2, B), dtype=hx.dtype, device=hx.device)
+    yi = torch.zeros_like(yr)
+    for j in range(Pl):
+        start = P - 1 - (p_base + j)
+        xs = xcat[:, start:start + S, None]  # [V, S, 1, 2B]
+        xr, xi = xs[..., :B], xs[..., B:]
+        hrp, hip = hr[:, start:start + S, :, j], hi[:, start:start + S, :, j]
+        yr = yr + xr * hrp - xi * hip
+        yi = yi + xr * hip + xi * hrp
+    return (torch.complex(yr, yi), xcat[:, S:].contiguous(), az_cat[:, S:].contiguous(),
+            el_cat[:, S:].contiguous())
+
+
+def partitioned_mac_slice(X, hx, haz, hel, az, el, spec_r, spec_i, p_base: int):
+    """K14b: csrc/hrtf_part.cu ``ga_hrtf_part_mac_slice`` on CUDA tensors (a
+    block an (output quantum, voice), a thread an (ear, bin), the slice's
+    partitions in order), ``partitioned_mac_slice_plain`` (arguments and
+    result as there) on CPU tensors."""
+    if X.device.type == "cpu":
+        return partitioned_mac_slice_plain(X, hx, haz, hel, az, el, spec_r, spec_i, p_base)
+    V, S, B = X.shape
+    E, A, _, Pl, _ = spec_r.shape
+    P = hx.shape[1] + 1
+    req = cudabuild.require
+    req(X, "X", torch.complex64, shape=(V, S, NUM_SPEC_BINS))
+    for name, t, shape in (("hx", hx, (V, P - 1, 2 * B)), ("haz", haz, (V, P - 1)),
+                           ("hel", hel, (V, P - 1)), ("az", az, (V, S)), ("el", el, (V, S)),
+                           ("spec_r", spec_r, (E, A, 2, Pl, B)),
+                           ("spec_i", spec_i, (E, A, 2, Pl, B))):
+        req(t, name, torch.float32, shape=shape)
+    dev = X.device
+    acc = torch.empty((V, S, 2, B), dtype=torch.complex64, device=dev)
+    hx_out = torch.empty((V, P - 1, 2 * B), dtype=torch.float32, device=dev)
+    haz_out = torch.empty((V, P - 1), dtype=torch.float32, device=dev)
+    hel_out = torch.empty((V, P - 1), dtype=torch.float32, device=dev)
+    status = cudabuild.launcher("ga_hrtf_part_mac_slice")(
+        X.data_ptr(), hx.data_ptr(), haz.data_ptr(), hel.data_ptr(), az.data_ptr(),
+        el.data_ptr(), spec_r.data_ptr(), spec_i.data_ptr(), V, S, P, Pl, int(p_base), E, A,
+        _folded_scale(_TWO_PI, A), _folded_scale(_PI, E - 1), acc.data_ptr(),
+        hx_out.data_ptr(), haz_out.data_ptr(), hel_out.data_ptr(), cudabuild.stream_of(X))
+    cudabuild.check(status, "ga_hrtf_part_mac_slice")
+    cudabuild.launches["hrtf_part_mac_slice"] += 1
+    return acc, hx_out, haz_out, hel_out
+
+
 def partitioned_ola(y, ola, x, gain, blend):
     """K10p-b: csrc/hrtf_part.cu ``ga_hrtf_part_ola`` on CUDA tensors,
     ``partitioned_ola_plain`` (arguments and result as there: y unscaled)
@@ -787,14 +872,26 @@ def partitioned_ola(y, ola, x, gain, blend):
     return out, ola_out
 
 
-def hrtf_fir_partitioned(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola):
+def hrtf_fir_partitioned(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola,
+                         part=None):
     """K10p for a group of spatial panners whose HRIR has 129-1024 taps
     (arguments and result as ``hrtf_fir_partitioned_plain``): the input
     pass, cuFFT's forward transform, K10p-a, cuFFT's unscaled inverse and
     K10p-b, each kernel's plain version on CPU tensors (which is then
-    ``hrtf_fir_partitioned_plain``)."""
-    _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola)
+    ``hrtf_fir_partitioned_plain``). With ``part`` = (p_base, group) the
+    partitions are split over ranks: spec_r, spec_i hold this rank's slice
+    [p_base, p_base + P_local) of the ring's P, K14b MACs it and one
+    all_reduce over ``group`` (the mesh's ``part`` line) completes the
+    sums; every rank runs the input pass and K10p-b once, on its whole
+    input and the whole sums."""
+    _check_part_shapes(x, gain, az, el, blend, spec_r, spec_i, hx, haz, hel, ola,
+                       sliced=part is not None)
     X = torch.fft.rfft(partitioned_input(x, gain), dim=-1)
-    acc, hx, haz, hel = partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i)
+    if part is None:
+        acc, hx, haz, hel = partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i)
+    else:
+        p_base, group = part
+        acc, hx, haz, hel = partitioned_mac_slice(X, hx, haz, hel, az, el, spec_r, spec_i, p_base)
+        acc = all_reduce_sum(acc, group)
     out, ola = partitioned_ola(partitioned_inverse(acc), ola, x, gain, blend)
     return out, hx, haz, hel, ola

@@ -18,12 +18,19 @@ superblock for low latency) two deep: it launches step n+1, then finishes
 step n, which waits on step n's own CUDA event and writes its interleaved
 frames into the native ring; the C++ device thread (native/garing.cpp)
 consumes the ring in real time without touching Python.
+
+While a realtime context plays, the objects that existed when playback
+began are frozen out of Python's cyclic collector (``gc.freeze``): a full
+collection then walks only what was made since, instead of the whole
+heap of a long-lived process (487 ms of one on an H100's host, inside a
+launch, is an audible dropout); the last context to stop unfreezes them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import threading
 import time
 import warnings
@@ -35,7 +42,31 @@ import torch
 
 from graphaudio_tpu_torch.core.constants import FRAMES_PER_BLOCK
 from graphaudio_tpu_torch.core.context import AudioContextBase, resolve_device
+from graphaudio_tpu_torch.core.stepgraph import StepGraph
 from graphaudio_tpu_torch.realtime.ring import RingBuffer, load_native
+
+
+#: The realtime contexts now playing (ids); the heap is frozen while one is.
+_playing: set = set()
+_playing_lock = threading.Lock()
+
+
+def _hold_heap(ctx) -> None:
+    """Freeze the heap out of the cyclic collector if ``ctx`` is the first
+    context to play."""
+    with _playing_lock:
+        if not _playing:
+            gc.freeze()
+        _playing.add(id(ctx))
+
+
+def _release_heap(ctx) -> None:
+    """Give the frozen heap back to the collector once no context plays."""
+    with _playing_lock:
+        if id(ctx) in _playing:
+            _playing.discard(id(ctx))
+            if not _playing:
+                gc.unfreeze()
 
 
 @dataclass(frozen=True)
@@ -76,6 +107,8 @@ class RealtimeAudioContext(AudioContextBase):
             )
             self.tuned_rtt_s = rtt
         super().__init__(sample_rate=sample_rate, superblock=superblock, device=dev)
+        # On the card a step with nothing edited replays as one CUDA graph.
+        self._step_graph = StepGraph() if dev.type == "cuda" else None
         self.channels = channels
         self.buffer_size = buffer_size
         #: last exception survived by the render thread (None = healthy)
@@ -210,7 +243,9 @@ class RealtimeAudioContext(AudioContextBase):
     # -- transport ----------------------------------------------------------------
 
     def start(self) -> None:
-        """Parity: Start -> ma_device_start (:76-84)."""
+        """Parity: Start -> ma_device_start (:76-84). The heap as it is now
+        leaves the cyclic collector while the context plays."""
+        _hold_heap(self)
         self._running = True
         if self._dev is not None:
             self._lib.gadev_start(self._dev)
@@ -219,6 +254,7 @@ class RealtimeAudioContext(AudioContextBase):
         self._running = False
         if self._dev is not None:
             self._lib.gadev_stop(self._dev)
+        _release_heap(self)
 
     @property
     def is_running(self) -> bool:
@@ -271,31 +307,44 @@ class RealtimeAudioContext(AudioContextBase):
     def _pump(self) -> None:
         frames_per_step = self.superblock * FRAMES_PER_BLOCK
         # Two-deep pipeline: launch step n+1 BEFORE finishing step n, so the
-        # host's work for n+1 overlaps the device's for n.
+        # host's work for n+1 overlaps the device's for n. Where step n's
+        # device work is already done when there is room for it, its audio
+        # goes into the ring first and the launch of n+1 follows, so the
+        # ring holds one launch's time more; its ended-events still fire
+        # after that launch, as they always do.
         pending = None
+        written = False
 
-        def flush(p):
+        def write(p):
+            out = self._render_steps_audio(p)  # [C, T]
+            self.ring.write_interleaved(np.ascontiguousarray(out.T))
+
+        def flush(p, written):
             try:
                 out = self._render_steps_finish(p)  # [C, T]
             except Exception:
                 if self._thread_quit or self._disposed:
                     return None
                 raise
-            self.ring.write_interleaved(np.ascontiguousarray(out.T))
+            if not written:
+                self.ring.write_interleaved(np.ascontiguousarray(out.T))
             return None
 
         while not self._thread_quit:
             try:
                 if not self._running:
                     if pending is not None:
-                        pending = flush(pending)
+                        pending = flush(pending, written)
                     threading.Event().wait(0.002)
                     continue
                 if self.ring.available_write() >= frames_per_step:
+                    if pending is not None and not written and pending.ready():
+                        write(pending)
+                        written = True
                     nxt = self._render_steps_launch(1)
                     if pending is not None:
-                        flush(pending)
-                    pending = nxt
+                        flush(pending, written)
+                    pending, written = nxt, False
                 else:
                     self.ring.wait_for_space(frames_per_step, 5)
             except Exception as exc:  # noqa: BLE001
@@ -328,5 +377,6 @@ class RealtimeAudioContext(AudioContextBase):
         if self._dev is not None:
             self._lib.gadev_close(self._dev)
             self._dev = None
+        _release_heap(self)
         self.ring.dispose()
         super().dispose()

@@ -505,3 +505,23 @@ def config5_measured(superblock=32, voices=128, device="cuda", api=None, taps=No
     engine.set_default_hrir({"hrir": hrir, "azimuth_deg": az, "elevation_deg": el,
                              "sample_rate": rate}, length=taps)
     return ctx
+
+
+def config5_part_hrir(superblock=32, voices=128, device="cuda", api=None, panners=8,
+                      context=None):
+    """Config 5's Kit scene (the same draws and graph) in which the first
+    ``panners`` sounds' spatial panners each load their own HRIR
+    (``load_hrir``): ``config5_measured``'s synthetic 72-direction set at 48
+    kHz with 1024 taps (P = 8 partitions). Under a mesh whose ``part``
+    dimension has more than one rank those panners run as single stages
+    whose partitions shard over ``part`` (K14b); on one device each is a
+    one-lane K10p group."""
+    from graphaudio_tpu_torch.testing.sofa import synthetic_hrir_set
+
+    api, ctx, engine, sounds = _kit_scene(
+        api, superblock, voices, device, "BINAURAL_SPATIALIZED", context)
+    hrir, az, el = synthetic_hrir_set(sample_rate=SR, n_directions=72, length=1024, seed=9)
+    hrir_set = {"hrir": hrir, "azimuth_deg": az, "elevation_deg": el, "sample_rate": SR}
+    for s in sounds[:panners]:
+        s._spatial_panner.load_hrir(hrir_set, length=1024)
+    return ctx

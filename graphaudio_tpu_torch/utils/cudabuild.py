@@ -45,8 +45,10 @@ _SIGNATURES = {
     # outputs, stream
     "ga_resample_group_step": [_P, _I64, _I, _I, _I, _P, *[_P] * 8, _P, _I, _P, _P, _P, _P,
                                _P, _P],
-    "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "ga_conv_mac": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                     _I, _I, _I, _I, _P],
+    # X, hr, hi, ring_r, ring_i, acc, K, L, P_local, NB, R, head, rev, p0, stream
+    "ga_conv_mac_slice": [*[_P] * 6, *[_I] * 8, _P],
     # yfull, overlap, y, K, C, L, B, host combine map, stream
     "ga_conv_ola": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ga_fan_in": [_P, _P, _I, _I, _I, _I64, _I, ctypes.c_float, _P],
@@ -82,6 +84,10 @@ _SIGNATURES = {
     # a block, acc, next hx, haz, hel, stream
     "ga_hrtf_part_mac": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P],
+    # X, hx, haz, hel, az, el, spectra r/i (the slice), V, S, P, P_local,
+    # p_base, E, A, c_az, c_el, acc, next hx, haz, hel, stream
+    "ga_hrtf_part_mac_slice": [*[_P] * 8, *[_I] * 7, ctypes.c_float, ctypes.c_float,
+                               _P, _P, _P, _P, _P],
     # x, gain, V, C, S, out, stream
     "ga_hrtf_part_input": [_P, _P, _I, _I, _I, _P, _P],
     # y (unscaled), ola, x, gain, blend, V, C, S, out, next ola, stream

@@ -28,6 +28,13 @@ beside it, ``nodes.delay.delay_state_from_jax``). A graph with pipes
 ring of the last D block clocks (``__pipe_bt__``) in the same layout in
 both, so a fused JAX render hands over to a fused port render; an unfused
 one to an unfused one (``pipeline_chains=False`` on both).
+
+A port context sharded over a mesh (``set_mesh``) takes the JAX package's
+WHOLE arrays (its sharded arrays fetched to the host are whole) and each
+rank keeps its share of them exactly as its own graph build does
+(``CompiledGraph.shard_state``, ``shard_consts``): its lanes of a
+voice-sharded group's states and geometry (the packed geometry table packed
+again from them), its slice of a part-sharded stage's partition spectra.
 """
 
 from __future__ import annotations
@@ -71,7 +78,7 @@ def states_from_jax(ctx, jax_states: dict) -> dict:
         {k: np.asarray(v, np.float32) for k, v in jax_states["__globals__"].items()}, ctx.device)}
     for sp in ctx._compiled.plan:
         key = sp["key"]
-        st = jax_states[key]
+        st = ctx._compiled.shard_state(key, jax_states[key])
         if "hist_r" in st:
             out[key] = conv_state_from_jax(st, sp["rep"].sub_blocks(), ctx.device)
         elif isinstance(sp["rep"], DelayNode):
@@ -91,24 +98,25 @@ def consts_from_jax(ctx, jax_consts: dict) -> dict:
     """The port's stage constants with the JAX package's arena, geometry and
     IR spectra (same layout in both packages); port-only constants (the
     polyphase tap tables) are kept, and a source group's packed geometry
-    table is packed again from the JAX geometry."""
+    table is packed again from the JAX geometry. Under a mesh each rank
+    keeps its share, as its own build does (``shard_consts``)."""
     ctx._ensure_compiled()
-    out = dict(ctx._consts)
+    compiled = ctx._compiled
+    whole = dict(compiled.global_consts)
     for name, v in jax_consts.items():
-        if name not in out:
+        if name not in whole:
             raise KeyError(f"JAX constant {name!r} has no counterpart in the port's graph")
         if isinstance(v, dict):
             geom = {k: np.asarray(x) for k, x in v.items()}
-            out[name] = to_device(geom, ctx.device)
+            whole[name] = geom
             key = name[:-len("/geom")] if name.endswith("/geom") else None
-            if f"{key}/gtab" in out:
-                w, variant, _ = ctx._compiled._bufsrc_cfg[int(key[2:])]
-                out[f"{key}/gtab"] = torch.from_numpy(
-                    pack_group_table(geom, w, variant, ctx.superblock,
-                                     ctx.sample_rate)).to(ctx.device)
+            if f"{key}/gtab" in whole:
+                w, variant, _ = compiled._bufsrc_cfg[int(key[2:])]
+                whole[f"{key}/gtab"] = pack_group_table(geom, w, variant, ctx.superblock,
+                                                        ctx.sample_rate)
         else:
-            out[name] = torch.from_numpy(np.asarray(v).copy()).to(ctx.device)
-    return out
+            whole[name] = np.asarray(v)
+    return to_device(compiled.shard_consts(whole), ctx.device)
 
 
 def load_render_state(ctx, jax_states: dict, jax_consts: dict,

@@ -7,6 +7,8 @@ a machine without them:
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -1423,3 +1425,139 @@ def test_k10p_per_node_and_context_default(dev):
     want = build("cpu").render(8 * 512)
     assert np.abs(want).max() > 1e-2
     assert np.abs(got - want).max() < 1e-5
+
+
+# ---- item 15: K14 and the launch's staging ---------------------------------------
+
+
+def test_to_device_stages_through_one_pinned_copy(dev):
+    """On the card, to_device's tensors are views of one copy of a pinned
+    buffer, with the values and dtypes of their arrays."""
+    tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "b": {"c": np.float64(2.5), "d": np.array([True, False]), "e": np.zeros((0, 3)),
+                  "f": np.array([7, -8], np.int64)}}
+    out = to_device(tree, dev)
+    torch.cuda.synchronize()
+    for got, want in ((out["a"], tree["a"]), (out["b"]["c"], tree["b"]["c"]),
+                      (out["b"]["d"], tree["b"]["d"]), (out["b"]["e"], tree["b"]["e"]),
+                      (out["b"]["f"], tree["b"]["f"])):
+        assert got.is_cuda and got.is_contiguous() and got.data_ptr() % 64 == 0 or got.numel() == 0
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        assert got.cpu().numpy().dtype == np.asarray(want).dtype
+
+
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("L", [1, 8])
+def test_k14a_matches_plain(dev, rev, L):
+    """K14a at every slice of part = 2 and 4, bit for bit its plain version,
+    the ring writes too (config 4's grain at L = 1, the 128 grain at L = 8)."""
+    rng = np.random.default_rng(26 + L)
+    K, NB, P = (2, 8193, 12) if L == 1 else (2, 129, 16)
+    R = P - 1 + L
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    X = torch.complex(f(K, L, NB), f(K, L, NB))
+    hr, hi, ring_r, ring_i = f(K, P, NB), f(K, P, NB), f(K, R, NB), f(K, R, NB)
+    head = int(rng.integers(R))
+    for part in (2, 4):
+        pl = P // part
+        for d in range(part):
+            h = (hr[:, d * pl:(d + 1) * pl].contiguous(), hi[:, d * pl:(d + 1) * pl].contiguous())
+            rk, rp = (ring_r.clone(), ring_i.clone()), (ring_r.clone(), ring_i.clone())
+            got = tconv.spectral_mac_slice(X, *h, *rk, head, rev, d * pl)
+            want = tconv.spectral_mac_slice_plain(X, *h, *rp, head, rev, d * pl)
+            assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+            assert torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])
+
+
+@pytest.mark.parametrize("part", [2, 4])
+def test_k14b_matches_plain(dev, part):
+    """K14b at every slice of a P = 8 filter (V = 3, S = 5, moving sources),
+    bit for bit its plain version, the next ring too."""
+    rng = np.random.default_rng(27)
+    hrir = (rng.standard_normal((8, 2, 1024)) * 0.05).astype(np.float32)
+    grid = th.load_hrir_grid({"hrir": hrir, "azimuth_deg": np.arange(8) * 45.0,
+                              "elevation_deg": np.zeros(8), "sample_rate": 48000}, 48000,
+                             length=1024)
+    sr, si = (torch.from_numpy(a).to(dev) for a in th.hrir_grid_spectra(grid))
+    V, S, P, B = 3, 5, sr.shape[3], sr.shape[4]
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    args = (torch.complex(f(V, S, B), f(V, S, B)), f(V, P - 1, 2 * B), f(V, P - 1),
+            f(V, P - 1, scale=0.3), f(V, S), f(V, S, scale=0.3))
+    pl = P // part
+    for d in range(part):
+        cut = slice(d * pl, (d + 1) * pl)
+        s = (sr[:, :, :, cut].contiguous(), si[:, :, :, cut].contiguous(), d * pl)
+        got = th.partitioned_mac_slice(*args, *s)
+        want = th.partitioned_mac_slice_plain(*args, *s)
+        assert torch.equal(torch.view_as_real(got[0]), torch.view_as_real(want[0]))
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K, L, P, B, rev", K2_SHAPES)
+def test_k2a_reads_its_head_on_the_card(dev, K, L, P, B, rev):
+    """K2a with the ring's head as an int64 on the card (as a realtime
+    context's captured step holds it) gives the host-int head's bits, ring
+    writes too."""
+    g = torch.Generator().manual_seed(1)
+    NB, R = B + 1, P - 1 + L
+
+    def f(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    X = torch.complex(f(K, L, NB), f(K, L, NB))
+    hr, hi, ring_r, ring_i = f(K, P, NB), f(K, P, NB), f(K, R, NB), f(K, R, NB)
+    for head in (0, 7 % R, R - 1):
+        rk, rd = (ring_r.clone(), ring_i.clone()), (ring_r.clone(), ring_i.clone())
+        want = tconv.spectral_mac(X, hr, hi, *rk, head, rev)
+        got = tconv.spectral_mac(X, hr, hi, *rd,
+                                 torch.tensor(head, dtype=torch.int64, device=dev), rev)
+        assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+        assert torch.equal(rd[0], rk[0]) and torch.equal(rd[1], rk[1])
+
+
+@pytest.mark.parametrize("build, voices", [(config4_conv_reverb, 8), (config5_spatial_scene, 16)],
+                         ids=["config4", "config5"])
+def test_realtime_step_graph_renders_the_same_bits(dev, build, voices):
+    """A realtime context's steps through its CUDA graph (core/stepgraph.py),
+    launched two deep as the render thread launches them, across a param
+    edit that drops the graph, give the bits of the same steps run kernel
+    by kernel; the graph is captured again after the edit and replays most
+    steps, and the wrappers' counts plus the kernels of the replays after
+    each capture are the kernel-by-kernel run's counts."""
+    from graphaudio_tpu_torch.realtime import RealtimeAudioContext
+
+    def make(**geom):
+        return RealtimeAudioContext(device=dev, auto_start_thread=False, output_device="null",
+                                    **geom)
+
+    runs = []
+    for graphed in (True, False):
+        ctx = build(superblock=2, voices=voices, context=make)
+        if not graphed:
+            ctx._step_graph = None
+        gain = next(n for n in ctx._nodes.values() if isinstance(n, gat.GainNode))
+        cudabuild.launches.clear()
+        outs, pending = [], None
+        for i in range(40):
+            if i == 17:
+                gain.gain.value = 0.25
+            nxt = ctx._render_steps_launch(1)
+            if pending is not None:
+                outs.append(ctx._render_steps_finish(pending))
+            pending = nxt
+        outs.append(ctx._render_steps_finish(pending))
+        runs.append((np.concatenate(outs, axis=1), dict(cudabuild.launches), ctx._step_graph))
+        ctx.dispose()
+    (got, counts, sg), (want, want_counts, _) = runs
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_array_equal(got, want)
+    assert sg.refused is None and sg.captures == 2 and sg.replays >= 30
+    replayed = {k: v * (sg.replays - sg.captures) for k, v in sg.kernels.items()}
+    assert dict(Counter(counts) + Counter(replayed)) == want_counts

@@ -22,8 +22,8 @@ clock: bit for bit the per-row evaluation at that clock, and within
 
 Twinned elsewhere: the checkpoint round trip (tests/test_pipeline.py:111)
 in tests/test_torch_utils.py, the realtime context (:191) in
-tests/test_torch_realtime.py. Not twinned: the meshes (:272, :292, module
-item 15); ROADMAP.md lists them.
+tests/test_torch_realtime.py, the meshes (:272, :292) in
+tests/test_torch_parallel.py.
 """
 
 import inspect

@@ -131,7 +131,8 @@ def test_import_without_jax():
         "graphaudio_tpu_torch.io.stream, graphaudio_tpu_torch.kit.providers, "
         "graphaudio_tpu_torch.ops.stream, graphaudio_tpu_torch.utils.nativebuild, "
         "graphaudio_tpu_torch.realtime, graphaudio_tpu_torch.utils.checkpoint, "
-        "graphaudio_tpu_torch.utils.inspect; "
+        "graphaudio_tpu_torch.utils.inspect, graphaudio_tpu_torch.parallel, "
+        "graphaudio_tpu_torch.testing.mesh; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'graphaudio_tpu' or m.startswith('graphaudio_tpu.')]; "
         "assert not bad, bad"
