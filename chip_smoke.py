@@ -215,6 +215,17 @@ any failure raises and the script exits non-zero:
      single-card and the CPU render, with the sharding, the launches, the
      host and all_reduce ms a step; and ``ShardedVoiceScene`` (64 voices,
      2 s IR, superblock 8, 4 steps) within 1e-5 of its numpy mirror.
+ 17. the examples (``examples_phase``): every twin of
+     graphaudio_tpu_torch/examples through its ``main`` on the card, twice,
+     held to its own run on the CPU within 1e-5 max abs (offline_mixdown,
+     timed_automation with its graph rebuilt at 2 s inside one render
+     call, game_audio's 60 Kit ticks of 2400 frames, measured_hrtf_flac
+     with its 24-bit FLAC round trip lossless, pcm_delivery_opus with its
+     int16 bit for bit the plain pack of the card's f32 render of the same
+     scene), the second run equal to the first, each with its wall and
+     xRT, graph builds and the kernels it launched; then multichip_scene
+     on four ranks of the card over gloo, the ranks equal and within 1e-5
+     of the scene on one CPU context.
 Each of ``--k2a``, ``--p1``, ``--k6k8``, ``--k1k5``, ``--k2bk10b`` and
 ``--k9`` runs phases 1 and 2, one kernel pair's checks and three 30 s
 renders of the configs that run it, each render with its profile window
@@ -239,7 +250,8 @@ renders each, alternated, every hash the unfused trees' config-3 hash,
 with P2's launches, host and device time a step (``pipe_runs``).
 ``--stream`` runs phase 13 alone. ``--hrtfpart`` runs phase 14, the
 goldens and three 30 s renders of config 5 (its recorded sha256).
-``--realtime`` runs phase 15 alone, ``--mesh`` phase 16 alone.
+``--realtime`` runs phase 15 alone, ``--mesh`` phase 16 alone,
+``--examples`` phase 17 alone.
 ``--k10pa`` times K10p-a alone, warm and cold, at config5_measured's
 fourth step and five seeded cases (``k10pa_times``; copied into the tree
 that first had K10p, it times that tree's kernel the same way).
@@ -2656,8 +2668,9 @@ def prologue_item10_runs(dev, which=("config3_wah", "config5_orbit", "config5_st
 
 
 #: The sha256 of config 3's 30 s render (superblock 32, 351 steps) on the
-#: H100 as the trees before chain fusion rendered it, four biquad stages.
-CONFIG3_UNFUSED_SHA256 = "8f976460eb322f3e69c908dc7125ecd20cc0fb18a818a9129e6f0b93e0cd9655"
+#: H100, four biquad stages unfused, which the fused pipe renders too; since
+#: K8 takes glibc's sin and cos (before that, 8f976460eb32...).
+CONFIG3_UNFUSED_SHA256 = "610d771ebbf581e0f1d4720ae61466391ecda891dae1515cca1feff4ee24e67a"
 
 #: Every earlier path's sha256 on the H100 as the earlier trees rendered it,
 #: by its place in the main run's ``render`` object (for config4_wire, of
@@ -2680,7 +2693,8 @@ EARLIER_SHA256 = {
     "config4_pitched/sha256": "47ac125434899eaa387f53e0a6d105283d9ccac5b0389f8f70ab219acc8b23a8",
     "config6_swept/sha256": "4062606068b8129edcbb535dff02aac7a95e120849264b19941a3e1d44572d53",
     "vibrato/sha256": "447a969c533c83dd11c41133833c65a530567bb63a79962311850ff4d46e84d9",
-    "config3_wah/sha256": "25875997cae7483aa4cefd7adb22e6c384d411663760fa8f24b04c14600107b3",
+    # since K8 takes glibc's sin and cos (before that, 25875997cae7...)
+    "config3_wah/sha256": "ac05c245b454de52b093d0ac5c02d0b532b2cf516e2d05e9b23766d2960fdd34",
     "config5_orbit/sha256": "7d46cd5da5abe58b4d8b88d87bf51b1c8289293955e29ec583810680fa626e85",
     "config5_steplinear/sha256":
         "f524448e0781b08db2d77739dbcbd762aced3dee260d4ef01c652fb20d314b4f",
@@ -2692,6 +2706,16 @@ EARLIER_SHA256 = {
         "276b4ab9498d89b6e98141073c437261c08b4cdfdfa815b44e42c7a7ad1e8847",
     "config5_measured/p8/sha256":
         "b4772c54d337a98908ee8c02781aa9764773371f300f9114b16f4da4b99fdcb4",
+    "examples/offline_mixdown/sha256":
+        "e3b6550b8a47231a9a3eb7a29285a42755f8844121a4e250f658410b5c5c8d04",
+    "examples/timed_automation/sha256":
+        "5724afe719ab5fe0107aa21452d9baec8832e61d40db58544b40d0fe8a6945bd",
+    "examples/game_audio/sha256":
+        "da82539f391ad187e87c4075cedb0036c055b8fcad7244c8d4849f72599772a8",
+    "examples/measured_hrtf_flac/sha256":
+        "cb477d1fc40a55f5132027f7aae1ff59c2892d28f3d9181d68c174cae114d511",
+    "examples/pcm_delivery_opus/sha256":
+        "d770501a0b9debdfc3b4862c6c30be5aaea3b8967efd3d231ecf757dc1d52060",
 }
 
 
@@ -4179,6 +4203,182 @@ def mesh_phase(dev):
     return entries, res
 
 
+EXAMPLE_ARGS = {  # each twin's main arguments, its output in the working directory
+    "offline_mixdown": ("mixdown.wav",),
+    "timed_automation": (),
+    "game_audio": ("game_scene.wav",),
+    "measured_hrtf_flac": (),
+    "pcm_delivery_opus": ("scene.opus",),
+}
+#: the functions a twin's audio is read at: (owner, attribute, which call)
+EXAMPLE_TAPS = {"offline_mixdown": ("write_wav", -1), "timed_automation": ("write_wav", -1),
+                "game_audio": ("write_wav", -1), "measured_hrtf_flac": ("write_flac", -1),
+                "pcm_delivery_opus": ("render_pcm16", 0)}
+
+
+def run_example(name, device, workdir, pcm_as_f32=False):
+    """Run the twin ``graphaudio_tpu_torch.examples.<name>`` on ``device``
+    from ``workdir`` (its files land there), reading its audio where it is
+    written (``EXAMPLE_TAPS``; ``render_pcm16``'s result for
+    pcm_delivery_opus, or with ``pcm_as_f32`` the f32 ``render`` of the same
+    frames in its place). Returns the audio, main's wall seconds, the graph
+    builds of its contexts, the launches of each kernel wrapper in the run
+    and what it printed."""
+    import contextlib
+    import importlib
+    import io
+    from unittest import mock
+
+    import torch
+
+    import graphaudio_tpu_torch as gat
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    mod = importlib.import_module(f"graphaudio_tpu_torch.examples.{name}")
+    attr, which = EXAMPLE_TAPS[name]
+    owner = gat.OfflineAudioContext if attr == "render_pcm16" else mod
+    real = getattr(owner, attr)
+    calls, contexts = [], []
+
+    def tap(*args, **kw):
+        if pcm_as_f32:
+            out = args[0].render(*args[1:], **kw)
+        else:
+            out = real(*args, **kw)
+        calls.append(out if attr == "render_pcm16" else args[1])
+        return out
+
+    real_compile = gat.OfflineAudioContext._ensure_compiled
+
+    def compiled(ctx, *args, **kw):
+        if all(c is not ctx for c in contexts):
+            contexts.append(ctx)
+        return real_compile(ctx, *args, **kw)
+
+    on_card = torch.device(device).type == "cuda"
+    argv = [name, os.path.join(workdir, "hrtf_scene.flac")] if name == "measured_hrtf_flac" \
+        else [name]
+    cwd = os.getcwd()
+    printed = io.StringIO()
+    os.chdir(workdir)
+    try:
+        with mock.patch.object(owner, attr, tap), \
+                mock.patch.object(gat.OfflineAudioContext, "_ensure_compiled", compiled), \
+                mock.patch.object(sys, "argv", argv), contextlib.redirect_stdout(printed):
+            if on_card:
+                torch.cuda.synchronize()
+            cudabuild.launches.clear()
+            t0 = time.perf_counter()
+            mod.main(*EXAMPLE_ARGS[name], device=device)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in sorted(cudabuild.launches.items()) if v}
+    finally:
+        os.chdir(cwd)
+    return {"audio": calls[which], "wall_s": wall, "launches": launches,
+            "graph_builds": sum(c.stats.graph_builds for c in contexts),
+            "printed": printed.getvalue().strip().splitlines()}
+
+
+def examples_phase(dev):
+    """Phase 17, ``--examples``: every twin of graphaudio_tpu_torch/examples
+    on the card through its ``main``, held to the same twin's run on the CPU
+    within 1e-5 max abs (the audio where the twin writes it): offline_mixdown
+    (5 s), timed_automation (3.5 s in one call, a graph rebuild at 2 s; the
+    error after the rebuild reported apart), game_audio (60 Kit ticks of 2400
+    frames), measured_hrtf_flac (the 24-bit FLAC round trip lossless) and
+    pcm_delivery_opus (its int16 PCM within 1 LSB of the CPU's, and bit for
+    bit the plain pack of the same scene's f32 render on the card, which is
+    within 1e-5 of the CPU's); each run twice on the card, the second's audio
+    equal to the first's; then multichip_scene on four ranks on the card
+    (gloo), the ranks equal and within 1e-5 of the scene on one CPU context.
+    Prints each twin's wall seconds and xRT (main's wall, so set-up and file
+    writes included), graph builds, the kernels it launched and its error.
+    Returns the results."""
+    import torch
+
+    import graphaudio_tpu_torch as gat
+    from graphaudio_tpu_torch.core import context as tcontext
+    from graphaudio_tpu_torch.examples import multichip_scene
+    from graphaudio_tpu_torch.io import AudioDecoder
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="ga_examples_") as tmp:
+        for name in EXAMPLE_ARGS:
+            dirs = {k: os.path.join(tmp, f"{name}_{k}") for k in ("cpu", "card", "again", "f32")}
+            for d in dirs.values():
+                os.makedirs(d)
+            cpu = run_example(name, "cpu", dirs["cpu"])
+            card = run_example(name, dev, dirs["card"])
+            again = run_example(name, dev, dirs["again"])
+            got, want = card["audio"], cpu["audio"]
+            if name == "pcm_delivery_opus":
+                f32 = run_example(name, dev, dirs["f32"], pcm_as_f32=True)["audio"]
+                f32_cpu = run_example(name, "cpu", dirs["f32"], pcm_as_f32=True)["audio"]
+                packed = tcontext.pack_int16_plain(torch.from_numpy(f32)).numpy()
+                r = {"pcm16_bits_equal_plain_pack": bool(np.array_equal(got, packed)),
+                     "pcm16_max_lsb_vs_cpu": int(np.abs(got.astype(np.int32) - want).max()),
+                     "max_abs_err": float(np.abs(f32.astype(np.float64) - f32_cpu).max()),
+                     "peak": float(np.abs(f32_cpu).max()), "seconds": got.shape[0] / 2 / SR}
+                ok = (r["pcm16_bits_equal_plain_pack"] and r["pcm16_max_lsb_vs_cpu"] <= 1
+                      and got.dtype == np.int16)
+            else:
+                r = {"max_abs_err": float(np.abs(got.astype(np.float64) - want).max()),
+                     "peak": float(np.abs(want).max()), "seconds": got.shape[1] / SR}
+                ok = got.shape == want.shape and np.isfinite(got).all()
+            if name == "timed_automation":  # past the graph rebuild at t = 2 s
+                r["max_abs_err_after_rebuild"] = float(np.abs(
+                    got[:, 2 * SR:].astype(np.float64) - want[:, 2 * SR:]).max())
+            if name == "measured_hrtf_flac":
+                with AudioDecoder(os.path.join(dirs["card"], "hrtf_scene.flac")) as dec:
+                    back = dec.decode_planar(dec.frames)
+                q = np.clip(np.rint(got.astype(np.float64) * (1 << 23)),
+                            -(1 << 23), (1 << 23) - 1) / (1 << 23)
+                r["flac_lossless"] = bool(np.array_equal(back, q.astype(np.float32)))
+                ok = ok and r["flac_lossless"]
+            r.update(wall_s=[card["wall_s"], again["wall_s"]], cpu_wall_s=cpu["wall_s"],
+                     xrt=[r["seconds"] / card["wall_s"], r["seconds"] / again["wall_s"]],
+                     graph_builds=card["graph_builds"], cpu_graph_builds=cpu["graph_builds"],
+                     launches=card["launches"], repeat_equal=bool(np.array_equal(
+                         got, again["audio"])), printed=card["printed"],
+                     sha256=hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest())
+            res[name] = r
+            phase("examples", f"{name}: {json.dumps(r)}")
+            if not (ok and r["max_abs_err"] < 1e-5 and r["repeat_equal"] and r["peak"] > 1e-3
+                    and r["launches"]):
+                raise AssertionError(f"the {name} twin on the card differs from its CPU run, "
+                                     f"from itself, is silent or launched no kernel: {r}")
+        world = 4
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            ranks = multichip_scene.main(world, device=dev.type)
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        want = multichip_scene.build_scene(gat.OfflineAudioContext(
+            sample_rate=multichip_scene.SR, superblock=8, device="cpu"), world).render_seconds(2.0)
+        got = ranks[0][0]
+        r = {"ranks": world, "ranks_equal": all(np.array_equal(x[0], got) for x in ranks[1:]),
+             "max_abs_err": float(np.abs(got.astype(np.float64) - want).max()),
+             "peak": float(np.abs(want).max()), "sharded_stages": ranks[0][1],
+             "graph_builds": ranks[0][2], "launches": {k: v for k, v in sorted(
+                 ranks[0][3].items()) if v}, "wall_s": wall, "xrt": 2.0 / wall,
+             "wav_written": os.path.getsize(os.path.join(tmp, "multichip_scene.wav")) > 44}
+        res["multichip_scene"] = r
+        phase("examples", f"multichip_scene: {json.dumps(r)}")
+        if not (r["ranks_equal"] and r["max_abs_err"] < 1e-5 and r["peak"] > 1e-3
+                and r["sharded_stages"] and r["launches"] and r["wav_written"]):
+            raise AssertionError(f"multichip_scene on {world} ranks differs across ranks or "
+                                 f"from the single-device CPU render: {r}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    phase("examples", f"phase 17 in {res['phase_s']!r} s")
+    return res
+
+
 def goldens(dev):
     """Configs 4, 3, 2, 5 and 6 (modulated) at superblock 4 over 8192 frames against
     tests/goldens/*.npz, within 1e-5 max abs; returns {config: error}."""
@@ -4395,6 +4595,9 @@ def main(device="cuda", only=None):
         elif only == "mesh":
             entries, mesh = mesh_phase(dev)
             runs = {"mesh": mesh}
+        elif only == "examples":
+            entries = []
+            runs = {"examples": examples_phase(dev)}
         else:  # k1k5
             entries, _ = k1k5_checks(dev)
             golden_err = goldens(dev)
@@ -4717,6 +4920,9 @@ def main(device="cuda", only=None):
     k14, runs_mesh = mesh_phase(dev)
     entries += k14
 
+    # -- 17. the examples' twins ---------------------------------------------------------
+    runs_examples = examples_phase(dev)
+
     render = {
         "config4": dict(render4, pcm16_wall_s=wall_p, pcm16_xrt=seconds / wall_p,
                         first_render_s=first_s, golden_max_abs_err=golden_err[4]),
@@ -4739,6 +4945,7 @@ def main(device="cuda", only=None):
         "config5_measured": runs_measured,
         "realtime": runs_rt,
         "mesh": runs_mesh,
+        "examples": runs_examples,
         "config2_golden_max_abs_err": golden_err[2],
         "build_s": build_s, "codec_build_s": codec_s, "floor_device_ms": floor_ms,
         "card": smi}
@@ -4804,6 +5011,10 @@ if __name__ == "__main__":
                 "config5_part_hrir at full width on a 2x2 mesh of four ranks on the card, "
                 "8 superblocks, equal across ranks and within 1e-5 of the single-card and CPU "
                 "renders; ShardedVoiceScene against its numpy mirror",
+        "examples": "phase 17: every twin of graphaudio_tpu_torch/examples on the card, "
+                    "twice, held to its CPU run within 1e-5 (pcm16 bit for bit the plain pack "
+                    "of the card's f32, the FLAC round trip lossless), and multichip_scene on "
+                    "four ranks on the card, the ranks equal",
         "stream": "the K15 checks (whole calls: config5_streamed's two stream nodes over "
                   "351 steps, S = 1 and 64, mono, rates 0.5 and 3.0, a stream that runs "
                   "out), five 30 s renders each of config5_streamed and config 5, K15's "

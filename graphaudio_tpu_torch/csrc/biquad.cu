@@ -13,8 +13,8 @@
 // types that read the gain one thread computes A = 10^(g/40) once for the
 // quantum (g is constant over it, so this is the value every thread computed
 // before) and shares it through shared memory. Bound on the H100: the launch
-// and each thread's chain of f64 sin and cos (and, for the gain types, the
-// one f64 pow before the barrier), not its ~40 flops a sample; config 3's
+// and each thread's f64 sin and cos polynomials (and, for the gain types,
+// the one f64 pow before the barrier), not its ~40 flops a sample; config 3's
 // four stages are 128 blocks, one wave.
 //
 // Rounding follows the plain version (ops/biquad.py) and, through it, the
@@ -23,9 +23,10 @@
 // near the 1e-5 bar: the same association order, every f32 operation spelt
 // __f*_rn so nvcc contracts nothing on its own, one fmaf exactly where XLA
 // fuses (the discriminant), the constant divisions as XLA rewrites them
-// (f * (2pi/sr), g * (1/40)), and sin/cos/pow in f64 rounded once to f32
-// (the correctly rounded value, which XLA's f32 functions return for
-// 98.7-99.9 % of inputs; see ops/xla_rounding.py).
+// (f * (2pi/sr), g * (1/40)), sin and cos as glibc's sinf/cosf, which XLA's
+// CPU build calls (glibc_sincosf below), and pow in f64 rounded once to f32
+// (the correctly rounded value, which XLA's f32 pow returns for 99.9 % of
+// inputs; see ops/xla_rounding.py).
 //
 // Pole order: for complex poles Im(p1) >= 0, as XLA's complex sqrt returns
 // for a negative real discriminant with either sign of zero imaginary part.
@@ -41,6 +42,47 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+
+// glibc's sinf and cosf for |y| < 120 (its x86-64 FMA build; the plain
+// version is ops/xla_rounding.py sincosf, the same f64 operations): the
+// quadrant by one scaled multiply, the reduced argument by one fma, and two
+// short polynomials whose every step is an fma, each rounded once to f32.
+// The caller's w0 lies in (0, pi]; past 120 this returns the f64 functions
+// rounded once, as the plain version does.
+__device__ __forceinline__ void glibc_sincosf(float y, float* sinp, float* cosp) {
+  const double d = static_cast<double>(y);
+  const uint32_t top = (__float_as_uint(y) >> 20) & 0x7ffu;
+  if (top >= 0x42fu) {  // |y| >= 120
+    *sinp = static_cast<float>(sin(d));
+    *cosp = static_cast<float>(cos(d));
+    return;
+  }
+  if (top < 0x398u) {  // |y| < 2^-12
+    *sinp = y;
+    *cosp = 1.0f;
+    return;
+  }
+  int n = 0;
+  double r = d;
+  if (top >= 0x3f4u) {  // |y| >= 0.75: reduce to [-pi/4, pi/4]
+    n = (__double2int_rz(__dmul_rn(d, 0x1.45f306dc9c883p+23)) + 0x800000) >> 24;
+    r = fma(-static_cast<double>(n), 0x1.921fb54442d18p+0, d);
+  }
+  const double r2 = __dmul_rn(r, r);
+  const double xs = ((n + 1) & 2) ? -r : r;
+  const double cn = (n & 2) ? -1.0 : 1.0;
+  const double x3 = __dmul_rn(xs, r2);
+  const double s1 = fma(r2, -0x1.994eb3774cf24p-13, 0x1.1107605230bc4p-7);
+  const double x7 = __dmul_rn(x3, r2);
+  const double sp = fma(x7, s1, fma(x3, -0x1.555545995a603p-3, xs));
+  const double r4 = __dmul_rn(r2, r2);
+  const double c2 = fma(r2, cn * 0x1.99343027bf8c3p-16, cn * -0x1.6c087e89a359dp-10);
+  const double c1 = fma(r2, cn * -0x1.ffffffd0c621cp-2, cn);
+  const double r6 = __dmul_rn(r4, r2);
+  const double cp = fma(r6, c2, fma(r4, cn * 0x1.55553e1068f19p-5, c1));
+  *sinp = static_cast<float>((n & 1) ? cp : sp);
+  *cosp = static_cast<float>((n & 1) ? sp : cp);
+}
 
 // The value of source `word` at sample i of quantum s.
 __device__ __forceinline__ float source(const float* __restrict__ src,
@@ -75,8 +117,8 @@ __global__ void __launch_bounds__(kQuantum) biquad_coeffs_batch_kernel(
   const float q = fmaxf(source(q_src, consts, w[2], s, i), 0.001f);
 
   const float w0 = mul(f, w0_scale);
-  const float cosw = static_cast<float>(cos(static_cast<double>(w0)));
-  const float sinw = static_cast<float>(sin(static_cast<double>(w0)));
+  float sinw, cosw;
+  glibc_sincosf(w0, &sinw, &cosw);
   const float alpha = dvd(sinw, mul(2.0f, q));
 
   float b0, b1, b2, a0, a1, a2;

@@ -89,8 +89,7 @@ def _rbj_prelude(freq, q, gain_db, sample_rate):
     q = q.float()
     g = torch.as_tensor(gain_db, dtype=torch.float32, device=f.device)
     w0 = f * torch.tensor(_w0_scale(sample_rate), device=f.device)
-    cosw = xla_rounding.cos(w0)
-    sinw = xla_rounding.sin(w0)
+    sinw, cosw = xla_rounding.sincosf(w0)
     alpha = sinw / (2.0 * q)
     return q, g, cosw, sinw, alpha
 
@@ -175,8 +174,8 @@ def rbj_coefficients(filter_type: str, freq, q, gain_db, sample_rate: float):
     """Normalized biquad coefficients (b0, b1, b2, a1, a2), each f32 shaped
     like ``freq``. Parity: BiQuadFilterNode.UpdateCoefficients (:149-258),
     the JAX ``rbj_coefficients`` (ops/biquad.py:43-121) with XLA's rounding
-    (constant divisions as reciprocal multiplies, correctly rounded
-    sin/cos/pow)."""
+    (constant divisions as reciprocal multiplies, glibc's sin/cos,
+    correctly rounded pow)."""
     q, g, cosw, sinw, alpha = _rbj_prelude(freq, q, gain_db, sample_rate)
     A = _gain_a(g) if filter_type in GAIN_TYPES else None
     return _normalize(*_rbj_terms(filter_type, q, cosw, sinw, alpha, A))

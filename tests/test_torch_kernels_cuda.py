@@ -341,7 +341,7 @@ def test_k8_biquad_coefficients(dev, ftype):
     ref = tbq.biquad_coefficients_plain(ftype, freq, q, gain, 48000)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
-        # f64 sin/cos/pow rounded once on both sides: equal up to an ulp
+        # glibc's sin/cos and f64 pow rounded once on both sides: equal up to an ulp
         assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item())
     assert (got[3].imag >= 0).all()  # Im(p1) >= 0
 

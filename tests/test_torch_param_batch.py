@@ -40,6 +40,7 @@ from graphaudio_tpu_torch.core import graph as tgraph
 from graphaudio_tpu_torch.nodes import biquad as tnb
 from graphaudio_tpu_torch.ops import biquad as tbq
 from graphaudio_tpu_torch.ops import param_eval as tpe
+from graphaudio_tpu_torch.ops import xla_rounding
 from graphaudio_tpu_torch.testing import tables as ttab
 from graphaudio_tpu_torch.testing.configs import config3_eq_chain
 
@@ -299,8 +300,10 @@ def test_k8_batch_matches_per_stage_and_jax(k):
 def _walk_k8(rows, arena, consts, T, n_b, n_p):
     """csrc/biquad.cu, block by block: block (r, s) decodes row r's words,
     thread i reads sample s*128 + i of each source (mode = word & 3, offset
-    = word >> 2), A from the quantum's gain once, and the coefficients and
-    poles in numpy f32 with the kernel's operation order."""
+    = word >> 2), A from the quantum's gain once, sin and cos of w0 as glibc
+    computes them (``xla_rounding.sincosf``, the kernel's
+    ``glibc_sincosf``), and the coefficients and poles in numpy f32 with the
+    kernel's operation order."""
     b = np.full((n_b, T), np.nan, F32)
     p = np.full((n_p, T), np.nan, np.complex64)
     i = np.arange(128)
@@ -319,8 +322,7 @@ def _walk_k8(rows, arena, consts, T, n_b, n_p):
             f = np.minimum(np.maximum(source(w[1], s, i), F32(1)), F32(SR / 2))
             q = np.maximum(source(w[2], s, i), F32(0.001))
             w0 = f * tbq._w0_scale(SR)
-            cosw = F32(np.cos(w0.astype(np.float64)))
-            sinw = F32(np.sin(w0.astype(np.float64)))
+            sinw, cosw = (t.numpy() for t in xla_rounding.sincosf(torch.from_numpy(w0)))
             alpha = sinw / (F32(2) * q)
             one = F32(1)
             if typ <= 4:
