@@ -3852,7 +3852,10 @@ def k14a_checks(dev):
     writes bit for bit, then the slices' sum against the unsliced MAC
     (``spectral_mac_plain`` over every row) within 1e-5 x max|ref| (sums in
     another order). The entry times rank 0's slice at part = 2, beside one
-    ``torch.einsum`` over its delay-line rows gathered beforehand."""
+    ``torch.einsum`` over its delay-line rows gathered beforehand; the
+    kernel alone (``alone_time``) there and at ``ShardedVoiceScene``'s
+    slice (K = 2, L = 8, 129 bins, 375 of 750 rows), each with its share of
+    its bound."""
     import torch
 
     from graphaudio_tpu_torch.ops import convolve as tconv
@@ -3919,15 +3922,55 @@ def k14a_checks(dev):
                     lambda: tconv.spectral_mac_slice_plain(X, hr, hi, *rp, head, True, 0),
                     1e-6, rel=True, bnd=bound(moved, 8 * K * L * NB * pl),
                     library=lambda: torch.einsum("kjb,kjb->kb", Hc, win), device_times=True)
+                entry["alone"] = alone_time(
+                    "K14a (config 4 under part = 2, rank 0)",
+                    lambda: tconv.spectral_mac_slice(X, hr, hi, *rk, head, True, 0),
+                    "conv_mac_slice", entry["bound_ms"])
         err_sum = float((total - whole).abs().max())
         peak = float(whole.abs().max())
         cases.append({"part": part, "slices_sum_vs_whole": err_sum, "peak": peak})
         if err_sum > 1e-5 * peak:
             raise AssertionError(f"K14a: the slices' sum at part {part} is {err_sum} off the "
                                  f"unsliced MAC (peak {peak})")
+    # ShardedVoiceScene's slice: the 128 grain, a 2 s IR (750 rows) over
+    # part = 2, rank 0; its delay-line rows read once (Pl + L - 1 a channel)
+    K, L, NB, P, pl = 2, 8, 129, 750, 375
+    R = P - 1 + L
+    X = cplx(K, L, NB)
+    ring = torch.view_as_real(cplx(K, R, NB))
+    ring_r, ring_i = ring[..., 0].contiguous(), ring[..., 1].contiguous()
+    hr, hi = (torch.from_numpy(rng.standard_normal((K, pl, NB)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    head = int(rng.integers(R))
+    got = tconv.spectral_mac_slice(X, hr, hi, ring_r.clone(), ring_i.clone(), head, False, 0)
+    want = tconv.spectral_mac_slice_plain(X, hr, hi, ring_r.clone(), ring_i.clone(), head, False, 0)
+    same = bool(torch.equal(torch.view_as_real(got), torch.view_as_real(want)))
+    if not same:
+        raise AssertionError("K14a at ShardedVoiceScene's slice is not bit for bit its plain "
+                             "version")
+    moved = nbytes(X, hr, hi) + 2 * K * (pl + L - 1) * NB * 4 + 2 * K * L * NB * 8
+    bnd = bound(moved, 8 * K * L * NB * pl)[0]
+    entry["scene_slice"] = dict(alone_time(
+        f"K14a (ShardedVoiceScene's slice: K={K} L={L} P_local={pl} of P={P}, {NB} bins)",
+        lambda: tconv.spectral_mac_slice(X, hr, hi, ring_r, ring_i, head, False, 0),
+        "conv_mac_slice", bnd), bound_ms=bnd, bit_for_bit=same)
     entry["cases"] = cases
     phase("kernels", f"K14a slices: {json.dumps(cases)}")
     return entry
+
+
+def alone_time(label, fn, only, bound_ms):
+    """The device time of one call of ``fn`` counting only the kernels whose
+    names hold ``only`` (``device_ms`` over windows that recorded every
+    launch: one a call), beside ``bound_ms``; printed with the share of the
+    bound. Returns {"device_ms", "pct_of_bound"} (None where no window was
+    complete: "not measured")."""
+    ms = device_ms(fn, only=only, expect=1)
+    pct = None if ms is None else 100.0 * bound_ms / ms
+    phase("kernels", f"{label}, the kernel alone: "
+          f"{'not measured' if ms is None else repr(ms) + ' ms'} on the device, bound "
+          f"{bound_ms!r} ms, {'not measured' if pct is None else '%.1f %%' % pct} of it")
+    return {"device_ms": ms, "pct_of_bound": pct}
 
 
 def k14b_checks(dev):
@@ -3938,7 +3981,12 @@ def k14b_checks(dev):
     bit, and the slices' sum against K10p-a's plain version over every
     partition within 1e-5 x max|ref|. The entry times rank 0's slice at
     part = 2, beside one ``torch.einsum`` over the slice's spectra
-    interpolated beforehand."""
+    interpolated beforehand. Then config5_part_hrir's static shape (the same
+    voice, one direction for the ring and the superblock, as a Kit sound
+    that stands still): every slice bit for bit. The kernel alone
+    (``alone_time``, without ``flat``'s concatenation, which ``compare``'s
+    device time holds) at rank 0 of part = 2 and 4, moving and static,
+    each with its share of its bound."""
     import torch
 
     from graphaudio_tpu_torch.ops import hrtf as th
@@ -3965,13 +4013,38 @@ def k14b_checks(dev):
     el = torch.full((V, S), 0.1, device=dev)
     whole = th.partitioned_mac_plain(X, hx, haz, hel, az, el, torch.from_numpy(sr_np).to(dev),
                                      torch.from_numpy(si_np).to(dev))
-    entry, cases = None, []
+
+    def spectra(part, d):
+        pl = P // part
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[:, :, :, d * pl:(d + 1) * pl])).to(dev)
+                     for a in (sr_np, si_np))
+
+    def slice_bound(args, pl):
+        """K14b's bound at rank 0's slice of ``pl`` partitions: X, the
+        directions, the ring rows it reads, the whole ring and next ring,
+        the sums, and the corner spectra this run's directions touch, once
+        each; 22 flops a (quantum, partition, ear, bin)."""
+        X_, hx_, haz_, hel_, az_, el_, sr_, si_ = args[:8]
+        a_c = torch.cat([haz_, az_], 1)[0].cpu()
+        e_c = torch.cat([hel_, el_], 1)[0].cpu()
+        rows = set()
+        for j in range(pl):
+            c = (P - 1) + np.arange(S) - j
+            r, _ = th.interp_corners(a_c[c], e_c[c], E, A)
+            rows |= {(int(x), j) for x in torch.stack(list(r)).flatten()}
+        corner_bytes = len(rows) * 2 * B * 8
+        ring_rows = {s - p + P - 1 for s in range(S) for p in range(pl) if s < p} | set(
+            range(S, P - 1))
+        moved = (nbytes(X_, az_, el_) + len(ring_rows) * V * (2 * B + 2) * 4
+                 + nbytes(hx_, haz_, hel_) + V * S * 2 * B * 8 + corner_bytes)
+        return bound(moved, 22 * V * S * pl * 2 * B), corner_bytes
+
+    entry, cases, alone = None, [], {}
     for part in (2, 4):
         pl = P // part
         total = torch.zeros_like(whole[0])
         for d in range(part):
-            sr = torch.from_numpy(np.ascontiguousarray(sr_np[:, :, :, d * pl:(d + 1) * pl])).to(dev)
-            si = torch.from_numpy(np.ascontiguousarray(si_np[:, :, :, d * pl:(d + 1) * pl])).to(dev)
+            sr, si = spectra(part, d)
             args = (X, hx, haz, hel, az, el, sr, si, d * pl)
             got, want = th.partitioned_mac_slice(*args), th.partitioned_mac_slice_plain(*args)
             torch.cuda.synchronize()
@@ -3992,40 +4065,52 @@ def k14b_checks(dev):
                 Hs = torch.complex(th.interp_hrir(sr, azc, elc), th.interp_hrir(si, azc, elc))
                 xw = xcat[:, u].contiguous()  # [V, S, pl, B]
                 hw = Hs[:, u].diagonal(dim1=2, dim2=4).permute(0, 1, 4, 2, 3).contiguous()
-                # the corner spectra this run's directions touch, once each
-                rows = set()
-                for j in range(pl):
-                    c = (P - 1) + np.arange(S) - j
-                    a_c = torch.cat([haz, az], 1)[0, c].cpu().numpy()
-                    e_c = torch.cat([hel, el], 1)[0, c].cpu().numpy()
-                    r, _ = th.interp_corners(torch.from_numpy(a_c), torch.from_numpy(e_c), E, A)
-                    rows |= {(int(x), j) for x in torch.stack(list(r)).flatten()}
-                corner_bytes = len(rows) * 2 * B * 8
-                # the ring rows the slice reads (output quantum s of global
-                # partition p reads input quantum s - p, a ring row where
-                # s < p) or carries into the next ring, each with its
-                # direction; the whole next ring is written
-                ps = range(d * pl, (d + 1) * pl)
-                ring_rows = {s - p + P - 1 for s in range(S) for p in ps if s < p} | set(
-                    range(S, P - 1))
-                row_bytes = V * (2 * B + 2) * 4
-                moved = (nbytes(X, az, el) + len(ring_rows) * row_bytes + nbytes(hx, haz, hel)
-                         + V * S * 2 * B * 8 + corner_bytes)
+                bnd, corner_bytes = slice_bound(args, pl)
                 entry = compare(
                     f"K14b partitioned HRTF slice MAC (a 1024-tap per-node HRIR under part = 2, "
                     f"rank 0: V={V} S={S} P_local={pl} of P={P}, grid {E}x{A})", "cuda",
                     "graphaudio_tpu_torch/csrc/hrtf_part.cu", "graphaudio_tpu/ops/hrtf.py:345",
                     lambda: flat(th.partitioned_mac_slice(*args)),
                     lambda: flat(th.partitioned_mac_slice_plain(*args)), 1e-6, rel=True,
-                    bnd=bound(moved, 22 * V * S * pl * 2 * B),
+                    bnd=bnd,
                     library=lambda: torch.einsum("vspb,vspeb->vseb", xw, hw), device_times=True)
                 entry["corner_spectra_bytes"] = corner_bytes
+            if d == 0:
+                (bnd_ms, _), _ = slice_bound(args, pl)
+                alone[f"moving, part = {part}"] = dict(alone_time(
+                    f"K14b (moving, part = {part}, rank 0: P_local={pl})",
+                    lambda a=args: th.partitioned_mac_slice(*a), "hrtf_part_mac_slice",
+                    bnd_ms), bound_ms=bnd_ms)
         err_sum = float((total - whole[0]).abs().max())
         peak = float(whole[0].abs().max())
         cases.append({"part": part, "slices_sum_vs_whole": err_sum, "peak": peak})
         if err_sum > 1e-5 * peak:
             raise AssertionError(f"K14b: the slices' sum at part {part} is {err_sum} off K10p-a's "
                                  f"plain MAC (peak {peak})")
+    # config5_part_hrir's static shape: one direction, the ring's too
+    still = (torch.full((V, P - 1), 0.5236, device=dev), torch.full((V, P - 1), 0.1, device=dev),
+             torch.full((V, S), 0.5236, device=dev), torch.full((V, S), 0.1, device=dev))
+    for part in (2, 4):
+        pl = P // part
+        for d in range(part):
+            args = (X, hx, still[0], still[1], still[2], still[3], *spectra(part, d), d * pl)
+            got, want = th.partitioned_mac_slice(*args), th.partitioned_mac_slice_plain(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(torch.view_as_real(g) if g.is_complex() else g,
+                                   torch.view_as_real(w) if w.is_complex() else w)
+                       for g, w in zip(got, want))
+            cases.append({"part": part, "rank": d, "P_local": pl, "static": True,
+                          "bit_for_bit": same})
+            if not same:
+                raise AssertionError(f"K14b static slice {d} of part {part} is not bit for bit "
+                                     "its plain version")
+            if d == 0:
+                (bnd_ms, _), _ = slice_bound(args, pl)
+                alone[f"static, part = {part}"] = dict(alone_time(
+                    f"K14b (config5_part_hrir's static shape, part = {part}, rank 0: "
+                    f"P_local={pl})", lambda a=args: th.partitioned_mac_slice(*a),
+                    "hrtf_part_mac_slice", bnd_ms), bound_ms=bnd_ms)
+    entry["alone"] = alone
     entry["cases"] = cases
     phase("kernels", f"K14b slices: {json.dumps(cases)}")
     return entry
@@ -4037,7 +4122,10 @@ def mesh_job(rank, world, steps):
     width (``steps`` superblocks each, after one warm superblock of another
     context), and ``ShardedVoiceScene`` (64 voices, 2 s IR, superblock 8, 4
     steps). Returns, for each, the audio, the sharding, the K14 launches a
-    step, the host ms a step and the all_reduce wall ms a step."""
+    step, the host ms a step and the all_reduce wall ms a step; for config
+    4 and config5_part_hrir also K14a's and K14b's device time in the
+    render (``k14_in_render``: rank 0 under torch.profiler for ``steps``
+    more superblocks, which every rank renders)."""
     import torch
     import torch.distributed as dist
 
@@ -4084,7 +4172,8 @@ def mesh_job(rank, world, steps):
                 "launches": dict(cudabuild.launches),
                 "host_ms_a_step": wall / steps * 1e3,
                 "all_reduce_ms_a_step": sum(walls) / steps * 1e3,
-                "all_reduces_a_step": len(walls) / steps}
+                "all_reduces_a_step": len(walls) / steps,
+                "k14_in_render": k14_in_render(ctx, rank, steps * T, steps)}
         rng = np.random.default_rng(16)
         V, S = 64, 8
         arenas = (rng.standard_normal((V, 24000)) * 0.2).astype(np.float32)
@@ -4108,6 +4197,48 @@ def mesh_job(rank, world, steps):
                         "inputs": (arenas, ir, gains, pans) if rank == 0 else None}
     finally:
         dist.all_reduce = reduce0
+    return out
+
+
+#: K14's wrapper counts and a substring of their kernels' names.
+K14_KERNELS = {"K14a": ("spectral_mac_slice", "conv_mac_slice"),
+               "K14b": ("hrtf_part_mac_slice", "hrtf_part_mac_slice")}
+
+
+def k14_in_render(ctx, rank, frames, steps):
+    """K14a's and K14b's device time in ``steps`` more superblocks of
+    ``ctx``'s mesh render: on rank 0 under torch.profiler (the other ranks
+    render alongside, unprofiled), each kernel's events summed and held to
+    the launches its wrapper counted. Returns {kernel: {"launches", "events",
+    "us_a_step", "us_a_launch"}} on rank 0, the times None ("not measured")
+    where the window lost events; None on the other ranks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphaudio_tpu_torch.utils import cudabuild
+
+    torch.cuda.synchronize()
+    before = dict(cudabuild.launches)
+    if rank != 0:
+        ctx.render(frames)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ctx.render(frames)
+        torch.cuda.synchronize()
+    out = {}
+    for k, (count, name) in K14_KERNELS.items():
+        n = cudabuild.launches.get(count, 0) - before.get(count, 0)
+        events, total_us = 0, 0.0
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and name in e.key:
+                t_us = getattr(e, "self_device_time_total", None)
+                total_us += t_us if t_us is not None else getattr(e, "self_cuda_time_total", 0.0)
+                events += e.count
+        full = n > 0 and events == n
+        out[k] = {"launches": n, "events": events,
+                  "us_a_step": total_us / steps if full else None,
+                  "us_a_launch": total_us / n if full else None}
     return out
 
 
@@ -4175,6 +4306,14 @@ def mesh_phase(dev):
         phase("mesh", f"{name}, {MESH_STEPS} superblocks on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh: "
               f"ranks equal {equal}; vs the single-card render max_abs_err={err_card!r}, vs the "
               f"CPU render {err_cpu!r} (tolerance 1e-05); {json.dumps(res[name])}")
+        for k, r in res[name]["k14_in_render"].items():
+            if r["launches"]:
+                phase("mesh", f"{k} in {name}'s mesh render (rank 0, {MESH_STEPS} superblocks "
+                      f"profiled): " + ("not measured (the profiler recorded "
+                                        f"{r['events']} of {r['launches']} launches)"
+                                        if r["us_a_step"] is None else
+                                        f"{r['us_a_step']!r} us a step, {r['us_a_launch']!r} "
+                                        f"us a launch, {r['launches']} launches"))
         if not (equal and err_card < 1e-5 and err_cpu < 1e-5 and np.isfinite(got[0]).all()
                 and res[name]["peak"] > 1e-3):
             raise AssertionError(f"{name} under the mesh differs across ranks or from the "

@@ -66,6 +66,8 @@
 // 0.064 us at 3.35 TB/s; in practice the launch (4096 threads, 32 blocks).
 #include <cooperative_groups.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -264,54 +266,80 @@ __global__ void __launch_bounds__(kOlaThreads)
 }
 
 // K14a: the MAC over one rank's slice of the partitions (see the export's
-// note). A thread an output (k, l, bin), bin fastest, so a warp's loads
-// are 32 consecutive floats of one row.
-constexpr int kSliceThreads = 256;
+// note). A thread an output (k, l, bin): grid (bin tiles, L, K), so a
+// block's threads are consecutive bins of one row and a warp's loads are 32
+// consecutive floats; its rows in batches of kSliceRows, the next batch's
+// loads issued before this one's multiply-adds. Offsets are 32-bit (the
+// export checks that every array fits).
+constexpr int kSliceThreads = 128;
+constexpr int kSliceRows = 8;
 
 __global__ void __launch_bounds__(kSliceThreads)
     conv_mac_slice_kernel(const float2* __restrict__ X, const float* __restrict__ hr,
                           const float* __restrict__ hi, float* __restrict__ ring_r,
-                          float* __restrict__ ring_i, float2* __restrict__ acc, int K, int L,
-                          int Pl, int NB, int R, int head, int rev, int p0) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSliceThreads + threadIdx.x;
-  if (i >= static_cast<int64_t>(K) * L * NB) return;
-  const int b = static_cast<int>(i % NB);
-  const int64_t kl = i / NB;
-  const int l = static_cast<int>(kl % L), k = static_cast<int>(kl / L);
+                          float* __restrict__ ring_i, float2* __restrict__ acc, int Pl, int NB,
+                          int R, int head, int rev, int p0) {
+  const int b = blockIdx.x * kSliceThreads + threadIdx.x;
+  if (b >= NB) return;
+  const int l = blockIdx.y, k = blockIdx.z, L = gridDim.y;
   const int P = R - L + 1;  // the global (padded) partition count
-  const float2* xk = X + static_cast<int64_t>(k) * L * NB + b;
-  const float* rr = ring_r + static_cast<int64_t>(k) * R * NB + b;
-  const float* ri = ring_i + static_cast<int64_t>(k) * R * NB + b;
-  const float* hrk = hr + static_cast<int64_t>(k) * Pl * NB + b;
-  const float* hik = hi + static_cast<int64_t>(k) * Pl * NB + b;
-  float ar = 0.0f, ai = 0.0f;
-  for (int j = 0; j < Pl; ++j) {
-    const int lag = rev ? P - 1 - (p0 + j) : p0 + j;
-    const int m = l - lag;  // the sub-block this row multiplies: >= -(P-1)
-    float xr, xi;
-    if (m >= 0) {
-      const float2 v = xk[static_cast<int64_t>(m) * NB];
-      xr = v.x;
-      xi = v.y;
-    } else {
-      const int64_t slot = head + m < 0 ? head + m + R : head + m;
-      xr = rr[slot * NB];
-      xi = ri[slot * NB];
+  // Row j's lag is p0 + j, or P-1-(p0+j) when reversed, so the sub-block it
+  // multiplies, m = l - lag, steps by one a row: m0 + dm j. X row m for m
+  // >= 0 (interleaved: re at 2 m NB, im after it), else ring slot head + m,
+  // wrapped once (m >= -(P-1) > -R).
+  const int m0 = rev ? l - (P - 1 - p0) : l - p0, dm = rev ? 1 : -1;
+  const float* xk = reinterpret_cast<const float*>(X) + 2 * (k * L * NB + b);
+  const float* rr = ring_r + k * R * NB + b;
+  const float* ri = ring_i + k * R * NB + b;
+  const float* hrk = hr + k * Pl * NB + b;
+  const float* hik = hi + k * Pl * NB + b;
+  const int i = (k * L + l) * NB + b;
+  const float2 own = X[i];  // this step's spectrum, for the ring
+  struct Batch {
+    float xr[kSliceRows], xi[kSliceRows], h_r[kSliceRows], h_i[kSliceRows];
+  };
+  auto load = [&](Batch& q, int j0) {
+#pragma unroll
+    for (int u = 0; u < kSliceRows; ++u) {
+      const int j = j0 + u;
+      if (j < Pl) {
+        const int m = m0 + dm * j;
+        const int slot = head + m < 0 ? head + m + R : head + m;
+        const float* pr = m >= 0 ? xk + 2 * m * NB : rr + slot * NB;
+        const float* pi = m >= 0 ? pr + 1 : ri + slot * NB;
+        q.xr[u] = *pr;
+        q.xi[u] = *pi;
+        q.h_r[u] = hrk[j * NB];
+        q.h_i[u] = hik[j * NB];
+      }
     }
-    const float h_r = hrk[static_cast<int64_t>(j) * NB], h_i = hik[static_cast<int64_t>(j) * NB];
-    // acc + (xr hr - xi hi), acc + (xr hi + xi hr): each operation rounded,
-    // in the plain version's order.
-    ar = __fadd_rn(ar, __fsub_rn(__fmul_rn(xr, h_r), __fmul_rn(xi, h_i)));
-    ai = __fadd_rn(ai, __fadd_rn(__fmul_rn(xr, h_i), __fmul_rn(xi, h_r)));
+  };
+  float ar = 0.0f, ai = 0.0f;
+  // acc + (xr hr - xi hi), acc + (xr hi + xi hr): each operation rounded,
+  // rows ascending, the plain version's order.
+  auto add = [&](const Batch& q, int j0) {
+#pragma unroll
+    for (int u = 0; u < kSliceRows; ++u)
+      if (j0 + u < Pl) {
+        ar = __fadd_rn(ar, __fsub_rn(__fmul_rn(q.xr[u], q.h_r[u]), __fmul_rn(q.xi[u], q.h_i[u])));
+        ai = __fadd_rn(ai, __fadd_rn(__fmul_rn(q.xr[u], q.h_i[u]), __fmul_rn(q.xi[u], q.h_r[u])));
+      }
+  };
+  Batch q0, q1;
+  load(q0, 0);
+  for (int j0 = 0; j0 < Pl; j0 += 2 * kSliceRows) {
+    load(q1, j0 + kSliceRows);
+    add(q0, j0);
+    load(q0, j0 + 2 * kSliceRows);
+    add(q1, j0 + kSliceRows);
   }
   acc[i] = make_float2(ar, ai);
   // This step's spectrum into its slot. The slots read above hold sub-blocks
   // m < 0, slots head + L .. head + R - 1 (mod R); these are head .. head +
   // L - 1: disjoint, so no thread reads what another writes.
-  const int64_t slot = (head + l < R ? head + l : head + l - R) * static_cast<int64_t>(NB);
-  const float2 v = xk[static_cast<int64_t>(l) * NB];
-  ring_r[static_cast<int64_t>(k) * R * NB + slot + b] = v.x;
-  ring_i[static_cast<int64_t>(k) * R * NB + slot + b] = v.y;
+  const int slot = k * R * NB + (head + l < R ? head + l : head + l - R) * NB + b;
+  ring_r[slot] = own.x;
+  ring_i[slot] = own.y;
 }
 
 template <int LT>
@@ -390,23 +418,30 @@ GA_EXPORT int ga_conv_mac(const float* X, const float* hr, const float* hi, floa
 // Bound on the H100: bytes. Config 4 under part = 2 (K=2, L=1, NB=8193,
 // Pl=6 of P=12) reads X, the slice's spectra and the 6 ring rows it needs
 // and writes acc and one ring row, about 2 MB (0.6 us at 3.35 TB/s); its
-// 8 flops a (k, l, b, j) are 0.8 MFLOP. A simple design serves: a thread an
-// output walks its Pl rows (each H value and ring value read once by one
-// thread, coalesced across the warp's bins), 64 blocks of 256 at config 4.
-// K2a's lag split over clusters is for P in the hundreds at the 128 grain;
-// a slice has Pl = P / part rows, and under `part` the grain is T (L = 1).
+// 8 flops a (k, l, b, j) are 0.8 MFLOP. What costs is latency: a thread an
+// output, 128 a block (130 blocks at config 4: 65 bin tiles x 2 channels,
+// about one an SM), each H value and ring value read once by one thread,
+// coalesced across the warp's bins; no thread divides to find its output.
+// The source of each row (an X row or a ring slot) follows from its lag in
+// one add a row, so a thread issues a batch of kSliceRows rows' loads
+// together, and the next batch's before this one's multiply-adds: config
+// 4's slice is one batch, one round trip to memory.
+// Bins are read one float at a time: with NB odd, a row's base is not
+// 8-byte aligned. K2a's lag split over clusters is for P in the hundreds
+// at the 128 grain; a slice has Pl = P / part rows, and under `part` the
+// grain is T (L = 1).
 GA_EXPORT int ga_conv_mac_slice(const float* X, const float* hr, const float* hi, float* ring_r,
                                 float* ring_i, float* acc, int K, int L, int Pl, int NB, int R,
                                 int head, int rev, int p0, void* stream) {
   const int P = R - L + 1;
-  const int64_t n = static_cast<int64_t>(K) * L * NB;
+  const int64_t most = static_cast<int64_t>(K) * NB * std::max(std::max(R, Pl), 2 * L);
   if (K < 1 || L < 1 || Pl < 1 || NB < 1 || P < 1 || p0 < 0 || p0 + Pl > P || head < 0 ||
-      head >= R || (n + kSliceThreads - 1) / kSliceThreads > 0x7fffffff)
+      head >= R || K > 65535 || L > 65535 || most > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  conv_mac_slice_kernel<<<static_cast<unsigned>((n + kSliceThreads - 1) / kSliceThreads),
-                          kSliceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((NB + kSliceThreads - 1) / kSliceThreads, L, K);
+  conv_mac_slice_kernel<<<grid, kSliceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(X), hr, hi, ring_r, ring_i, reinterpret_cast<float2*>(acc),
-      K, L, Pl, NB, R, head, rev, p0);
+      Pl, NB, R, head, rev, p0);
   return ga_launch_status();
 }
 

@@ -323,73 +323,106 @@ hrtf_part_mac_kernel(const float2* __restrict__ X, const float* __restrict__ hx,
 }
 
 // K14b: K10p-a over one rank's slice of the partitions (see the export's
-// note). A block an (output quantum, voice), a thread an (ear, bin).
-constexpr int kSliceMaxRows = 32;  // local partitions a launch takes
+// note). A block is one warp: 32 (ear, bin) columns of one output quantum
+// of one voice; kPl, the slice's partition count, is a template argument,
+// so the partition loop unrolls and every load is issued before the first
+// multiply-add.
+constexpr int kSliceCols = 32;
+constexpr int kSliceChunks = (2 * kB + kSliceCols - 1) / kSliceCols;  // 9, the last of 2
 
-__global__ void __launch_bounds__(kMacThreads)
+template <int kPl>
+__global__ void __launch_bounds__(kSliceCols)
 hrtf_part_mac_slice_kernel(const float2* __restrict__ X, const float* __restrict__ hx,
                            const float* __restrict__ haz, const float* __restrict__ hel,
                            const float* __restrict__ az, const float* __restrict__ el,
                            const float* __restrict__ sr, const float* __restrict__ si, int S,
-                           int P, int Pl, int p_base, int E, int A, float c_az, float c_el,
+                           int P, int p_base, int E, int A, float c_az, float c_el,
                            float2* __restrict__ acc, float* __restrict__ hx_out,
                            float* __restrict__ haz_out, float* __restrict__ hel_out) {
-  __shared__ int4 rows[kSliceMaxRows];
-  __shared__ float4 wts[kSliceMaxRows];
-  const int s = blockIdx.x, v = blockIdx.y, t = threadIdx.x;
+  const int lane = threadIdx.x, col = blockIdx.x * kSliceCols + lane;
+  const int s = blockIdx.y, v = blockIdx.z;
   const int R = P - 1;  // ring rows: the global partition count's
   const int64_t ring = static_cast<int64_t>(v) * R;
   const int64_t row = static_cast<int64_t>(v) * S;
-  // Local row j is global partition p = p_base + j; output quantum s takes
-  // it at input quantum s - p, concatenation row c = R + s - p (ring rows
-  // first). Its corners and weights, one thread a row.
-  if (t < Pl) {
-    const int c = R + s - (p_base + t);
-    const float a = c < R ? haz[ring + c] : az[row + c - R];
-    const float e = c < R ? hel[ring + c] : el[row + c - R];
-    int r[4];
-    float w[4];
-    corners(a, e, E, A, c_az, c_el, r, w);
-    rows[t] = make_int4(r[0], r[1], r[2], r[3]);
-    wts[t] = make_float4(w[0], w[1], w[2], w[3]);
-  }
-  __syncthreads();
-  const int ear = t < kB ? 0 : 1, b = t - ear * kB;
-  float yr = 0.0f, yi = 0.0f;
-  for (int j = 0; j < Pl; ++j) {
-    const int c = R + s - (p_base + j);
-    float2 x;
+  const bool live = col < 2 * kB;
+  const int ear = col < kB ? 0 : 1, b = col - ear * kB;
+
+  // The next ring (concatenation rows S .. S + R - 1, f32[R, 258]) and its
+  // directions, read from the inputs, one value a thread over the voice's
+  // blocks: loaded first, stored last.
+  const int n_ring = R * 2 * kB, n_next = n_ring + 2 * R;
+  const int stride = gridDim.x * gridDim.y * kSliceCols;
+  const int first = (blockIdx.y * gridDim.x + blockIdx.x) * kSliceCols + lane;
+  auto next_value = [&](int e) {
+    if (e < n_ring) {
+      const int i = e / (2 * kB), q = e - i * (2 * kB), c = S + i;
+      if (c < R) return hx[(ring + c) * 2 * kB + q];
+      const float2 x = X[(row + c - R) * kB + (q < kB ? q : q - kB)];
+      return q < kB ? x.x : x.y;
+    }
+    const int i = (e - n_ring) % R, c = S + i;
+    if (e - n_ring < R) return c < R ? haz[ring + c] : az[row + c - R];
+    return c < R ? hel[ring + c] : el[row + c - R];
+  };
+  auto store_next = [&](int e, float val) {
+    if (e < n_ring)
+      hx_out[ring * 2 * kB + e] = val;
+    else if (e - n_ring < R)
+      haz_out[ring + e - n_ring] = val;
+    else
+      hel_out[ring + e - n_ring - R] = val;
+  };
+  const float next0 = first < n_next ? next_value(first) : 0.0f;
+
+  // Local partition j (global p_base + j) takes concatenation row c = R + s
+  // - p_base - j (ring rows first): its input spectrum at this bin, and in
+  // lane j its direction's corners and weights.
+  float xr[kPl], xi[kPl];
+#pragma unroll
+  for (int j = 0; j < kPl; ++j) {
+    const int c = R + s - p_base - j;
+    xr[j] = xi[j] = 0.0f;
+    if (!live) continue;
     if (c < R) {
       const float* h = hx + (ring + c) * 2 * kB;
-      x = make_float2(h[b], h[kB + b]);
+      xr[j] = h[b];
+      xi[j] = h[kB + b];
     } else {
-      x = X[(row + c - R) * kB + b];
-    }
-    float gr[4], gi[4];
-    fetch_corners(sr, si, rows[j], ear, Pl, j, b, gr, gi);
-    mac(yr, yi, x, interp(wts[j], gr), interp(wts[j], gi));
-  }
-  acc[(row + s) * 2 * kB + t] = make_float2(yr, yi);
-  if (s == S - 1) {  // the next ring: concatenation rows S .. S + R - 1
-    for (int i = t; i < R * kB; i += kMacThreads) {
-      const int j = i / kB, bb = i - j * kB, c = S + j;
-      float2 q;
-      if (c < R) {
-        const float* h = hx + (ring + c) * 2 * kB;
-        q = make_float2(h[bb], h[kB + bb]);
-      } else {
-        q = X[(row + c - R) * kB + bb];
-      }
-      float* o = hx_out + (ring + j) * 2 * kB;
-      o[bb] = q.x;
-      o[kB + bb] = q.y;
-    }
-    if (t < R) {
-      const int c = S + t;
-      haz_out[ring + t] = c < R ? haz[ring + c] : az[row + c - R];
-      hel_out[ring + t] = c < R ? hel[ring + c] : el[row + c - R];
+      const float2 q = X[(row + c - R) * kB + b];
+      xr[j] = q.x;
+      xi[j] = q.y;
     }
   }
+  int r[4] = {0, 0, 0, 0};
+  float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (lane < kPl) {
+    const int c = R + s - p_base - lane;
+    corners(c < R ? haz[ring + c] : az[row + c - R], c < R ? hel[ring + c] : el[row + c - R],
+            E, A, c_az, c_el, r, w);
+  }
+  // Every lane takes partition j's corners from lane j and loads their
+  // spectra at its column; then the multiply-adds, j ascending.
+  float gr[kPl][4], gi[kPl][4];
+  float4 wj[kPl];
+#pragma unroll
+  for (int j = 0; j < kPl; ++j) {
+    wj[j] = make_float4(__shfl_sync(0xffffffffu, w[0], j), __shfl_sync(0xffffffffu, w[1], j),
+                        __shfl_sync(0xffffffffu, w[2], j), __shfl_sync(0xffffffffu, w[3], j));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int rc = __shfl_sync(0xffffffffu, r[c], j);
+      const int at = ((rc * 2 + ear) * kPl + j) * kB + b;
+      gr[j][c] = live ? __ldg(sr + at) : 0.0f;
+      gi[j][c] = live ? __ldg(si + at) : 0.0f;
+    }
+  }
+  float yr = 0.0f, yi = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPl; ++j)
+    mac(yr, yi, make_float2(xr[j], xi[j]), interp(wj[j], gr[j]), interp(wj[j], gi[j]));
+  if (live) acc[(row + s) * 2 * kB + col] = make_float2(yr, yi);
+  if (first < n_next) store_next(first, next0);
+  for (int e = first + stride; e < n_next; e += stride) store_next(e, next_value(e));
 }
 
 __global__ void __launch_bounds__(kOlaThreads)
@@ -472,8 +505,8 @@ GA_EXPORT int ga_hrtf_part_mac(const void* X, const float* hx, const float* haz,
 // fir_freq_partitioned (:345-379), its per-device MAC before the psum.
 // X complex64 [V, S, 129]; hx f32[V, P-1, 258], haz, hel f32[V, P-1] the
 // whole ring (P the global, padded, count); az, el f32[V, S]; sr, si f32[E,
-// A, 2, Pl, 129] the slice's grid spectra. Writes the partial acc
-// complex64 [V, S, 2, 129] (sum_j X[s-p] H_p(s-p), p = p_base + j, j
+// A, 2, Pl, 129] the slice's grid spectra, 1 <= Pl <= 8. Writes the partial
+// acc complex64 [V, S, 2, 129] (sum_j X[s-p] H_p(s-p), p = p_base + j, j
 // ascending: the caller's all_reduce completes it) and the next ring into
 // fresh buffers, the whole of it on every rank. The corners, weights,
 // interpolation and multiply-add are K10p-a's functions, each operation
@@ -481,26 +514,56 @@ GA_EXPORT int ga_hrtf_part_mac(const void* X, const float* hx, const float* haz,
 //
 // Bound on the H100: bytes (X in, the partial sums out, the ring, the
 // corners' spectra from the L2). One voice of a per-node HRIR (V = 1, S =
-// 32, P = 8 over part = 2): X 33 KB, acc 66 KB, the slice's corners at most
-// 4 x 2 x 4 x 129 x 8 B = 33 KB a quantum (one direction: once); about
-// 0.15 MB, 0.05 us, so the launch's floor sets its time. A simple design
-// serves: a block a quantum, each thread its Pl corner fetches in turn;
-// K10p-a's direction-run walk pays at V = 128, not for the few per-node
-// panners a mesh part-shards.
+// 32, P = 8 over part = 2): X 33 KB, acc 66 KB, the slice's corners 33 KB
+// a direction; about 0.15 MB, 0.05 us, far under the launch's floor (about
+// 1 us). What costs is the chain of dependent round trips to the L2 and
+// the work each SM does in turn, so the design keeps the chain at two
+// trips and spreads the work thin: a block is one warp, 32 (ear, bin)
+// columns of one output quantum (9 blocks a quantum, 288 at S = 32, two
+// an SM); its lanes j < Pl load partition j's direction and compute its
+// corners and weights, the warp's shuffles hand them to every lane (no
+// shared memory, no barrier), and every lane then issues all Pl x 8
+// corner loads at once, its Pl input spectra and its share of the next
+// ring having gone out before the directions. The next ring's R x 258
+// values and 2R directions come from the inputs, not from the MAC, so
+// they are spread one a thread over all the voice's blocks. A block
+// fetches its own quantum's corners, so a still source costs what a moving
+// one does. (A block of 4 quanta walking each partition, its direction
+// runs' corners staged in shared memory by cp.async in waves of 5, as
+// K10p-a walks, read 1.05-1.75x the first port's time at these shapes: its
+// fewer, busier blocks and the staging cost more than the corner reuse
+// saves at V = 1.)
 GA_EXPORT int ga_hrtf_part_mac_slice(const void* X, const float* hx, const float* haz,
                                      const float* hel, const float* az, const float* el,
                                      const float* sr, const float* si, int V, int S, int P, int Pl,
                                      int p_base, int E, int A, float c_az, float c_el, void* acc,
                                      float* hx_out, float* haz_out, float* hel_out,
                                      void* stream) {
-  if (V < 1 || S < 1 || P < 2 || Pl < 1 || Pl > kSliceMaxRows || p_base < 0 ||
-      p_base + Pl > P || E < 1 || A < 1 || V > 65535 || hx == hx_out || haz == haz_out ||
-      hel == hel_out || P - 1 > kMacThreads)
+  if (V < 1 || S < 1 || P < 2 || Pl < 1 || Pl > kMaxP || p_base < 0 || p_base + Pl > P ||
+      E < 1 || A < 1 || V > 65535 || S > 65535 || hx == hx_out || haz == haz_out ||
+      hel == hel_out || static_cast<int64_t>(E) * A * 2 * Pl * kB > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(S, V);
-  hrtf_part_mac_slice_kernel<<<grid, kMacThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(X), hx, haz, hel, az, el, sr, si, S, P, Pl, p_base, E, A, c_az,
-      c_el, static_cast<float2*>(acc), hx_out, haz_out, hel_out);
+  const dim3 grid(kSliceChunks, S, V);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* Xc = static_cast<const float2*>(X);
+  auto* accc = static_cast<float2*>(acc);
+  switch (Pl) {
+#define GA_SLICE_CASE(N)                                                                      \
+  case N:                                                                                     \
+    hrtf_part_mac_slice_kernel<N><<<grid, kSliceCols, 0, st>>>(                               \
+        Xc, hx, haz, hel, az, el, sr, si, S, P, p_base, E, A, c_az, c_el, accc, hx_out,      \
+        haz_out, hel_out);                                                                    \
+    break;
+    GA_SLICE_CASE(1)
+    GA_SLICE_CASE(2)
+    GA_SLICE_CASE(3)
+    GA_SLICE_CASE(4)
+    GA_SLICE_CASE(5)
+    GA_SLICE_CASE(6)
+    GA_SLICE_CASE(7)
+    GA_SLICE_CASE(8)
+#undef GA_SLICE_CASE
+  }
   return ga_launch_status();
 }
 

@@ -255,8 +255,9 @@ def spectral_mac_slice_plain(X, hr, hi, ring_r, ring_i, head: int, rev: bool, p0
 
 def spectral_mac_slice(X, hr, hi, ring_r, ring_i, head: int, rev: bool, p0: int):
     """K14a: csrc/conv.cu ``ga_conv_mac_slice`` on CUDA tensors (a thread an
-    output (k, l, bin), its local rows in order, this step's spectra written
-    into the ring in the same launch), ``spectral_mac_slice_plain``
+    output (k, l, bin), its local rows in order, their loads issued in
+    batches of 8 rows ahead of the multiply-adds, this step's spectra
+    written into the ring in the same launch), ``spectral_mac_slice_plain``
     (arguments and result as there) on CPU tensors."""
     if X.device.type == "cpu":
         return spectral_mac_slice_plain(X, hr, hi, ring_r, ring_i, head, rev, p0)

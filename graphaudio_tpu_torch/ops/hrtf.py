@@ -782,6 +782,11 @@ def partitioned_mac(X, hx, haz, hel, az, el, spec_r, spec_i):
 # K10p-b's dry path and blend, count once).
 
 
+#: The most partitions a K14b slice takes (csrc/hrtf_part.cu instantiates
+#: 1 to 8): a slice of the longest HRIR's 8 partitions under any ``part``.
+MAX_SLICE_PARTITIONS = MAX_HRIR_LENGTH // FRAMES_PER_BLOCK
+
+
 def partitioned_mac_slice_plain(X, hx, haz, hel, az, el, spec_r, spec_i, p_base: int):
     """Plain K14b: ``partitioned_mac_plain`` over the partitions [p_base,
     p_base + P_local) of spec_r, spec_i f32[E, A, 2, P_local, 129] (the
@@ -816,14 +821,19 @@ def partitioned_mac_slice_plain(X, hx, haz, hel, az, el, spec_r, spec_i, p_base:
 
 def partitioned_mac_slice(X, hx, haz, hel, az, el, spec_r, spec_i, p_base: int):
     """K14b: csrc/hrtf_part.cu ``ga_hrtf_part_mac_slice`` on CUDA tensors (a
-    block an (output quantum, voice), a thread an (ear, bin), the slice's
-    partitions in order), ``partitioned_mac_slice_plain`` (arguments and
-    result as there) on CPU tensors."""
+    block one warp of 32 (ear, bin) columns of one (output quantum, voice);
+    the slice's 1 to ``MAX_SLICE_PARTITIONS`` partitions a template
+    argument, their corners computed by as many lanes and shuffled to the
+    warp, every corner load issued before the multiply-adds; the next ring
+    spread one value a thread over the blocks), ``partitioned_mac_slice_plain``
+    (arguments and result as there) on CPU tensors."""
     if X.device.type == "cpu":
         return partitioned_mac_slice_plain(X, hx, haz, hel, az, el, spec_r, spec_i, p_base)
     V, S, B = X.shape
     E, A, _, Pl, _ = spec_r.shape
     P = hx.shape[1] + 1
+    if not 1 <= Pl <= MAX_SLICE_PARTITIONS:
+        raise ValueError(f"K14b takes 1 to {MAX_SLICE_PARTITIONS} partitions a slice, got {Pl}")
     req = cudabuild.require
     req(X, "X", torch.complex64, shape=(V, S, NUM_SPEC_BINS))
     for name, t, shape in (("hx", hx, (V, P - 1, 2 * B)), ("haz", haz, (V, P - 1)),

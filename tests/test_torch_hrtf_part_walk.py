@@ -171,6 +171,20 @@ def test_mac_block_quanta():
     assert th.MAC_BLOCK_QUANTA[0] + K_MAX_P - 1 <= 32
 
 
+def test_slice_partitions_are_the_kernels_instances():
+    """K14b's wrapper takes 1 to ``MAX_SLICE_PARTITIONS`` partitions a
+    slice: the counts ``ga_hrtf_part_mac_slice`` instantiates its kernel
+    for, up to the longest HRIR's P; a slice of any ``part`` of a P <= 8
+    filter fits."""
+    src = SRC.read_text()
+    cases = sorted(int(n) for n in re.findall(r"GA_SLICE_CASE\((\d+)\)", src))
+    assert cases == list(range(1, th.MAX_SLICE_PARTITIONS + 1))
+    assert th.MAX_SLICE_PARTITIONS == K_MAX_P == th.MAX_HRIR_LENGTH // 128
+    for P in range(2, K_MAX_P + 1):
+        for part in (2, 4, 8):
+            assert 1 <= -(-P // part) <= th.MAX_SLICE_PARTITIONS
+
+
 def _before_the_fold(x, gain, az, el, blend, sr, si, hx, haz, hel, ola):
     """The partitioned filter as composed before the input pass and the
     scale were folded into kernels: torch's gain multiply and mean,

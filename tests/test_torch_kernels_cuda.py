@@ -1446,58 +1446,96 @@ def test_to_device_stages_through_one_pinned_copy(dev):
         assert got.cpu().numpy().dtype == np.asarray(want).dtype
 
 
+@pytest.mark.parametrize("head", ["first", "last", "seeded"])
 @pytest.mark.parametrize("rev", [False, True])
 @pytest.mark.parametrize("L", [1, 8])
-def test_k14a_matches_plain(dev, rev, L):
+def test_k14a_matches_plain(dev, rev, L, head):
     """K14a at every slice of part = 2 and 4, bit for bit its plain version,
-    the ring writes too (config 4's grain at L = 1, the 128 grain at L = 8)."""
+    the ring writes too (config 4's grain at L = 1, the 128 grain at L = 8;
+    both bin counts odd), with the ring's head at slot 0, at R - 1 and
+    seeded; at L = 8 also a slice of 375 rows (``ShardedVoiceScene``'s 2 s
+    IR over part = 2: many batches of rows)."""
     rng = np.random.default_rng(26 + L)
     K, NB, P = (2, 8193, 12) if L == 1 else (2, 129, 16)
-    R = P - 1 + L
+    shapes = [(P, (2, 4))] + ([(750, (2,))] if L == 8 else [])
 
     def f(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
-    X = torch.complex(f(K, L, NB), f(K, L, NB))
-    hr, hi, ring_r, ring_i = f(K, P, NB), f(K, P, NB), f(K, R, NB), f(K, R, NB)
-    head = int(rng.integers(R))
-    for part in (2, 4):
+    for P, parts in shapes:
+        R = P - 1 + L
+        X = torch.complex(f(K, L, NB), f(K, L, NB))
+        hr, hi, ring_r, ring_i = f(K, P, NB), f(K, P, NB), f(K, R, NB), f(K, R, NB)
+        h0 = {"first": 0, "last": R - 1, "seeded": int(rng.integers(R))}[head]
+        for part in parts:
+            pl = P // part
+            for d in range(part):
+                h = (hr[:, d * pl:(d + 1) * pl].contiguous(),
+                     hi[:, d * pl:(d + 1) * pl].contiguous())
+                rk, rp = (ring_r.clone(), ring_i.clone()), (ring_r.clone(), ring_i.clone())
+                got = tconv.spectral_mac_slice(X, *h, *rk, h0, rev, d * pl)
+                want = tconv.spectral_mac_slice_plain(X, *h, *rp, h0, rev, d * pl)
+                assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+                assert torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])
+
+
+def _k14b_case(dev, V, S, motion, seed):
+    """K14b's inputs but the slice: (X, hx, haz, hel, az, el) of a P = 8
+    filter on the 7 x 24 grid of ``testing.hrtf_part``, and its spectra
+    (sr, si). ``motion``: "moving" (a new cell every 1-2 quanta), "static"
+    (one direction, the ring's too: one direction run), "runs" (1-5 quanta
+    a direction) or "crossing" (a new grid cell every quantum, 0.3 rad a
+    quantum against the grid's 0.26)."""
+    args = hrtf_part.seeded_case(dev, V, 1, S, 8, True, "moving" if motion == "crossing"
+                                 else motion, seed=seed)
+    x, gain, az, el, _, sr, si, hx, haz, hel, _ = args
+    if motion == "crossing":
+        q = np.arange(7 + S, dtype=np.float64)[None] * 0.3 + np.arange(V)[:, None]
+        both = torch.from_numpy(q.astype(np.float32)).to(dev)
+        haz, az = both[:, :7].contiguous(), both[:, 7:].contiguous()
+        hel = torch.full_like(haz, 0.2)
+        el = torch.full_like(az, 0.2)
+    X = torch.fft.rfft(th.partitioned_input_plain(x, gain), dim=-1)
+    return (X, hx, haz, hel, az, el), (sr, si)
+
+
+@pytest.mark.parametrize("motion", ["moving", "static", "runs", "crossing"])
+@pytest.mark.parametrize("part", [1, 2, 4, 8])
+def test_k14b_matches_plain(dev, part, motion):
+    """K14b at every slice of a P = 8 filter, bit for bit its plain version,
+    the next ring and its directions too: part = 8 is the fewest partitions
+    a slice (1), part = 1 the most the kernel takes (8); S = 32 at V = 1 (a
+    per-node panner), S = 5 and 7 (not a multiple of the kernel's 4 quanta
+    a block) at V = 3 and 2, S = 1; still, moving, run-wise and
+    cell-crossing directions."""
+    for i, (V, S) in enumerate(((1, 32), (3, 5), (2, 7), (1, 1))):
+        args, (sr, si) = _k14b_case(dev, V, S, motion, seed=27 + i)
+        P = sr.shape[3]
         pl = P // part
         for d in range(part):
-            h = (hr[:, d * pl:(d + 1) * pl].contiguous(), hi[:, d * pl:(d + 1) * pl].contiguous())
-            rk, rp = (ring_r.clone(), ring_i.clone()), (ring_r.clone(), ring_i.clone())
-            got = tconv.spectral_mac_slice(X, *h, *rk, head, rev, d * pl)
-            want = tconv.spectral_mac_slice_plain(X, *h, *rp, head, rev, d * pl)
-            assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
-            assert torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])
+            cut = slice(d * pl, (d + 1) * pl)
+            s = (sr[:, :, :, cut].contiguous(), si[:, :, :, cut].contiguous(), d * pl)
+            got = th.partitioned_mac_slice(*args, *s)
+            want = th.partitioned_mac_slice_plain(*args, *s)
+            assert torch.equal(torch.view_as_real(got[0]), torch.view_as_real(want[0]))
+            for g, w in zip(got[1:], want[1:]):
+                assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("part", [2, 4])
-def test_k14b_matches_plain(dev, part):
-    """K14b at every slice of a P = 8 filter (V = 3, S = 5, moving sources),
-    bit for bit its plain version, the next ring too."""
-    rng = np.random.default_rng(27)
-    hrir = (rng.standard_normal((8, 2, 1024)) * 0.05).astype(np.float32)
-    grid = th.load_hrir_grid({"hrir": hrir, "azimuth_deg": np.arange(8) * 45.0,
-                              "elevation_deg": np.zeros(8), "sample_rate": 48000}, 48000,
-                             length=1024)
-    sr, si = (torch.from_numpy(a).to(dev) for a in th.hrir_grid_spectra(grid))
-    V, S, P, B = 3, 5, sr.shape[3], sr.shape[4]
-
-    def f(*shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
-
-    args = (torch.complex(f(V, S, B), f(V, S, B)), f(V, P - 1, 2 * B), f(V, P - 1),
-            f(V, P - 1, scale=0.3), f(V, S), f(V, S, scale=0.3))
-    pl = P // part
-    for d in range(part):
-        cut = slice(d * pl, (d + 1) * pl)
-        s = (sr[:, :, :, cut].contiguous(), si[:, :, :, cut].contiguous(), d * pl)
-        got = th.partitioned_mac_slice(*args, *s)
-        want = th.partitioned_mac_slice_plain(*args, *s)
-        assert torch.equal(torch.view_as_real(got[0]), torch.view_as_real(want[0]))
-        for g, w in zip(got[1:], want[1:]):
-            assert torch.equal(g, w)
+def test_k14b_slice_of_three_inside_a_longer_ring(dev):
+    """K14b with 3 partitions a slice (a P = 6 filter over part = 2, and a
+    slice of 3 that starts inside a P = 8 ring), bit for bit."""
+    args, (sr, si) = _k14b_case(dev, 2, 9, "runs", seed=31)
+    X, hx, haz, hel, az, el = args
+    for P, p_base in ((6, 3), (8, 2)):
+        a = (X, hx[:, 8 - P:].contiguous(), haz[:, 8 - P:].contiguous(),
+             hel[:, 8 - P:].contiguous(), az, el)
+        s = (sr[:, :, :, :3].contiguous(), si[:, :, :, :3].contiguous(), p_base)
+        got = th.partitioned_mac_slice(*a, *s)
+        want = th.partitioned_mac_slice_plain(*a, *s)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.view_as_real(g) if g.is_complex() else g,
+                               torch.view_as_real(w) if w.is_complex() else w)
 
 
 @pytest.mark.parametrize("K, L, P, B, rev", K2_SHAPES)
